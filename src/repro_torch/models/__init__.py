@@ -1,0 +1,4 @@
+"""Models of the port."""
+from repro_torch.models.registry import Model, build_model
+
+__all__ = ["Model", "build_model"]

@@ -1,0 +1,47 @@
+"""Uniform model interface of the port (the dense family so far).
+
+build_model(cfg, device=...) returns a Model whose members close over the
+config and the device:
+  init_params(generator)                -> params
+  prefill(params, batch)                -> (logits, cache)
+  decode_step(params, cache, batch)     -> (logits, cache updated in place)
+  init_cache(batch_size, max_len)       -> cache
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import dense
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    init_params: Callable[..., Any]
+    prefill: Callable[..., Any]
+    decode_step: Callable[..., Any]
+    init_cache: Callable[..., Any]
+
+
+def build_model(cfg: ModelConfig, *, device="cuda",
+                window: Optional[int] = None) -> Model:
+    dev = resolve_device(device)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to PyTorch yet; see "
+            "ROADMAP.md, Queue 1")
+    return Model(
+        cfg=cfg,
+        device=dev,
+        init_params=functools.partial(dense.init_params, cfg=cfg, device=dev),
+        prefill=functools.partial(dense.lm_prefill, cfg=cfg, window=window),
+        decode_step=functools.partial(dense.lm_decode_step, cfg=cfg),
+        init_cache=functools.partial(dense.init_cache, cfg, device=dev),
+    )
