@@ -10,8 +10,9 @@ and carried on.
   1. requires a CUDA device; prints the card's name and power limit;
   2. builds both attention kernels from `src/repro_torch/kernels/csrc/`;
   3. holds each kernel against its plain PyTorch version on the card at
-     llama3-8b shapes (Hq=32, D=128), and at qwen1.5-32b's padded heads for
-     the int8 cache; times kernel, plain version and the library call
+     llama3-8b shapes (Hq=32, D=128), and for the int8 cache at phase 5's
+     shapes and at qwen1.5-32b's padded heads; times kernel, plain version
+     and the library call
      `F.scaled_dot_product_attention` (a yardstick only, never used by the
      port);
   4. llama3-8b at its published width and depth with random bf16 weights
@@ -30,9 +31,11 @@ import argparse
 import json
 import subprocess
 import sys
+import contextlib
 import time
 import types
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -159,26 +162,29 @@ def kernel_phase(gen, dev):
                 bound_by="bytes", library_ms=lib,
                 shape=f"B=8 Hq=32 Hc=16 S=2048 D=128 bf16, {rows} valid rows")
 
-    say("phase 3c: int8 decode at qwen1.5-32b's padded heads, B=8 Hq=Hc=48 S=2048 D=128")
-    B, Hq, Hc = 8, 48, 48
-    kf = rnd(B, S, Hc, D, dtype=torch.float32)
-    vf = rnd(B, S, Hc, D, dtype=torch.float32)
-    ks = kf.abs().amax(-1, keepdim=True) / 127.0
-    vs = vf.abs().amax(-1, keepdim=True) / 127.0
-    k8 = torch.round(kf / ks).to(torch.int8).transpose(1, 2)
-    v8 = torch.round(vf / vs).to(torch.int8).transpose(1, 2)
-    ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
-    for dtype, tol in ((torch.float32, INT8_TOL), (torch.bfloat16, BF16_TOL)):
-        q = rnd(B, Hq, D, dtype=dtype)
-        out = ops.decode_attention(q, k8, v8, valid, ks, vs)
-        gate(f"decode int8 cache, q {str(dtype)[6:]}", out,
-             ref.decode_attention_ref(q, k8, v8, valid, ks, vs), tol)
-        if dtype == torch.float32:
-            ms = cuda_ms(lambda: ops.decode_attention(q, k8, v8, valid, ks, vs), 50)
-            rows = int(valid.sum())
-            nbytes = 2 * rows * Hc * (D + 4) + 2 * 4 * B * Hq * D + 4 * B
-            say(f"  time int8: kernel {ms:.4f} ms, bound "
-                f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
+    for B, Hq, Hc, label in ((4, 32, 16, "phase 5's grouped cache"),
+                             (8, 48, 48, "qwen1.5-32b's padded heads")):
+        say(f"phase 3c: int8 decode at {label}, B={B} Hq={Hq} Hc={Hc} S={S} D={D}")
+        valid = torch.randint(1, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+        valid[0], valid[-1] = 1, S
+        kf = rnd(B, S, Hc, D, dtype=torch.float32)
+        vf = rnd(B, S, Hc, D, dtype=torch.float32)
+        ks = kf.abs().amax(-1, keepdim=True) / 127.0
+        vs = vf.abs().amax(-1, keepdim=True) / 127.0
+        k8 = torch.round(kf / ks).to(torch.int8).transpose(1, 2)
+        v8 = torch.round(vf / vs).to(torch.int8).transpose(1, 2)
+        ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
+        for dtype, tol in ((torch.float32, INT8_TOL), (torch.bfloat16, BF16_TOL)):
+            q = rnd(B, Hq, D, dtype=dtype)
+            out = ops.decode_attention(q, k8, v8, valid, ks, vs)
+            gate(f"decode int8 cache, q {str(dtype)[6:]} valid_len={valid.tolist()}", out,
+                 ref.decode_attention_ref(q, k8, v8, valid, ks, vs), tol)
+            if dtype == torch.float32:
+                ms = cuda_ms(lambda: ops.decode_attention(q, k8, v8, valid, ks, vs), 50)
+                rows = int(valid.sum())
+                nbytes = 2 * rows * Hc * (D + 4) + 2 * 4 * B * Hq * D + 4 * B
+                say(f"  time int8: kernel {ms:.4f} ms, bound "
+                    f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
     return table
 
 
@@ -245,22 +251,33 @@ def _to_f32(tree):
     return tree.float() if tree.is_floating_point() else tree.clone()
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention on the plain PyTorch versions for the duration:
+    the model modules' `ops` is swapped for a namespace of the plain ones."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import dense, layers
+    plain_ops = types.SimpleNamespace(flash_attention=ref.flash_attention_ref,
+                                      decode_attention=ref.decode_attention_ref)
+    with mock.patch.object(layers, "ops", plain_ops), \
+            mock.patch.object(dense, "ops", plain_ops):
+        yield
+
+
 def check_against_plain(model, params, prompts, cfg, dev):
     """Prefill logits of one request, and the logits of one decode step over
     a batch prefilled from `prompts`: kernel path vs plain path vs the plain
     path in fp32."""
     import torch
-    from repro_torch.kernels import ref
     from repro_torch.models import dense
-    plain_ops = types.SimpleNamespace(flash_attention=ref.flash_attention_ref,
-                                      decode_attention=ref.decode_attention_ref)
     cfg32 = cfg.replace(param_dtype="float32")
     with torch.inference_mode():
         params32 = _to_f32(params)
         tok = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
         kern, _ = dense.lm_prefill(params, {"tokens": tok}, cfg)
-        plain, _ = dense.lm_prefill(params, {"tokens": tok}, cfg, kernels=plain_ops)
-        exact, _ = dense.lm_prefill(params32, {"tokens": tok}, cfg32, kernels=plain_ops)
+        with plain_attention():
+            plain, _ = dense.lm_prefill(params, {"tokens": tok}, cfg)
+            exact, _ = dense.lm_prefill(params32, {"tokens": tok}, cfg32)
         logits_gate(f"prefill logits (T={len(prompts[0])})", kern, plain, exact)
 
         B, S = len(prompts), 2048
@@ -278,8 +295,9 @@ def check_against_plain(model, params, prompts, cfg, dev):
                  "positions": torch.tensor([len(p) for p in prompts],
                                            dtype=torch.int32, device=dev)}
         kern, _ = dense.lm_decode_step(params, cache, batch, cfg)
-        plain, _ = dense.lm_decode_step(params, plain_cache, batch, cfg, kernels=plain_ops)
-        exact, _ = dense.lm_decode_step(params32, exact_cache, batch, cfg32, kernels=plain_ops)
+        with plain_attention():
+            plain, _ = dense.lm_decode_step(params, plain_cache, batch, cfg)
+            exact, _ = dense.lm_decode_step(params32, exact_cache, batch, cfg32)
         logits_gate(f"decode-step logits (B={B})", kern, plain, exact)
         del cache, plain_cache, exact_cache, params32
 

@@ -1,17 +1,16 @@
 """Model configuration for the PyTorch port.
 
-The port's own copy of the JAX package's `configs/base.py::ModelConfig`:
-the same fields, defaults and derived properties, so a config built here
-describes exactly the model that the JAX reference builds from the
-same-named config there. The port serves the dense family only; the
-sub-configs of the other families (MoE, SSM, xLSTM, hybrid, encoder-decoder,
-VLM) are kept as opaque optional fields until those slices are ported.
+The port's own copy of the JAX package's `configs/base.py::ModelConfig`,
+cut to the fields and derived properties that the dense serving path reads,
+with the same names and defaults, so a config built here describes the
+model that the JAX reference builds from the same-named config there. The
+other families (MoE, SSM, xLSTM, hybrid, encoder-decoder, VLM) add their own
+fields when their slices are ported.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
 
 
 @dataclass(frozen=True)
@@ -25,23 +24,13 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0           # 0 => d_model // n_heads
-    moe: Optional[Any] = None
-    ssm: Optional[Any] = None
-    xlstm: Optional[Any] = None
-    hybrid: Optional[Any] = None
-    encdec: Optional[Any] = None
-    vlm: Optional[Any] = None
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    long_context_window: Optional[int] = None
-    sub_quadratic: bool = False
     param_dtype: str = "bfloat16"
-    optimizer: str = "adamw"
     # int8 KV cache (per (token, head) scales in fp32)
     kv_cache_dtype: str = "bfloat16"
-    fsdp: bool = False
     # the cache stores n_kv * kv_replication heads (each kv head repeated in
     # place), so a q head i reads cache head i // (eff_q_heads / cache_kv_heads)
     kv_replication: int = 1
@@ -70,10 +59,6 @@ class ModelConfig:
         """Vocab padded to a multiple of 256; padded logits are masked to
         -1e9 in unembed."""
         return -(-self.vocab_size // 256) * 256
-
-    @property
-    def n_rep(self) -> int:
-        return self.n_heads // max(self.n_kv_heads, 1)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -17,7 +17,6 @@ CONFIG = ModelConfig(
     kv_cache_dtype="int8",
     pad_heads_to=48,
     pad_kv_heads_to=48,
-    fsdp=True,
 )
 
 SMOKE = ModelConfig(

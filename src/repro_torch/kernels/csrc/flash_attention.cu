@@ -44,8 +44,7 @@ struct FlashArgs {
   int64_t sob, soh, sot;
   int Hq, Hkv, Tq, Tk;
   int causal;
-  int window;    // <= 0: no window
-  int q_offset;  // key position of query row 0
+  int window;  // <= 0: no window
   float scale;
 };
 
@@ -99,9 +98,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
   // window starts at its first row's window
   const int last_row = min(q0 + BQ, a.Tq) - 1;
   int k_end = a.Tk;
-  if (a.causal) k_end = min(k_end, a.q_offset + last_row + 1);
+  if (a.causal) k_end = min(k_end, last_row + 1);
   int k_begin = 0;
-  if (a.window > 0) k_begin = max(0, a.q_offset + q0 - a.window + 1);
+  if (a.window > 0) k_begin = max(0, q0 - a.window + 1);
   k_begin = (k_begin / BK) * BK;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
@@ -135,16 +134,15 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
 
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int row = q0 + ty + 16 * i;
-      const int qpos = a.q_offset + row;
+      const int row = q0 + ty + 16 * i;  // query row i sits at key i
       bool keep[CPT];
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int kpos = k0 + tx + 16 * j;
         bool ok = row < a.Tq && kpos < a.Tk;
-        if (a.causal) ok = ok && qpos >= kpos;
-        if (a.window > 0) ok = ok && kpos > qpos - a.window;
+        if (a.causal) ok = ok && row >= kpos;
+        if (a.window > 0) ok = ok && kpos > row - a.window;
         keep[j] = ok;
         s[i][j] = ok ? s[i][j] * a.scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -227,8 +225,8 @@ int dispatch_d(const FlashArgs& a, int B, int D, cudaStream_t stream) {
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, const int64_t* strides, int B, int Hq,
                                    int Hkv, int Tq, int Tk, int D, int dtype,
-                                   int causal, int window, int q_offset,
-                                   float scale, void* stream) {
+                                   int causal, int window, float scale,
+                                   void* stream) {
   using namespace repro;
   if (Tq == 0 || B == 0) return 0;
   FlashArgs a;
@@ -238,7 +236,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   a.svb = strides[6]; a.svh = strides[7]; a.svt = strides[8];
   a.sob = strides[9]; a.soh = strides[10]; a.sot = strides[11];
   a.Hq = Hq; a.Hkv = Hkv; a.Tq = Tq; a.Tk = Tk;
-  a.causal = causal; a.window = window; a.q_offset = q_offset;
+  a.causal = causal; a.window = window;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return dispatch_d<float>(a, B, D, s);

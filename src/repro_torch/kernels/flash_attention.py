@@ -25,7 +25,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention").flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)]
-                       + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -55,11 +55,11 @@ def _check(q, k, v, window):
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None, q_offset: int = 0):
+                    window: Optional[int] = None):
     """q (B,Hq,Tq,D); k/v (B,Hkv,Tk,D) -> out like q (with q's strides).
 
     Any strides with a contiguous D axis; query row i sits at key position
-    q_offset + i. fp32 softmax, output in q's dtype."""
+    i, as in the Pallas kernel. fp32 softmax, output in q's dtype."""
     global launches
     _check(q, k, v, window)
     B, Hq, Tq, D = q.shape
@@ -70,7 +70,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     with torch.cuda.device(q.device):
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                        strides, B, Hq, Hkv, Tq, Tk, D, DTYPE_CODES[q.dtype],
-                       int(causal), window or 0, q_offset, 1.0 / math.sqrt(D),
+                       int(causal), window or 0, 1.0 / math.sqrt(D),
                        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")

@@ -20,14 +20,11 @@ def _on_cuda(t) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None, q_offset: int = 0):
-    """q (B,Hq,Tq,D); k/v (B,Hkv,Tk,D); query row i at key position
-    q_offset + i."""
+                    window: Optional[int] = None):
+    """q (B,Hq,Tq,D); k/v (B,Hkv,Tk,D); query row i at key position i."""
     if _on_cuda(q):
-        return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                      q_offset=q_offset)
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k, v, valid_len, k_scale=None, v_scale=None):

@@ -19,12 +19,19 @@ F32 = torch.float32
 
 
 def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
-                  valid_len=None, kv_scale=None, v_scale=None,
-                  q_offset: Optional[int] = None):
+                  valid_len=None, kv_scale=None, v_scale=None):
     """q (B,Hq,Tq,D); k/v (B,Hkv,Tk,D) [+ int8 scales (B,Hkv,Tk,1)].
 
-    Query row i sits at key position q_offset + i; q_offset=None lines up
-    the ends of the two axes (Tk - Tq), as the JAX oracle does."""
+    Lines up the ends of the two axes (query row i at key Tk - Tq + i), as
+    the JAX oracle does."""
+    return _attention(q, k, v, k.shape[2] - q.shape[2], causal=causal,
+                      window=window, valid_len=valid_len, kv_scale=kv_scale,
+                      v_scale=v_scale)
+
+
+def _attention(q, k, v, off: int, *, causal, window, valid_len=None,
+               kv_scale=None, v_scale=None):
+    """Unblocked attention with query row i at key position off + i."""
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     R = Hq // Hkv
@@ -37,7 +44,6 @@ def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
     kf = torch.repeat_interleave(kf, R, dim=1)
     vf = torch.repeat_interleave(vf, R, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(F32), kf) / math.sqrt(D)
-    off = Tk - Tq if q_offset is None else q_offset
     qpos = torch.arange(Tq, device=q.device)[:, None] + off
     kpos = torch.arange(Tk, device=q.device)[None, :]
     mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
@@ -55,11 +61,11 @@ def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None, q_offset: int = 0):
+                        window: Optional[int] = None):
     """What `flash_attention.cu` computes: q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D),
-    query row i at key position q_offset + i (starts aligned for 0)."""
-    return attention_ref(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset)
+    query row i at key position i (the starts lined up, as in the Pallas
+    kernel; the same as `attention_ref` when Tq == Tk)."""
+    return _attention(q, k, v, 0, causal=causal, window=window)
 
 
 def decode_attention_ref(q, k, v, valid_len, k_scale=None, v_scale=None):

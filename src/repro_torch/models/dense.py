@@ -8,8 +8,8 @@ list with one dictionary per layer where JAX stacks them on a leading axis.
 The cache keeps the JAX layout, (L, B, S, Hc, D) per buffer plus fp32
 (L, B, S, Hc, 1) scales for an int8 cache, and is updated in place one layer
 at a time where JAX threads it through the scan carry. Attention goes through
-`kernels` (the port's `ops` by default: the CUDA kernels on the card, the
-plain versions on the CPU).
+`kernels/ops.py`: the CUDA kernels on the card, the plain versions on the
+CPU.
 """
 from __future__ import annotations
 
@@ -73,23 +73,21 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
 # Forward
 # ----------------------------------------------------------------------------
 
-def block_fwd(p, x, positions, cfg: ModelConfig, *, window: Optional[int] = None,
-              kernels=ops):
+def block_fwd(p, x, positions, cfg: ModelConfig, *, window: Optional[int] = None):
     """Full-sequence block: causal attention + FFN."""
     h, _ = L.attention(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
-                       positions, cfg, causal=True, window=window,
-                       kernels=kernels)
+                       positions, cfg, causal=True, window=window)
     x = x + h
     xn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + L.swiglu(xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
 
 
 def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
-                 window: Optional[int] = None, kernels=ops):
+                 window: Optional[int] = None):
     """The block stack over x (B, T, d) without a cache, then the final norm
     (the JAX `backbone_fwd` with remat off)."""
     for lp in params["layers"]:
-        x = block_fwd(lp, x, positions, cfg, window=window, kernels=kernels)
+        x = block_fwd(lp, x, positions, cfg, window=window)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -156,7 +154,7 @@ def _store_kv(cfg: ModelConfig, cache, li: int, k, v, pos):
         buf[bidx, row] = torch.where(keep, val.to(buf.dtype), buf[bidx, row])
 
 
-def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, *, kernels=ops):
+def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig):
     """One decode step through layer li. x: (B, 1, d); pos: (B,) int32, the
     current length of each sequence. Updates the cache in place."""
     B, T, _ = x.shape
@@ -166,22 +164,22 @@ def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, *, kernels=ops):
     q, k, v = L.qkv(p["attn"], xn, positions, cfg)
     k, v = _replicate_kv(cfg, k, v)
     _store_kv(cfg, cache, li, k, v, pos)
-    out = _decode_attend(q, cache, li, (pos + T).to(torch.int32), kernels)
+    out = _decode_attend(q, cache, li, (pos + T).to(torch.int32))
     x = x + out.reshape(B, T, cfg.eff_q_heads * hd) @ p["attn"]["wo"]
     xn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + L.swiglu(xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
 
 
-def _decode_attend(q, cache, li: int, valid, kernels):
+def _decode_attend(q, cache, li: int, valid):
     """Attention of q (B, 1, Hq, hd) over layer li's cache, read in place as
     the (B, Hc, S, hd) view of its (B, S, Hc, hd) slice."""
     def view(name):
         return cache[name][li].transpose(1, 2) if name in cache else None
-    return kernels.decode_attention(q[:, 0], view("k"), view("v"), valid,
-                                    view("k_scale"), view("v_scale"))
+    return ops.decode_attention(q[:, 0], view("k"), view("v"), valid,
+                                view("k_scale"), view("v_scale"))
 
 
-def lm_decode_step(params, cache, batch, cfg: ModelConfig, *, kernels=ops):
+def lm_decode_step(params, cache, batch, cfg: ModelConfig):
     """One-token decode across the whole stack. batch: {"tokens": (B, 1),
     "positions": (B,)}. Returns (logits (B, 1, V), cache), the cache being
     the same dictionary, updated in place.
@@ -191,13 +189,12 @@ def lm_decode_step(params, cache, batch, cfg: ModelConfig, *, kernels=ops):
     tokens, pos = batch["tokens"], batch["positions"]
     x = L.embed(params["embed"], tokens)
     for li, lp in enumerate(params["layers"]):
-        x = block_decode(lp, x, cache, li, pos, cfg, kernels=kernels)
+        x = block_decode(lp, x, cache, li, pos, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg.vocab_size), cache
 
 
-def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None,
-               kernels=ops):
+def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None):
     """Full forward that also materializes the KV cache.
 
     Returns (last-token logits (B, 1, V), cache) with cache buffers of
@@ -210,7 +207,7 @@ def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None,
     for lp in params["layers"]:
         xn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         h, (k, v) = L.attention(lp["attn"], xn, positions, cfg, causal=True,
-                                window=window, kernels=kernels)
+                                window=window)
         x = x + h
         xn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + L.swiglu(xn, lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])

@@ -115,16 +115,14 @@ def qkv(p, x, positions, cfg):
 
 
 def attention(p, x, positions, cfg, *, causal: bool = True,
-              window: Optional[int] = None, kernels=ops):
+              window: Optional[int] = None):
     """Self-attention over this call's tokens. Returns (out, (k, v)) with
-    k/v (B,T,Hkv,hd) for the cache. `kernels` supplies `flash_attention`
-    (the port's `ops` by default)."""
+    k/v (B,T,Hkv,hd) for the cache."""
     B, T, _ = x.shape
     q, k, v = qkv(p, x, positions, cfg)
     # (B,T,H,hd) read as (B,H,T,hd) through strides: no copy
-    out = kernels.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=causal,
-                                  window=window)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal, window=window)
     out = out.transpose(1, 2).reshape(B, T, cfg.eff_q_heads * cfg.resolved_head_dim)
     return out @ p["wo"], (k, v)
 

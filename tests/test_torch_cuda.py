@@ -69,17 +69,19 @@ def test_flash_kernel_matches_plain_on_cuda(cuda, B, Hq, Hkv, T, D, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int8-bf16q"])
 @pytest.mark.parametrize("B,Hq,Hc,S,D", [
     (2, 4, 2, 128, 32), (1, 8, 8, 256, 64), (3, 2, 1, 64, 16), (8, 32, 16, 512, 128),
 ])
 def test_decode_kernel_matches_plain_on_cuda(cuda, B, Hq, Hc, S, D, dtype):
+    """dtype names the cache; an int8 cache is read by an fp32 q ("int8")
+    or by a bf16 q ("int8-bf16q", the serving path's)."""
     g = torch.Generator(device=cuda).manual_seed(S + Hq)
-    td = torch.float32 if dtype == "int8" else DTYPES[dtype]
+    td = {"int8": torch.float32, "int8-bf16q": torch.bfloat16}.get(dtype) or DTYPES[dtype]
     q = torch.randn((B, Hq, D), generator=g, device=cuda).to(td)
     kf, vf = (torch.randn((B, S, Hc, D), generator=g, device=cuda) for _ in range(2))
     scales = (None, None)
-    if dtype == "int8":
+    if dtype.startswith("int8"):
         ks, vs = (x.abs().amax(-1, keepdim=True) / 127.0 for x in (kf, vf))
         kc, vc = torch.round(kf / ks).to(torch.int8), torch.round(vf / vs).to(torch.int8)
         scales = (ks.transpose(1, 2), vs.transpose(1, 2))
@@ -91,7 +93,7 @@ def test_decode_kernel_matches_plain_on_cuda(cuda, B, Hq, Hc, S, D, dtype):
     got = ops.decode_attention(q, kc, vc, vl, *scales)
     torch.cuda.synchronize()
     want = ref.decode_attention_ref(q, kc, vc, vl, *scales)
-    tol = dict(atol=1e-4, rtol=1e-4) if dtype == "int8" else _tol(dtype)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == "int8" else _tol(str(td)[6:])
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 

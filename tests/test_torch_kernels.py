@@ -73,16 +73,16 @@ def test_flash_plain_window_and_noncausal(causal, window):
 
 
 def test_flash_plain_q_offset_conventions():
-    """Tq != Tk: q_offset=0 lines up the starts (the Pallas kernel's
-    convention), q_offset=Tk-Tq the ends (the jnp oracle's)."""
+    """Tq != Tk: flash attention lines up the starts (the Pallas kernel's
+    convention), attention_ref the ends (the jnp oracle's)."""
     rng = np.random.default_rng(1)
     jq, q = _pair(rng, (1, 4, 64, 32))
     (jk, k), (jv, v) = (_pair(rng, (1, 2, 128, 32)) for _ in range(2))
-    _close(ops.flash_attention(q, k, v, q_offset=0),
+    _close(ops.flash_attention(q, k, v),
            jops.flash_attention(jq, jk, jv, block_q=32, block_k=32),
            atol=2e-5, rtol=2e-5)
-    _close(ops.flash_attention(q, k, v, q_offset=64),
-           jref.attention_ref(jq, jk, jv), atol=2e-5, rtol=2e-5)
+    _close(ref.attention_ref(q, k, v), jref.attention_ref(jq, jk, jv),
+           atol=2e-5, rtol=2e-5)
 
 
 def test_flash_plain_reads_model_layout_through_strides():

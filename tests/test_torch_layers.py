@@ -44,11 +44,18 @@ def _close(got, want, **tol):
 @pytest.mark.parametrize("smoke", [False, True])
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_config_copies_match_jax(arch, smoke):
+    """Every field the port keeps equals the JAX config's; the fields it
+    leaves out belong to other families and are unset in the JAX config."""
     port, ref = get_config(arch, smoke), jax_get_config(arch, smoke)
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    for f in dataclasses.fields(port):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
     for prop in ("eff_q_heads", "eff_kv_heads", "cache_kv_heads",
-                 "resolved_head_dim", "padded_vocab", "n_rep"):
+                 "resolved_head_dim", "padded_vocab"):
         assert getattr(port, prop) == getattr(ref, prop), prop
+    for family_field in ("moe", "ssm", "xlstm", "hybrid", "encdec", "vlm",
+                         "long_context_window"):
+        assert getattr(ref, family_field) is None, family_field
+    assert not ref.sub_quadratic
 
 
 def test_unported_families_point_to_the_roadmap():
