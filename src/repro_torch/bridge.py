@@ -1,10 +1,14 @@
 """Conversion between the JAX package's params/cache and the port's tensors.
 
 The JAX side hands over pytrees (nested dicts) of arrays; the port takes
-nested dicts of tensors with the same keys, except that the stacked layer
-parameters (a leading L axis on every leaf of `params["layers"]`) become a
-list of per-layer dicts. Weights keep their (d_in, d_out) orientation on
-both sides. bf16 arrays cross through float32, which is exact in both
+nested dicts of tensors with the same keys, except that stacked layer
+parameters become lists: the leading L axis on every leaf of
+`params["layers"]` (dense, MoE) a list of per-layer dicts, and the leading
+(nb, attn_every) axes of the hybrid's `params["mamba"]` a list of nb lists of
+per-block dicts. Caches keep their stacked layout on both sides (dense k/v
+(L,B,S,H,D); hybrid k/v (nb,B,W,H,hd), conv (nb,k,B,K-1,C), ssm
+(nb,k,B,H,P,N)). Weights keep their (d_in, d_out) orientation on both
+sides. bf16 arrays cross through float32, which is exact in both
 directions (`torch.from_numpy` does not take ml_dtypes' bfloat16). Every
 array is copied, since numpy views of JAX arrays are read-only.
 
@@ -13,7 +17,7 @@ This module imports neither JAX nor the JAX package: it works on anything
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -55,36 +59,50 @@ def _leaves(tree):
         yield tree
 
 
+# params keys whose leaves are stacked, with the number of stacked axes
+_STACKED = {"layers": 1, "mamba": 2}
+
+
+def _unstack(tree, depth: int):
+    """A tree whose leaves share `depth` leading axes -> nested lists of
+    trees, one per index."""
+    if depth == 0:
+        return tree
+    n = next(_leaves(tree)).shape[0]
+    return [_unstack(_tree_map(lambda t: t[i], tree), depth - 1) for i in range(n)]
+
+
+def _stack(items, depth: int):
+    """The inverse of _unstack, on numpy leaves."""
+    if depth == 0:
+        return items
+    trees = [_stack(it, depth - 1) for it in items]
+
+    def zip_trees(ts):
+        if isinstance(ts[0], dict):
+            return {k: zip_trees([t[k] for t in ts]) for k in ts[0]}
+        return np.stack(ts)
+    return zip_trees(trees)
+
+
 def params_from_jax(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """JAX dense params (stacked layers) -> the port's params (layer list)."""
-    out = {k: _tree_map(lambda a: tensor_from_array(a, device), v)
-           for k, v in params.items() if k != "layers"}
-    stacked = _tree_map(lambda a: tensor_from_array(a, device), params["layers"])
-    n_layers = next(_leaves(stacked)).shape[0]
-    out["layers"] = [_tree_map(lambda t: t[i], stacked) for i in range(n_layers)]
+    """JAX params (stacked layers) -> the port's params (lists of layers)."""
+    out = {}
+    for k, v in params.items():
+        tree = _tree_map(lambda a: tensor_from_array(a, device), v)
+        out[k] = _unstack(tree, _STACKED.get(k, 0))
     return out
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's params -> numpy arrays with the layers stacked again."""
-    out = {k: _tree_map(array_from_tensor, v)
-           for k, v in params.items() if k != "layers"}
-    layers: List[Dict[str, Any]] = [_tree_map(array_from_tensor, lp)
-                                    for lp in params["layers"]]
-
-    def zip_trees(trees):
-        first = trees[0]
-        if isinstance(first, dict):
-            return {k: zip_trees([t[k] for t in trees]) for k in first}
-        return np.stack(trees)
-
-    out["layers"] = zip_trees(layers)
-    return out
+    return {k: _stack(_tree_map(array_from_tensor, v), _STACKED.get(k, 0))
+            for k, v in params.items()}
 
 
 def cache_from_jax(cache: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
-    """A JAX cache ({"k", "v"[, "k_scale", "v_scale"]}, (L,B,S,H,D)) ->
-    tensors of the same layout."""
+    """A JAX cache (dense: {"k", "v"[, "k_scale", "v_scale"]}; hybrid:
+    {"k", "v", "conv", "ssm"}) -> tensors of the same layout."""
     return {k: tensor_from_array(v, device) for k, v in cache.items()}
 
 

@@ -1,2 +1,3 @@
-"""Attention kernels of the port: hand-written CUDA for Hopper (`csrc/`),
-their Python wrappers, and their plain PyTorch versions (`ref.py`)."""
+"""Kernels of the port (attention, grouped expert matmul, SSD scan):
+hand-written CUDA for Hopper (`csrc/`), their Python wrappers, and their
+plain PyTorch versions (`ref.py`)."""

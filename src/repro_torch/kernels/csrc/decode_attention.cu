@@ -15,8 +15,9 @@
 // a second reduce pass is the next step for short batches.
 //
 // Design: 8 warps split the valid rows; a warp takes 4 rows at a time, its
-// 32 lanes holding D/32 consecutive elements of each row (one vector load per
-// lane), so the k and v loads of a row are one coalesced transaction. Dot
+// lanes holding D/32 (rounded up to a power of two) consecutive elements of
+// each row (one vector load per lane), so the k and v loads of a row are one
+// coalesced transaction. Dot
 // products reduce over the warp with shuffles; each warp keeps its own
 // (m, l, acc) per q head, and the warps' states merge through shared memory
 // at the end.
@@ -31,6 +32,15 @@ namespace {
 
 constexpr int NW = 8;  // warps per CTA
 constexpr int G = 4;   // cache rows per warp step
+
+// Row elements per lane: ceil(D / 32) rounded up to a power of two, so that
+// D is a multiple of it and a lane's elements are one aligned vector load
+// (D = 80: 4 elements on 20 lanes; D = 160: 8 on 20 lanes).
+__host__ __device__ constexpr int lane_elems(int D) {
+  int e = 1;
+  while (32 * e < D) e *= 2;
+  return e;
+}
 
 struct DecodeArgs {
   const void* q;
@@ -52,7 +62,8 @@ struct DecodeArgs {
 
 template <typename TQ, typename TKV, int D, int RMAX>
 __global__ void __launch_bounds__(NW * 32) decode_kernel(const DecodeArgs a) {
-  constexpr int EPL = (D + 31) / 32;  // row elements per lane
+  static_assert(D % lane_elems(D) == 0, "a lane's elements must not cross the row end");
+  constexpr int EPL = lane_elems(D);  // row elements per lane
   constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
 
   __shared__ float sm_m[NW][RMAX];
@@ -65,7 +76,7 @@ __global__ void __launch_bounds__(NW * 32) decode_kernel(const DecodeArgs a) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int e0 = lane * EPL;
-  const bool lane_on = e0 < D;  // D = 16 leaves half the lanes idle
+  const bool lane_on = e0 < D;  // D = 16, 80 or 160 leave lanes idle
   const int valid = max(0, min(a.valid_len[b], a.S));
 
   const TQ* qp = static_cast<const TQ*>(a.q) + b * a.sqb;
@@ -198,7 +209,9 @@ int dispatch_d(const DecodeArgs& a, int B, int D, cudaStream_t stream) {
     case 16: return dispatch_r<TQ, TKV, 16>(a, B, stream);
     case 32: return dispatch_r<TQ, TKV, 32>(a, B, stream);
     case 64: return dispatch_r<TQ, TKV, 64>(a, B, stream);
+    case 80: return dispatch_r<TQ, TKV, 80>(a, B, stream);
     case 128: return dispatch_r<TQ, TKV, 128>(a, B, stream);
+    case 160: return dispatch_r<TQ, TKV, 160>(a, B, stream);
     default: return -1;
   }
 }

@@ -18,6 +18,9 @@
 // key columns tx + 16 j of the score tile (interleaved, so shared-memory
 // reads are conflict-free with a +1 row pitch), and the output columns
 // tx + 16 j. Row max and row sum reduce over the 16 lanes of a half warp.
+// Any head dim that is a multiple of 16 fits this layout (the row pitch D + 1
+// is odd); the instantiated ones are 16, 32, 64, 80 (zamba2), 128 and 160
+// (stablelm-12b), the last at 140 KB of shared memory.
 // K tiles past the causal diagonal (or before the window) are never loaded.
 // Tails of any length are masked; nothing needs T to divide the tiles.
 //
@@ -212,7 +215,9 @@ int dispatch_d(const FlashArgs& a, int B, int D, cudaStream_t stream) {
     case 16: return launch<T, 16>(a, B, stream);
     case 32: return launch<T, 32>(a, B, stream);
     case 64: return launch<T, 64>(a, B, stream);
+    case 80: return launch<T, 80>(a, B, stream);
     case 128: return launch<T, 128>(a, B, stream);
+    case 160: return launch<T, 160>(a, B, stream);
     default: return -1;
   }
 }

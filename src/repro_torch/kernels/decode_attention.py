@@ -15,7 +15,7 @@ from repro_torch.kernels import build
 launches = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 MAX_GROUP = 8   # q heads per cache head
 _fn = None
 
@@ -64,8 +64,9 @@ def _check(q, k, v, valid_len, k_scale, v_scale):
     if int8 and (k_scale.shape != (B, Hc, S, 1) or v_scale.shape != (B, Hc, S, 1)
                  or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
         raise ValueError("scales must be float32 of shape (B, Hc, S, 1)")
-    # each lane loads ceil(D/32) consecutive elements of a row in one access
-    per_lane = -(-D // 32)
+    # each lane loads ceil(D/32), rounded up to a power of two, consecutive
+    # elements of a row in one access
+    per_lane = 1 << (-(-D // 32) - 1).bit_length()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last axis")

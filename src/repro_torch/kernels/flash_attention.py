@@ -16,7 +16,7 @@ from repro_torch.kernels import build
 launches = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 _fn = None
 
 

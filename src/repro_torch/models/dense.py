@@ -1,6 +1,6 @@
-"""Dense (llama-family) decoder LM, inference only: prefill, one-token
-decode against a KV cache, and the full forward that the decode path is
-checked against.
+"""Dense (llama-family) decoder LM, and the same block with an MoE FFN
+(family "moe"), inference only: prefill, one-token decode against a KV
+cache, and the full forward that the decode path is checked against.
 
 The port of the JAX package's `models/dense.py`. Parameters are plain
 dictionaries of tensors with the JAX pytree's keys; `params["layers"]` is a
@@ -9,7 +9,7 @@ The cache keeps the JAX layout, (L, B, S, Hc, D) per buffer plus fp32
 (L, B, S, Hc, 1) scales for an int8 cache, and is updated in place one layer
 at a time where JAX threads it through the scan carry. Attention goes through
 `kernels/ops.py`: the CUDA kernels on the card, the plain versions on the
-CPU.
+CPU; so does the MoE FFN's expert matmul (`models/moe.py`).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe_layer, moe_ffn
 
 F32 = torch.float32
 
@@ -44,6 +45,9 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, dtype, device):
                                  cfg.qkv_bias, dtype, cfg.pad_heads_to,
                                  cfg.pad_kv_heads_to, device=device),
     }
+    if cfg.family == "moe":
+        p["moe"] = init_moe_layer(generator, cfg, dtype, device)
+        return p
     std = cfg.d_model ** -0.5
     p["mlp"] = {name: L.normal(generator, shape, std, dtype, device)
                 for name, shape in (("w1", (cfg.d_model, cfg.d_ff)),
@@ -73,22 +77,35 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
 # Forward
 # ----------------------------------------------------------------------------
 
-def block_fwd(p, x, positions, cfg: ModelConfig, *, window: Optional[int] = None):
-    """Full-sequence block: causal attention + FFN."""
+def _ffn(p, xn, cfg: ModelConfig, n_groups: int):
+    """The block's FFN on normed x: (y, the MoE aux loss, or None for a dense
+    FFN, which has none)."""
+    if cfg.family == "moe":
+        return moe_ffn(p["moe"], xn, cfg, n_groups)
+    return L.swiglu(xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"]), None
+
+
+def block_fwd(p, x, positions, cfg: ModelConfig, *, n_groups: int = 1,
+              window: Optional[int] = None):
+    """Full-sequence block: causal attention + FFN. Returns (x, aux), aux
+    None for a dense block."""
     h, _ = L.attention(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                        positions, cfg, causal=True, window=window)
     x = x + h
-    xn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
+    y, aux = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups)
+    return x + y, aux
 
 
-def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
+def backbone_fwd(params, x, positions, cfg: ModelConfig, *, n_groups: int = 1,
                  window: Optional[int] = None):
     """The block stack over x (B, T, d) without a cache, then the final norm
-    (the JAX `backbone_fwd` with remat off)."""
+    (the JAX `backbone_fwd` with remat off). Returns (x, summed aux)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
     for lp in params["layers"]:
-        x = block_fwd(lp, x, positions, cfg, window=window)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, a = block_fwd(lp, x, positions, cfg, n_groups=n_groups, window=window)
+        if a is not None:
+            aux = aux + a
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 # ----------------------------------------------------------------------------
@@ -154,7 +171,7 @@ def _store_kv(cfg: ModelConfig, cache, li: int, k, v, pos):
         buf[bidx, row] = torch.where(keep, val.to(buf.dtype), buf[bidx, row])
 
 
-def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig):
+def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, *, n_groups: int = 1):
     """One decode step through layer li. x: (B, 1, d); pos: (B,) int32, the
     current length of each sequence. Updates the cache in place."""
     B, T, _ = x.shape
@@ -166,8 +183,8 @@ def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig):
     _store_kv(cfg, cache, li, k, v, pos)
     out = _decode_attend(q, cache, li, (pos + T).to(torch.int32))
     x = x + out.reshape(B, T, cfg.eff_q_heads * hd) @ p["attn"]["wo"]
-    xn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
+    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups)
+    return x + y
 
 
 def _decode_attend(q, cache, li: int, valid):
@@ -179,7 +196,7 @@ def _decode_attend(q, cache, li: int, valid):
                                 view("k_scale"), view("v_scale"))
 
 
-def lm_decode_step(params, cache, batch, cfg: ModelConfig):
+def lm_decode_step(params, cache, batch, cfg: ModelConfig, *, n_groups: int = 1):
     """One-token decode across the whole stack. batch: {"tokens": (B, 1),
     "positions": (B,)}. Returns (logits (B, 1, V), cache), the cache being
     the same dictionary, updated in place.
@@ -189,12 +206,13 @@ def lm_decode_step(params, cache, batch, cfg: ModelConfig):
     tokens, pos = batch["tokens"], batch["positions"]
     x = L.embed(params["embed"], tokens)
     for li, lp in enumerate(params["layers"]):
-        x = block_decode(lp, x, cache, li, pos, cfg)
+        x = block_decode(lp, x, cache, li, pos, cfg, n_groups=n_groups)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg.vocab_size), cache
 
 
-def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None):
+def lm_prefill(params, batch, cfg: ModelConfig, *, n_groups: int = 1,
+               window: Optional[int] = None):
     """Full forward that also materializes the KV cache.
 
     Returns (last-token logits (B, 1, V), cache) with cache buffers of
@@ -209,8 +227,8 @@ def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None)
         h, (k, v) = L.attention(lp["attn"], xn, positions, cfg, causal=True,
                                 window=window)
         x = x + h
-        xn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.swiglu(xn, lp["mlp"]["w1"], lp["mlp"]["w3"], lp["mlp"]["w2"])
+        y, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, n_groups)
+        x = x + y
         k, v = _replicate_kv(cfg, k, v)
         if cfg.kv_cache_dtype == "int8":
             (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)

@@ -1,4 +1,4 @@
-"""Uniform model interface of the port (the dense family so far).
+"""Uniform model interface of the port (the dense, MoE and hybrid families).
 
 build_model(cfg, device=...) returns a Model whose members close over the
 config and the device:
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import dense
+from repro_torch.models import dense, hybrid
 
 
 @dataclass(frozen=True)
@@ -30,18 +30,29 @@ class Model:
     init_cache: Callable[..., Any]
 
 
-def build_model(cfg: ModelConfig, *, device="cuda",
+def build_model(cfg: ModelConfig, *, device="cuda", n_groups: int = 1,
                 window: Optional[int] = None) -> Model:
     dev = resolve_device(device)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet; see "
-            "ROADMAP.md, Queue 1")
-    return Model(
-        cfg=cfg,
-        device=dev,
-        init_params=functools.partial(dense.init_params, cfg=cfg, device=dev),
-        prefill=functools.partial(dense.lm_prefill, cfg=cfg, window=window),
-        decode_step=functools.partial(dense.lm_decode_step, cfg=cfg),
-        init_cache=functools.partial(dense.init_cache, cfg, device=dev),
-    )
+    if cfg.family in ("dense", "moe"):
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init_params=functools.partial(dense.init_params, cfg=cfg, device=dev),
+            prefill=functools.partial(dense.lm_prefill, cfg=cfg, n_groups=n_groups,
+                                      window=window),
+            decode_step=functools.partial(dense.lm_decode_step, cfg=cfg,
+                                          n_groups=n_groups),
+            init_cache=functools.partial(dense.init_cache, cfg, device=dev),
+        )
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init_params=functools.partial(hybrid.init_params, cfg=cfg, device=dev),
+            prefill=functools.partial(hybrid.lm_prefill, cfg=cfg, window=window),
+            decode_step=functools.partial(hybrid.lm_decode_step, cfg=cfg),
+            init_cache=functools.partial(hybrid.init_cache, cfg, window=window,
+                                         device=dev),
+        )
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported to PyTorch yet; see ROADMAP.md, Queue 1")

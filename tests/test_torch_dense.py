@@ -1,5 +1,5 @@
 """The port's dense LM (src/repro_torch/models/dense.py) against the JAX
-package on the llama3, granite and qwen SMOKE configs, on the CPU.
+package on the llama3, granite, qwen and stablelm SMOKE configs, on the CPU.
 
 Both sides run the same weights: JAX initialises them and
 `repro_torch.bridge` hands them over. Tolerances, with their reasons:
@@ -29,7 +29,7 @@ from repro_torch.models import build_model
 from repro_torch.models import dense as D
 from repro_torch.models import layers as L
 
-ARCHS = ["llama3-8b", "granite-8b", "qwen1.5-32b"]
+ARCHS = ["llama3-8b", "granite-8b", "qwen1.5-32b", "stablelm-12b"]
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 
 
@@ -149,7 +149,8 @@ def test_decode_matches_full_forward(arch):
     logits_pref, cache = m.prefill(p, {"tokens": torch.from_numpy(toks)})
 
     positions = torch.arange(T, dtype=torch.int32).expand(B, T)
-    x = D.backbone_fwd(p, L.embed(p["embed"], torch.from_numpy(toks)), positions, cfg)
+    x, aux = D.backbone_fwd(p, L.embed(p["embed"], torch.from_numpy(toks)), positions, cfg)
+    assert float(aux) == 0.0   # a dense stack has no MoE aux loss
     full = L.unembed(p["embed"], x, cfg.vocab_size)
     assert torch.equal(full[:, -1].argmax(-1), logits_pref[:, -1].argmax(-1))
 
@@ -238,4 +239,4 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         D.init_params(torch.Generator(), cfg)
     assert build_model(cfg, device="cpu").device == torch.device("cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg.replace(family="moe"), device="cpu")
+        build_model(cfg.replace(family="ssm"), device="cpu")

@@ -44,23 +44,32 @@ def _close(got, want, **tol):
 @pytest.mark.parametrize("smoke", [False, True])
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_config_copies_match_jax(arch, smoke):
-    """Every field the port keeps equals the JAX config's; the fields it
-    leaves out belong to other families and are unset in the JAX config."""
+    """Every field the port keeps equals the JAX config's, the family configs
+    (moe, ssm, hybrid) field by field; the fields it leaves out belong to
+    families not ported yet and are unset in the JAX config, apart from the
+    long-context fields (read only by the long_500k shape) and the training
+    fields (optimizer, fsdp)."""
     port, ref = get_config(arch, smoke), jax_get_config(arch, smoke)
     for f in dataclasses.fields(port):
-        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+        got, want = getattr(port, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(want):
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), f.name
+        else:
+            assert got == want, f.name
     for prop in ("eff_q_heads", "eff_kv_heads", "cache_kv_heads",
                  "resolved_head_dim", "padded_vocab"):
         assert getattr(port, prop) == getattr(ref, prop), prop
-    for family_field in ("moe", "ssm", "xlstm", "hybrid", "encdec", "vlm",
-                         "long_context_window"):
+    for family_field in ("xlstm", "encdec", "vlm"):
         assert getattr(ref, family_field) is None, family_field
-    assert not ref.sub_quadratic
+    kept = {f.name for f in dataclasses.fields(port)}
+    left_out = {f.name for f in dataclasses.fields(ref)} - kept
+    assert left_out == {"xlstm", "encdec", "vlm", "long_context_window",
+                        "sub_quadratic", "optimizer", "fsdp"}
 
 
 def test_unported_families_point_to_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("zamba2-2.7b")
+        get_config("xlstm-350m")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -60,7 +60,7 @@ def test_serve_engine_continuous_batching():
     assert eng.stats["ticks"] >= 2 * (5 // 2)   # never more than 2 in flight
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "granite-8b", "qwen1.5-32b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "granite-8b", "qwen1.5-32b", "stablelm-12b"])
 def test_engine_tokens_identical_to_jax_engine_at_fp32(arch):
     jeng, eng = _engines(arch, "float32", slots=2, max_len=32)
     specs = [([1 + i, 2, 3], 4 + i % 2, -1) for i in range(5)]
