@@ -13,21 +13,28 @@
 // tensor-core products (wgmma) fed by TMA are the next step.
 //
 // Design: one of two kernels, chosen by C.
-//  * skinny (C <= 16: every decode step, and short prompts): one CTA per
-//    (256 columns of f, expert). Its 8 warps split the contraction d; each
-//    lane owns 8 consecutive columns and loads them with one 16-byte vector
-//    load (bf16) or two (fp32), so a warp reads 512 or 1024 contiguous bytes
-//    of a weight row and each weight element is read from HBM once per call.
-//    All C rows (padded to MT = 4, 8 or 16, never to a 64-row tile) stay in
-//    registers; x streams through shared memory in chunks of d; the warps'
-//    partial sums are added through shared memory at the end.
-//  * tiled (C > 16): one CTA of 256 threads per (128 columns, 64 rows,
+//  * rows (C <= 32: every decode step, and prompts up to ~200 tokens): one CTA
+//    per (tile of MT rows, 256 columns of f, expert), MT = 4, 8 or 16 as C
+//    asks (never a 64-row tile, which at decode would be mostly padding). Its
+//    8 warps split the contraction d; each lane owns 8 consecutive columns
+//    and loads them with one 16-byte vector load (bf16) or two (fp32), so a
+//    warp reads 512 or 1024 contiguous bytes of a weight row. The MT rows'
+//    sums stay in registers; x streams through shared memory in chunks of d;
+//    the warps' partial sums are added through shared memory at the end. For
+//    C <= 16 there is one row tile and each weight element is read from HBM
+//    once per call; for two row tiles they are the grid's fastest axis, so
+//    the two CTAs that read the same weights run together and share them
+//    through L2.
+//  * tiled (C > 32): one CTA of 256 threads per (128 columns, 64 rows,
 //    expert) output tile; 16-deep K tiles of x (transposed) and w are staged
 //    in shared memory as fp32, and thread (ty, tx) owns rows ty + 16 i and
 //    columns tx + 16 j (interleaved, so the shared-memory reads are
 //    conflict-free or broadcast).
-// Tails of C, d and f are masked: no dimension needs to divide a tile, where
-// the Pallas kernel asserts divisibility.
+// The switch at C = 32 is where the two cross on the H100 (phase 3d's
+// capacity sweep in chip_smoke.py): at 20 and 32 rows the row kernel is the
+// faster, from 48 rows on the tiled one, as the row kernel re-reads the
+// weights once per 16 rows. Tails of C, d and f are masked: no dimension
+// needs to divide a tile, where the Pallas kernel asserts divisibility.
 //
 // Layout: x (E, C, d), w (E, d, f) and out (E, C, f) given by strides in
 // elements, with the last axis contiguous.
@@ -50,11 +57,12 @@ struct GmmArgs {
   int vec;  // 1: w rows allow 16-byte loads of a lane's 8 columns
 };
 
-// ---------------------------------------------------------------- skinny
+// ---------------------------------------------------------------- rows
 
 constexpr int SK_CPL = 8;              // columns per lane
 constexpr int SK_BN = 32 * SK_CPL;     // columns per CTA
 constexpr int SK_KC = 256;             // x chunk along d
+constexpr int ROWS_MAX_C = 32;         // larger C goes to the tiled kernel
 
 template <typename T>
 __device__ __forceinline__ void load_cols(const T* __restrict__ p, float* out,
@@ -70,16 +78,18 @@ __device__ __forceinline__ void load_cols(const T* __restrict__ p, float* out,
 }
 
 template <typename T, int MT>
-__global__ void __launch_bounds__(NT) gmm_skinny(const GmmArgs a) {
+__global__ void __launch_bounds__(NT) gmm_rows(const GmmArgs a) {
   __shared__ float xs[MT][SK_KC];
   __shared__ float red[MT][SK_CPL][32];  // [row][column in lane][lane]
 
-  const int e = blockIdx.y;
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.x * MT;
+  const int rows = min(MT, a.C - m0);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n0 = blockIdx.x * SK_BN + lane * SK_CPL;
+  const int n0 = blockIdx.y * SK_BN + lane * SK_CPL;
   const int n_left = a.f - n0;
-  const T* xp = static_cast<const T*>(a.x) + e * a.sxe;
+  const T* xp = static_cast<const T*>(a.x) + e * a.sxe + m0 * a.sxc;
   const T* wp = static_cast<const T*>(a.w) + e * a.swe + n0;
 
   float acc[MT][SK_CPL];
@@ -92,7 +102,7 @@ __global__ void __launch_bounds__(NT) gmm_skinny(const GmmArgs a) {
     __syncthreads();  // the last chunk of x is consumed
     for (int i = threadIdx.x; i < MT * SK_KC; i += NT) {
       const int m = i / SK_KC, k = i % SK_KC;
-      xs[m][k] = m < a.C && k0 + k < a.d ? to_f<T>(xp[m * a.sxc + k0 + k]) : 0.f;
+      xs[m][k] = m < rows && k0 + k < a.d ? to_f<T>(xp[m * a.sxc + k0 + k]) : 0.f;
     }
     __syncthreads();
     const int kn = min(SK_KC, a.d - k0);
@@ -123,11 +133,11 @@ __global__ void __launch_bounds__(NT) gmm_skinny(const GmmArgs a) {
     __syncthreads();
   }
 
-  T* op = static_cast<T*>(a.o) + e * a.soe;
+  T* op = static_cast<T*>(a.o) + e * a.soe + m0 * a.soc;
   for (int i = threadIdx.x; i < MT * SK_BN; i += NT) {
     const int m = i / SK_BN, c = i % SK_BN;
-    const int n = blockIdx.x * SK_BN + c;
-    if (m < a.C && n < a.f)
+    const int n = blockIdx.y * SK_BN + c;
+    if (m < rows && n < a.f)
       op[m * a.soc + n] = from_f<T>(red[m][c % SK_CPL][c / SK_CPL]);
   }
 }
@@ -200,17 +210,17 @@ __global__ void __launch_bounds__(NT) gmm_tiled(const GmmArgs a) {
 }
 
 template <typename T, int MT>
-int launch_skinny(const GmmArgs& a, int E, cudaStream_t stream) {
-  dim3 grid((a.f + SK_BN - 1) / SK_BN, E);
-  gmm_skinny<T, MT><<<grid, NT, 0, stream>>>(a);
+int launch_rows(const GmmArgs& a, int E, cudaStream_t stream) {
+  dim3 grid((a.C + MT - 1) / MT, (a.f + SK_BN - 1) / SK_BN, E);
+  gmm_rows<T, MT><<<grid, NT, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const GmmArgs& a, int E, cudaStream_t stream) {
-  if (a.C <= 4) return launch_skinny<T, 4>(a, E, stream);
-  if (a.C <= 8) return launch_skinny<T, 8>(a, E, stream);
-  if (a.C <= 16) return launch_skinny<T, 16>(a, E, stream);
+  if (a.C <= 4) return launch_rows<T, 4>(a, E, stream);
+  if (a.C <= 8) return launch_rows<T, 8>(a, E, stream);
+  if (a.C <= ROWS_MAX_C) return launch_rows<T, 16>(a, E, stream);
   dim3 grid((a.f + TB_N - 1) / TB_N, (a.C + TB_M - 1) / TB_M, E);
   gmm_tiled<T><<<grid, NT, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -13,7 +13,7 @@ from repro_torch.kernels import build
 launches = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-LANE_COLS = 8   # columns a lane of the skinny kernel loads in one go
+LANE_COLS = 8   # columns a lane of the kernel loads in one go
 _fn = None
 
 

@@ -77,32 +77,31 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
 # Forward
 # ----------------------------------------------------------------------------
 
-def _ffn(p, xn, cfg: ModelConfig, n_groups: int):
+def _ffn(p, xn, cfg: ModelConfig):
     """The block's FFN on normed x: (y, the MoE aux loss, or None for a dense
     FFN, which has none)."""
     if cfg.family == "moe":
-        return moe_ffn(p["moe"], xn, cfg, n_groups)
+        return moe_ffn(p["moe"], xn, cfg)
     return L.swiglu(xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"]), None
 
 
-def block_fwd(p, x, positions, cfg: ModelConfig, *, n_groups: int = 1,
-              window: Optional[int] = None):
+def block_fwd(p, x, positions, cfg: ModelConfig, *, window: Optional[int] = None):
     """Full-sequence block: causal attention + FFN. Returns (x, aux), aux
     None for a dense block."""
     h, _ = L.attention(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                        positions, cfg, causal=True, window=window)
     x = x + h
-    y, aux = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups)
+    y, aux = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
     return x + y, aux
 
 
-def backbone_fwd(params, x, positions, cfg: ModelConfig, *, n_groups: int = 1,
+def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
                  window: Optional[int] = None):
     """The block stack over x (B, T, d) without a cache, then the final norm
     (the JAX `backbone_fwd` with remat off). Returns (x, summed aux)."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     for lp in params["layers"]:
-        x, a = block_fwd(lp, x, positions, cfg, n_groups=n_groups, window=window)
+        x, a = block_fwd(lp, x, positions, cfg, window=window)
         if a is not None:
             aux = aux + a
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
@@ -171,7 +170,7 @@ def _store_kv(cfg: ModelConfig, cache, li: int, k, v, pos):
         buf[bidx, row] = torch.where(keep, val.to(buf.dtype), buf[bidx, row])
 
 
-def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, *, n_groups: int = 1):
+def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig):
     """One decode step through layer li. x: (B, 1, d); pos: (B,) int32, the
     current length of each sequence. Updates the cache in place."""
     B, T, _ = x.shape
@@ -183,7 +182,7 @@ def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, *, n_groups: int =
     _store_kv(cfg, cache, li, k, v, pos)
     out = _decode_attend(q, cache, li, (pos + T).to(torch.int32))
     x = x + out.reshape(B, T, cfg.eff_q_heads * hd) @ p["attn"]["wo"]
-    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups)
+    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
     return x + y
 
 
@@ -196,7 +195,7 @@ def _decode_attend(q, cache, li: int, valid):
                                 view("k_scale"), view("v_scale"))
 
 
-def lm_decode_step(params, cache, batch, cfg: ModelConfig, *, n_groups: int = 1):
+def lm_decode_step(params, cache, batch, cfg: ModelConfig):
     """One-token decode across the whole stack. batch: {"tokens": (B, 1),
     "positions": (B,)}. Returns (logits (B, 1, V), cache), the cache being
     the same dictionary, updated in place.
@@ -206,13 +205,12 @@ def lm_decode_step(params, cache, batch, cfg: ModelConfig, *, n_groups: int = 1)
     tokens, pos = batch["tokens"], batch["positions"]
     x = L.embed(params["embed"], tokens)
     for li, lp in enumerate(params["layers"]):
-        x = block_decode(lp, x, cache, li, pos, cfg, n_groups=n_groups)
+        x = block_decode(lp, x, cache, li, pos, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg.vocab_size), cache
 
 
-def lm_prefill(params, batch, cfg: ModelConfig, *, n_groups: int = 1,
-               window: Optional[int] = None):
+def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None):
     """Full forward that also materializes the KV cache.
 
     Returns (last-token logits (B, 1, V), cache) with cache buffers of
@@ -227,7 +225,7 @@ def lm_prefill(params, batch, cfg: ModelConfig, *, n_groups: int = 1,
         h, (k, v) = L.attention(lp["attn"], xn, positions, cfg, causal=True,
                                 window=window)
         x = x + h
-        y, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, n_groups)
+        y, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
         x = x + y
         k, v = _replicate_kv(cfg, k, v)
         if cfg.kv_cache_dtype == "int8":

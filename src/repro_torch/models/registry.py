@@ -30,7 +30,7 @@ class Model:
     init_cache: Callable[..., Any]
 
 
-def build_model(cfg: ModelConfig, *, device="cuda", n_groups: int = 1,
+def build_model(cfg: ModelConfig, *, device="cuda",
                 window: Optional[int] = None) -> Model:
     dev = resolve_device(device)
     if cfg.family in ("dense", "moe"):
@@ -38,10 +38,8 @@ def build_model(cfg: ModelConfig, *, device="cuda", n_groups: int = 1,
             cfg=cfg,
             device=dev,
             init_params=functools.partial(dense.init_params, cfg=cfg, device=dev),
-            prefill=functools.partial(dense.lm_prefill, cfg=cfg, n_groups=n_groups,
-                                      window=window),
-            decode_step=functools.partial(dense.lm_decode_step, cfg=cfg,
-                                          n_groups=n_groups),
+            prefill=functools.partial(dense.lm_prefill, cfg=cfg, window=window),
+            decode_step=functools.partial(dense.lm_decode_step, cfg=cfg),
             init_cache=functools.partial(dense.init_cache, cfg, device=dev),
         )
     if cfg.family == "hybrid":

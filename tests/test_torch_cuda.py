@@ -108,9 +108,10 @@ def test_decode_kernel_matches_plain_on_cuda(cuda, B, Hq, Hc, S, D, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("E,C,d,f", [
     (2, 64, 128, 64), (4, 32, 64, 128), (8, 16, 32, 32),   # tests/test_kernels.py
-    (4, 4, 512, 640),      # decode capacity: the skinny kernel, rows padded to 4
-    (3, 12, 300, 264),     # skinny, rows padded to 16, d off the x chunk
-    (3, 20, 200, 36),      # tiled, ragged C; f not a multiple of 8: scalar loads
+    (4, 4, 512, 640),      # decode capacity: one row tile, rows padded to 4
+    (3, 12, 300, 264),     # one row tile padded to 16, d off the x chunk
+    (3, 20, 200, 36),      # two row tiles, the second ragged; f not a multiple
+                           # of 8: scalar loads
     (2, 160, 256, 320),    # the prefill capacity of a 1024-token prompt
 ])
 def test_moe_gmm_kernel_matches_plain_on_cuda(cuda, E, C, d, f, dtype):
