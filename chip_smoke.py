@@ -20,8 +20,10 @@ carried on.
      c. the int8-cache decode at phase 5's shapes and at qwen1.5-32b's
         padded heads;
      d. the grouped expert matmul at phi3.5-moe's decode (C=4) and prefill
-        (C=160) capacities in both directions, and at arctic's width;
-        `torch.bmm` is the yardstick;
+        (C=160) capacities in both directions, and at arctic's width, then
+        a capacity sweep (C = 4-160) that prints the kernel `route` chose
+        (the bf16 tensor-core kernel or a CUDA-core one), its time, the
+        bound and `torch.bmm`'s time, the yardstick;
      e. the SSD scan at zamba2's shapes (H=80, P=N=64, chunk 256), fp32 and
         bf16, and at fp32 against the sequential recurrence too; no single
         PyTorch call computes it;
@@ -34,9 +36,10 @@ carried on.
   5. the same width with an int8 KV cache at 2 layers, gated the same way;
   6. phi3.5-moe at its published width and 16 of its 32 layers, served as
      in phase 4 (moe_gmm launched 3 times per layer in every prefill and
-     decode step); on its first 4 layers the kernel path's logits are held
-     to the plain bf16 path's, and so is the share of routing choices on
-     which the two agree;
+     decode step, every one through the tensor-core kernel, which the
+     per-kernel launch counts show); on its first 4
+     layers the kernel path's logits are held to the plain bf16 path's, and
+     so is the share of routing choices on which the two agree;
   7. zamba2-2.7b at its published width and depth through the model
      interface: prefill of 4 prompts of 1024 tokens, then 32 decode steps
      on the rolling cache; launch counts, profile, and logits gated on the
@@ -303,11 +306,24 @@ def head_dim_phase(gen, dev):
     return times
 
 
+def gmm_bound(E, C, din, dout):
+    """(bound ms, bound_by, flops, bytes) of a bf16 grouped matmul: x, w read
+    once, out written once; the products at the bf16 tensor-core rate."""
+    flops = 2 * E * C * din * dout
+    nbytes = 2 * (E * C * din + E * din * dout + E * C * dout)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
+            flops, nbytes)
+
+
 def gmm_phase(gen, dev):
     """The grouped expert matmul against its plain version at phi3.5-moe's
     decode (C=4) and prefill (C=160) capacities, both directions, and at
-    arctic's width; weights scaled as the model draws them (std d**-0.5)."""
+    arctic's width; weights scaled as the model draws them (std d**-0.5).
+    Then a capacity sweep: the kernel `route` chose at each C, its time,
+    torch.bmm's and the bound."""
     import torch
+    from repro_torch.kernels import moe_gmm as gk
     from repro_torch.kernels import ops, ref
 
     rnd = _rnd(gen, dev)
@@ -321,34 +337,36 @@ def gmm_phase(gen, dev):
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             x = rnd(E, C, din, dtype=dtype)
             w = rnd(E, din, dout, dtype=dtype, scale=din ** -0.5)
-            err = gate(f"moe_gmm {label} {str(dtype)[6:]} E={E} C={C} {din}->{dout}",
-                       ops.moe_gmm(x, w), ref.moe_gmm_ref(x, w), tol)
+            out = ops.moe_gmm(x, w)
+            path = gk.route_for(x, w, out)
+            err = gate(f"moe_gmm {label} {str(dtype)[6:]} E={E} C={C} {din}->{dout} ({path})",
+                       out, ref.moe_gmm_ref(x, w), tol)
             if timed and dtype == torch.bfloat16:
-                ms = cuda_ms(lambda: ops.moe_gmm(x, w), 20 if C == 4 else 5)
+                ms = cuda_ms(lambda: ops.moe_gmm(x, w), 20)
                 plain = cuda_ms(lambda: ref.moe_gmm_ref(x, w), 3)
                 lib = cuda_ms(lambda: torch.bmm(x, w), 20)
-                flops = 2 * E * C * din * dout
-                nbytes = 2 * (E * C * din + E * din * dout + E * C * dout)
-                bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-                by = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES \
-                    else "bytes"
-                say(f"  time C={C} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                bound, by, flops, nbytes = gmm_bound(E, C, din, dout)
+                say(f"  time C={C} bf16 ({path}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                     f"torch.bmm {lib:.4f} ms, bound {bound:.4f} ms by {by} "
                     f"({nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.1f} TFLOP/s)")
                 rows[C] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                               bound_by=by, library_ms=lib,
+                               bound_by=by, library_ms=lib, path=path,
                                shape=f"E={E} C={C} d={din} f={dout} bf16")
-            del x, w
+            del x, w, out
     say("  capacity sweep, bf16 E=16 4096->6400 (a T-token prefill has C = "
         "ceil4(0.15625 T), 4-160 on the path):")
     w = rnd(16, 4096, 6400, scale=4096 ** -0.5)
-    for C in (8, 16, 20, 32, 48, 64, 96, 128, 160):
+    for C in (4, 8, 16, 20, 32, 48, 64, 96, 128, 160):
         x = rnd(16, C, 4096)
-        gate(f"moe_gmm bf16 C={C}", ops.moe_gmm(x, w), ref.moe_gmm_ref(x, w), BF16_TOL)
-        ms = cuda_ms(lambda: ops.moe_gmm(x, w), 5)
-        lib = cuda_ms(lambda: torch.bmm(x, w), 5)
-        say(f"    C={C}: kernel {ms:.4f} ms, torch.bmm {lib:.4f} ms")
-    del x, w
+        out = ops.moe_gmm(x, w)
+        path = gk.route_for(x, w, out)
+        gate(f"moe_gmm bf16 C={C} ({path})", out, ref.moe_gmm_ref(x, w), BF16_TOL)
+        ms = cuda_ms(lambda: ops.moe_gmm(x, w), 10)
+        lib = cuda_ms(lambda: torch.bmm(x, w), 10)
+        bound, by, _, _ = gmm_bound(16, C, 4096, 6400)
+        say(f"    C={C}: {path}, kernel {ms:.4f} ms, torch.bmm {lib:.4f} ms, "
+            f"bound {bound:.4f} ms by {by}")
+    del x, w, out
     return rows
 
 
@@ -520,8 +538,32 @@ def kernel_counts():
 
 def reset_counts():
     import importlib
+    from repro_torch.kernels import moe_gmm as gk
     for n in KERNEL_MODULES:
         importlib.import_module(f"repro_torch.kernels.{n}").launches = 0
+    for path in gk.launches_by_path:
+        gk.launches_by_path[path] = 0
+
+
+def gmm_path_gate(cfg, prompt_lens, steps, batch_slots) -> dict:
+    """The MoE path's moe_gmm launches by kernel: each prefill of T tokens
+    and each decode step of `batch_slots` tokens launches 3 per layer at the
+    capacity moe.capacity gives, every one through the tensor-core kernel
+    (each bf16 shape of the path is one TMA can read). Returns the counts
+    by kernel."""
+    from repro_torch.kernels import moe_gmm as gk
+    from repro_torch.models.moe import capacity
+    got = dict(gk.launches_by_path)
+    caps = [capacity(cfg, int(n)) for n in prompt_lens]
+    calls = len(caps) + steps
+    want = {"wgmma": 3 * cfg.n_layers * calls, "rows": 0, "tiled": 0}
+    say(f"  moe_gmm launches by kernel: {got}, over {len(caps)} prefills at capacities "
+        f"{min(caps)}-{max(caps)} and {steps} decode steps at capacity "
+        f"{capacity(cfg, batch_slots)}")
+    if got != want:
+        fail(f"moe_gmm did not go through the tensor-core kernel on every call: {got}, "
+             f"want {want}")
+    return got
 
 
 @contextlib.contextmanager
@@ -758,6 +800,8 @@ def serve_phase(cfg, seed, n_requests, batch_slots, max_len, new_tokens,
     if launches != want:
         fail(f"{label}: the path did not go through the kernels as often as its layers "
              f"ask: {launches}, want {want}")
+    if n_gmm:
+        launches["moe_gmm_by_path"] = gmm_path_gate(cfg, lens, steps, batch_slots)
     say(f"  peak device memory while serving {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     profile_window(engine, prompts)
     del engine
@@ -932,8 +976,8 @@ def main() -> int:
 
     table = timed("3a-c attention", kernel_phase, gen, dev)
     timed("3a'-b' head dims 80, 160", head_dim_phase, gen, dev)
-    gmm_rows = timed("3d moe_gmm", gmm_phase, gen, dev)
-    table["moe_gmm"] = gmm_rows[4]
+    # moe_gmm at the prefill capacity its tensor-core kernel was built for
+    table["moe_gmm"] = timed("3d moe_gmm", gmm_phase, gen, dev)[160]
     table["ssd_scan"] = timed("3e ssd_scan", ssd_phase, gen, dev)
 
     runs = {}
@@ -979,6 +1023,9 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": row["shape"]})
+    # which of moe_gmm's kernels the timed shape took, and the paths' launches by kernel
+    kernels[2].update(kernel=table["moe_gmm"]["path"],
+                      launches_by_kernel=runs["6"]["moe_gmm_by_path"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -4,40 +4,59 @@
 // (pl.pallas_call at :52): x (E, C, d) @ w (E, d, f) -> (E, C, f), summed in
 // fp32 and written in x's dtype, for bf16 and fp32.
 //
-// What bounds it: each weight element serves 2*C flops. At the decode
-// capacity (C = 4) that is a few flops per byte, so a call is bound by reading
-// every expert's weights once; at the prefill capacity of a 1024-token prompt
-// (C = 160) it is still below the card's ~295 flops/byte bf16 ridge. This
-// first version multiplies in fp32 on the CUDA cores (as the JAX reference
-// does), so at prefill capacities its own FMA rate bounds it; warpgroup
-// tensor-core products (wgmma) fed by TMA are the next step.
+// What bounds it: every expert's weights are read once per call, and each
+// weight element serves 2*C flops. At phi3.5-moe's decode capacity (C = 4,
+// E = 16, 4096 -> 6400) a call is 839 MB of weights for 3.4 GFLOP: 0.25 ms
+// at the HBM rate, bound by bytes. At the prefill capacity of a 1024-token
+// prompt (C = 160) it is 134 GFLOP on the same bytes, 160 flops a byte,
+// still under the card's ~295 bf16 ridge: 0.27 ms by bytes, but only if
+// the products run on the tensor cores (fp32 CUDA-core FMAs at 67 TFLOP/s
+// would take 2 ms).
 //
-// Design: one of two kernels, chosen by C.
-//  * rows (C <= 32: every decode step, and prompts up to ~200 tokens): one CTA
-//    per (tile of MT rows, 256 columns of f, expert), MT = 4, 8 or 16 as C
-//    asks (never a 64-row tile, which at decode would be mostly padding). Its
+// Design: three kernels; the wrapper (kernels/moe_gmm.py::route) picks one
+// from the dtype, C and the TMA constraints before the launch and passes it
+// here as `path`. Nothing falls back after a failure.
+//  * wgmma (bf16, every stride a multiple of 16 bytes, 16-byte-aligned
+//    bases): a grouped GEMM on the tensor cores. It beats the row kernel at
+//    every capacity of chip_smoke.py phase 3d's sweep on the H100, C = 4 to
+//    160, so it has no switch: it takes the decode step too, and the
+//    CUDA-core kernels keep fp32 and the bf16 strides TMA cannot take. One CTA per (64 rows of C, 128 columns of f, expert), row tiles
+//    fastest in the grid so that the CTAs reading one weight tile run
+//    together and share it through L2. One producer warp has one thread
+//    issue TMA loads (3-D tensor maps over (E, C, d) and (E, d, f), so a box
+//    never crosses an expert and TMA zero-fills the tails of C, d and f)
+//    into a ring of STAGES slots: an x tile of 64 x 64 (K-major) and a w
+//    tile of 64 k x 128 columns (N-contiguous, two 64-column boxes under
+//    the 128-byte swizzle). Each slot has a full mbarrier armed with
+//    expect_tx and an empty mbarrier the four consumer warps arrive on
+//    after wgmma.wait_group has retired the products that read it. The
+//    consumer warpgroup issues wgmma m64n128k16 (bf16 x bf16 -> fp32, B
+//    transposed: w is MN-major) with both operands in shared memory and 64
+//    fp32 accumulators a thread, then rounds them to bf16 (as astype) and
+//    writes them masked by C and f. A bf16 x bf16 product is exact in fp32,
+//    so this is the Pallas kernel's function up to the order of the sum.
+//    The ring keeps STAGES x 24 KB of weights in flight per CTA and two
+//    CTAs fit an SM, enough bytes in flight for the HBM rate.
+//  * rows (fp32, or bf16 that TMA cannot take, C <= 32): one CTA per (tile
+//    of MT rows, 256 columns of f, expert), MT = 4, 8 or 16 as C asks. Its
 //    8 warps split the contraction d; each lane owns 8 consecutive columns
-//    and loads them with one 16-byte vector load (bf16) or two (fp32), so a
-//    warp reads 512 or 1024 contiguous bytes of a weight row. The MT rows'
-//    sums stay in registers; x streams through shared memory in chunks of d;
-//    the warps' partial sums are added through shared memory at the end. For
-//    C <= 16 there is one row tile and each weight element is read from HBM
-//    once per call; for two row tiles they are the grid's fastest axis, so
-//    the two CTAs that read the same weights run together and share them
-//    through L2.
-//  * tiled (C > 32): one CTA of 256 threads per (128 columns, 64 rows,
-//    expert) output tile; 16-deep K tiles of x (transposed) and w are staged
-//    in shared memory as fp32, and thread (ty, tx) owns rows ty + 16 i and
-//    columns tx + 16 j (interleaved, so the shared-memory reads are
-//    conflict-free or broadcast).
-// The switch at C = 32 is where the two cross on the H100 (phase 3d's
-// capacity sweep in chip_smoke.py): at 20 and 32 rows the row kernel is the
-// faster, from 48 rows on the tiled one, as the row kernel re-reads the
-// weights once per 16 rows. Tails of C, d and f are masked: no dimension
-// needs to divide a tile, where the Pallas kernel asserts divisibility.
+//    and loads them with one 16-byte vector load (bf16) or two (fp32). The
+//    MT rows' sums stay in registers; x streams through shared memory in
+//    chunks of d; the warps' partial sums are added through shared memory.
+//    Row tiles are the grid's fastest axis, as above.
+//  * tiled (fp32, or bf16 that TMA cannot take, C > 32): one CTA of 256
+//    threads per (128 columns, 64 rows, expert) output tile; 16-deep K
+//    tiles of x (transposed) and w are staged in shared memory as fp32 and
+//    multiplied with fp32 FMAs on the CUDA cores.
+// The rows/tiled switch at C = 32 is where those two cross on the H100
+// (chip_smoke.py phase 3d's capacity sweep). The two CUDA-core kernels mask
+// the tails of C, d and f by hand: no dimension needs to divide a tile,
+// where the Pallas kernel asserts divisibility.
 //
 // Layout: x (E, C, d), w (E, d, f) and out (E, C, f) given by strides in
 // elements, with the last axis contiguous.
+#include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
+
 #include "common.cuh"
 
 namespace repro {
@@ -62,7 +81,6 @@ struct GmmArgs {
 constexpr int SK_CPL = 8;              // columns per lane
 constexpr int SK_BN = 32 * SK_CPL;     // columns per CTA
 constexpr int SK_KC = 256;             // x chunk along d
-constexpr int ROWS_MAX_C = 32;         // larger C goes to the tiled kernel
 
 template <typename T>
 __device__ __forceinline__ void load_cols(const T* __restrict__ p, float* out,
@@ -209,6 +227,240 @@ __global__ void __launch_bounds__(NT) gmm_tiled(const GmmArgs a) {
   }
 }
 
+// ---------------------------------------------------------------- wgmma
+
+constexpr int WG_BM = 64;                       // rows of C per CTA (one wgmma M)
+constexpr int WG_BN = 128;                      // columns of f per CTA (wgmma N)
+constexpr int WG_BK = 64;                       // k per ring slot: 128 bytes of bf16
+constexpr int WG_STAGES = 4;
+constexpr int WG_X_BYTES = WG_BM * WG_BK * 2;   // 8 KB
+constexpr int WG_WBOX_BYTES = WG_BK * 64 * 2;   // one 64-column w box, 8 KB
+constexpr int WG_STAGE_BYTES = WG_X_BYTES + 2 * WG_WBOX_BYTES;
+constexpr int WG_THREADS = 160;                 // one consumer warpgroup + a producer warp
+// ring, 1024 bytes to align it by hand (128-byte swizzle), full and empty barriers
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024 + 2 * WG_STAGES * 8;
+// A wait that spins this long (about 9 s at the H100's clock) means a phase
+// slipped: trap, so the launch fails instead of hanging the card.
+constexpr long long WG_HANG_CYCLES = 1LL << 34;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > WG_HANG_CYCLES) __trap();
+}
+
+// TMA: the box at coordinates (c0 innermost, c1, c2) of `map` into shared
+// memory at dst; completion counts its bytes on the barrier.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 |
+         1ull << 62;
+}
+
+// d (64 x 128, fp32) += A (64 x 16, K-major) @ B (16 x 128, MN-major: tnspB = 1)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// keep the compiler from moving accumulator reads or writes across a wgmma fence
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 2)
+gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+          __nv_bfloat16* __restrict__ o, int64_t soe, int64_t soc, int C, int d, int f) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  const uint32_t full = ring + WG_STAGES * WG_STAGE_BYTES;  // full[s] at full + 8 s
+  const uint32_t empty = full + WG_STAGES * 8;
+  const int m0 = blockIdx.x * WG_BM;
+  const int n0 = blockIdx.y * WG_BN;
+  const int e = blockIdx.z;
+  const int nk = (d + WG_BK - 1) / WG_BK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);    // the producer's expect_tx arrival
+      mbar_init(empty + 8 * s, 4);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer: one thread keeps the ring full
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % WG_STAGES;
+        if (kt >= WG_STAGES) mbar_wait(empty + 8 * s, (kt / WG_STAGES - 1) & 1);
+        const uint32_t slot = ring + s * WG_STAGE_BYTES;
+        mbar_expect_tx(full + 8 * s, WG_STAGE_BYTES);
+        tma_load_3d(slot, &tmx, full + 8 * s, kt * WG_BK, m0, e);
+        tma_load_3d(slot + WG_X_BYTES, &tmw, full + 8 * s, n0, kt * WG_BK, e);
+        tma_load_3d(slot + WG_X_BYTES + WG_WBOX_BYTES, &tmw, full + 8 * s, n0 + 64,
+                    kt * WG_BK, e);
+      }
+    }
+    return;
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % WG_STAGES;
+    mbar_wait(full + 8 * s, (kt / WG_STAGES) & 1);
+    const uint32_t xs = ring + s * WG_STAGE_BYTES;
+    const uint32_t ws = xs + WG_X_BYTES;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      // x: rows of 128 bytes, 8-row groups 1024 bytes apart; 16 k are 32 bytes.
+      // w: k rows of 128 bytes (64 columns), 8-k groups 1024 bytes apart, the
+      // second 64 columns in the next box; 16 k are 2048 bytes.
+      const uint64_t da = sw128_desc(xs + kk * 32, 16, 1024);
+      const uint64_t db = sw128_desc(ws + kk * 2048, WG_WBOX_BYTES, 1024);
+      wgmma_m64n128k16(acc, da, db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // the slot may be refilled
+  }
+
+  // accumulator layout of m64nNk16: warp w holds rows 16 w + lane / 4 (+ 8);
+  // registers 4 j .. 4 j + 3 hold columns 8 j + 2 (lane % 4) (+ 1) of them
+  __nv_bfloat16* op = o + e * soe;
+  const int r0 = m0 + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < WG_BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane & 3);
+    if (col >= f) continue;  // f is a multiple of 8, so col + 1 < f too
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row < C)
+        *reinterpret_cast<__nv_bfloat162*>(op + row * soc + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------- host side
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled lives in the driver (libcuda); fetch it through the
+// runtime so the library needs no link flag. Null if the driver lacks it.
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor (n2, n1, n0) with element strides (s2, s1, 1), cut into
+// boxes of 64 x 64 x 1 under the 128-byte swizzle; out-of-bounds reads are 0.
+CUresult encode_3d(EncodeTiled enc, CUtensorMap* map, const void* p, int64_t n0, int64_t n1,
+                   int64_t n2, int64_t s1, int64_t s2) {
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0), static_cast<cuuint64_t>(n1),
+                        static_cast<cuuint64_t>(n2)};
+  cuuint64_t strides[2] = {static_cast<cuuint64_t>(s1) * 2, static_cast<cuuint64_t>(s2) * 2};
+  cuuint32_t box[3] = {64, 64, 1};
+  cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+constexpr int kNoEncoder = -2;       // the driver has no cuTensorMapEncodeTiled
+constexpr int kEncodeError = 10000;  // + the CUresult of a failed encode
+
+int launch_wgmma(const GmmArgs& a, int E, cudaStream_t stream) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return kNoEncoder;
+  CUtensorMap tmx, tmw;
+  CUresult r = encode_3d(enc, &tmx, a.x, a.d, a.C, E, a.sxc, a.sxe);
+  if (r == CUDA_SUCCESS) r = encode_3d(enc, &tmw, a.w, a.f, a.d, E, a.swk, a.swe);
+  if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
+  cudaError_t err = cudaFuncSetAttribute(gmm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         WG_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((a.C + WG_BM - 1) / WG_BM, (a.f + WG_BN - 1) / WG_BN, E);
+  gmm_wgmma<<<grid, WG_THREADS, WG_SMEM, stream>>>(
+      tmx, tmw, static_cast<__nv_bfloat16*>(a.o), a.soe, a.soc, a.C, a.d, a.f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int MT>
 int launch_rows(const GmmArgs& a, int E, cudaStream_t stream) {
   dim3 grid((a.C + MT - 1) / MT, (a.f + SK_BN - 1) / SK_BN, E);
@@ -216,11 +468,15 @@ int launch_rows(const GmmArgs& a, int E, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+enum Path : int { kRows = 0, kTiled = 1, kWgmma = 2 };
+
 template <typename T>
-int dispatch(const GmmArgs& a, int E, cudaStream_t stream) {
-  if (a.C <= 4) return launch_rows<T, 4>(a, E, stream);
-  if (a.C <= 8) return launch_rows<T, 8>(a, E, stream);
-  if (a.C <= ROWS_MAX_C) return launch_rows<T, 16>(a, E, stream);
+int launch(const GmmArgs& a, int E, int path, cudaStream_t stream) {
+  if (path == kRows) {
+    if (a.C <= 4) return launch_rows<T, 4>(a, E, stream);
+    if (a.C <= 8) return launch_rows<T, 8>(a, E, stream);
+    return launch_rows<T, 16>(a, E, stream);
+  }
   dim3 grid((a.f + TB_N - 1) / TB_N, (a.C + TB_M - 1) / TB_M, E);
   gmm_tiled<T><<<grid, NT, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -231,11 +487,13 @@ int dispatch(const GmmArgs& a, int E, cudaStream_t stream) {
 
 // strides: 6 int64 in elements: x (e, c), w (e, k), out (e, c); the last
 // axis of each is contiguous. vec = 1 when f % 8 == 0 and w's base and
-// strides allow 16-byte loads. Returns 0, a cudaError_t code, or -1 for a
-// dtype it does not take.
+// strides allow 16-byte loads (rows). path: 0 rows, 1 tiled, 2 wgmma (bf16
+// only; the wrapper has checked TMA's alignment). Returns 0, a cudaError_t
+// code, -1 for a dtype or path it does not take, -2 when the driver has no
+// tensor-map encoder, or 10000 + the CUresult of a failed encode.
 extern "C" int moe_gmm_fwd(const void* x, const void* w, void* o,
                            const int64_t* strides, int E, int C, int d, int f,
-                           int dtype, int vec, void* stream) {
+                           int dtype, int vec, int path, void* stream) {
   using namespace repro;
   if (E == 0 || C == 0 || f == 0) return 0;
   GmmArgs a;
@@ -246,7 +504,9 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* o,
   a.C = C; a.d = d; a.f = f;
   a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return dispatch<float>(a, E, s);
-  if (dtype == kBF16) return dispatch<__nv_bfloat16>(a, E, s);
+  if (path == kWgmma) return dtype == kBF16 ? launch_wgmma(a, E, s) : -1;
+  if (path != kRows && path != kTiled) return -1;
+  if (dtype == kF32) return launch<float>(a, E, path, s);
+  if (dtype == kBF16) return launch<__nv_bfloat16>(a, E, path, s);
   return -1;
 }

@@ -109,20 +109,34 @@ def test_decode_kernel_matches_plain_on_cuda(cuda, B, Hq, Hc, S, D, dtype):
 @pytest.mark.parametrize("E,C,d,f", [
     (2, 64, 128, 64), (4, 32, 64, 128), (8, 16, 32, 32),   # tests/test_kernels.py
     (4, 4, 512, 640),      # decode capacity: one row tile, rows padded to 4
-    (3, 12, 300, 264),     # one row tile padded to 16, d off the x chunk
+    (3, 12, 300, 264),     # one row tile padded to 16, d off the x chunk; at
+                           # bf16 a row of x is 600 bytes, which TMA cannot stride
     (3, 20, 200, 36),      # two row tiles, the second ragged; f not a multiple
-                           # of 8: scalar loads
+                           # of 8: scalar loads, and no TMA at bf16
     (2, 160, 256, 320),    # the prefill capacity of a 1024-token prompt
+    # TMA-eligible at bf16, for the tensor-core kernel:
+    (1, 64, 64, 128),      # one CTA, one k step
+    (2, 33, 128, 256),     # a K loop shorter than the ring; a ragged last row tile
+    (3, 160, 4096, 200),   # a long K loop; ragged last row and column tiles
+    (1, 20, 6400, 128),    # C under one row tile, d = 6400; E = 1
+    (2, 4, 200, 64),       # the decode capacity; d off the 64-deep k step
 ])
 def test_moe_gmm_kernel_matches_plain_on_cuda(cuda, E, C, d, f, dtype):
+    """Each case goes through the kernel `route` names: the tensor-core one
+    for bf16 whose rows TMA can stride (d and f multiples of 8 elements),
+    else the row kernel up to ROWS_MAX_C and the tiled one above."""
     g = torch.Generator(device=cuda).manual_seed(E + C + d)
     td = DTYPES[dtype]
     x = torch.randn((E, C, d), generator=g, device=cuda).to(td)
     w = (torch.randn((E, d, f), generator=g, device=cuda) * d ** -0.5).to(td)
-    n = gk.launches
+    tma = d % 8 == 0 and f % 8 == 0
+    want = ("wgmma" if td == torch.bfloat16 and tma
+            else "rows" if C <= gk.ROWS_MAX_C else "tiled")
+    n, by_path = gk.launches, dict(gk.launches_by_path)
     got = ops.moe_gmm(x, w)
     torch.cuda.synchronize()
     assert gk.launches == n + 1 and got.dtype == td and got.shape == (E, C, f)
+    assert gk.launches_by_path == dict(by_path, **{want: by_path[want] + 1})
     tol = dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got.float(), ref.moe_gmm_ref(x, w).float(), **tol)
 

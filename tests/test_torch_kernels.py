@@ -311,3 +311,45 @@ def test_build_targets_hopper_and_names_libraries_by_source():
     assert all(p.parent == build.BUILD_DIR for p in paths.values())
     assert len(set(paths.values())) == len(build.SOURCES)
     assert all((build.CSRC / f"{n}.cu").exists() for n in build.SOURCES)
+
+
+def _contiguous_strides(E, C, d, f):
+    """The non-last strides of contiguous x (E, C, d), w (E, d, f), out (E, C, f)."""
+    return (C * d, d, d * f, f, C * f, f)
+
+
+@pytest.mark.parametrize("dtype,E,C,d,f,align,want", [
+    # phi3.5-moe's prefill capacity of a 1024-token prompt, both directions
+    ("bfloat16", 16, 160, 4096, 6400, 256, "wgmma"),
+    ("bfloat16", 16, 160, 6400, 4096, 256, "wgmma"),
+    ("bfloat16", 8, 160, 7168, 4864, 256, "wgmma"),      # arctic's width
+    ("bfloat16", 16, 33, 4096, 6400, 16, "wgmma"),       # bases just aligned enough
+    ("bfloat16", 16, 4, 4096, 6400, 256, "wgmma"),       # the decode capacity
+    # fp32 stays on the CUDA cores: the row kernel up to ROWS_MAX_C, tiled above
+    ("float32", 16, 4, 4096, 6400, 256, "rows"),
+    ("float32", 16, 32, 4096, 6400, 256, "rows"),
+    ("float32", 16, 160, 4096, 6400, 256, "tiled"),
+    # bf16 whose rows TMA cannot stride (not a multiple of 16 bytes)
+    ("bfloat16", 3, 20, 200, 36, 256, "rows"),           # w and out rows of 72 bytes
+    ("bfloat16", 3, 160, 300, 264, 256, "tiled"),        # x rows of 600 bytes
+    ("bfloat16", 16, 160, 4096, 6400, 8, "tiled"),       # a base 8-byte aligned
+])
+def test_moe_gmm_route_picks_the_kernel_from_shapes(dtype, E, C, d, f, align, want):
+    """`route` decides before the launch, from dtype, C, strides and
+    alignment: the tensor-core kernel for bf16 that TMA can read, the
+    CUDA-core kernels for fp32 and for strides TMA cannot take."""
+    td = DTYPES[dtype][1]
+    assert gk.route(td, C, d, _contiguous_strides(E, C, d, f), align) == want
+
+
+def test_moe_gmm_route_of_the_moe_layers_expert_major_view():
+    """The (E, G*C, d) view the MoE layer hands over (models/moe.py) and its
+    contiguous expert weights go to the tensor-core kernel in bf16 and to
+    the tiled kernel in fp32."""
+    G, E, C, d, f = 2, 4, 40, 64, 96
+    for td, want in ((torch.bfloat16, "wgmma"), (torch.float32, "tiled")):
+        slots = torch.zeros((G, E * C, d), dtype=td)
+        xe = slots.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+        w = torch.zeros((E, d, f), dtype=td)
+        out = torch.empty((E, G * C, f), dtype=td)
+        assert gk.route_for(xe, w, out) == want
