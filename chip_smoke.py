@@ -16,7 +16,11 @@ carried on.
      a/b. flash and decode attention at llama3-8b shapes (Hq=32, D=128),
         at zamba2's (Hq=Hkv=32, D=80; timed at its prefill and decode
         shapes) and at stablelm-12b's (Hq=32, Hkv=8, D=160);
-        `F.scaled_dot_product_attention` is the yardstick;
+        `F.scaled_dot_product_attention` is the yardstick. Each flash case
+        prints the kernel `route` chose (the bf16 tensor-core kernel or the
+        CUDA-core one); a sweep over T = 16-2048 at each of the three
+        widths prints the chosen kernel's device time, the CUDA-core
+        kernel's on the same inputs, SDPA's and the bound;
      c. the int8-cache decode at phase 5's shapes and at qwen1.5-32b's
         padded heads;
      d. the grouped expert matmul at phi3.5-moe's decode (C=4) and prefill
@@ -37,7 +41,8 @@ carried on.
   6. phi3.5-moe at its published width and 16 of its 32 layers, served as
      in phase 4 (moe_gmm launched 3 times per layer in every prefill and
      decode step, every one through the tensor-core kernel, which the
-     per-kernel launch counts show); on its first 4
+     per-kernel launch counts show; so must every flash launch of phases
+     4-7 be); on its first 4
      layers the kernel path's logits are held to the plain bf16 path's, and
      so is the share of routing choices on which the two agree;
   7. zamba2-2.7b at its published width and depth through the model
@@ -83,8 +88,10 @@ NOISE_FACTOR = 2.0
 # router choice that bf16 flips sends a token to another random expert), so
 # that gate cannot fail there; the kernel path is held to the plain bf16
 # path instead, on the sequences that both routed alike (see logits_gate).
-# On the H100 the two paths' prefill logits are 1.85e-2 to 2.04e-2 apart in
-# relative L2, and they agree on 98.6% of the routing choices.
+# On the H100 the two paths' prefill logits were 1.85e-2 to 2.04e-2 apart in
+# relative L2, agreeing on 98.0-98.6% of the routing choices, while flash ran
+# on the CUDA cores in fp32; with its tensor-core kernel, which rounds the
+# probabilities to bf16 before P.V, 4.40e-2 and 95.68% (seed 0).
 MOE_PLAIN_L2 = 5e-2
 MOE_ROUTING_AGREEMENT = 0.95
 
@@ -105,6 +112,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time per call: the card sleeps (torch.cuda._sleep, ~5 ms)
+    while the host queues `iters` calls, so the events time the kernels
+    back to back and not the host's pace, which cuda_ms reads when a call
+    is shorter than its launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -158,9 +184,57 @@ def decode_bound(B, Hq, Hc, D, rows):
     return max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS) * 1e3, nbytes
 
 
+FLASH_SWEEP_T = (16, 64, 128, 512, 1024, 2048)
+
+
+def flash_sweep(rnd, B, Hq, Hkv, D, label, timed_T=1024):
+    """bf16 causal flash attention over FLASH_SWEEP_T: at each T the kernel
+    `route` chose, checked against the plain version, its time, the
+    CUDA-core kernel's on the same inputs (`path="simt"`), SDPA's and the
+    bound. Times are device times (device_ms); the event times beside them
+    (cuda_ms) read the host's pace where a call is shorter than its launch,
+    up to T=1024 on a slow host. Returns the row at `timed_T`, with the
+    plain version's time."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops, ref
+
+    gqa = {"enable_gqa": True} if Hq != Hkv else {}
+    say(f"  sweep, bf16 causal B={B} Hq={Hq} Hkv={Hkv} D={D} ({label}):")
+    row = None
+    for T in FLASH_SWEEP_T:
+        q = rnd(B, T, Hq, D).transpose(1, 2)
+        k = rnd(B, T, Hkv, D).transpose(1, 2)
+        v = rnd(B, T, Hkv, D).transpose(1, 2)
+        path = fk.route_for(q, k, v)
+        err = gate(f"flash bf16 B={B} T={T} D={D} ({path})", ops.flash_attention(q, k, v),
+                   ref.flash_attention_ref(q, k, v), BF16_TOL)
+        calls = {"kernel": (lambda: ops.flash_attention(q, k, v), 20),
+                 "simt": (lambda: fk.flash_attention(q, k, v, path="simt"), 10),
+                 "sdpa": (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                 **gqa), 20)}
+        dev = {n: device_ms(fn, n_it) for n, (fn, n_it) in calls.items()}
+        event = {n: cuda_ms(fn, n_it) for n, (fn, n_it) in calls.items()}
+        bound, flops = flash_bound(B, Hq, Hkv, T, D)
+        say(f"    T={T}: {path}, kernel {dev['kernel']:.4f} ms "
+            f"({flops / dev['kernel'] / 1e9:.1f} TFLOP/s), simt {dev['simt']:.4f} ms, sdpa "
+            f"{dev['sdpa']:.4f} ms, bound {bound:.4f} ms; event time: "
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in event.items()))
+        if T == timed_T:
+            plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3)
+            say(f"    T={T}: plain {plain:.4f} ms")
+            row = dict(max_abs_err=err, ms=dev["kernel"], plain_ms=plain, bound_ms=bound,
+                       bound_by="operations", library_ms=dev["sdpa"], simt_ms=dev["simt"],
+                       event_ms=event["kernel"], path=path,
+                       shape=f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 causal")
+        del q, k, v
+    return row
+
+
 def kernel_phase(gen, dev):
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops, ref
 
     rnd = _rnd(gen, dev)
@@ -175,21 +249,10 @@ def kernel_phase(gen, dev):
             v = rnd(1, T, 8, 128, dtype=dtype).transpose(1, 2)
             out = ops.flash_attention(q, k, v, causal=causal, window=window)
             want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-            err = gate(f"flash {str(dtype)[6:]} T={T} window={window}", out, want, tol)
-            if dtype == torch.bfloat16 and T == 1024 and window is None:
-                # the timed case: the longest prompt the main path draws
-                ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 20)
-                plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 5)
-                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), 20)
-                bound, flops = flash_bound(1, 32, 8, T, 128)
-                say(f"  time T={T} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                    f"sdpa {lib:.4f} ms, bound {bound:.4f} ms "
-                    f"({flops / ms / 1e9:.1f} TFLOP/s)")
-                table["flash_attention"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                    bound_by="operations", library_ms=lib,
-                    shape=f"B=1 T={T} Hq=32 Hkv=8 D=128 bf16 causal")
+            gate(f"flash {str(dtype)[6:]} T={T} window={window} ({fk.route_for(q, k, v)})",
+                 out, want, tol)
+    # the timed case: the longest prompt the main path draws
+    table["flash_attention"] = flash_sweep(rnd, 1, 32, 8, 128, "llama3-8b")
 
     say("phase 3b: decode attention on the replicated cache, B=8 Hq=32 Hc=16 S=2048 D=128")
     B, Hq, Hc, S, D = 8, 32, 16, 2048, 128
@@ -246,10 +309,12 @@ def kernel_phase(gen, dev):
 
 def head_dim_phase(gen, dev):
     """Flash and decode at zamba2's head dim 80 (Hq = Hkv = 32) and
-    stablelm-12b's 160 (Hq = 32, Hkv = 8, cache replicated to 16); the D=80
-    cases are timed at zamba2's prefill and decode shapes. Returns the times."""
+    stablelm-12b's 160 (Hq = 32, Hkv = 8, cache replicated to 16); flash is
+    swept over T at both (at zamba2's batch of 4 for D=80), decode timed at
+    zamba2's decode shape. Returns the times."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops, ref
 
     rnd = _rnd(gen, dev)
@@ -263,19 +328,11 @@ def head_dim_phase(gen, dev):
                 q = rnd(B, T, Hq, D, dtype=dtype).transpose(1, 2)
                 k = rnd(B, T, Hkv, D, dtype=dtype).transpose(1, 2)
                 v = rnd(B, T, Hkv, D, dtype=dtype).transpose(1, 2)
-                gate(f"flash D={D} {str(dtype)[6:]} B={B} T={T}",
+                gate(f"flash D={D} {str(dtype)[6:]} B={B} T={T} ({fk.route_for(q, k, v)})",
                      ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v), tol)
-                if D == 80 and B == 4 and dtype == torch.bfloat16:
-                    ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 10)
-                    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3)
-                    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=True), 10)
-                    bound, flops = flash_bound(B, Hq, Hkv, T, D)
-                    say(f"  time zamba2 prefill B={B} T={T} D=80 bf16: kernel {ms:.4f} ms, "
-                        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms "
-                        f"({flops / ms / 1e9:.1f} TFLOP/s)")
-                    times["flash_d80"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                              bound_ms=bound)
+    # zamba2's prefill is 4 prompts of 1024 tokens
+    times["flash_d80"] = flash_sweep(rnd, 4, 32, 32, 80, "zamba2-2.7b")
+    times["flash_d160"] = flash_sweep(rnd, 1, 32, 8, 160, "stablelm-12b")
 
     say("phase 3b': decode attention at D=80 (zamba2's rolling cache, B=4 Hq=Hc=32 "
         "S=1056) and D=160 (B=8 Hq=32 Hc=16 S=2048)")
@@ -538,11 +595,27 @@ def kernel_counts():
 
 def reset_counts():
     import importlib
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import moe_gmm as gk
     for n in KERNEL_MODULES:
         importlib.import_module(f"repro_torch.kernels.{n}").launches = 0
-    for path in gk.launches_by_path:
-        gk.launches_by_path[path] = 0
+    for counts in (fk.launches_by_path, gk.launches_by_path):
+        for path in counts:
+            counts[path] = 0
+
+
+def flash_path_gate(label, n_flash) -> dict:
+    """The path's flash_attention launches by kernel: all `n_flash` through
+    the tensor-core kernel (the model's bf16 (B,T,H,D) views are what TMA
+    reads). Returns the counts by kernel."""
+    from repro_torch.kernels import flash_attention as fk
+    got = dict(fk.launches_by_path)
+    want = {"wgmma": n_flash, "simt": 0}
+    say(f"  flash_attention launches by kernel: {got}")
+    if got != want:
+        fail(f"{label}: flash_attention did not go through the tensor-core kernel on every "
+             f"call: {got}, want {want}")
+    return got
 
 
 def gmm_path_gate(cfg, prompt_lens, steps, batch_slots) -> dict:
@@ -800,6 +873,7 @@ def serve_phase(cfg, seed, n_requests, batch_slots, max_len, new_tokens,
     if launches != want:
         fail(f"{label}: the path did not go through the kernels as often as its layers "
              f"ask: {launches}, want {want}")
+    launches["flash_attention_by_path"] = flash_path_gate(label, launches["flash_attention"])
     if n_gmm:
         launches["moe_gmm_by_path"] = gmm_path_gate(cfg, lens, steps, batch_slots)
     say(f"  peak device memory while serving {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -889,6 +963,8 @@ def hybrid_phase(cfg, seed, batch, prompt_len, new_tokens, dev):
         if at_prefill != want_prefill or launches != want:
             fail(f"{cfg.name}: the path did not go through the kernels as its layers ask: "
                  f"{launches}, want {want}")
+        launches["flash_attention_by_path"] = flash_path_gate(cfg.name,
+                                                              launches["flash_attention"])
         say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
         state = {"tok": tok, "pos": T + new_tokens}
@@ -1023,7 +1099,13 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": row["shape"]})
-    # which of moe_gmm's kernels the timed shape took, and the paths' launches by kernel
+    # which kernel the timed shape took, and the paths' launches by kernel
+    flash = table["flash_attention"]
+    kernels[0].update(kernel=flash["path"], simt_ms=flash["simt_ms"],
+                      event_ms=flash["event_ms"],
+                      launches_by_kernel={p: sum(r["flash_attention_by_path"][p]
+                                                 for r in runs.values())
+                                          for p in ("wgmma", "simt")})
     kernels[2].update(kernel=table["moe_gmm"]["path"],
                       launches_by_kernel=runs["6"]["moe_gmm_by_path"])
     print(json.dumps({"kernels": kernels}))

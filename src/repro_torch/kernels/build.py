@@ -24,6 +24,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", *ARCH_FLAGS]
 
+TMA_ALIGN = 16  # bytes: TMA's rule for base addresses and strides
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -77,3 +79,20 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build([name])[name]))
     return _loaded[name]
+
+
+def alignment(*tensors) -> int:
+    """The largest power of two dividing every tensor's base address."""
+    ptrs = [t.data_ptr() for t in tensors]
+    return min(p & -p for p in ptrs) if all(ptrs) else 0
+
+
+def error_text(rc: int) -> str:
+    """What a kernel library's nonzero return code means: -2 and 10000 + a
+    CUresult come from the tensor-map encoder (`csrc/hopper.cuh`), anything
+    else is a cudaError_t or -1 for an argument the entry point refuses."""
+    if rc == -2:
+        return "the CUDA driver has no cuTensorMapEncodeTiled"
+    if rc >= 10000:
+        return f"TMA tensor-map encode failed (CUresult {rc - 10000})"
+    return f"launch failed (code {rc})"

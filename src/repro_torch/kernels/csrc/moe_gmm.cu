@@ -55,9 +55,8 @@
 //
 // Layout: x (E, C, d), w (E, d, f) and out (E, C, f) given by strides in
 // elements, with the last axis contiguous.
-#include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
@@ -239,89 +238,6 @@ constexpr int WG_STAGE_BYTES = WG_X_BYTES + 2 * WG_WBOX_BYTES;
 constexpr int WG_THREADS = 160;                 // one consumer warpgroup + a producer warp
 // ring, 1024 bytes to align it by hand (128-byte swizzle), full and empty barriers
 constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024 + 2 * WG_STAGES * 8;
-// A wait that spins this long (about 9 s at the H100's clock) means a phase
-// slipped: trap, so the launch fails instead of hanging the card.
-constexpr long long WG_HANG_CYCLES = 1LL << 34;
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > WG_HANG_CYCLES) __trap();
-}
-
-// TMA: the box at coordinates (c0 innermost, c1, c2) of `map` into shared
-// memory at dst; completion counts its bytes on the barrier.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 |
-         1ull << 62;
-}
-
-// d (64 x 128, fp32) += A (64 x 16, K-major) @ B (16 x 128, MN-major: tnspB = 1)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// keep the compiler from moving accumulator reads or writes across a wgmma fence
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 __global__ void __launch_bounds__(WG_THREADS, 2)
 gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
@@ -342,7 +258,7 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
       mbar_init(full + 8 * s, 1);    // the producer's expect_tx arrival
       mbar_init(empty + 8 * s, 4);   // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -371,8 +287,8 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
     mbar_wait(full + 8 * s, (kt / WG_STAGES) & 1);
     const uint32_t xs = ring + s * WG_STAGE_BYTES;
     const uint32_t ws = xs + WG_X_BYTES;
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WG_BK / 16; ++kk) {
       // x: rows of 128 bytes, 8-row groups 1024 bytes apart; 16 k are 32 bytes.
@@ -380,11 +296,11 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
       // second 64 columns in the next box; 16 k are 2048 bytes.
       const uint64_t da = sw128_desc(xs + kk * 32, 16, 1024);
       const uint64_t db = sw128_desc(ws + kk * 2048, WG_WBOX_BYTES, 1024);
-      wgmma_m64n128k16(acc, da, db);
+      wgmma_m64n128k16_ss<1>(acc, da, db, 1);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    fence_acc(acc);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
     if (lane == 0) mbar_arrive(empty + 8 * s);  // the slot may be refilled
   }
 
@@ -408,49 +324,14 @@ gmm_wgmma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUten
 
 // ------------------------------------------------------------- host side
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled lives in the driver (libcuda); fetch it through the
-// runtime so the library needs no link flag. Null if the driver lacks it.
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tensor (n2, n1, n0) with element strides (s2, s1, 1), cut into
-// boxes of 64 x 64 x 1 under the 128-byte swizzle; out-of-bounds reads are 0.
-CUresult encode_3d(EncodeTiled enc, CUtensorMap* map, const void* p, int64_t n0, int64_t n1,
-                   int64_t n2, int64_t s1, int64_t s2) {
-  cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0), static_cast<cuuint64_t>(n1),
-                        static_cast<cuuint64_t>(n2)};
-  cuuint64_t strides[2] = {static_cast<cuuint64_t>(s1) * 2, static_cast<cuuint64_t>(s2) * 2};
-  cuuint32_t box[3] = {64, 64, 1};
-  cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-constexpr int kNoEncoder = -2;       // the driver has no cuTensorMapEncodeTiled
-constexpr int kEncodeError = 10000;  // + the CUresult of a failed encode
-
 int launch_wgmma(const GmmArgs& a, int E, cudaStream_t stream) {
-  const EncodeTiled enc = encoder();
+  const EncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return kNoEncoder;
+  const int64_t xdims[3] = {a.d, a.C, E}, xstrides[2] = {a.sxc, a.sxe};
+  const int64_t wdims[3] = {a.f, a.d, E}, wstrides[2] = {a.swk, a.swe};
   CUtensorMap tmx, tmw;
-  CUresult r = encode_3d(enc, &tmx, a.x, a.d, a.C, E, a.sxc, a.sxe);
-  if (r == CUDA_SUCCESS) r = encode_3d(enc, &tmw, a.w, a.f, a.d, E, a.swk, a.swe);
+  CUresult r = encode_bf16_boxes(enc, &tmx, a.x, 3, xdims, xstrides);
+  if (r == CUDA_SUCCESS) r = encode_bf16_boxes(enc, &tmw, a.w, 3, wdims, wstrides);
   if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
   cudaError_t err = cudaFuncSetAttribute(gmm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          WG_SMEM);

@@ -29,7 +29,6 @@ LANE_COLS = 8   # columns a lane of the row kernel loads in one go
 # bf16 the tensor-core kernel beats both at every capacity of that sweep,
 # 4 to 160, so it has no switch: it takes every bf16 call TMA can read.
 ROWS_MAX_C = 32
-TMA_ALIGN = 16  # bytes: TMA's rule for base addresses and strides
 _fn = None
 
 
@@ -42,16 +41,10 @@ def route(dtype, C: int, d: int, strides, ptr_align: int) -> str:
     and w: every stride a positive multiple of 16 bytes and the bases
     16-byte aligned (out's row stride is f, so f % 8 == 0 too), and d > 0
     (a tensor map has no empty axis)."""
-    if (dtype == torch.bfloat16 and d > 0 and ptr_align % TMA_ALIGN == 0
-            and all(s > 0 and 2 * s % TMA_ALIGN == 0 for s in strides)):
+    if (dtype == torch.bfloat16 and d > 0 and ptr_align % build.TMA_ALIGN == 0
+            and all(s > 0 and 2 * s % build.TMA_ALIGN == 0 for s in strides)):
         return "wgmma"
     return "rows" if C <= ROWS_MAX_C else "tiled"
-
-
-def _alignment(*tensors) -> int:
-    """The largest power of two dividing every tensor's base address."""
-    ptrs = [t.data_ptr() for t in tensors]
-    return min(p & -p for p in ptrs) if all(ptrs) else 0
 
 
 def _strides(x, w, out):
@@ -61,7 +54,7 @@ def _strides(x, w, out):
 def route_for(x, w, out) -> str:
     """`route` of these tensors."""
     _, C, d = x.shape
-    return route(x.dtype, C, d, _strides(x, w, out), _alignment(x, w, out))
+    return route(x.dtype, C, d, _strides(x, w, out), build.alignment(x, w, out))
 
 
 def _kernel():
@@ -96,14 +89,6 @@ def _vector_loads(w) -> bool:
             and all(s % LANE_COLS == 0 for s in w.stride()[:2]))
 
 
-def _error(rc: int) -> str:
-    if rc == -2:
-        return "the CUDA driver has no cuTensorMapEncodeTiled"
-    if rc >= 10000:
-        return f"TMA tensor-map encode failed (CUresult {rc - 10000})"
-    return f"launch failed (code {rc})"
-
-
 def moe_gmm(x, w):
     """x (E, C, d) @ w (E, d, f) -> (E, C, f) in x's dtype, summed in fp32.
     Any C, d and f; any strides with a contiguous last axis."""
@@ -119,7 +104,7 @@ def moe_gmm(x, w):
                        E, C, d, f, DTYPE_CODES[x.dtype], int(_vector_loads(w)),
                        PATH_CODES[path], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"moe_gmm {path} kernel: {_error(rc)}")
+        raise RuntimeError(f"moe_gmm {path} kernel: {build.error_text(rc)}")
     launches += 1
     launches_by_path[path] += 1
     return out

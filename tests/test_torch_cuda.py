@@ -59,19 +59,70 @@ def cuda():
     (1, 32, 8, 17, 128, True, None),
     (2, 32, 32, 100, 80, True, None),   # zamba2's head dim
     (1, 32, 8, 70, 160, True, None),    # stablelm-12b's head dim
+    (1, 32, 8, 1, 128, True, None),     # one query: one q tile, one key tile
+    (1, 32, 8, 2048, 128, True, None),  # 32 key tiles, many laps of the ring
+    (2, 4, 2, (100, 300), 64, True, None),   # Tq != Tk, starts lined up
+    (2, 4, 2, (300, 100), 64, True, None),
+    (2, 4, 2, (200, 330), 64, False, None),
+    (1, 4, 2, 300, 64, True, 100),      # a window that starts mid-tile and spans tiles
+    (1, 4, 2, 300, 64, False, 70),
+    (2, 4, 4, 150, 16, True, None),     # every head dim of the wrapper
+    (2, 4, 4, 150, 32, True, None),
+    (2, 4, 4, 150, 64, True, None),
+    (2, 4, 4, 150, 80, True, None),
+    (2, 4, 4, 150, 128, True, None),
+    (2, 4, 4, 150, 160, True, None),
+    (4, 32, 32, 1024, 80, True, None),  # zamba2's prefill: B = 4
 ])
 def test_flash_kernel_matches_plain_on_cuda(cuda, B, Hq, Hkv, T, D, causal,
                                             window, dtype):
-    g = torch.Generator(device=cuda).manual_seed(T + Hq)
+    """The model's (B,T,H,D) views, read as (B,H,T,D): bf16 goes through the
+    tensor-core kernel, fp32 through the CUDA-core one. T is one length or
+    (Tq, Tk)."""
+    Tq, Tk = T if isinstance(T, tuple) else (T, T)
+    g = torch.Generator(device=cuda).manual_seed(Tq + Tk + Hq)
     td = DTYPES[dtype]
-    q, k, v = (torch.randn((B, T, H, D), generator=g, device=cuda).to(td).transpose(1, 2)
-               for H in (Hq, Hkv, Hkv))
-    n = fk.launches
+    q, k, v = (torch.randn((B, n, H, D), generator=g, device=cuda).to(td).transpose(1, 2)
+               for n, H in ((Tq, Hq), (Tk, Hkv), (Tk, Hkv)))
+    want_path = "wgmma" if td == torch.bfloat16 else "simt"
+    n, by_path = fk.launches, dict(fk.launches_by_path)
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fk.launches == n + 1
+    assert fk.launches_by_path == dict(by_path, **{want_path: by_path[want_path] + 1})
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["offset", "padded", "model"])
+def test_flash_cuda_core_kernel_takes_bf16_on_cuda(cuda, layout):
+    """bf16 that TMA cannot read (bases one element off alignment, or a head
+    stride of D + 4) goes to the CUDA-core kernel, which also runs the
+    model's own layout when a caller names it (chip_smoke.py times it so)."""
+    B, T, Hq, Hkv, D = 2, 130, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def one(H):
+        x = torch.randn((B, T, H, D + 4), generator=g, device=cuda).bfloat16()
+        if layout == "padded":
+            return x[..., :D].transpose(1, 2)
+        x = x[..., :D].contiguous().flatten()
+        if layout == "offset":
+            x = torch.cat([x[:1], x])[1:]
+        return x.view(B, T, H, D).transpose(1, 2)
+    q, k, v = one(Hq), one(Hkv), one(Hkv)
+    path = None if layout != "model" else "simt"
+    assert fk.route_for(q, k, v) == ("wgmma" if layout == "model" else "simt")
+    before = fk.launches_by_path["simt"]
+    got = fk.flash_attention(q, k, v, causal=True, path=path)
+    torch.cuda.synchronize()
+    assert fk.launches_by_path["simt"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    if layout != "model":
+        with pytest.raises(ValueError, match="cannot take"):
+            fk.flash_attention(q, k, v, path="wgmma")
 
 
 @pytest.mark.cuda

@@ -353,3 +353,37 @@ def test_moe_gmm_route_of_the_moe_layers_expert_major_view():
         w = torch.zeros((E, d, f), dtype=td)
         out = torch.empty((E, G * C, f), dtype=td)
         assert gk.route_for(xe, w, out) == want
+
+
+def _flash_inputs(dtype, B, T, Hq, Hkv, D, layout):
+    """q, k, v as `layout` lays them out: "model" is the (B,T,H,D)
+    projections read as (B,H,T,D) views (models/layers.py::attention);
+    "offset" the same with every base one element past an aligned address;
+    "padded" a head stride of D + 4 elements, 8 bytes past a multiple of 16."""
+    def one(H):
+        if layout == "padded":
+            return torch.zeros((B, T, H, D + 4), dtype=dtype)[..., :D].transpose(1, 2)
+        skip = 1 if layout == "offset" else 0
+        buf = torch.zeros(B * T * H * D + skip, dtype=dtype)[skip:]
+        return buf.view(B, T, H, D).transpose(1, 2)
+    return one(Hq), one(Hkv), one(Hkv)
+
+
+@pytest.mark.parametrize("dtype,B,T,Hq,Hkv,D,layout,want", [
+    ("bfloat16", 1, 1024, 32, 8, 128, "model", "wgmma"),    # llama3-8b
+    ("bfloat16", 4, 1024, 32, 32, 80, "model", "wgmma"),    # zamba2-2.7b
+    ("bfloat16", 1, 77, 32, 8, 160, "model", "wgmma"),      # stablelm-12b
+    ("bfloat16", 2, 1, 4, 2, 16, "model", "wgmma"),         # the smallest head dim, T = 1
+    ("float32", 1, 1024, 32, 8, 128, "model", "simt"),      # fp32 stays on the CUDA cores
+    ("bfloat16", 1, 64, 32, 8, 128, "offset", "simt"),      # bases 2 bytes off alignment
+    ("bfloat16", 1, 64, 32, 8, 128, "padded", "simt"),      # strides TMA cannot take
+])
+def test_flash_route_picks_the_kernel(dtype, B, T, Hq, Hkv, D, layout, want):
+    """`route` decides before the launch, from dtype, head dim, strides and
+    alignment: the tensor-core kernel for bf16 that TMA can read, the
+    CUDA-core kernel for fp32 and for what TMA cannot read."""
+    q, k, v = _flash_inputs(DTYPES[dtype][1], B, T, Hq, Hkv, D, layout)
+    assert fk.route_for(q, k, v) == want
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    align = 256 if layout == "model" else 2 if layout == "offset" else 16
+    assert fk.route(q.dtype, D, strides, align) == want
