@@ -16,13 +16,16 @@ carried on.
      a/b. flash and decode attention at llama3-8b shapes (Hq=32, D=128),
         at zamba2's (Hq=Hkv=32, D=80; timed at its prefill and decode
         shapes) and at stablelm-12b's (Hq=32, Hkv=8, D=160);
-        `F.scaled_dot_product_attention` is the yardstick. Each flash case
-        prints the kernel `route` chose (the bf16 tensor-core kernel or the
-        CUDA-core one); a sweep over T = 16-2048 at each of the three
-        widths prints the chosen kernel's device time, the CUDA-core
-        kernel's on the same inputs, SDPA's and the bound;
+        `F.scaled_dot_product_attention` is the yardstick. Each case
+        prints the kernel `route` chose (flash: the bf16 tensor-core kernel
+        or the CUDA-core one; decode: the split-S kernel or the first
+        version); a sweep over T = 16-2048 at each of the three widths
+        prints flash's device time, the CUDA-core kernel's on the same
+        inputs, SDPA's and the bound; each timed decode prints the device
+        and event times of the kernel, of the first version on the same
+        inputs and of SDPA;
      c. the int8-cache decode at phase 5's shapes and at qwen1.5-32b's
-        padded heads;
+        padded heads, timed the same way (no PyTorch call reads int8);
      d. the grouped expert matmul at phi3.5-moe's decode (C=4) and prefill
         (C=160) capacities in both directions, and at arctic's width, then
         a capacity sweep (C = 4-160) that prints the kernel `route` chose
@@ -42,13 +45,15 @@ carried on.
      in phase 4 (moe_gmm launched 3 times per layer in every prefill and
      decode step, every one through the tensor-core kernel, which the
      per-kernel launch counts show; so must every flash launch of phases
-     4-7 be); on its first 4
+     4-7 be, and every decode launch through the split-S kernel); on its
+     first 4
      layers the kernel path's logits are held to the plain bf16 path's, and
      so is the share of routing choices on which the two agree;
   7. zamba2-2.7b at its published width and depth through the model
      interface: prefill of 4 prompts of 1024 tokens, then 32 decode steps
      on the rolling cache; launch counts, profile, and logits gated on the
-     prefill and on one decode step;
+     prefill and on one decode step. Each profiled decode window of
+     phases 4, 6 and 7 prints the decode kernels' device ms per step;
   8. prints the kernel table as one JSON line and, last, the device line
      `{"ok": true, "device": {...}}`.
 """
@@ -90,8 +95,10 @@ NOISE_FACTOR = 2.0
 # path instead, on the sequences that both routed alike (see logits_gate).
 # On the H100 the two paths' prefill logits were 1.85e-2 to 2.04e-2 apart in
 # relative L2, agreeing on 98.0-98.6% of the routing choices, while flash ran
-# on the CUDA cores in fp32; with its tensor-core kernel, which rounds the
-# probabilities to bf16 before P.V, 4.40e-2 and 95.68% (seed 0).
+# on the CUDA cores in fp32; 4.40e-2 and 95.68% (seed 0) with a tensor-core
+# flash kernel that rounded the probabilities to bf16 before P.V, and
+# 2.275e-2 and 97.93% with the one that carries them as two bf16 halves
+# and decode split over S.
 MOE_PLAIN_L2 = 5e-2
 MOE_ROUTING_AGREEMENT = 0.95
 
@@ -184,7 +191,74 @@ def decode_bound(B, Hq, Hc, D, rows):
     return max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS) * 1e3, nbytes
 
 
+def decode_times(q, kc, vc, valid, scales=(None, None), nbytes=None):
+    """Device time (device_ms) and event time (cuda_ms) of the decode kernel
+    `route` picks, of the first version (`path="simt"`) on the same inputs
+    and, for a bf16 or fp32 cache, of SDPA with the valid_len mask (no
+    PyTorch call reads an int8 cache). Prints them, with the kernel's
+    GB/s over the bound's bytes; returns the device times by name and the
+    kernel's event time as "kernel_event"."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ops
+
+    B, Hq, D = q.shape
+    Hc, S = kc.shape[1], kc.shape[2]
+    calls = {"kernel": lambda: ops.decode_attention(q, kc, vc, valid, *scales),
+             "simt": lambda: dk.decode_attention(q, kc, vc, valid, *scales, path="simt")}
+    if kc.dtype != torch.int8:
+        mask = (torch.arange(S, device=q.device)[None, :] < valid[:, None])[:, None, None, :]
+        calls["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=Hq != Hc)
+    dev = {n: device_ms(fn, 50) for n, fn in calls.items()}
+    event = {n: cuda_ms(fn, 50) for n, fn in calls.items()}
+    if nbytes is None:
+        _, nbytes = decode_bound(B, Hq, Hc, D, int(valid.sum()))
+    say(f"    {dk.route_for(kc, vc)}: kernel {dev['kernel']:.4f} ms "
+        f"({nbytes / dev['kernel'] / 1e6:.1f} GB/s), "
+        + ", ".join(f"{n} {t:.4f} ms" for n, t in dev.items() if n != "kernel")
+        + "; event time: " + ", ".join(f"{n} {t:.4f} ms" for n, t in event.items()))
+    return dict(dev, kernel_event=event["kernel"], sdpa=dev.get("sdpa"))
+
+
+SPLIT_SWEEP_ROWS = (64, 128, 256, 512, 1024)
+
+
+def split_sweep(q, kc, vc, valid, scales=(None, None), nbytes=None):
+    """The split kernel's device time at each split length of
+    SPLIT_SWEEP_ROWS (decode_attention.plan picks one from shapes alone;
+    its pick is marked)."""
+    from repro_torch.kernels import decode_attention as dk
+
+    B, Hq, D = q.shape
+    Hc, S = kc.shape[1], kc.shape[2]
+    if nbytes is None:
+        _, nbytes = decode_bound(B, Hq, Hc, D, int(valid.sum()))
+    planned, _ = dk.plan(B, Hc, S, D, dk._sm_count(q.device))
+    cells = []
+    for rows in SPLIT_SWEEP_ROWS:
+        ms = device_ms(lambda: dk.decode_attention(q, kc, vc, valid, *scales,
+                                                   split_rows=rows), 50)
+        cells.append(f"{rows}{'*' if rows == planned else ''} {ms:.4f} ms "
+                     f"({nbytes / ms / 1e6:.0f} GB/s)")
+    say("    split length sweep, rows (* plan's): " + ", ".join(cells))
+
+
 FLASH_SWEEP_T = (16, 64, 128, 512, 1024, 2048)
+
+
+def flash_precision(q, k, v) -> dict:
+    """Relative L2 distance of the tensor-core kernel's output and of the
+    CUDA-core kernel's (P in fp32) to the plain version run in fp32 on the
+    same bf16 inputs, by kernel; both round only the output to bf16 unless
+    a kernel rounds P too (tests/test_torch_cuda.py::
+    test_flash_tensor_core_kernel_keeps_p_in_fp32_precision holds the first
+    within 1.05x of the second)."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    return {p: rel_l2(fk.flash_attention(q, k, v, path=p), want) for p in ("wgmma", "simt")}
 
 
 def flash_sweep(rnd, B, Hq, Hkv, D, label, timed_T=1024):
@@ -222,7 +296,10 @@ def flash_sweep(rnd, B, Hq, Hkv, D, label, timed_T=1024):
             + ", ".join(f"{n} {t:.4f} ms" for n, t in event.items()))
         if T == timed_T:
             plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3)
-            say(f"    T={T}: plain {plain:.4f} ms")
+            dist = flash_precision(q, k, v)
+            say(f"    T={T}: plain {plain:.4f} ms; relative L2 distance to fp32: wgmma "
+                f"{dist['wgmma']:.4e}, simt {dist['simt']:.4e} (ratio "
+                f"{dist['wgmma'] / dist['simt']:.4f})")
             row = dict(max_abs_err=err, ms=dev["kernel"], plain_ms=plain, bound_ms=bound,
                        bound_by="operations", library_ms=dev["sdpa"], simt_ms=dev["simt"],
                        event_ms=event["kernel"], path=path,
@@ -233,7 +310,7 @@ def flash_sweep(rnd, B, Hq, Hkv, D, label, timed_T=1024):
 
 def kernel_phase(gen, dev):
     import torch
-    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops, ref
 
@@ -264,21 +341,20 @@ def kernel_phase(gen, dev):
         kc = rnd(B, S, Hc, D, dtype=dtype).transpose(1, 2)
         vc = rnd(B, S, Hc, D, dtype=dtype).transpose(1, 2)
         out = ops.decode_attention(q, kc, vc, valid)
-        err = gate(f"decode {str(dtype)[6:]} valid_len={valid.tolist()}", out,
+        err = gate(f"decode {str(dtype)[6:]} valid_len={valid.tolist()} "
+                   f"({dk.route_for(kc, vc)})", out,
                    ref.decode_attention_ref(q, kc, vc, valid), tol)
         if dtype == torch.bfloat16:
-            mask = (torch.arange(S, device=dev)[None, :] < valid[:, None])[:, None, None, :]
-            ms = cuda_ms(lambda: ops.decode_attention(q, kc, vc, valid), 50)
-            plain = cuda_ms(lambda: ref.decode_attention_ref(q, kc, vc, valid), 5)
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True), 50)
             rows = int(valid.sum())
-            bound, nbytes = decode_bound(B, Hq, Hc, D, rows)
-            say(f"  time bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-                f"bound {bound:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
+            times = decode_times(q, kc, vc, valid)
+            split_sweep(q, kc, vc, valid)
+            plain = cuda_ms(lambda: ref.decode_attention_ref(q, kc, vc, valid), 5)
+            bound, _ = decode_bound(B, Hq, Hc, D, rows)
+            say(f"  time bf16: plain {plain:.4f} ms, bound {bound:.4f} ms")
             table["decode_attention"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by="bytes", library_ms=lib,
+                max_abs_err=err, ms=times["kernel"], plain_ms=plain, bound_ms=bound,
+                bound_by="bytes", library_ms=times["sdpa"], simt_ms=times["simt"],
+                event_ms=times["kernel_event"], path=dk.route_for(kc, vc),
                 shape=f"B=8 Hq=32 Hc=16 S=2048 D=128 bf16, {rows} valid rows")
 
     for B, Hq, Hc, label in ((4, 32, 16, "phase 5's grouped cache"),
@@ -296,14 +372,15 @@ def kernel_phase(gen, dev):
         for dtype, tol in ((torch.float32, INT8_TOL), (torch.bfloat16, BF16_TOL)):
             q = rnd(B, Hq, D, dtype=dtype)
             out = ops.decode_attention(q, k8, v8, valid, ks, vs)
-            gate(f"decode int8 cache, q {str(dtype)[6:]} valid_len={valid.tolist()}", out,
+            gate(f"decode int8 cache, q {str(dtype)[6:]} valid_len={valid.tolist()} "
+                 f"({dk.route_for(k8, v8)})", out,
                  ref.decode_attention_ref(q, k8, v8, valid, ks, vs), tol)
-            if dtype == torch.float32:
-                ms = cuda_ms(lambda: ops.decode_attention(q, k8, v8, valid, ks, vs), 50)
+            if dtype == torch.bfloat16:   # the serving path's
                 rows = int(valid.sum())
-                nbytes = 2 * rows * Hc * (D + 4) + 2 * 4 * B * Hq * D + 4 * B
-                say(f"  time int8: kernel {ms:.4f} ms, bound "
-                    f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
+                nbytes = 2 * rows * Hc * (D + 4) + 2 * 2 * B * Hq * D + 4 * B
+                decode_times(q, k8, v8, valid, (ks, vs), nbytes=nbytes)
+                split_sweep(q, k8, v8, valid, (ks, vs), nbytes=nbytes)
+                say(f"  bound int8: {nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB)")
     return table
 
 
@@ -311,9 +388,9 @@ def head_dim_phase(gen, dev):
     """Flash and decode at zamba2's head dim 80 (Hq = Hkv = 32) and
     stablelm-12b's 160 (Hq = 32, Hkv = 8, cache replicated to 16); flash is
     swept over T at both (at zamba2's batch of 4 for D=80), decode timed at
-    zamba2's decode shape. Returns the times."""
+    zamba2's decode shape and at D=160. Returns the times."""
     import torch
-    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops, ref
 
@@ -343,23 +420,21 @@ def head_dim_phase(gen, dev):
             q = rnd(B, Hq, D, dtype=dtype)
             kc = rnd(B, S, Hc, D, dtype=dtype).transpose(1, 2)
             vc = rnd(B, S, Hc, D, dtype=dtype).transpose(1, 2)
-            gate(f"decode D={D} {str(dtype)[6:]} valid_len={valid.tolist()}",
+            gate(f"decode D={D} {str(dtype)[6:]} valid_len={valid.tolist()} "
+                 f"({dk.route_for(kc, vc)})",
                  ops.decode_attention(q, kc, vc, valid),
                  ref.decode_attention_ref(q, kc, vc, valid), tol)
-            if D == 80 and dtype == torch.bfloat16:
-                # mid-way through phase 7's decode: 1024 + 16 valid rows each
-                vl = torch.full((B,), 1040, device=dev, dtype=torch.int32)
-                mask = (torch.arange(S, device=dev)[None, :] < vl[:, None])[:, None, None, :]
-                ms = cuda_ms(lambda: ops.decode_attention(q, kc, vc, vl), 50)
-                plain = cuda_ms(lambda: ref.decode_attention_ref(q, kc, vc, vl), 5)
-                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q[:, :, None], kc, vc, attn_mask=mask), 50)
-                bound, nbytes = decode_bound(B, Hq, Hc, D, int(vl.sum()))
-                say(f"  time zamba2 decode B={B} valid 1040 D=80 bf16: kernel {ms:.4f} ms, "
-                    f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms "
-                    f"({nbytes / ms / 1e6:.1f} GB/s)")
-                times["decode_d80"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                           bound_ms=bound)
+            if dtype == torch.bfloat16:
+                # zamba2 mid-way through phase 7's decode: 1024 + 16 valid
+                # rows each; D=160 at phase 3b's lengths
+                vl = torch.full((B,), 1040, device=dev, dtype=torch.int32) if D == 80 else valid
+                say(f"  time D={D} decode B={B} valid_len={vl.tolist()} bf16:")
+                t = decode_times(q, kc, vc, vl)
+                split_sweep(q, kc, vc, vl)
+                t["plain_ms"] = cuda_ms(lambda: ref.decode_attention_ref(q, kc, vc, vl), 5)
+                t["bound_ms"], _ = decode_bound(B, Hq, Hc, D, int(vl.sum()))
+                say(f"    plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+                times[f"decode_d{D}"] = t
     return times
 
 
@@ -595,11 +670,12 @@ def kernel_counts():
 
 def reset_counts():
     import importlib
+    from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import moe_gmm as gk
     for n in KERNEL_MODULES:
         importlib.import_module(f"repro_torch.kernels.{n}").launches = 0
-    for counts in (fk.launches_by_path, gk.launches_by_path):
+    for counts in (fk.launches_by_path, gk.launches_by_path, dk.launches_by_path):
         for path in counts:
             counts[path] = 0
 
@@ -614,6 +690,20 @@ def flash_path_gate(label, n_flash) -> dict:
     say(f"  flash_attention launches by kernel: {got}")
     if got != want:
         fail(f"{label}: flash_attention did not go through the tensor-core kernel on every "
+             f"call: {got}, want {want}")
+    return got
+
+
+def decode_path_gate(label, n_decode) -> dict:
+    """The path's decode_attention launches by kernel: all `n_decode`
+    through the split-S kernel (the model's cache views are what TMA
+    reads). Returns the counts by kernel."""
+    from repro_torch.kernels import decode_attention as dk
+    got = dict(dk.launches_by_path)
+    want = {"split": n_decode, "simt": 0}
+    say(f"  decode_attention launches by kernel: {got}")
+    if got != want:
+        fail(f"{label}: decode_attention did not go through the split kernel on every "
              f"call: {got}, want {want}")
     return got
 
@@ -776,6 +866,11 @@ def profile_window(engine, prompts, steps=4):
     engine.run_until_drained()
 
 
+# the decode attention kernels' names (csrc/decode_attention.cu), which
+# profile_steps always reports
+DECODE_KERNELS = ("decode_split", "decode_merge", "decode_kernel")
+
+
 def profile_steps(step, steps):
     """Profile `steps` calls of `step()` (one decode step each): device busy
     share of the window and the largest device and host costs."""
@@ -801,6 +896,12 @@ def profile_steps(step, steps):
         f"{sum(e.count for e in kernels) / steps:.0f} device kernels per step")
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         say(f"    device {dev_us(e) / steps / 1e3:8.3f} ms/step  x{e.count // steps:<4d} {e.key[:70]}")
+    decode = {n: [e for e in kernels if n in e.key] for n in DECODE_KERNELS}
+    say(f"    decode attention: device "
+        f"{sum(dev_us(e) for es in decode.values() for e in es) / steps / 1e3:.3f} ms/step: "
+        + (", ".join(f"{n} x{sum(e.count for e in es) // steps} "
+                     f"{sum(dev_us(e) for e in es) / steps / 1e3:.3f} ms"
+                     for n, es in decode.items() if es) or "no kernel"))
     for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
         say(f"    host   {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step  "
             f"x{e.count // steps:<4d} {e.key[:70]}")
@@ -874,6 +975,8 @@ def serve_phase(cfg, seed, n_requests, batch_slots, max_len, new_tokens,
         fail(f"{label}: the path did not go through the kernels as often as its layers "
              f"ask: {launches}, want {want}")
     launches["flash_attention_by_path"] = flash_path_gate(label, launches["flash_attention"])
+    launches["decode_attention_by_path"] = decode_path_gate(label,
+                                                            launches["decode_attention"])
     if n_gmm:
         launches["moe_gmm_by_path"] = gmm_path_gate(cfg, lens, steps, batch_slots)
     say(f"  peak device memory while serving {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -965,6 +1068,8 @@ def hybrid_phase(cfg, seed, batch, prompt_len, new_tokens, dev):
                  f"{launches}, want {want}")
         launches["flash_attention_by_path"] = flash_path_gate(cfg.name,
                                                               launches["flash_attention"])
+        launches["decode_attention_by_path"] = decode_path_gate(cfg.name,
+                                                                launches["decode_attention"])
         say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
         state = {"tok": tok, "pos": T + new_tokens}
@@ -1106,6 +1211,11 @@ def main() -> int:
                       launches_by_kernel={p: sum(r["flash_attention_by_path"][p]
                                                  for r in runs.values())
                                           for p in ("wgmma", "simt")})
+    dec = table["decode_attention"]
+    kernels[1].update(kernel=dec["path"], simt_ms=dec["simt_ms"], event_ms=dec["event_ms"],
+                      launches_by_kernel={p: sum(r["decode_attention_by_path"][p]
+                                                 for r in runs.values())
+                                          for p in ("split", "simt")})
     kernels[2].update(kernel=table["moe_gmm"]["path"],
                       launches_by_kernel=runs["6"]["moe_gmm_by_path"])
     print(json.dumps({"kernels": kernels}))

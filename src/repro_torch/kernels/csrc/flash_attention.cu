@@ -30,17 +30,22 @@
 //    shared memory, K-major), masks in registers only the tiles that cross
 //    the causal diagonal, the window's start or Tk (tiles wholly outside
 //    are never loaded), takes each row's max over the 4 lanes of a quad,
-//    and rounds P = exp2(S * scale * log2(e) - m) to bf16 in registers: the
-//    m64n64 accumulator layout of 16 columns is the k16 A fragment layout,
-//    so P feeds O += P V (wgmma m64nNk16, N = 64 ceil(D/64), A from
-//    registers, V MN-major in shared memory: tnspB = 1) without a trip
-//    through shared memory. The epilogue divides by max(l, 1e-20), rounds
-//    to bf16 and stores masked by Tq and D.
+//    and splits P = exp2(S * scale * log2(e) - m) into two bf16 halves in
+//    registers, hi = bf16(P) and lo = bf16(P - hi): the m64n64 accumulator
+//    layout of 16 columns is the k16 A fragment layout, so each half feeds
+//    O += P V (wgmma m64nNk16, N = 64 ceil(D/64), A from registers, V
+//    MN-major in shared memory: tnspB = 1) without a trip through shared
+//    memory, two products per 16 keys. The epilogue divides by max(l,
+//    1e-20), rounds to bf16 and stores masked by Tq and D.
 //    Numerics: a bf16 x bf16 product summed in fp32 is exact up to the
-//    order of the sum, so S is the Pallas kernel's up to that order;
-//    rounding P to bf16 before P V is the one real departure (the Pallas
-//    kernel multiplies fp32 P by fp32 V); exp2 with the scale and log2(e)
-//    folded into one multiply-add is exp up to rounding.
+//    order of the sum, so S is the Pallas kernel's up to that order; hi +
+//    lo holds P to about 16 significant bits, so hi V + lo V is the Pallas
+//    kernel's fp32 P times V (there fp32 V, here the same bf16 values) up
+//    to that rounding and the order of the sum, and the row sum l, taken
+//    from the fp32 P, agrees with it. One bf16 rounding of P alone (the
+//    first version of this kernel) put the outputs up to 1.56e-2 from the
+//    plain version's. exp2 with the scale and log2(e) folded into one
+//    multiply-add is exp up to rounding.
 //    Waste: padding D to 64 columns computes 37.5% more products than
 //    needed at D = 80 (128) and 17% at D = 160 (192), 75% and 50% at
 //    D = 16 and 32. The softmax does not overlap the products (one
@@ -256,9 +261,15 @@ struct FwShape {
       kTileBytes + FW_STAGES * kStageBytes + 1024 + (1 + 2 * FW_STAGES) * 8;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
+// p0, p1 (p0 in the low half) as two bf16x2 halves, hi = bf16(p) and lo =
+// bf16(p - hi): hi + lo carries p to about 16 significant bits, so hi V +
+// lo V is p V with the precision of the plain version's fp32 p
+__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // O (64 x 64 NB) += P (64 x 16 keys, registers) @ V (16 keys x 64 NB)
@@ -399,9 +410,10 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUt
       m[hr] = m_new;
       l[hr] *= alpha[hr];
     }
-    // P in bf16: registers 4 kk .. 4 kk + 3 are the A fragment of keys
-    // 16 kk .. 16 kk + 15
-    uint32_t pa[16];
+    // P as two bf16 halves (split_bf16), so the row sums l and P V see the
+    // same fp32 p: registers 4 kk .. 4 kk + 3 of each are the A fragment of
+    // keys 16 kk .. 16 kk + 15
+    uint32_t ph[16], pl[16];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float p0 = exp2f(fmaf(sc[4 * j], scale_log2, -m[0]));
@@ -410,8 +422,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUt
       const float p3 = exp2f(fmaf(sc[4 * j + 3], scale_log2, -m[1]));
       l[0] += p0 + p1;
       l[1] += p2 + p3;
-      pa[2 * j] = pack_bf16(p0, p1);      // row r0, keys 8 j + c0 (+ 1)
-      pa[2 * j + 1] = pack_bf16(p2, p3);  // row r0 + 8
+      split_bf16(p0, p1, ph[2 * j], pl[2 * j]);          // row r0, keys 8 j + c0 (+ 1)
+      split_bf16(p2, p3, ph[2 * j + 1], pl[2 * j + 1]);  // row r0 + 8
     }
 #pragma unroll
     for (int j = 0; j < 8 * NB; ++j) {
@@ -421,21 +433,26 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUt
       o[4 * j + 3] *= alpha[1];
     }
 
-    // O += P V. V rows (keys) are 128 bytes a box, 8-key groups 1024 bytes
-    // apart (SBO), the next 64 columns the next box (LBO); 16 keys are 2048
-    // bytes.
+    // O += P V as hi V + lo V. V rows (keys) are 128 bytes a box, 8-key
+    // groups 1024 bytes apart (SBO), the next 64 columns the next box (LBO);
+    // 16 keys are 2048 bytes.
     fence_regs(o);
-    fence_regs(pa);
+    fence_regs(ph);
+    fence_regs(pl);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t frag[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
-      pv_product<NB>(o, frag, sw128_desc(vs + kk * 2048, FW_BOX_BYTES, 1024));
+      const uint64_t dv = sw128_desc(vs + kk * 2048, FW_BOX_BYTES, 1024);
+      const uint32_t hi[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3]};
+      const uint32_t lo[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3]};
+      pv_product<NB>(o, hi, dv);
+      pv_product<NB>(o, lo, dv);
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
-    fence_regs(pa);
+    fence_regs(ph);
+    fence_regs(pl);
     if (lane == 0) mbar_arrive(empty + 8 * s);  // the slot may be refilled
   }
 

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (moe_gmm.cu's gmm_wgmma, flash_attention.cu's flash_wgmma): mbarriers with
-// a trap on a stuck wait, TMA tile loads, 128-byte-swizzle wgmma descriptors,
-// the wgmma products the kernels issue, and the host's tensor-map encoder.
+// Hopper (sm_90a) building blocks shared by the port's TMA-fed kernels
+// (moe_gmm.cu's gmm_wgmma, flash_attention.cu's flash_wgmma,
+// decode_attention.cu's decode_split): mbarriers with a trap on a stuck
+// wait, TMA tile loads, 128-byte-swizzle wgmma descriptors, the wgmma
+// products the kernels issue, and the host's tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
@@ -47,6 +48,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   const long long t0 = clock64();
   while (!mbar_try_wait(bar, parity))
     if (clock64() - t0 > kHangCycles) __trap();
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads') over the first `n` threads of
+// the block, n a multiple of 32: lets consumer warps sync without the
+// producer warp.
+__device__ __forceinline__ void named_barrier_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
 // TMA: the box at coordinates (c0 innermost, c1, ...) of `map` into shared
@@ -258,20 +266,35 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor of `rank` (3 or 4) axes, dims[0] innermost and contiguous,
-// strides[i] the element stride of axis i + 1, cut into boxes of 64 x 64 x 1
-// (x 1) under the 128-byte swizzle; reads past any dim are 0.
-inline CUresult encode_bf16_boxes(EncodeTiled enc, CUtensorMap* map, const void* p, int rank,
-                                  const int64_t* dims, const int64_t* strides) {
+// A tensor of `rank` (3 or 4) axes, dims[0] innermost and contiguous,
+// strides[i] the element stride of axis i + 1, elements of `elem_bytes`
+// bytes, cut into boxes of box[0] x ... x box[rank - 1]; reads past any dim
+// are 0.
+inline CUresult encode_boxes(EncodeTiled enc, CUtensorMap* map, CUtensorMapDataType type,
+                             int elem_bytes, const void* p, int rank, const int64_t* dims,
+                             const int64_t* strides, const uint32_t* box,
+                             CUtensorMapSwizzle swizzle) {
   cuuint64_t d[4];
   cuuint64_t s[3];
-  cuuint32_t box[4] = {64, 64, 1, 1};
+  cuuint32_t bx[4];
   cuuint32_t unit[4] = {1, 1, 1, 1};
-  for (int i = 0; i < rank; ++i) d[i] = static_cast<cuuint64_t>(dims[i]);
-  for (int i = 0; i + 1 < rank; ++i) s[i] = static_cast<cuuint64_t>(strides[i]) * 2;
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), d, s, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = box[i];
+  }
+  for (int i = 0; i + 1 < rank; ++i) s[i] = static_cast<cuuint64_t>(strides[i]) * elem_bytes;
+  return enc(map, type, rank, const_cast<void*>(p), d, s, bx, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A bf16 tensor cut into boxes of 64 x 64 x 1 (x 1) under the 128-byte
+// swizzle (the wgmma kernels' operand tiles).
+inline CUresult encode_bf16_boxes(EncodeTiled enc, CUtensorMap* map, const void* p, int rank,
+                                  const int64_t* dims, const int64_t* strides) {
+  const uint32_t box[4] = {64, 64, 1, 1};
+  return encode_boxes(enc, map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, rank, dims, strides,
+                      box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 constexpr int kNoEncoder = -2;       // the driver has no cuTensorMapEncodeTiled

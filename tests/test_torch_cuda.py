@@ -11,7 +11,9 @@ to the JAX package by tests/test_torch_kernels.py) at the shapes of
 tests/test_kernels.py and the main paths', with its tolerances: attention
 fp32 2e-5, bf16 2e-2, int8 1e-4; grouped matmul fp32 1e-4, bf16 5e-2 (as
 tests/test_kernels.py); SSD scan fp32 1e-4 (sums of up to 256 products in
-another order, with exp of the summed decays), bf16 2e-2.
+another order, with exp of the summed decays), bf16 2e-2. The flash
+tensor-core kernel is also held to the CUDA-core kernel's distance from an
+fp32 run (within 5%), which fails if P is rounded to bf16 before P.V.
 """
 import pytest
 import torch
@@ -94,6 +96,32 @@ def test_flash_kernel_matches_plain_on_cuda(cuda, B, Hq, Hkv, T, D, causal,
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,T,D", [
+    (1, 32, 8, 1024, 128),    # llama3-8b's prefill
+    (4, 32, 32, 1024, 80),    # zamba2-2.7b's
+    (1, 32, 8, 1024, 160),    # stablelm-12b's
+])
+def test_flash_tensor_core_kernel_keeps_p_in_fp32_precision(cuda, B, Hq, Hkv, T, D):
+    """The tensor-core kernel's output is no further (relative L2, within
+    5%) from the plain version run in fp32 on the same bf16 inputs than the
+    CUDA-core kernel's, which keeps P in fp32: both round only the output
+    to bf16. A kernel that rounds P to bf16 before P.V lands about 1.4x
+    further."""
+    g = torch.Generator(device=cuda).manual_seed(T + D)
+    q, k, v = (torch.randn((B, T, H, D), generator=g, device=cuda).bfloat16().transpose(1, 2)
+               for H in (Hq, Hkv, Hkv))
+    assert fk.route_for(q, k, v) == "wgmma"
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    d_wgmma = _rel_l2(fk.flash_attention(q, k, v, path="wgmma"), want)
+    d_simt = _rel_l2(fk.flash_attention(q, k, v, path="simt"), want)
+    assert d_wgmma <= 1.05 * d_simt, (d_wgmma, d_simt)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["offset", "padded", "model"])
 def test_flash_cuda_core_kernel_takes_bf16_on_cuda(cuda, layout):
@@ -148,11 +176,109 @@ def test_decode_kernel_matches_plain_on_cuda(cuda, B, Hq, Hc, S, D, dtype):
     kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)   # cache layer view
     vl = torch.randint(1, S + 1, (B,), generator=g, device=cuda, dtype=torch.int32)
     vl[0] = 1
+    before = dk.launches_by_path["split"]
     got = ops.decode_attention(q, kc, vc, vl, *scales)
     torch.cuda.synchronize()
+    assert dk.launches_by_path["split"] == before + 1
     want = ref.decode_attention_ref(q, kc, vc, vl, *scales)
     tol = dict(atol=1e-4, rtol=1e-4) if dtype == "int8" else _tol(str(td)[6:])
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _decode_inputs(g, B, Hq, Hc, S, D, dtype, dev):
+    """q and the cache as the model lays it out, (B, S, Hc, D) read as
+    (B, Hc, S, D); dtype names the cache as in the test above. Returns (q,
+    k, v, scales, tolerance)."""
+    td = {"int8": torch.float32, "int8-bf16q": torch.bfloat16}.get(dtype) or DTYPES[dtype]
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(td)
+    kf, vf = (torch.randn((B, S, Hc, D), generator=g, device=dev) for _ in range(2))
+    scales = (None, None)
+    if dtype.startswith("int8"):
+        ks, vs = (x.abs().amax(-1, keepdim=True) / 127.0 for x in (kf, vf))
+        kc, vc = torch.round(kf / ks).to(torch.int8), torch.round(vf / vs).to(torch.int8)
+        scales = (ks.transpose(1, 2), vs.transpose(1, 2))
+    else:
+        kc, vc = kf.to(td), vf.to(td)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == "int8" else _tol(str(td)[6:])
+    return q, kc.transpose(1, 2), vc.transpose(1, 2), scales, tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8", "int8-bf16q"])
+@pytest.mark.parametrize("D", [16, 80, 128, 160])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_decode_split_kernel_at_every_split_edge(cuda, R, D, dtype):
+    """One batch row per edge of the split grid (kernels/decode_attention.py::
+    plan): valid_len 0, 1, one split less a row, exactly one split, one
+    split and a row, two splits and S, over three splits and a tail; each
+    call goes through the split kernel."""
+    Hc, B = 2, 7
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, _ = dk.plan(B, Hc, 1, D, n_sm)   # the shortest split at this grid
+    S = 3 * rows + 17
+    assert dk.plan(B, Hc, S, D, n_sm) == (rows, 4)
+    g = torch.Generator(device=cuda).manual_seed(R * 1000 + D)
+    q, kc, vc, scales, tol = _decode_inputs(g, B, R * Hc, Hc, S, D, dtype, cuda)
+    vl = torch.tensor([0, 1, rows - 1, rows, rows + 1, 2 * rows, S], dtype=torch.int32,
+                      device=cuda)
+    assert dk.route_for(kc, vc) == "split"
+    before = dk.launches_by_path["split"]
+    got = ops.decode_attention(q, kc, vc, vl, *scales)
+    torch.cuda.synchronize()
+    assert dk.launches_by_path["split"] == before + 1
+    want = ref.decode_attention_ref(q, kc, vc, vl, *scales)
+    assert not got[0].any(), "valid_len = 0 gives 0"
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8-bf16q", "bfloat16"])
+@pytest.mark.parametrize("D,S,split_rows", [(128, 2048, None), (16, 4096, 2048),
+                                            (160, 2048, 1024)])
+def test_decode_split_kernel_with_long_splits(cuda, D, S, split_rows, dtype):
+    """qwen1.5-32b's 48 q heads on 48 cache heads (R = 1), at plan's split
+    length (256 rows at D = 128: 8 tiles, two laps of each warp's ring
+    slot) and at longer ones named (up to 64 tiles, 16 laps)."""
+    B, H = 8, 48
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = split_rows or dk.plan(B, H, S, D, n_sm)[0]
+    assert rows >= 8 * dk.SPLIT_TILE
+    g = torch.Generator(device=cuda).manual_seed(48 + D)
+    q, kc, vc, scales, tol = _decode_inputs(g, B, H, H, S, D, dtype, cuda)
+    vl = torch.tensor([0, 1, rows - 1, rows, rows + 1, S // 2, S, S - 1],
+                      dtype=torch.int32, device=cuda)
+    before = dk.launches_by_path["split"]
+    got = dk.decode_attention(q, kc, vc, vl, *scales, split_rows=split_rows)
+    torch.cuda.synchronize()
+    assert dk.launches_by_path["split"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               ref.decode_attention_ref(q, kc, vc, vl, *scales).float(), **tol)
+
+
+@pytest.mark.cuda
+def test_decode_first_version_takes_what_tma_cannot_read(cuda):
+    """A cache whose head stride (D + 4 elements, 264 bytes) TMA cannot take
+    goes to the first version; naming the split kernel for it raises, and
+    the first version still runs the split kernel's inputs when named."""
+    B, Hq, Hc, S, D = 3, 8, 4, 200, 128
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((B, Hq, D), generator=g, device=cuda).bfloat16()
+    kc, vc = (torch.randn((B, S, Hc, D + 4), generator=g, device=cuda).bfloat16()[..., :D]
+              .transpose(1, 2) for _ in range(2))
+    vl = torch.tensor([0, 77, S], dtype=torch.int32, device=cuda)
+    assert dk.route_for(kc, vc) == "simt"
+    before = dict(dk.launches_by_path)
+    got = ops.decode_attention(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    assert dk.launches_by_path == dict(before, simt=before["simt"] + 1)
+    want = ref.decode_attention_ref(q, kc, vc, vl)
+    torch.testing.assert_close(got.float(), want.float(), **_tol("bfloat16"))
+    with pytest.raises(ValueError, match="cannot take"):
+        dk.decode_attention(q, kc, vc, vl, path="split")
+    kd, vd = kc.contiguous(), vc.contiguous()
+    assert dk.route_for(kd, vd) == "split"
+    got = dk.decode_attention(q, kd, vd, vl, path="simt")
+    torch.testing.assert_close(got.float(), want.float(), **_tol("bfloat16"))
 
 
 @pytest.mark.cuda

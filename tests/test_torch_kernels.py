@@ -387,3 +387,118 @@ def test_flash_route_picks_the_kernel(dtype, B, T, Hq, Hkv, D, layout, want):
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     align = 256 if layout == "model" else 2 if layout == "offset" else 16
     assert fk.route(q.dtype, D, strides, align) == want
+
+
+# ------------------------------------------------------------- decode's split grid
+
+H100_SMS = 132
+# (B, Hc, S, D) of the serving paths' decode calls (chip_smoke.py phases 3-7)
+DECODE_PATH_SHAPES = [
+    (8, 16, 2048, 128),   # llama3-8b and phi3.5-moe: 8 slots, cache replicated to 16
+    (4, 16, 2048, 128),   # phase 5's int8 cache
+    (4, 32, 1056, 80),    # zamba2-2.7b's rolling cache
+    (8, 48, 2048, 128),   # qwen1.5-32b's padded heads
+    (8, 16, 2048, 160),   # stablelm-12b's head dim
+]
+
+
+@pytest.mark.parametrize("B,Hc,S,D", DECODE_PATH_SHAPES)
+def test_decode_plan_gives_several_ctas_per_sm_at_the_paths_shapes(B, Hc, S, D):
+    rows, n = dk.plan(B, Hc, S, D, H100_SMS)
+    assert B * Hc * n >= 4 * H100_SMS
+    assert rows % dk.SPLIT_TILE == 0 and rows >= 2 * dk.SPLIT_TILE
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 64, 65, 127, 1056, 2048, 4097, 100_000])
+@pytest.mark.parametrize("B,Hc,D", [(1, 1, 16), (8, 16, 128), (4, 32, 80), (2, 3, 160)])
+def test_decode_plan_splits_cover_s_exactly_once(B, Hc, S, D):
+    """Split i holds rows [i * rows, (i + 1) * rows): every row of S lies in
+    one split, and no split starts at or past S."""
+    rows, n = dk.plan(B, Hc, S, D, H100_SMS)
+    assert rows % dk.SPLIT_TILE == 0
+    assert (n - 1) * rows < S <= n * rows
+
+
+def test_decode_plan_depends_on_shapes_only():
+    """plan takes the shapes and the SM count, and nothing of valid_len."""
+    import inspect
+    assert list(inspect.signature(dk.plan).parameters) == ["B", "Hc", "S", "D", "n_sm"]
+    assert dk.plan(8, 16, 2048, 128, H100_SMS) == (256, 8)
+    with pytest.raises(ValueError, match="positive"):
+        dk.plan(8, 16, 0, 128, H100_SMS)
+
+
+@pytest.mark.parametrize("vl_a,vl_b", [(1, 2048), (0, 777)])
+def test_decode_wrapper_launches_the_same_grid_whatever_valid_len(monkeypatch, vl_a, vl_b):
+    """The wrapper hands the kernel plan's grid and valid_len's device
+    pointer, never its values: two batches at different lengths get the
+    same launch, so a decode step can be captured in a graph."""
+    import contextlib
+    import types
+    calls = []
+
+    def fake_kernel(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(dk, "_check", lambda *a: None)
+    monkeypatch.setattr(dk, "_kernel", lambda: fake_kernel)
+    monkeypatch.setattr(dk, "_sm_count", lambda dev: H100_SMS)
+    monkeypatch.setattr(dk, "launches", dk.launches)
+    monkeypatch.setattr(dk, "launches_by_path", dict(dk.launches_by_path))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    B, Hq, Hc, S, D = 8, 32, 16, 2048, 128
+    q = torch.zeros((B, Hq, D), dtype=torch.bfloat16)
+    k, v = (torch.zeros((B, S, Hc, D), dtype=torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    for n in (vl_a, vl_b):
+        dk.decode_attention(q, k, v, torch.full((B,), n, dtype=torch.int32))
+    # (split_rows, n_splits, path) of each launch
+    grids = [c[17:20] for c in calls]
+    assert grids == [(*dk.plan(B, Hc, S, D, H100_SMS), dk.PATH_CODES["split"])] * 2
+    assert dk.launches_by_path == {"split": 2, "simt": 0}
+    # a named split length replaces plan's; one that is no multiple of the
+    # tile raises before a launch
+    dk.decode_attention(q, k, v, torch.full((B,), vl_a, dtype=torch.int32), split_rows=512)
+    assert calls[-1][17:20] == (512, 4, dk.PATH_CODES["split"])
+    with pytest.raises(ValueError, match="split_rows"):
+        dk.decode_attention(q, k, v, torch.full((B,), vl_a, dtype=torch.int32), split_rows=100)
+    assert len(calls) == 3
+
+
+def _cache_views(dtype, B, S, Hc, D, layout):
+    """A cache k/v as `layout` lays it out: "model" is layer 1 of an (L, B,
+    S, Hc, D) buffer read as (B, Hc, S, D) (models/dense.py::_decode_attend);
+    "offset" the same view of a buffer one element past an aligned address;
+    "padded" a head stride of D + 4 elements."""
+    def one():
+        if layout == "padded":
+            return torch.zeros((B, S, Hc, D + 4), dtype=dtype)[..., :D].transpose(1, 2)
+        skip = 1 if layout == "offset" else 0
+        buf = torch.zeros(2 * B * S * Hc * D + skip, dtype=dtype)[skip:]
+        return buf.view(2, B, S, Hc, D)[1].transpose(1, 2)
+    return one(), one()
+
+
+@pytest.mark.parametrize("dtype,B,S,Hc,D,layout,want", [
+    (torch.bfloat16, 8, 2048, 16, 128, "model", "split"),   # llama3-8b, phi3.5-moe
+    (torch.bfloat16, 4, 1056, 32, 80, "model", "split"),    # zamba2-2.7b
+    (torch.int8, 8, 2048, 48, 128, "model", "split"),       # qwen1.5-32b's int8 cache
+    (torch.int8, 2, 64, 1, 16, "model", "split"),           # int8 rows of 16 bytes
+    (torch.float32, 3, 200, 16, 160, "model", "split"),
+    (torch.bfloat16, 2, 64, 4, 128, "offset", "simt"),      # bases 2 bytes off
+    (torch.int8, 2, 64, 4, 128, "offset", "simt"),          # bases 1 byte off
+    (torch.bfloat16, 2, 64, 4, 128, "padded", "simt"),      # rows of 264 bytes
+    (torch.int8, 2, 64, 3, 16, "padded", "simt"),           # rows of 20 bytes
+    (torch.bfloat16, 2, 0, 4, 128, "model", "simt"),        # S = 0: no tensor map
+])
+def test_decode_route_picks_the_kernel(dtype, B, S, Hc, D, layout, want):
+    """`route` decides before the launch, from dtype, shapes, strides and
+    alignment: the split kernel wherever TMA can read the cache, the first
+    version for the rest."""
+    k, v = _cache_views(dtype, B, S, Hc, D, layout)
+    assert dk.route_for(k, v) == want
+    strides = (*k.stride()[:3], *v.stride()[:3])
+    align = {"model": 256, "offset": dtype.itemsize, "padded": 16}[layout]
+    assert dk.route(dtype, D, S, strides, align) == want

@@ -12,7 +12,17 @@ stablelm-12b's widths (phases 3a-3c and 3a'-3b'), the grouped expert matmul
 too (phase 3d), llama3-8b is served at its published width and depth
 (phase 4), phi3.5-moe at its published width and 16 layers (phase 6), and
 zamba2-2.7b prefills and decodes at its published width and depth (phase
-7), with the arguments `chip_smoke.py` gives them. Needs a CUDA device;
+7), with the arguments `chip_smoke.py` gives them.
+
+Three measurements are this script's own, the same for every tree: decode
+attention's device and event times at phases 3b's, 3b''s and 3c's shapes
+through the tree's `ops.decode_attention`, beside SDPA's and the bound
+(`decode_ab`); flash attention's distance to an fp32 run, by kernel, at
+llama3-8b's, zamba2-2.7b's and stablelm-12b's prefill shapes
+(`flash_precision_ab`); and the profiled decode windows of phases 4, 6
+and 7, which print the decode kernels' device ms per step whatever the
+tree's own `chip_smoke.py` prints (this script's
+`chip_smoke.profile_steps` replaces the tree's). Needs a CUDA device;
 exits non-zero if any tree fails.
 """
 from __future__ import annotations
@@ -24,13 +34,88 @@ import sys
 import time
 from pathlib import Path
 
+OWN_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+
+
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)   # puts the tree's src first on sys.path
+    return module
+
+
+def decode_ab(own, gen, dev):
+    """Decode attention through the tree's ops.decode_attention at llama3-8b's
+    replicated cache (B=8 Hq=32 Hc=16 S=2048 D=128, phase 3b's lengths),
+    zamba2-2.7b's rolling cache (B=4 Hq=Hc=32 S=1056 D=80, 1040 rows each)
+    and phase 5's int8 cache (B=4 Hq=32 Hc=16, bf16 q): device time
+    (device_ms), event time (cuda_ms), SDPA's device time for bf16 and the
+    bound, all from this script's tree's chip_smoke.py helpers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    rnd = own._rnd(gen, dev)
+    for label, B, Hq, Hc, S, D, int8 in (("llama3-8b", 8, 32, 16, 2048, 128, False),
+                                         ("zamba2-2.7b", 4, 32, 32, 1056, 80, False),
+                                         ("int8 cache", 4, 32, 16, 2048, 128, True)):
+        if label == "zamba2-2.7b":
+            valid = torch.full((B,), 1040, device=dev, dtype=torch.int32)
+        else:
+            valid = torch.randint(1, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+            valid[0], valid[-1] = 1, S
+        q = rnd(B, Hq, D)
+        kf, vf = (rnd(B, S, Hc, D, dtype=torch.float32 if int8 else torch.bfloat16)
+                  for _ in range(2))
+        rows = int(valid.sum())
+        if int8:
+            ks, vs = (x.abs().amax(-1, keepdim=True) / 127.0 for x in (kf, vf))
+            kc, vc = (torch.round(x / s).to(torch.int8).transpose(1, 2)
+                      for x, s in ((kf, ks), (vf, vs)))
+            scales = (ks.transpose(1, 2), vs.transpose(1, 2))
+            nbytes = 2 * rows * Hc * (D + 4) + 2 * 2 * B * Hq * D + 4 * B
+            bound = nbytes / own.PEAK_HBM_BYTES * 1e3
+        else:
+            kc, vc, scales = kf.transpose(1, 2), vf.transpose(1, 2), (None, None)
+            bound, nbytes = own.decode_bound(B, Hq, Hc, D, rows)
+        own.gate(f"decode_ab {label}", ops.decode_attention(q, kc, vc, valid, *scales),
+                 ref.decode_attention_ref(q, kc, vc, valid, *scales), own.BF16_TOL)
+        calls = {"kernel": lambda: ops.decode_attention(q, kc, vc, valid, *scales)}
+        if not int8:
+            mask = (torch.arange(S, device=dev)[None, :] < valid[:, None])[:, None, None, :]
+            calls["sdpa"] = lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=Hq != Hc)
+        times = {n: (own.device_ms(fn, 50), own.cuda_ms(fn, 50)) for n, fn in calls.items()}
+        print(f"  decode_ab {label} B={B} Hq={Hq} Hc={Hc} S={S} D={D} "
+              f"{'int8' if int8 else 'bf16'} cache, {rows} rows: "
+              + ", ".join(f"{n} device {d:.4f} ms event {e:.4f} ms" for n, (d, e) in times.items())
+              + f"; bound {bound:.4f} ms, kernel {nbytes / times['kernel'][0] / 1e6:.1f} GB/s",
+              flush=True)
+        del q, kf, vf, kc, vc
+
+
+def flash_precision_ab(own, dev):
+    """chip_smoke.flash_precision through the tree's flash kernels on the
+    inputs of tests/test_torch_cuda.py::
+    test_flash_tensor_core_kernel_keeps_p_in_fp32_precision."""
+    import torch
+    for B, Hq, Hkv, T, D in ((1, 32, 8, 1024, 128), (4, 32, 32, 1024, 80),
+                             (1, 32, 8, 1024, 160)):
+        g = torch.Generator(device=dev).manual_seed(T + D)
+        q, k, v = (torch.randn((B, T, H, D), generator=g, device=dev).bfloat16()
+                   .transpose(1, 2) for H in (Hq, Hkv, Hkv))
+        dist = own.flash_precision(q, k, v)
+        print(f"  flash_precision_ab B={B} Hq={Hq} Hkv={Hkv} T={T} D={D}: relative L2 "
+              f"distance to fp32, wgmma {dist['wgmma']:.6e}, simt {dist['simt']:.6e}, "
+              f"ratio {dist['wgmma'] / dist['simt']:.4f}", flush=True)
+
 
 def run_tree(root: Path, seed: int) -> int:
-    """Phases 2, 3a-3d, 4, 6 and 7 of the chip_smoke.py at `root`, in this
-    process."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)   # puts root/src first on sys.path
+    """Phases 2, 3a-3d, 4, 6 and 7 of the chip_smoke.py at `root`,
+    decode_ab and flash_precision_ab, in this process."""
+    own = _load(OWN_SMOKE, "chip_smoke_ab")
+    smoke = _load(root / "chip_smoke.py", "chip_smoke")
+    smoke.profile_steps = own.profile_steps
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     if not torch.cuda.is_available():
@@ -50,6 +135,9 @@ def run_tree(root: Path, seed: int) -> int:
     for phase in (smoke.kernel_phase, smoke.head_dim_phase, smoke.gmm_phase):
         phase(gen, dev)
         torch.cuda.empty_cache()
+    decode_ab(own, gen, dev)
+    flash_precision_ab(own, dev)
+    torch.cuda.empty_cache()
     smoke.serve_phase(get_config("llama3-8b"), seed, n_requests=16, batch_slots=8,
                       max_len=2048, new_tokens=32, prompt_range=(16, 1024), dev=dev,
                       label="llama3-8b")
