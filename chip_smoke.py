@@ -32,8 +32,13 @@ carried on.
         (the bf16 tensor-core kernel or a CUDA-core one), its time, the
         bound and `torch.bmm`'s time, the yardstick;
      e. the SSD scan at zamba2's shapes (H=80, P=N=64, chunk 256), fp32 and
-        bf16, and at fp32 against the sequential recurrence too; no single
-        PyTorch call computes it;
+        bf16, and at fp32 against the sequential recurrence too, each case
+        naming the kernel `route` chose (fp32: the chunk-parallel
+        tensor-core path; bf16: the first version); a sweep over T =
+        256-4096 at B=4 prints the tensor-core path's device time beside the
+        first version's on the same inputs and the bound, and both kernels'
+        relative L2 distance to an fp64 run; no single PyTorch call
+        computes it;
   4. llama3-8b at its published width and depth with random bf16 weights
      from a seeded generator: a ServeEngine with 8 slots of 2048 tokens
      serves 16 requests (prompts of 16-1024 tokens, 32 new tokens each); the
@@ -51,9 +56,12 @@ carried on.
      so is the share of routing choices on which the two agree;
   7. zamba2-2.7b at its published width and depth through the model
      interface: prefill of 4 prompts of 1024 tokens, then 32 decode steps
-     on the rolling cache; launch counts, profile, and logits gated on the
-     prefill and on one decode step. Each profiled decode window of
-     phases 4, 6 and 7 prints the decode kernels' device ms per step;
+     on the rolling cache; the prefill timed three times (median), every
+     ssd_scan launch through the tensor-core path (`ssd_path_gate`), the
+     SSD kernels' device ms per prefill from a profiled prefill; launch
+     counts, profile, and logits gated on the prefill and on one decode
+     step. Each profiled decode window of phases 4, 6 and 7 prints the
+     decode kernels' device ms per step;
   8. prints the kernel table as one JSON line and, last, the device line
      `{"ok": true, "device": {...}}`.
 """
@@ -529,47 +537,78 @@ def ssd_bound(B, H, T, P, N, Q, el, peak=None):
             flops, nbytes)
 
 
+def ssd_precision(args, Q) -> dict:
+    """Relative L2 distance of y and of the final state to an fp64 run of
+    the plain version on the same inputs, by kernel: the tensor-core path
+    ("mma", 3xTF32 products) and the first version ("simt", fp32 FMAs)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as sk
+    exact_y, exact_s = ref.ssd_scan_ref(*(t.double() for t in args), chunk=Q)
+    dist = {}
+    for path in ("mma", "simt"):
+        y, s = sk.ssd_scan(*args, chunk=Q, path=path)
+        dist[path] = (rel_l2(y, exact_y), rel_l2(s, exact_s))
+    return dist
+
+
 def ssd_phase(gen, dev):
     """The SSD scan against its plain version at zamba2's shapes, and at fp32
-    against the sequential recurrence."""
+    against the sequential recurrence; then a T sweep at B=4 fp32 of the
+    kernel route names against the first version, with both kernels'
+    distance to fp64."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssm_scan as sk
 
     rnd = _rnd(gen, dev)
     H, P, N, G, Q = 80, 64, 64, 1, 256
-    row = {}
+    errs = {}
     say(f"phase 3e: SSD scan, zamba2 H={H} P={P} N={N} G={G} chunk {Q}")
     for B in (1, 4):
         for T in (256, 1024, 2048):
             for dtype, tol in ((torch.float32, SSD_F32_TOL), (torch.bfloat16, BF16_TOL)):
                 args = _ssd_inputs(rnd, B, T, H, P, G, N, dtype)
+                path = sk.route_for(args[0], args[3], args[4], chunk=Q)
+                name = f"ssd_scan {str(dtype)[6:]} B={B} T={T} ({path})"
                 y, s = ops.ssd_scan(*args, chunk=Q)
                 want_y, want_s = ref.ssd_scan_ref(*args, chunk=Q)
-                err = gate(f"ssd_scan {str(dtype)[6:]} B={B} T={T} y", y, want_y, tol)
-                gate(f"ssd_scan {str(dtype)[6:]} B={B} T={T} state", s, want_s, tol)
+                errs[B, T, dtype] = gate(f"{name} y", y, want_y, tol)
+                gate(f"{name} state", s, want_s, tol)
                 if T == 256 and dtype == torch.float32:
                     x, dt, A, Bm, Cm = args
                     seq = ref.ssd_chunk_ref(x.transpose(1, 2), dt.transpose(1, 2), A,
                                             Bm.transpose(1, 2), Cm.transpose(1, 2))
-                    gate(f"ssd_scan fp32 B={B} T={T} vs the sequential recurrence",
+                    gate(f"{name} vs the sequential recurrence",
                          y.transpose(1, 2), seq, SSD_SEQ_TOL)
-                if B == 4 and T == 1024:
-                    el = 4 if dtype == torch.float32 else 2
-                    ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk=Q), 10)
-                    plain = cuda_ms(lambda: ref.ssd_scan_ref(*args, chunk=Q), 3)
-                    bound, by, flops, nbytes = ssd_bound(B, H, T, P, N, Q, el)
-                    say(f"  time B={B} T={T} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
-                        f"{plain:.4f} ms, bound {bound:.4f} ms by {by} ({flops / 1e9:.2f} "
-                        f"GFLOP, {nbytes / 1e6:.1f} MB; {flops / ms / 1e9:.2f} TFLOP/s)")
-                    if el == 4:
-                        cores, _, _, _ = ssd_bound(B, H, T, P, N, Q, el, PEAK_F32_FLOPS)
-                        say(f"  (bound at the fp32 CUDA-core rate, {PEAK_F32_FLOPS / 1e12:g} "
-                            f"TFLOP/s, instead of TF32's: {cores:.4f} ms)")
-                    if dtype == torch.float32:   # what the model passes
-                        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                                   bound_by=by, library_ms=None,
-                                   shape=f"B={B} H={H} T={T} P={P} N={N} chunk {Q} fp32")
                 del args, y, s
+
+    B = 4
+    say(f"  sweep at B={B} fp32: device ms of the kernel route names and of the first "
+        f"version (simt) on the same inputs, the bound; relative L2 distance to fp64")
+    row = {}
+    for T in (256, 1024, 2048, 4096):
+        args = _ssd_inputs(rnd, B, T, H, P, G, N, torch.float32)
+        path = sk.route_for(args[0], args[3], args[4], chunk=Q)
+        ms = device_ms(lambda: ops.ssd_scan(*args, chunk=Q), 20)
+        simt = device_ms(lambda: sk.ssd_scan(*args, chunk=Q, path="simt"), 5)
+        bound, by, flops, nbytes = ssd_bound(B, H, T, P, N, Q, 4)
+        cores, _, _, _ = ssd_bound(B, H, T, P, N, Q, 4, PEAK_F32_FLOPS)
+        dist = ssd_precision(args, Q)
+        say(f"    T={T}: {path} {ms:.4f} ms, simt {simt:.4f} ms ({simt / ms:.2f}x), bound "
+            f"{bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+            f"{cores:.4f} ms at the fp32 CUDA-core rate); distance to fp64 y "
+            f"{dist['mma'][0]:.6e} / {dist['simt'][0]:.6e}, state {dist['mma'][1]:.6e} / "
+            f"{dist['simt'][1]:.6e} (mma / simt)")
+        if T == 1024:   # zamba2-2.7b's prefill: the kernels line's row
+            event = cuda_ms(lambda: ops.ssd_scan(*args, chunk=Q), 10)
+            plain = cuda_ms(lambda: ref.ssd_scan_ref(*args, chunk=Q), 3)
+            row = dict(max_abs_err=errs[B, T, torch.float32], ms=ms, plain_ms=plain,
+                       bound_ms=bound, bound_by=by, library_ms=None, path=path,
+                       simt_ms=simt, event_ms=event, dist_fp64={k: list(v) for k, v in
+                                                                dist.items()},
+                       shape=f"B={B} H={H} T={T} P={P} N={N} chunk {Q} fp32")
+            say(f"    T={T}: event time {event:.4f} ms, plain {plain:.4f} ms")
+        del args
     return row
 
 
@@ -673,9 +712,11 @@ def reset_counts():
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import moe_gmm as gk
+    from repro_torch.kernels import ssm_scan as sk
     for n in KERNEL_MODULES:
         importlib.import_module(f"repro_torch.kernels.{n}").launches = 0
-    for counts in (fk.launches_by_path, gk.launches_by_path, dk.launches_by_path):
+    for counts in (fk.launches_by_path, gk.launches_by_path, dk.launches_by_path,
+                   sk.launches_by_path):
         for path in counts:
             counts[path] = 0
 
@@ -705,6 +746,20 @@ def decode_path_gate(label, n_decode) -> dict:
     if got != want:
         fail(f"{label}: decode_attention did not go through the split kernel on every "
              f"call: {got}, want {want}")
+    return got
+
+
+def ssd_path_gate(label, n_ssd) -> dict:
+    """The path's ssd_scan launches by kernel: all `n_ssd` through the
+    tensor-core path (the model hands over fp32 (B,T,H,P) views that TMA
+    reads, at P = N = 64 and chunk 256). Returns the counts by kernel."""
+    from repro_torch.kernels import ssm_scan as sk
+    got = dict(sk.launches_by_path)
+    want = {"mma": n_ssd, "simt": 0}
+    say(f"  ssd_scan launches by kernel: {got}")
+    if got != want:
+        fail(f"{label}: ssd_scan did not go through the tensor-core path on every call: "
+             f"{got}, want {want}")
     return got
 
 
@@ -907,6 +962,47 @@ def profile_steps(step, steps):
             f"x{e.count // steps:<4d} {e.key[:70]}")
 
 
+# the SSD scan's kernels (csrc/ssm_scan.cu), which ssd_prefill_ms reports
+SSD_KERNELS = ("ssd_chunk_tc", "ssd_state_tc", "ssd_out_tc", "ssd_kernel")
+
+
+def prefill_times(prefill, n=3):
+    """Seconds of `n` calls of prefill(), each run to completion."""
+    import torch
+    seconds = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        del out
+    return seconds
+
+
+def ssd_prefill_ms(prefill) -> dict:
+    """Device ms of the SSD scan's kernels over one profiled prefill(), by
+    kernel, and their launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = prefill()
+        torch.cuda.synchronize()
+    del out
+    got = {}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        for name in SSD_KERNELS:
+            if name in e.key:
+                dev_us = (getattr(e, "self_device_time_total", None)
+                          or getattr(e, "self_cuda_time_total", 0))
+                ms, n = got.get(name, (0.0, 0))
+                got[name] = (ms + dev_us / 1e3, n + e.count)
+    return got
+
+
 def serve_phase(cfg, seed, n_requests, batch_slots, max_len, new_tokens,
                 prompt_range, dev, label, gate_layers=None):
     """Serve `n_requests` through a ServeEngine on `cfg` and check the
@@ -1023,13 +1119,17 @@ def hybrid_phase(cfg, seed, batch, prompt_len, new_tokens, dev):
                           device=dev)
 
     with torch.inference_mode():
+        # two prefills timed, one profiled, then the counted one, timed too
+        prefill_s = prefill_times(lambda: model.prefill(params, {"tokens": tokens}), 2)
+        ssd = ssd_prefill_ms(lambda: model.prefill(params, {"tokens": tokens}))
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, pc = model.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
+        prefill_s.append(time.perf_counter() - t0)
         at_prefill = kernel_counts()
+        at_prefill_ssd = ssd_path_gate(cfg.name, at_prefill["ssm_scan"])
         cache = model.init_cache(B, T + new_tokens)
         cache["k"][:, :, :T], cache["v"][:, :, :T] = pc["k"], pc["v"]
         cache["conv"].copy_(pc["conv"])
@@ -1054,8 +1154,12 @@ def hybrid_phase(cfg, seed, batch, prompt_len, new_tokens, dev):
         if not bool(torch.isfinite(logits.float()).all()) or \
                 not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
             fail(f"{cfg.name}: non-finite prefill logits or out-of-vocab tokens")
-        say(f"  prefill: {B} x {T} tokens in {t_prefill:.3f} s, {B * T / t_prefill:.0f} "
-            f"tokens/s")
+        t_prefill = float(np.median(prefill_s))
+        say(f"  prefill: {B} x {T} tokens, median of {len(prefill_s)} {t_prefill:.4f} s "
+            f"({', '.join(f'{t:.4f}' for t in prefill_s)}), {B * T / t_prefill:.0f} tokens/s")
+        say(f"  SSD kernels in a profiled prefill: device "
+            f"{sum(ms for ms, _ in ssd.values()):.3f} ms: "
+            + ", ".join(f"{n} x{c} {ms:.3f} ms" for n, (ms, c) in ssd.items()))
         say(f"  decode: {new_tokens} steps of {B} sequences, {sum(step_s):.3f} s, "
             f"{B * new_tokens / sum(step_s):.0f} tokens/s; {spread(step_s)} per step")
         want_prefill = {"flash_attention": nb, "decode_attention": 0, "moe_gmm": 0,
@@ -1070,6 +1174,9 @@ def hybrid_phase(cfg, seed, batch, prompt_len, new_tokens, dev):
                                                               launches["flash_attention"])
         launches["decode_attention_by_path"] = decode_path_gate(cfg.name,
                                                                 launches["decode_attention"])
+        launches["ssm_scan_by_path"] = at_prefill_ssd
+        launches["prefill_s"] = prefill_s
+        launches["ssd_prefill_ms"] = sum(ms for ms, _ in ssd.values())
         say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
         state = {"tok": tok, "pos": T + new_tokens}
@@ -1218,6 +1325,10 @@ def main() -> int:
                                           for p in ("split", "simt")})
     kernels[2].update(kernel=table["moe_gmm"]["path"],
                       launches_by_kernel=runs["6"]["moe_gmm_by_path"])
+    ssd = table["ssd_scan"]
+    kernels[3].update(kernel=ssd["path"], simt_ms=ssd["simt_ms"], event_ms=ssd["event_ms"],
+                      dist_fp64=ssd["dist_fp64"], launches_by_kernel=runs["7"]["ssm_scan_by_path"],
+                      prefill_ms=runs["7"]["ssd_prefill_ms"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA-fed kernels
 // (moe_gmm.cu's gmm_wgmma, flash_attention.cu's flash_wgmma,
-// decode_attention.cu's decode_split): mbarriers with a trap on a stuck
-// wait, TMA tile loads, 128-byte-swizzle wgmma descriptors, the wgmma
-// products the kernels issue, and the host's tensor-map encoder.
+// decode_attention.cu's decode_split, ssm_scan.cu's tensor-core path):
+// mbarriers with a trap on a stuck wait, TMA tile loads, 128-byte-swizzle
+// wgmma descriptors, the wgmma products the kernels issue (bf16 and tf32),
+// and the host's tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
@@ -48,6 +49,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   const long long t0 = clock64();
   while (!mbar_try_wait(bar, parity))
     if (clock64() - t0 > kHangCycles) __trap();
+}
+
+// Make this thread's shared-memory stores visible to the async proxy, which
+// wgmma's operand reads go through: after the stores, before the barrier
+// that lets the products read them.
+__device__ __forceinline__ void fence_view_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // Barrier `id` (1-15; 0 is __syncthreads') over the first `n` threads of
@@ -241,6 +249,48 @@ __device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96], const uint32
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
         "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The tf32 products: d (64 x 64, fp32) (+)= A (64 x 8) @ B (8 x 64), tf32 x
+// tf32 summed into fp32. A tf32 wgmma takes no transpose: both operands are
+// K-major (8 tf32 are 32 bytes of a 128-byte swizzled row). The accumulator
+// lays out as the bf16 products' (above). A register A operand is the
+// m16n8k8 tf32 A fragment of the warp's 16 rows: (r, k), (r + 8, k),
+// (r, k + 4), (r + 8, k + 4) with r = 16 w + lane / 4 and k = lane % 4, so
+// its columns do not lie as the accumulator's do (2 (lane % 4), + 1).
+
+// both operands in shared memory
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// A in registers, B in shared memory
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

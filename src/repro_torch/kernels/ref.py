@@ -93,19 +93,21 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):
     (C_t.B_s) exp(clip(la_t - la_s, -60, 0)) dt_s for s <= t applied to x,
     the inter-chunk term C_t.S exp(la_t) (unclipped), and the state update
     S <- exp(la_end) S + x^T (B exp(clip(la_end - la, -60, 0)) dt). No D
-    skip: the model adds it."""
+    skip: the model adds it. Sums run in fp32, or in fp64 when x is fp64
+    (the card tests' yardstick of the kernels' precision)."""
     Bsz, H, T, P = x.shape
     G = Bm.shape[1]
     Q = min(chunk, T)
     if T % Q:
         raise ValueError(f"sequence length {T} is not a multiple of the chunk {Q}")
     rep = H // G
-    xf, dtf = x.to(F32), dt.to(F32)
-    a = A.to(F32)[None, :, None]
-    Bh = torch.repeat_interleave(Bm.to(F32), rep, dim=1)
-    Ch = torch.repeat_interleave(Cm.to(F32), rep, dim=1)
+    ct = torch.promote_types(x.dtype, F32)
+    xf, dtf = x.to(ct), dt.to(ct)
+    a = A.to(ct)[None, :, None]
+    Bh = torch.repeat_interleave(Bm.to(ct), rep, dim=1)
+    Ch = torch.repeat_interleave(Cm.to(ct), rep, dim=1)
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    S = torch.zeros((Bsz, H, P, Bm.shape[3]), dtype=F32, device=x.device)
+    S = torch.zeros((Bsz, H, P, Bm.shape[3]), dtype=ct, device=x.device)
     ys = []
     for c0 in range(0, T, Q):
         xc, dtc = xf[:, :, c0:c0 + Q], dtf[:, :, c0:c0 + Q]

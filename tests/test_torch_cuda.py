@@ -13,7 +13,8 @@ fp32 2e-5, bf16 2e-2, int8 1e-4; grouped matmul fp32 1e-4, bf16 5e-2 (as
 tests/test_kernels.py); SSD scan fp32 1e-4 (sums of up to 256 products in
 another order, with exp of the summed decays), bf16 2e-2. The flash
 tensor-core kernel is also held to the CUDA-core kernel's distance from an
-fp32 run (within 5%), which fails if P is rounded to bf16 before P.V.
+fp32 run (within 5%), which fails if P is rounded to bf16 before P.V; the
+SSD scan's tensor-core path to 2x the first version's distance from fp64.
 """
 import pytest
 import torch
@@ -318,30 +319,101 @@ def test_moe_gmm_kernel_matches_plain_on_cuda(cuda, E, C, d, f, dtype):
     torch.testing.assert_close(got.float(), ref.moe_gmm_ref(x, w).float(), **tol)
 
 
+def _ssd_inputs(dev, B, H, T, P, G, N, dtype, seed):
+    """Inputs in the model's (B,T,H,P) layout, read as (B,H,T,P) views; the
+    distributions of tests/test_kernels.py."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((B, T, H, P), generator=g, device=dev) * 0.5).to(dtype).transpose(1, 2)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=g, device=dev)).transpose(1, 2)
+    A = -torch.exp(torch.randn(H, generator=g, device=dev) * 0.3)
+    Bm, Cm = ((torch.randn((B, T, G, N), generator=g, device=dev) * 0.5).to(dtype)
+              .transpose(1, 2) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,T,P,G,N,chunk", [
     (1, 2, 64, 16, 1, 8, 16), (2, 4, 64, 32, 2, 16, 32), (1, 2, 128, 16, 2, 8, 16),
     (2, 8, 512, 64, 1, 64, 256),    # zamba2's heads, state and chunk
+    (1, 80, 256, 64, 1, 64, 256),   # one chunk
+    (1, 8, 2048, 64, 1, 64, 256),   # 8 chunks
+    (2, 8, 512, 64, 2, 64, 256),    # G = 2
+    (4, 80, 1024, 64, 1, 64, 256),  # zamba2-2.7b's prefill, B = 4
+    (2, 4, 256, 64, 1, 64, 64),     # chunks of one and two row tiles
+    (2, 4, 512, 64, 2, 64, 128),
+    (1, 4, 64, 64, 1, 64, 256),     # T = 64: one tile, one chunk
 ])
 def test_ssd_scan_kernel_matches_plain_on_cuda(cuda, B, H, T, P, G, N, chunk, dtype):
-    """Inputs in the model's (B,T,H,P) layout, read as (B,H,T,P) views."""
-    g = torch.Generator(device=cuda).manual_seed(T + P)
+    """Inputs in the model's (B,T,H,P) layout, read as (B,H,T,P) views. Each
+    case goes through the kernel `route` names: the tensor-core path for
+    fp32 at P = N = 64 and a chunk that is a multiple of 64, else the first
+    version."""
     td = DTYPES[dtype]
-    x = (torch.randn((B, T, H, P), generator=g, device=cuda) * 0.5).to(td).transpose(1, 2)
-    dt = torch.nn.functional.softplus(
-        torch.randn((B, T, H), generator=g, device=cuda)).transpose(1, 2)
-    A = -torch.exp(torch.randn(H, generator=g, device=cuda) * 0.3)
-    Bm, Cm = ((torch.randn((B, T, G, N), generator=g, device=cuda) * 0.5).to(td)
-              .transpose(1, 2) for _ in range(2))
-    n = sk.launches
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, B, H, T, P, G, N, td, T + P)
+    Q = min(chunk, T)
+    want = "mma" if td == torch.float32 and P == N == 64 and Q % 64 == 0 else "simt"
+    n, by_path = sk.launches, dict(sk.launches_by_path)
     y, s = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
     assert sk.launches == n + 1 and y.dtype == td and s.dtype == torch.float32
+    assert sk.launches_by_path == dict(by_path, **{want: by_path[want] + 1})
     want_y, want_s = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
     tol = dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(y.float(), want_y.float(), **tol)
     torch.testing.assert_close(s, want_s, **tol)
+
+
+def _rel_l2(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+@pytest.mark.cuda
+def test_ssd_tensor_core_kernel_keeps_fp32_precision(cuda):
+    """At zamba2-2.7b's prefill shape (B=4, H=80, T=1024, P=N=64, chunk
+    256), y and the final state of the tensor-core path (3xTF32 products)
+    are each no further from an fp64 run of the plain version than 2x the
+    first version's (fp32 products on the CUDA cores); one TF32 pass would
+    be about a thousand times further."""
+    args = _ssd_inputs(cuda, 4, 80, 1024, 64, 1, 64, torch.float32, 1024)
+    assert sk.route_for(args[0], args[3], args[4]) == "mma"
+    exact_y, exact_s = ref.ssd_scan_ref(*(t.double() for t in args), chunk=256)
+    dist = {}
+    for path in ("mma", "simt"):
+        y, s = sk.ssd_scan(*args, chunk=256, path=path)
+        torch.cuda.synchronize()
+        dist[path] = (_rel_l2(y, exact_y), _rel_l2(s, exact_s))
+    assert dist["mma"][0] <= 2 * dist["simt"][0], dist
+    assert dist["mma"][1] <= 2 * dist["simt"][1], dist
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["offset", "padded"])
+def test_ssd_first_version_takes_what_tma_cannot_read(cuda, layout):
+    """fp32 at zamba2's widths whose bases ("offset", one element off an
+    aligned address) or rows ("padded", a head stride of P + 1) TMA cannot
+    read goes to the first version and still matches the plain version;
+    naming the tensor-core path for it raises."""
+    B, H, T, P, G, N = 2, 8, 512, 64, 1, 64
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, B, H, T, P, G, N, torch.float32, 7)
+    if layout == "offset":
+        x, Bm, Cm = (torch.empty(t.numel() + 1, device=cuda)[1:].view(
+            t.transpose(1, 2).shape).copy_(t.transpose(1, 2)).transpose(1, 2)
+            for t in (x, Bm, Cm))
+    else:
+        x = torch.zeros((B, T, H, P + 1), device=cuda)[..., :P].copy_(
+            x.transpose(1, 2)).transpose(1, 2)
+    assert sk.route_for(x, Bm, Cm) == "simt"
+    n = sk.launches_by_path["simt"]
+    y, s = ops.ssd_scan(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert sk.launches_by_path["simt"] == n + 1
+    want_y, want_s = ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, want_s, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="cannot take"):
+        sk.ssd_scan(x, dt, A, Bm, Cm, path="mma")
 
 
 def _to(tree, dev):

@@ -502,3 +502,122 @@ def test_decode_route_picks_the_kernel(dtype, B, S, Hc, D, layout, want):
     strides = (*k.stride()[:3], *v.stride()[:3])
     align = {"model": 256, "offset": dtype.itemsize, "padded": 16}[layout]
     assert dk.route(dtype, D, S, strides, align) == want
+
+
+# ------------------------------------------------------------- the SSD scan's route and plan
+
+def _ssd_views(dtype, B, T, H, P, G, N, layout):
+    """x, Bm, Cm as `layout` lays them out: "model" is the bf16 model's fp32
+    copies (B,T,H,P) and (B,T,G,N) read as (B,H,T,P) / (B,G,T,N) views
+    (models/mamba2.py::mamba_fwd); "model32" the fp32 model's, slices of one
+    (B,T,d_in + 2GN) conv output; "offset" the "model" views of buffers one
+    element past an aligned address; "padded" a head stride of P + 1
+    elements."""
+    if layout == "model32":
+        xbc = torch.zeros((B, T, H * P + 2 * G * N), dtype=dtype)
+        x = xbc[..., :H * P].reshape(B, T, H, P)
+        Bm, Cm = xbc[..., H * P:].reshape(B, T, 2 * G, N).split(G, dim=2)
+        return x.transpose(1, 2), Bm.transpose(1, 2), Cm.transpose(1, 2)
+    skip = 1 if layout == "offset" else 0
+
+    def one(*shape):
+        n = int(np.prod(shape))
+        return torch.zeros(n + skip, dtype=dtype)[skip:].view(*shape).transpose(1, 2)
+    if layout == "padded":
+        x = torch.zeros((B, T, H, P + 1), dtype=dtype)[..., :P].transpose(1, 2)
+    else:
+        x = one(B, T, H, P)
+    return x, one(B, T, G, N), one(B, T, G, N)
+
+
+@pytest.mark.parametrize("dtype,B,T,H,P,G,N,chunk,layout,want", [
+    ("float32", 4, 1024, 80, 64, 1, 64, 256, "model", "mma"),     # zamba2-2.7b's prefill
+    ("float32", 1, 256, 80, 64, 1, 64, 256, "model", "mma"),      # one chunk
+    ("float32", 4, 4096, 80, 64, 1, 64, 256, "model", "mma"),
+    ("float32", 2, 1024, 80, 64, 1, 64, 256, "model32", "mma"),   # the fp32 model's slices
+    ("float32", 2, 512, 8, 64, 2, 64, 64, "model", "mma"),        # G = 2, the smallest chunk
+    ("float32", 2, 384, 8, 64, 2, 64, 128, "model", "mma"),
+    ("bfloat16", 4, 1024, 80, 64, 1, 64, 256, "model", "simt"),   # bf16 stays on the CUDA cores
+    ("float32", 2, 256, 4, 16, 1, 16, 32, "model", "simt"),       # zamba2 SMOKE: P = N = 16, chunk 32
+    ("float32", 2, 256, 4, 64, 1, 64, 32, "model", "simt"),       # a chunk of 32 at P = N = 64
+    ("float32", 2, 96, 4, 64, 1, 64, 96, "model", "simt"),        # a chunk of 96
+    ("float32", 1, 48, 4, 64, 1, 64, 256, "model", "simt"),       # T < 64: the chunk is T
+    ("float32", 2, 256, 4, 32, 1, 64, 256, "model", "simt"),      # P = 32
+    ("float32", 2, 256, 4, 64, 1, 32, 256, "model", "simt"),      # N = 32
+    ("float32", 2, 256, 4, 64, 1, 64, 256, "offset", "simt"),     # bases 4 bytes off
+    ("float32", 2, 256, 4, 64, 1, 64, 256, "padded", "simt"),     # rows of 260 bytes
+])
+def test_ssd_route_picks_the_kernel(dtype, B, T, H, P, G, N, chunk, layout, want):
+    """`route` decides before the launch, from dtype, chunk, widths,
+    strides and alignment: the tensor-core path for fp32 that TMA can read
+    at P = N = 64 and a chunk that is a multiple of 64 up to 256, the first
+    version for the rest."""
+    x, Bm, Cm = _ssd_views(DTYPES[dtype][1], B, T, H, P, G, N, layout)
+    assert sk.route_for(x, Bm, Cm, chunk=chunk) == want
+    strides = (*x.stride()[:3], *Bm.stride()[:3], *Cm.stride()[:3])
+    align = 4 if layout == "offset" else 256
+    assert sk.route(x.dtype, min(chunk, T), P, N, strides, align) == want
+
+
+@pytest.mark.parametrize("T,nc", [(256, 1), (1024, 4), (4096, 16)])
+def test_ssd_plan_gives_grids_and_workspaces_from_shapes(T, nc):
+    """zamba2-2.7b's prefill widths (B=4, H=80, P=N=64, chunk 256): (a) one
+    CTA per (chunk, head, batch row), (b) 4 per (head, batch row), (c) one
+    per (64-row tile, chunk, head, batch row); dS (B,H,nc,P,N) and la
+    (B,H,T) in fp32."""
+    pl = sk.plan(4, 80, T, 256, 64, 64)
+    assert pl.chunk_grid == (nc, 80, 4)
+    assert pl.state_grid == (4, 80, 4)
+    assert pl.out_grid == (4 * nc, 80, 4)
+    assert pl.ds_shape == (4, 80, nc, 64, 64) and pl.la_shape == (4, 80, T)
+    assert np.prod(pl.out_grid) == 4 * nc * 80 * 4   # 5120 CTAs at T = 1024
+
+
+def test_ssd_plan_depends_on_shapes_only():
+    import inspect
+    assert list(inspect.signature(sk.plan).parameters) == ["B", "H", "T", "Q", "P", "N"]
+    assert sk.plan(1, 2, 128, 64, 64, 64).out_grid == (2, 2, 1)
+    assert sk.plan(2, 8, 512, 128, 64, 64).out_grid == (8, 8, 2)
+    with pytest.raises(ValueError, match="positive"):
+        sk.plan(4, 80, 0, 256, 64, 64)
+    with pytest.raises(ValueError, match="multiple"):
+        sk.plan(4, 80, 1000, 256, 64, 64)
+    with pytest.raises(ValueError, match="multiple"):
+        sk.plan(4, 80, 960, 96, 64, 64)
+
+
+def test_ssd_wrapper_hands_the_kernel_plans_grids(monkeypatch):
+    """The wrapper hands the C entry the path route names, plan's grids and
+    workspaces of plan's shapes, and counts one launch a call by path;
+    naming the tensor-core path for bf16 raises before a launch."""
+    import contextlib
+    import types
+    calls = []
+
+    def fake_kernel(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(sk, "_check", lambda *a: None)
+    monkeypatch.setattr(sk, "_kernel", lambda: fake_kernel)
+    monkeypatch.setattr(sk, "launches", sk.launches)
+    monkeypatch.setattr(sk, "launches_by_path", dict(sk.launches_by_path))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    B, T, H, P, G, N = 2, 512, 8, 64, 2, 64
+    x, Bm, Cm = _ssd_views(torch.float32, B, T, H, P, G, N, "model")
+    dt, A = torch.zeros((B, T, H)).transpose(1, 2), torch.zeros(H)
+    y, s = sk.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    assert y.shape == x.shape and y.stride() == x.stride() and s.shape == (B, H, P, N)
+    args = calls[-1]
+    assert args[16] == sk.PATH_CODES["mma"]
+    assert args[17] and args[18]   # the dS and la workspaces
+    pl = sk.plan(B, H, T, 256, P, N)
+    assert tuple(args[19]) == (*pl.chunk_grid, *pl.state_grid, *pl.out_grid)
+    sk.ssd_scan(x, dt, A, Bm, Cm, chunk=256, path="simt")
+    assert calls[-1][16] == sk.PATH_CODES["simt"] and calls[-1][17] is None
+    assert sk.launches_by_path == {"mma": 1, "simt": 1}
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    with pytest.raises(ValueError, match="cannot take"):
+        sk.ssd_scan(xb, dt, A, Bb, Cb, chunk=256, path="mma")
+    assert len(calls) == 2

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Phases 3a-3d, 4, 6 and 7 of chip_smoke.py for several trees of this
+"""Phases 3a-3e, 4, 6 and 7 of chip_smoke.py for several trees of this
 repository, one after the other on one card, so that their times compare.
 
     python3 tools/chip_ab.py TREE [TREE ...]     # e.g. parent change change parent
@@ -9,18 +9,23 @@ runs in a process of its own, with its own `chip_smoke.py`, its own kernel
 sources and its own build directory: the kernels are built (phase 2), then
 the attention kernels are checked and timed at llama3-8b's, zamba2's and
 stablelm-12b's widths (phases 3a-3c and 3a'-3b'), the grouped expert matmul
-too (phase 3d), llama3-8b is served at its published width and depth
+too (phase 3d), the SSD scan (phase 3e), llama3-8b is served at its
+published width and depth
 (phase 4), phi3.5-moe at its published width and 16 layers (phase 6), and
 zamba2-2.7b prefills and decodes at its published width and depth (phase
 7), with the arguments `chip_smoke.py` gives them.
 
-Three measurements are this script's own, the same for every tree: decode
+Five measurements are this script's own, the same for every tree: decode
 attention's device and event times at phases 3b's, 3b''s and 3c's shapes
 through the tree's `ops.decode_attention`, beside SDPA's and the bound
 (`decode_ab`); flash attention's distance to an fp32 run, by kernel, at
 llama3-8b's, zamba2-2.7b's and stablelm-12b's prefill shapes
-(`flash_precision_ab`); and the profiled decode windows of phases 4, 6
-and 7, which print the decode kernels' device ms per step whatever the
+(`flash_precision_ab`); the SSD scan's device time and distance to an
+fp64 run (this script's own plain version) through the tree's
+`ops.ssd_scan` at zamba2-2.7b's prefill widths (`ssd_ab`); zamba2-2.7b's
+4 x 1024 prefill timed three times, with the SSD kernels' device ms in a
+profiled prefill (`prefill_ab`); and the profiled decode windows of phases
+4, 6 and 7, which print the decode kernels' device ms per step whatever the
 tree's own `chip_smoke.py` prints (this script's
 `chip_smoke.profile_steps` replaces the tree's). Needs a CUDA device;
 exits non-zero if any tree fails.
@@ -34,7 +39,9 @@ import sys
 import time
 from pathlib import Path
 
-OWN_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+OWN_ROOT = Path(__file__).resolve().parents[1]
+OWN_SMOKE = OWN_ROOT / "chip_smoke.py"
+OWN_REF = OWN_ROOT / "src" / "repro_torch" / "kernels" / "ref.py"   # imports torch only
 
 
 def _load(path: Path, name: str):
@@ -110,9 +117,63 @@ def flash_precision_ab(own, dev):
               f"ratio {dist['wgmma'] / dist['simt']:.4f}", flush=True)
 
 
+def ssd_ab(own, dev):
+    """The SSD scan through the tree's ops.ssd_scan at zamba2-2.7b's prefill
+    widths (B=4 H=80 P=N=64 G=1 chunk 256, fp32 (B,T,H,P) views) for T in
+    {1024, 2048}: device time (device_ms), the bound, and the relative L2
+    distance of y and of the final state to an fp64 run of this script's
+    tree's plain version (the same for every tree)."""
+    import torch
+    from repro_torch.kernels import ops
+    own_ref = _load(OWN_REF, "own_ref")
+    H, P, N, Q = 80, 64, 64, 256
+    for B, T in ((4, 1024), (4, 2048)):
+        g = torch.Generator(device=dev).manual_seed(T)
+        x = (torch.randn((B, T, H, P), generator=g, device=dev) * 0.5).transpose(1, 2)
+        dt = torch.nn.functional.softplus(torch.randn((B, T, H), generator=g, device=dev))
+        A = -torch.exp(torch.randn(H, generator=g, device=dev) * 0.3)
+        Bm, Cm = ((torch.randn((B, T, 1, N), generator=g, device=dev) * 0.5).transpose(1, 2)
+                  for _ in range(2))
+        args = (x, dt.transpose(1, 2), A, Bm, Cm)
+        exact_y, exact_s = own_ref.ssd_scan_ref(*(t.double() for t in args), chunk=Q)
+        y, s = ops.ssd_scan(*args, chunk=Q)
+        ms = own.device_ms(lambda: ops.ssd_scan(*args, chunk=Q), 20)
+        bound, by, _, _ = own.ssd_bound(B, H, T, P, N, Q, 4)
+        print(f"  ssd_ab B={B} H={H} T={T} P={P} N={N} fp32: device {ms:.4f} ms, bound "
+              f"{bound:.4f} ms by {by}; distance to fp64 y {own.rel_l2(y, exact_y):.6e} "
+              f"state {own.rel_l2(s, exact_s):.6e}", flush=True)
+        del x, dt, Bm, Cm, args, exact_y, exact_s, y, s
+
+
+def prefill_ab(own, seed, dev):
+    """zamba2-2.7b at its published width and depth (the tree's model):
+    the 4 x 1024 prefill of phase 7 timed three times, and the SSD kernels'
+    device ms in one profiled prefill, with this script's helpers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("zamba2-2.7b")
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed + 3))
+    tokens = torch.tensor(np.random.default_rng(seed + 3).integers(0, cfg.vocab_size, (4, 1024)),
+                          dtype=torch.int32, device=dev)
+    def run():
+        return model.prefill(params, {"tokens": tokens})
+    with torch.inference_mode():
+        run()
+        seconds = own.prefill_times(run, 3)
+        ssd = own.ssd_prefill_ms(run)
+    print(f"  prefill_ab zamba2-2.7b 4 x 1024: median {np.median(seconds):.4f} s ("
+          + ", ".join(f"{t:.4f}" for t in seconds) + "); SSD kernels "
+          f"{sum(ms for ms, _ in ssd.values()):.3f} ms a prefill: "
+          + ", ".join(f"{n} x{c} {ms:.3f} ms" for n, (ms, c) in ssd.items()), flush=True)
+    del model, params
+
+
 def run_tree(root: Path, seed: int) -> int:
-    """Phases 2, 3a-3d, 4, 6 and 7 of the chip_smoke.py at `root`,
-    decode_ab and flash_precision_ab, in this process."""
+    """Phases 2, 3a-3e, 4, 6 and 7 of the chip_smoke.py at `root`,
+    decode_ab, flash_precision_ab, ssd_ab and prefill_ab, in this process."""
     own = _load(OWN_SMOKE, "chip_smoke_ab")
     smoke = _load(root / "chip_smoke.py", "chip_smoke")
     smoke.profile_steps = own.profile_steps
@@ -132,11 +193,14 @@ def run_tree(root: Path, seed: int) -> int:
     build.build()
     print(f"  built in {time.perf_counter() - t0:.1f} s", flush=True)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    for phase in (smoke.kernel_phase, smoke.head_dim_phase, smoke.gmm_phase):
+    for phase in (smoke.kernel_phase, smoke.head_dim_phase, smoke.gmm_phase, smoke.ssd_phase):
         phase(gen, dev)
         torch.cuda.empty_cache()
     decode_ab(own, gen, dev)
     flash_precision_ab(own, dev)
+    ssd_ab(own, dev)
+    torch.cuda.empty_cache()
+    prefill_ab(own, seed, dev)
     torch.cuda.empty_cache()
     smoke.serve_phase(get_config("llama3-8b"), seed, n_requests=16, batch_slots=8,
                       max_len=2048, new_tokens=32, prompt_range=(16, 1024), dev=dev,
