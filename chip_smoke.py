@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's three paths on the card and checks them: dense-LM
-continuous-batching serving, MoE serving, and the zamba2 hybrid's prefill
-and decode. Every phase exits non-zero on failure; nothing is caught and
-carried on.
+Drives the port's four paths on the card and checks them: dense-LM
+continuous-batching serving, MoE serving, the zamba2 hybrid's prefill and
+decode, and dense-LM training. Every phase exits non-zero on failure;
+nothing is caught and carried on.
 
   1. requires a CUDA device; prints the card's name and power limit;
   2. builds the four kernels from `src/repro_torch/kernels/csrc/`;
@@ -62,7 +62,27 @@ carried on.
      counts, profile, and logits gated on the prefill and on one decode
      step. Each profiled decode window of phases 4, 6 and 7 prints the
      decode kernels' device ms per step;
-  8. prints the kernel table as one JSON line and, last, the device line
+  8. training: a. at llama3-8b's (Hq=32 Hkv=8 D=128, also with a window of
+     256), zamba2's (D=80) and stablelm-12b's (D=160) shapes, bf16 causal,
+     T=1024: the lse of both flash kernels held to the plain version's
+     (LSE_TOL), and flash_attention_vjp's dq/dk/dv (the kernel forward, the
+     plain backward) no further from autograd through `ref.attention_ref`
+     in fp32 than NOISE_FACTOR times the plain bf16 path's; the forward's
+     device time with and without the lse write, the backward's time,
+     SDPA's backward's and the bound; b. llama3-8b at its published width
+     and 4 of its 32 layers, bf16, AdamW through `make_train_step`: 6 steps
+     of 4 x 1024 TokenPipeline tokens in 2 microbatches, each step's wall
+     time, the median of steps 2-6, tokens/s, MFU and peak memory, a
+     profiled step; gated on finite losses and grad norms, on every flash
+     launch going through the tensor-core kernel with the lse (the forward
+     and the remat recompute of each layer and microbatch, counted exactly)
+     and no other kernel launching, then on the gradients (embeddings, one
+     block's wq/wo/w2, the final norm) at B=1: no further from the fp32
+     model's than NOISE_FACTOR times the plain bf16 path's; c. the `demo`
+     preset of examples/train_torch.py trained 12 steps with checkpoints,
+     then crashed at step 9 and restarted by a fresh Trainer: the final
+     states equal leaf for leaf;
+  9. prints the kernel table as one JSON line and, last, the device line
      `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -715,6 +735,7 @@ def reset_counts():
     from repro_torch.kernels import ssm_scan as sk
     for n in KERNEL_MODULES:
         importlib.import_module(f"repro_torch.kernels.{n}").launches = 0
+    fk.lse_launches = 0
     for counts in (fk.launches_by_path, gk.launches_by_path, dk.launches_by_path,
                    sk.launches_by_path):
         for path in counts:
@@ -790,12 +811,12 @@ def plain_kernels():
     every model module's `ops` is swapped for a namespace of the plain
     ones."""
     from repro_torch.kernels import ref
-    from repro_torch.models import dense, hybrid, layers, mamba2, moe
+    from repro_torch.models import dense, flash_vjp, hybrid, layers, mamba2, moe
     plain_ops = types.SimpleNamespace(flash_attention=ref.flash_attention_ref,
                                       decode_attention=ref.decode_attention_ref,
                                       moe_gmm=ref.moe_gmm_ref, ssd_scan=ref.ssd_scan_ref)
     with contextlib.ExitStack() as stack:
-        for module in (layers, dense, moe, mamba2, hybrid):
+        for module in (layers, dense, moe, mamba2, hybrid, flash_vjp):
             stack.enter_context(mock.patch.object(module, "ops", plain_ops))
         yield
 
@@ -922,13 +943,14 @@ def profile_window(engine, prompts, steps=4):
 
 
 # the decode attention kernels' names (csrc/decode_attention.cu), which
-# profile_steps always reports
+# profile_steps reports unless it is given others
 DECODE_KERNELS = ("decode_split", "decode_merge", "decode_kernel")
 
 
-def profile_steps(step, steps):
-    """Profile `steps` calls of `step()` (one decode step each): device busy
-    share of the window and the largest device and host costs."""
+def profile_steps(step, steps, what="decode", kernels=DECODE_KERNELS, label="decode attention"):
+    """Profile `steps` calls of `step()` (one `what` step each): device busy
+    share of the window, the largest device and host costs, and the device
+    time of `kernels` (named `label`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -944,22 +966,24 @@ def profile_steps(step, steps):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
     # kernels (and copies) are the events that run on the card; the host
     # ops that launch them carry the same time again, so they are left out
-    kernels = [e for e in events if e.device_type.name == "CUDA"]
-    busy = sum(dev_us(e) for e in kernels) / 1e6
-    say(f"  profiled {steps} decode steps: {window / steps * 1e3:.2f} ms per step (profiler on), "
+    device = [e for e in events if e.device_type.name == "CUDA"]
+    busy = sum(dev_us(e) for e in device) / 1e6
+    say(f"  profiled {steps} {what} steps: {window / steps * 1e3:.2f} ms per step (profiler on), "
         f"device busy {busy / window * 100:.1f}% (idle {100 - busy / window * 100:.1f}%), "
-        f"{sum(e.count for e in kernels) / steps:.0f} device kernels per step")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
+        f"{sum(e.count for e in device) / steps:.0f} device kernels per step")
+    for e in sorted(device, key=dev_us, reverse=True)[:6]:
         say(f"    device {dev_us(e) / steps / 1e3:8.3f} ms/step  x{e.count // steps:<4d} {e.key[:70]}")
-    decode = {n: [e for e in kernels if n in e.key] for n in DECODE_KERNELS}
-    say(f"    decode attention: device "
-        f"{sum(dev_us(e) for es in decode.values() for e in es) / steps / 1e3:.3f} ms/step: "
+    named = {n: [e for e in device if n in e.key] for n in kernels}
+    say(f"    {label}: device "
+        f"{sum(dev_us(e) for es in named.values() for e in es) / steps / 1e3:.3f} ms/step: "
         + (", ".join(f"{n} x{sum(e.count for e in es) // steps} "
                      f"{sum(dev_us(e) for e in es) / steps / 1e3:.3f} ms"
-                     for n, es in decode.items() if es) or "no kernel"))
+                     for n, es in named.items() if es) or "no kernel"))
     for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
         say(f"    host   {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step  "
             f"x{e.count // steps:<4d} {e.key[:70]}")
+    return {"busy": busy / window, "step_ms": window / steps * 1e3,
+            "device_ms": {e.key: dev_us(e) / steps / 1e3 for e in device}}
 
 
 # the SSD scan's kernels (csrc/ssm_scan.cu), which ssd_prefill_ms reports
@@ -1207,6 +1231,282 @@ def hybrid_phase(cfg, seed, batch, prompt_len, new_tokens, dev):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 8: training
+# ----------------------------------------------------------------------------
+
+# each row's fp32 log-sum-exp: sums of up to T exps in another order than
+# the plain version's, exp2 with log2(e) folded into the tensor-core
+# kernel's scale, and m ln 2 + ln l there
+LSE_TOL = 1e-4
+
+
+def flash_bwd_bound(B, Hq, Hkv, T, D):
+    """(bound ms, flops) of the causal flash backward at the bf16 tensor-core
+    rate: five products over the unmasked pairs (S and dP recomputed, dQ,
+    dK, dV); q, k, v, out, dout and lse read once, dq, dk, dv written once."""
+    flops = 10 * B * Hq * D * (T * (T + 1) // 2)
+    nbytes = 2 * B * D * T * (3 * Hq + 2 * Hkv) + 4 * B * Hq * T + 2 * B * D * T * (Hq + 2 * Hkv)
+    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3, flops
+
+
+def vjp_grads(q, k, v, do, window):
+    """(dq, dk, dv) of flash_attention_vjp on (B,T,H,D) q, k, v."""
+    from repro_torch.models.flash_vjp import flash_attention_vjp
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    flash_attention_vjp(q, k, v, causal=True, window=window).backward(do)
+    return q.grad, k.grad, v.grad
+
+
+def train_kernel_phase(gen, dev):
+    """8a: the lse of both flash kernels against the plain version's, and the
+    flash backward (kernel forward, plain backward) against autograd through
+    `ref.attention_ref` in fp32, gated as logits_gate gates logits; times at
+    llama's shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.flash_vjp import flash_bwd
+
+    rnd = _rnd(gen, dev)
+    T = 1024
+    row = None
+    for label, B, Hq, Hkv, D, window in (("llama3-8b", 1, 32, 8, 128, None),
+                                         ("llama3-8b, window 256", 1, 32, 8, 128, 256),
+                                         ("zamba2-2.7b", 1, 32, 32, 80, None),
+                                         ("stablelm-12b", 1, 32, 8, 160, None)):
+        say(f"  {label}: B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 causal")
+        q, k, v, do = rnd(B, T, Hq, D), rnd(B, T, Hkv, D), rnd(B, T, Hkv, D), rnd(B, T, Hq, D)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        want_out, want_lse = ref.flash_attention_ref(qt, kt, vt, window=window, return_lse=True)
+        for path in ("wgmma", "simt"):
+            out, lse = fk.flash_attention(qt, kt, vt, window=window, path=path,
+                                          return_lse=True)
+            gate(f"lse ({path})", lse, want_lse, LSE_TOL)
+            gate(f"out beside the lse ({path})", out, want_out, BF16_TOL)
+        kern = vjp_grads(q, k, v, do, window)
+        with plain_kernels():
+            plain = vjp_grads(q, k, v, do, window)
+        qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+        ref.attention_ref(qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+                          window=window).transpose(1, 2).backward(do.float())
+        for name, gk, gp, ge in zip(("dq", "dk", "dv"), kern, plain, (qf.grad, kf.grad, vf.grad)):
+            e_k, e_p = rel_l2(gk, ge), rel_l2(gp, ge)
+            ok = bool(torch.isfinite(gk.float()).all()) and e_k <= NOISE_FACTOR * e_p
+            say(f"  {'ok  ' if ok else 'FAIL'} {name}: rel L2 err vs fp32: kernel path "
+                f"{e_k:.3e}, plain path {e_p:.3e} (gate: kernel <= {NOISE_FACTOR:g} x plain)")
+            if not ok:
+                fail(f"flash backward {label} {name}: the kernel path is further from fp32 than "
+                     "bf16 rounding explains")
+        if row is None:   # times at llama's shape
+            nolse = device_ms(lambda: ops.flash_attention(qt, kt, vt), 20)
+            with_lse = device_ms(lambda: ops.flash_attention(qt, kt, vt, return_lse=True), 20)
+            out, lse = ops.flash_attention(qt, kt, vt, return_lse=True)
+            o = out.transpose(1, 2)
+            bwd = cuda_ms(lambda: flash_bwd(q, k, v, o, lse, do, True, None, 512, 512), 5)
+            # kv repeated to Hq heads outside the timed call: SDPA's backward
+            # then runs without GQA, its fastest form
+            qs, ks, vs = (t.detach().repeat_interleave(Hq // t.shape[1], dim=1)
+                          .requires_grad_() for t in (qt, kt, vt))
+            sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qs, ks, vs), do.transpose(1, 2), retain_graph=True), 5)
+            bound, _ = flash_bwd_bound(B, Hq, Hkv, T, D)
+            say(f"  forward: {nolse:.4f} ms without the lse, {with_lse:.4f} ms with it "
+                f"(device time); backward (plain PyTorch, fp32 products): {bwd:.4f} ms, SDPA's "
+                f"backward (kv repeated to {Hq} heads) {sdpa_bwd:.4f} ms, bound {bound:.4f} ms "
+                "(bf16 operations)")
+            row = dict(nolse_ms=nolse, lse_ms=with_lse, bwd_ms=bwd, bwd_sdpa_ms=sdpa_bwd,
+                       bwd_bound_ms=bound, bwd_shape=f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16")
+            del out, lse, o, qs, ks, vs, sdpa_out
+        del q, k, v, do, qt, kt, vt, want_out, want_lse, kern, plain, qf, kf, vf
+    return row
+
+
+# substrings of the names of cuBLAS's matmul kernels on Hopper
+MATMUL_KERNELS = ("gemm", "nvjet", "cutlass", "xmma")
+
+# llama3-8b's parameters that the gradient gate compares (one block's, at
+# depth 1 of 4)
+GRAD_GATE_LEAVES = (("embed", "tok"), ("embed", "out"), ("layers", 1, "attn", "wq"),
+                    ("layers", 1, "attn", "wo"), ("layers", 1, "mlp", "w2"), ("final_norm",))
+
+
+def train_phase(cfg, seed, batch, seq, n_micro, steps, dev):
+    """8b: `steps` AdamW steps of `cfg` through make_train_step, with
+    TokenPipeline batches of `batch` x `seq` in `n_micro` microbatches: step
+    times, tokens/s, MFU, peak memory, a profiled step, the launch gates;
+    then the gradient gate at B=1, one microbatch, against the fp32 model."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.models import build_model
+    from repro_torch.models import dense
+    from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
+    from repro_torch.train.steps import make_init_state, make_train_step
+    from repro_torch.tree import get, leaves, tree_map
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    opt = make_optimizer("adamw")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    state = make_init_state(model, opt)(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    n_matmul = n_params - state["params"]["embed"]["tok"].numel()
+    state_gb = sum(t.numel() * t.element_size() for t in leaves(state)) / 1e9
+    say(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B params "
+        f"({n_matmul / 1e9:.3f} B in matmuls), params and AdamW state {state_gb:.2f} GB, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=batch, seed=seed))
+
+    def device_batch(step, rows=None):
+        return {k: torch.from_numpy(np.ascontiguousarray(v[:rows])).to(dev)
+                for k, v in pipe.batch_at(step).items()}
+
+    # the Trainer's default schedule (TrainerConfig: base lr 3e-4, 10 warmup
+    # steps) over a 100-step run
+    step_fn = make_train_step(model, opt, warmup_cosine(3e-4, 10, 100),
+                              n_microbatches=n_micro)
+    reset_counts()
+    walls, metrics = [], []
+    for s in range(steps):
+        b = device_batch(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = kernel_counts()
+    n_lse = fk.lse_launches
+    tokens = batch * seq
+    t_step = float(np.median(walls[1:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for s, (w, m) in enumerate(zip(walls, metrics)):
+        say(f"  step {s + 1}: {w * 1e3:.1f} ms, loss {m['loss']:.4f}, grad norm "
+            f"{m['grad_norm']:.4f}, lr {m['lr']:.3e}")
+    mfu = 6 * n_matmul * tokens / t_step / PEAK_BF16_FLOPS
+    say(f"  {steps} steps of {batch} x {seq} tokens in {n_micro} microbatches: median of steps "
+        f"2-{steps} {t_step * 1e3:.2f} ms, {tokens / t_step:.0f} tokens/s, MFU {mfu * 100:.2f}% "
+        f"(6 x {n_matmul / 1e9:.3f} B x tokens / step time / {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s); peak device memory {peak:.2f} GB")
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
+        fail(f"{cfg.name}: a loss or grad norm is not finite")
+    n_flash = 2 * cfg.n_layers * n_micro * steps
+    want = {"flash_attention": n_flash, "decode_attention": 0, "moe_gmm": 0, "ssm_scan": 0}
+    say(f"  kernel launches on this path: {launches}, {n_lse} flash launches wrote the lse "
+        f"(per step {cfg.n_layers} layers x {n_micro} microbatches x 2: forward and remat)")
+    if launches != want or n_lse != n_flash:
+        fail(f"{cfg.name}: training did not go through the kernels as its layers ask: "
+             f"{launches}, {n_lse} with lse; want {want}, all with lse")
+    launches["flash_attention_by_path"] = flash_path_gate(cfg.name, n_flash)
+    prof = profile_steps(lambda: step_fn(state, device_batch(steps)), 1, what="train",
+                         kernels=("flash_wgmma", "flash_fwd_kernel"), label="flash forward")
+    kinds = {"matmul": 0.0, "flash_wgmma": 0.0, "other": 0.0}
+    for key, ms in prof["device_ms"].items():
+        kind = ("flash_wgmma" if "flash_wgmma" in key else
+                "matmul" if any(n in key for n in MATMUL_KERNELS) else "other")
+        kinds[kind] += ms
+    say("    device ms in the profiled step by kind: " + ", ".join(
+        f"{k} {ms:.2f}" for k, ms in kinds.items()) + " (other: elementwise, reductions, "
+        "copies, embedding)")
+    run = dict(launches, step_ms=t_step * 1e3, tokens_per_s=tokens / t_step, mfu=mfu,
+               peak_gb=peak, busy=prof["busy"], device_ms_by_kind=kinds, walls=walls)
+    params = state["params"]
+    del state, step_fn, m
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(param_dtype="float32")
+    b1 = device_batch(steps + 1, rows=1)
+
+    def grads(params, cfg):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = dense.lm_loss(live, b1, cfg)
+        return torch.autograd.grad(loss, [get(live, path) for path in GRAD_GATE_LEAVES])
+
+    kern = grads(params, cfg)
+    with plain_kernels():
+        plain = grads(params, cfg)
+        params32 = tree_map(lambda t: t.float(), params)
+        del params
+        exact = grads(params32, cfg32)
+    say(f"  gradient gate at B=1 T={seq}, one microbatch, against the fp32 model:")
+    for path, gk, gp, ge in zip(GRAD_GATE_LEAVES, kern, plain, exact):
+        e_k, e_p = rel_l2(gk, ge), rel_l2(gp, ge)
+        ok = bool(torch.isfinite(gk.float()).all()) and e_k <= NOISE_FACTOR * e_p
+        name = "/".join(str(p) for p in path)
+        say(f"  {'ok  ' if ok else 'FAIL'} d {name}: rel L2 err vs fp32: kernel path {e_k:.3e}, "
+            f"plain path {e_p:.3e} (gate: kernel <= {NOISE_FACTOR:g} x plain)")
+        if not ok:
+            fail(f"{cfg.name}: the gradient of {name} on the kernel path is further from fp32 "
+                 "than bf16 rounding explains")
+    del kern, plain, exact, params32
+    return run
+
+
+def restart_phase(seed, dev):
+    """8c: the `demo` preset of examples/train_torch.py trained 12 steps
+    straight, and again with a crash at step 9 and a restart from the
+    checkpoint by a fresh Trainer: every leaf of the two final states equal."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_torch
+    cfg, p = train_torch.make_cfg("demo"), train_torch.PRESETS["demo"]
+
+    class InjectedFailure(Exception):
+        pass
+
+    def trainer(directory, fail_at=None):
+        def failure_hook(step):
+            if step == fail_at:
+                raise InjectedFailure(f"injected failure at step {step}")
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=p["seq"],
+                                        global_batch=p["batch"], seed=seed))
+        return Trainer(build_model(cfg, device=dev), make_optimizer("adamw"), pipe,
+                       Checkpointer(directory),
+                       TrainerConfig(num_steps=12, ckpt_every=4, log_every=4, n_microbatches=2),
+                       failure_hook=failure_hook)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t_ref = trainer(f"{tmp}/ref")
+        final_ref = t_ref.run(t_ref.init_or_restore(seed=seed))
+        t1 = trainer(f"{tmp}/ft", fail_at=9)
+        try:
+            t1.run(t1.init_or_restore(seed=seed))
+            fail("8c: the injected failure did not stop the run")
+        except InjectedFailure:
+            pass
+        t1.ckpt.wait()
+        t2 = trainer(f"{tmp}/ft")
+        state = t2.init_or_restore(seed=seed)
+        resumed_at = int(state["step"])
+        final = t2.run(state)
+        ref, got = flatten(final_ref), flatten(final)
+        differ = [path for (path, a), (_, b) in zip(ref, got) if not torch.equal(a, b)]
+        say(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.n_layers} layers, head dim "
+            f"{cfg.resolved_head_dim}, seq {p['seq']}, batch {p['batch']}: 12 steps straight, "
+            f"loss {t_ref.history[0]['loss']:.4f} -> {t_ref.history[-1]['loss']:.4f}; crashed at "
+            f"step 9, resumed from step {resumed_at}; {len(ref) - len(differ)} of {len(ref)} "
+            f"leaves equal")
+        if [a for a, _ in ref] != [a for a, _ in got] or differ or resumed_at != 8:
+            fail(f"8c: the restarted run is not bit-identical to the straight one: {differ[:8]}")
+    return {"leaves": len(ref)}
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1292,6 +1592,18 @@ def main() -> int:
         "bf16, through the model interface")
     runs["7"] = timed("7 zamba2-2.7b", hybrid_phase, get_config("zamba2-2.7b"),
                       args.seed + 3, batch=4, prompt_len=1024, new_tokens=32, dev=dev)
+
+    say("phase 8a: training's flash attention, bf16 T=1024: the lse of both kernels, the "
+        "backward")
+    table["flash_attention"].update(timed("8a lse, backward", train_kernel_phase, gen, dev))
+    # 32 layers are 8.03 B params, whose bf16 params and grads, fp32 gradient
+    # accumulator and AdamW moments come to 128 GB; 4 layers are 1.92 B, 31 GB
+    say("phase 8b: training, llama3-8b at published width, 4 of 32 layers, bf16, AdamW")
+    runs["8"] = timed("8b llama3-8b training", train_phase,
+                      get_config("llama3-8b").replace(n_layers=4), args.seed + 4, batch=4,
+                      seq=1024, n_micro=2, steps=6, dev=dev)
+    say("phase 8c: crash and bit-exact restart, the demo preset of examples/train_torch.py")
+    timed("8c restart", restart_phase, args.seed + 5, dev)
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 
@@ -1314,14 +1626,18 @@ def main() -> int:
     # which kernel the timed shape took, and the paths' launches by kernel
     flash = table["flash_attention"]
     kernels[0].update(kernel=flash["path"], simt_ms=flash["simt_ms"],
-                      event_ms=flash["event_ms"],
+                      event_ms=flash["event_ms"], lse=True,
+                      lse_launches=runs["8"]["flash_attention"],
+                      **{k: flash[k] for k in ("nolse_ms", "lse_ms", "bwd_ms", "bwd_sdpa_ms",
+                                               "bwd_bound_ms", "bwd_shape")},
                       launches_by_kernel={p: sum(r["flash_attention_by_path"][p]
                                                  for r in runs.values())
                                           for p in ("wgmma", "simt")})
     dec = table["decode_attention"]
     kernels[1].update(kernel=dec["path"], simt_ms=dec["simt_ms"], event_ms=dec["event_ms"],
                       launches_by_kernel={p: sum(r["decode_attention_by_path"][p]
-                                                 for r in runs.values())
+                                                 for r in runs.values()
+                                                 if "decode_attention_by_path" in r)
                                           for p in ("split", "simt")})
     kernels[2].update(kernel=table["moe_gmm"]["path"],
                       launches_by_kernel=runs["6"]["moe_gmm_by_path"])

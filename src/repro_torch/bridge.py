@@ -12,6 +12,13 @@ sides. bf16 arrays cross through float32, which is exact in both
 directions (`torch.from_numpy` does not take ml_dtypes' bfloat16). Every
 array is copied, since numpy views of JAX arrays are read-only.
 
+A train state ({"params", "opt", "step"}) crosses whole: AdamW's m and v
+are unstacked as the params are; Adafactor's per-leaf state follows the
+port's grouping (`optim/optimizers.py::per_layer`): the state of a layer
+leaf that the reference updates layer by layer is unstacked into
+`s["layers"]`, the state of the others (the per-layer norms and biases,
+factored over the stack) stays stacked in `s["layers_stacked"]`.
+
 This module imports neither JAX nor the JAX package: it works on anything
 `numpy.asarray` accepts, and returns numpy arrays.
 """
@@ -21,6 +28,9 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.optim.optimizers import per_layer
+from repro_torch.tree import flatten, get, leaves, tree_map, unflatten
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -43,22 +53,6 @@ def array_from_tensor(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 # params keys whose leaves are stacked, with the number of stacked axes
 _STACKED = {"layers": 1, "mamba": 2}
 
@@ -68,8 +62,8 @@ def _unstack(tree, depth: int):
     trees, one per index."""
     if depth == 0:
         return tree
-    n = next(_leaves(tree)).shape[0]
-    return [_unstack(_tree_map(lambda t: t[i], tree), depth - 1) for i in range(n)]
+    n = leaves(tree)[0].shape[0]
+    return [_unstack(tree_map(lambda t: t[i], tree), depth - 1) for i in range(n)]
 
 
 def _stack(items, depth: int):
@@ -89,14 +83,14 @@ def params_from_jax(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """JAX params (stacked layers) -> the port's params (lists of layers)."""
     out = {}
     for k, v in params.items():
-        tree = _tree_map(lambda a: tensor_from_array(a, device), v)
+        tree = tree_map(lambda a: tensor_from_array(a, device), v)
         out[k] = _unstack(tree, _STACKED.get(k, 0))
     return out
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's params -> numpy arrays with the layers stacked again."""
-    return {k: _stack(_tree_map(array_from_tensor, v), _STACKED.get(k, 0))
+    return {k: _stack(tree_map(array_from_tensor, v), _STACKED.get(k, 0))
             for k, v in params.items()}
 
 
@@ -108,3 +102,56 @@ def cache_from_jax(cache: Dict[str, Any], device="cpu") -> Dict[str, torch.Tenso
 
 def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: array_from_tensor(v) for k, v in cache.items()}
+
+
+def _jax_layer_paths(jparams):
+    """(path, stacked shape) of each leaf of the reference's stacked layers."""
+    return [(path, tuple(np.shape(a))) for path, a in flatten(jparams.get("layers", {}))]
+
+
+def train_state_from_jax(state: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """A JAX train state {"params", "opt", "step"} (AdamW's {"m", "v",
+    "step"} or Adafactor's {"s", "step"}) -> the port's."""
+    def tensors(tree):
+        return tree_map(lambda a: tensor_from_array(a, device), tree)
+
+    jopt = state["opt"]
+    opt = {"step": tensor_from_array(jopt["step"], device)}
+    if "m" in jopt:
+        opt["m"] = params_from_jax(jopt["m"], device)
+        opt["v"] = params_from_jax(jopt["v"], device)
+    else:
+        s = {k: tensors(v) for k, v in jopt["s"].items() if k != "layers"}
+        paths = _jax_layer_paths(state["params"])
+        if paths:
+            js = jopt["s"]["layers"]
+            n = paths[0][1][0]
+            s["layers"] = [unflatten((path, tensors(tree_map(lambda a: a[i], get(js, path))))
+                                     for path, shape in paths if per_layer(shape))
+                           for i in range(n)]
+            s["layers_stacked"] = unflatten((path, tensors(get(js, path)))
+                                            for path, shape in paths if not per_layer(shape))
+        opt["s"] = s
+    return {"params": params_from_jax(state["params"], device), "opt": opt,
+            "step": tensor_from_array(state["step"], device)}
+
+
+def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's train state -> numpy arrays in the JAX layout."""
+    opt = state["opt"]
+    out_opt = {"step": array_from_tensor(opt["step"])}
+    if "m" in opt:
+        out_opt["m"] = params_to_numpy(opt["m"])
+        out_opt["v"] = params_to_numpy(opt["v"])
+    else:
+        s = {k: tree_map(array_from_tensor, v) for k, v in opt["s"].items()
+             if k not in ("layers", "layers_stacked")}
+        if "layers" in opt["s"]:
+            per = _stack([tree_map(array_from_tensor, ls) for ls in opt["s"]["layers"]], 1)
+            stacked = tree_map(array_from_tensor, opt["s"]["layers_stacked"])
+            s["layers"] = unflatten(
+                (path, get(per, path) if per_layer(shape) else get(stacked, path))
+                for path, shape in _jax_layer_paths(params_to_numpy(state["params"])))
+        out_opt["s"] = s
+    return {"params": params_to_numpy(state["params"]), "opt": out_opt,
+            "step": array_from_tensor(state["step"])}

@@ -8,7 +8,8 @@ config built here describes the model that the JAX reference builds from
 the same-named config there. The other families (xLSTM, encoder-decoder,
 VLM) add their own fields when their slices are ported; the long-context
 fields (`long_context_window`, `sub_quadratic`) come with the long_500k
-shape, and the training fields (`optimizer`, `fsdp`) with training.
+shape, and the fields only the JAX package's dry-run launcher reads
+(`optimizer`, `fsdp`) with its counterpart.
 """
 from __future__ import annotations
 

@@ -71,6 +71,13 @@
 // Layout: q/o (B, Hq, Tq, D) and k/v (B, Hkv, Tk, D) given by strides in
 // elements, with the D axis contiguous, so the model's (B, T, H, D) tensors
 // are read in place.
+//
+// Training also asks for each row's log-sum-exp of its scaled scores, the
+// residual the flash backward (models/flash_vjp.py, the port of
+// src/repro/models/flash_vjp.py::_fwd_impl) recomputes P from: fp32
+// (B, Hq, Tq), written once per row after the last K/V tile as m + ln l
+// (the CUDA-core kernel) or m ln 2 + ln l (the tensor-core kernel, whose m
+// is in log2 units). Serving passes no buffer, and nothing is written.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -86,6 +93,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Hq, Tq) row log-sum-exp of the scaled scores, or null
   int64_t sqb, sqh, sqt;
   int64_t skb, skh, skt;
   int64_t svb, svh, svt;
@@ -239,6 +247,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
 #pragma unroll
     for (int j = 0; j < DPT; ++j)
       op[row * a.sot + tx + 16 * j] = from_f<T>(acc[i][j] / denom);
+    // m and l are the row's over all 16 lanes of the half warp
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<int64_t>(b) * a.Hq + h) * a.Tq + row] = m[i] + logf(denom);
   }
 }
 
@@ -462,7 +473,14 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CUt
     float sum = l[hr];
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    inv[hr] = 1.f / fmaxf(sum, 1e-20f);
+    const float denom = fmaxf(sum, 1e-20f);
+    inv[hr] = 1.f / denom;
+    // m is in log2 units (S * scale * log2(e)), so the natural-log lse is
+    // m ln 2 + ln l; one lane of the row's quad writes it
+    const int row = r0 + 8 * hr;
+    if (a.lse != nullptr && (lane & 3) == 0 && row < a.Tq)
+      a.lse[(static_cast<int64_t>(b) * a.Hq + h) * a.Tq + row] =
+          fmaf(m[hr], 0.6931471805599453f, logf(denom));
   }
   __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + b * a.sob + h * a.soh;
 #pragma unroll
@@ -543,18 +561,20 @@ enum Path : int { kSimt = 0, kWgmma = 1 };
 
 // strides: 12 int64 in elements, (b, h, t) for q, k, v, o in that order.
 // path: 0 simt, 1 wgmma (bf16 only; the wrapper has checked TMA's
-// alignment). Returns 0, a cudaError_t code, -1 for a head dim, dtype or
+// alignment). lse: null, or fp32 (B, Hq, Tq) contiguous, where each row's
+// log-sum-exp of its masked scaled scores is written (the flash backward's
+// residual; serving passes null and writes nothing). Returns 0, a cudaError_t code, -1 for a head dim, dtype or
 // path it does not take, -2 when the driver has no tensor-map encoder, or
 // 10000 + the CUresult of a failed encode.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, const int64_t* strides, int B, int Hq,
                                    int Hkv, int Tq, int Tk, int D, int dtype,
                                    int causal, int window, float scale, int path,
-                                   void* stream) {
+                                   float* lse, void* stream) {
   using namespace repro;
   if (Tq == 0 || B == 0) return 0;
   FlashArgs a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
   a.sqb = strides[0]; a.sqh = strides[1]; a.sqt = strides[2];
   a.skb = strides[3]; a.skh = strides[4]; a.skt = strides[5];
   a.svb = strides[6]; a.svh = strides[7]; a.svt = strides[8];

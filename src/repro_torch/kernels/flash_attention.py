@@ -7,7 +7,9 @@ The source holds two kernels. `route` picks one from the dtype, head dim,
 strides and alignment alone, before the launch: the bf16 tensor-core kernel
 (`wgmma`, fed by TMA) wherever TMA can read q, k and v, else the CUDA-core
 kernel (`simt`). A failed build, tensor-map encode or launch raises;
-nothing falls back to another kernel.
+nothing falls back to another kernel. With `return_lse=True` either kernel
+also writes each row's fp32 log-sum-exp, the flash backward's residual
+(`models/flash_vjp.py`); the serving call writes none.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.kernels import build
 # chip_smoke.py)
 launches = 0
 launches_by_path = {"wgmma": 0, "simt": 0}
+lse_launches = 0   # of those, the launches that wrote the lse (training)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_CODES = {"simt": 0, "wgmma": 1}
@@ -62,7 +65,8 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention").flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)]
-                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -92,8 +96,11 @@ def _check(q, k, v, window):
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None, path: Optional[str] = None):
-    """q (B,Hq,Tq,D); k/v (B,Hkv,Tk,D) -> out like q (with q's strides).
+                    window: Optional[int] = None, path: Optional[str] = None,
+                    return_lse: bool = False):
+    """q (B,Hq,Tq,D); k/v (B,Hkv,Tk,D) -> out like q (with q's strides),
+    and with `return_lse` also (out, lse), lse fp32 (B,Hq,Tq): each row's
+    log-sum-exp of its masked scaled scores.
 
     Any strides with a contiguous D axis; query row i sits at key position
     i, as in the Pallas kernel. fp32 softmax, output in q's dtype. `path`
@@ -101,11 +108,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     CUDA-core kernel takes any input; chip_smoke.py times it on the inputs
     the tensor-core kernel takes), and a kernel that cannot read the inputs
     raises."""
-    global launches
+    global launches, lse_launches
     _check(q, k, v, window)
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device) if return_lse else None
     routed = route_for(q, k, v)
     path = path or routed
     if path not in PATH_CODES or (path == "wgmma" and routed != "wgmma"):
@@ -117,9 +125,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                        strides, B, Hq, Hkv, Tq, Tk, D, DTYPE_CODES[q.dtype],
                        int(causal), window or 0, 1.0 / math.sqrt(D), PATH_CODES[path],
+                       None if lse is None else lse.data_ptr(),
                        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention {path} kernel: {build.error_text(rc)}")
     launches += 1
     launches_by_path[path] += 1
-    return out
+    lse_launches += int(return_lse)
+    return (out, lse) if return_lse else out

@@ -31,8 +31,10 @@ def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
 
 
 def _attention(q, k, v, off: int, *, causal, window, valid_len=None,
-               kv_scale=None, v_scale=None):
-    """Unblocked attention with query row i at key position off + i."""
+               kv_scale=None, v_scale=None, return_lse=False):
+    """Unblocked attention with query row i at key position off + i; with
+    `return_lse` also each row's fp32 log-sum-exp of its masked scaled
+    scores, (B,Hq,Tq)."""
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     R = Hq // Hkv
@@ -58,15 +60,17 @@ def _attention(q, k, v, off: int, *, causal, window, valid_len=None,
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask, p, torch.zeros_like(p))
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None, return_lse: bool = False):
     """What `flash_attention.cu` computes: q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D),
     query row i at key position i (the starts lined up, as in the Pallas
-    kernel; the same as `attention_ref` when Tq == Tk)."""
-    return _attention(q, k, v, 0, causal=causal, window=window)
+    kernel; the same as `attention_ref` when Tq == Tk). `return_lse` adds
+    the fp32 (B,Hq,Tq) row log-sum-exp, as the kernel writes it."""
+    return _attention(q, k, v, 0, causal=causal, window=window, return_lse=return_lse)
 
 
 def decode_attention_ref(q, k, v, valid_len, k_scale=None, v_scale=None):

@@ -1,6 +1,7 @@
 """Dense (llama-family) decoder LM, and the same block with an MoE FFN
-(family "moe"), inference only: prefill, one-token decode against a KV
-cache, and the full forward that the decode path is checked against.
+(family "moe"): the training loss (`lm_loss`, with remat), prefill,
+one-token decode against a KV cache, and the full forward that the decode
+path is checked against.
 
 The port of the JAX package's `models/dense.py`. Parameters are plain
 dictionaries of tensors with the JAX pytree's keys; `params["layers"]` is a
@@ -9,13 +10,17 @@ The cache keeps the JAX layout, (L, B, S, Hc, D) per buffer plus fp32
 (L, B, S, Hc, 1) scales for an int8 cache, and is updated in place one layer
 at a time where JAX threads it through the scan carry. Attention goes through
 `kernels/ops.py`: the CUDA kernels on the card, the plain versions on the
-CPU; so does the MoE FFN's expert matmul (`models/moe.py`).
+CPU; so does the MoE FFN's expert matmul (`models/moe.py`). Under autograd,
+attention goes through the flash backward (`models/flash_vjp.py`); the
+expert matmul has no backward on the card yet, so MoE training runs on the
+CPU only (its kernel raises under grad, `kernels/ops.py::check_no_grad`).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -96,15 +101,41 @@ def block_fwd(p, x, positions, cfg: ModelConfig, *, window: Optional[int] = None
 
 
 def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
-                 window: Optional[int] = None):
-    """The block stack over x (B, T, d) without a cache, then the final norm
-    (the JAX `backbone_fwd` with remat off). Returns (x, summed aux)."""
+                 window: Optional[int] = None, remat: bool = True):
+    """The block stack over x (B, T, d) without a cache, then the final norm.
+    Returns (x, summed aux). With `remat` (the JAX default) and autograd
+    recording, each block keeps only its input for the backward and runs
+    again there (`jax.checkpoint` of the JAX scan body); without autograd
+    there is nothing to keep, and the blocks run plainly."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     for lp in params["layers"]:
-        x, a = block_fwd(lp, x, positions, cfg, window=window)
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(block_fwd, lp, x, positions, cfg, window=window,
+                              use_reentrant=False)
+        else:
+            x, a = block_fwd(lp, x, positions, cfg, window=window)
         if a is not None:
             aux = aux + a
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """Next-token loss of batch {"tokens", "targets"} (B, T) [+ "loss_mask"]:
+    embed, the block stack, unembed with the padded vocab masked, the fp32
+    cross entropy. Returns (xent + aux, {"xent", "aux"}), as the JAX
+    `lm_loss`."""
+    if cfg.family not in ("dense", "moe") or "patch_embeds" in batch:
+        raise NotImplementedError(
+            f"lm_loss of family {cfg.family!r}: the VLM frontend (_inject_frontend) is not "
+            "ported yet; see ROADMAP.md, Queue 1")
+    tokens, targets = batch["tokens"], batch["targets"]
+    B, T = tokens.shape
+    positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
+    x = L.embed(params["embed"], tokens)
+    x, aux = backbone_fwd(params, x, positions, cfg, remat=remat)
+    logits = L.unembed(params["embed"], x, cfg.vocab_size)
+    loss = L.softmax_xent(logits, targets, batch.get("loss_mask"))
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 # ----------------------------------------------------------------------------

@@ -5,7 +5,8 @@ numerics order (where a cast to the working dtype happens relative to each
 multiply) so that the two agree to rounding at fp32 and to bf16 rounding at
 bf16. Weights keep the JAX orientation: a projection is `x @ w` with `w` of
 shape (d_in, d_out). Attention goes through `kernels/ops.py`: the CUDA
-kernel on the card, the plain version on the CPU.
+kernel on the card, the plain version on the CPU; when autograd is
+recording, through `flash_vjp.py`, whose backward is the flash backward.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import flash_vjp
 
 F32 = torch.float32
 
@@ -117,13 +119,19 @@ def qkv(p, x, positions, cfg):
 def attention(p, x, positions, cfg, *, causal: bool = True,
               window: Optional[int] = None):
     """Self-attention over this call's tokens. Returns (out, (k, v)) with
-    k/v (B,T,Hkv,hd) for the cache."""
+    k/v (B,T,Hkv,hd) for the cache. Under autograd (training) it goes
+    through the flash backward's Function, with the reference's blocks of
+    512; otherwise (serving) straight to the kernel, which writes no lse."""
     B, T, _ = x.shape
     q, k, v = qkv(p, x, positions, cfg)
-    # (B,T,H,hd) read as (B,H,T,hd) through strides: no copy
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal, window=window)
-    out = out.transpose(1, 2).reshape(B, T, cfg.eff_q_heads * cfg.resolved_head_dim)
+    if torch.is_grad_enabled() and q.requires_grad:
+        out = flash_vjp.flash_attention_vjp(q, k, v, causal=causal, window=window)
+    else:
+        # (B,T,H,hd) read as (B,H,T,hd) through strides: no copy
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=window).transpose(1, 2)
+    out = out.reshape(B, T, cfg.eff_q_heads * cfg.resolved_head_dim)
     return out @ p["wo"], (k, v)
 
 
@@ -151,3 +159,15 @@ def unembed(p, x, n_valid: Optional[int] = None):
         vocab_ids = torch.arange(w.shape[0], device=logits.device)
         logits = logits.masked_fill(vocab_ids >= n_valid, -1e9)
     return logits
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
+    """Token-mean cross entropy: the fp32 logsumexp minus the gold logit,
+    averaged over the tokens, or over the mask's weight (at least 1)."""
+    logits = logits.to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

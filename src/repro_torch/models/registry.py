@@ -3,6 +3,7 @@
 build_model(cfg, device=...) returns a Model whose members close over the
 config and the device:
   init_params(generator)                -> params
+  loss(params, batch)                   -> (scalar, metrics)     [train]
   prefill(params, batch)                -> (logits, cache)
   decode_step(params, cache, batch)     -> (logits, cache updated in place)
   init_cache(batch_size, max_len)       -> cache
@@ -25,6 +26,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init_params: Callable[..., Any]
+    loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_cache: Callable[..., Any]
@@ -38,6 +40,7 @@ def build_model(cfg: ModelConfig, *, device="cuda",
             cfg=cfg,
             device=dev,
             init_params=functools.partial(dense.init_params, cfg=cfg, device=dev),
+            loss=functools.partial(dense.lm_loss, cfg=cfg),
             prefill=functools.partial(dense.lm_prefill, cfg=cfg, window=window),
             decode_step=functools.partial(dense.lm_decode_step, cfg=cfg),
             init_cache=functools.partial(dense.init_cache, cfg, device=dev),
@@ -47,6 +50,7 @@ def build_model(cfg: ModelConfig, *, device="cuda",
             cfg=cfg,
             device=dev,
             init_params=functools.partial(hybrid.init_params, cfg=cfg, device=dev),
+            loss=functools.partial(hybrid.lm_loss, cfg=cfg),
             prefill=functools.partial(hybrid.lm_prefill, cfg=cfg, window=window),
             decode_step=functools.partial(hybrid.lm_decode_step, cfg=cfg),
             init_cache=functools.partial(hybrid.init_cache, cfg, window=window,

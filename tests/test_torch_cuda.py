@@ -500,3 +500,164 @@ def test_hybrid_on_the_card_goes_through_the_kernels(cuda):
                     dk.launches - before[2]) == (cfg.n_layers, nb, nb)
     for a, b in zip(got["cuda"], got["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------- training
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["wgmma", "simt"])
+@pytest.mark.parametrize("B,Hq,Hkv,T,D,causal,window", [
+    (1, 32, 8, 1024, 128, True, None),   # llama3-8b's training shape
+    (1, 32, 8, 1024, 128, True, 256),
+    (2, 32, 32, 256, 80, True, None),    # zamba2's head dim
+    (1, 32, 8, 200, 160, True, None),    # stablelm's; a tail tile
+    (2, 4, 2, 100, 64, False, None),
+    (1, 4, 2, 300, 64, False, 70),
+])
+def test_flash_lse_matches_plain_on_cuda(cuda, path, B, Hq, Hkv, T, D, causal, window):
+    """Both kernels' lse (fp32 (B,Hq,T)) against the plain version's, to
+    1e-4 (sums of up to T exps in another order; the tensor-core kernel's m
+    is in log2 units), and the output unchanged beside it."""
+    g = torch.Generator(device=cuda).manual_seed(T + D)
+    q, k, v = (torch.randn((B, T, H, D), generator=g, device=cuda).bfloat16().transpose(1, 2)
+               for H in (Hq, Hkv, Hkv))
+    n = fk.lse_launches
+    out, lse = fk.flash_attention(q, k, v, causal=causal, window=window, path=path,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert fk.lse_launches == n + 1
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                                 return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, T)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(out.float(), want_out.float(), **_tol("bfloat16"))
+    assert torch.equal(out, fk.flash_attention(q, k, v, causal=causal, window=window, path=path))
+
+
+def _vjp_grads(q, k, v, do, window=None):
+    from repro_torch.models.flash_vjp import flash_attention_vjp
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    flash_attention_vjp(q, k, v, causal=True, window=window, block_q=256,
+                        block_k=256).backward(do)
+    return q.grad, k.grad, v.grad
+
+
+def _exact_grads(q, k, v, do, window=None):
+    q, k, v = (t.detach().float().requires_grad_() for t in (q, k, v))
+    ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                      window=window).transpose(1, 2).backward(do.float())
+    return q.grad, k.grad, v.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_vjp_on_cuda_matches_autograd_through_the_reference(cuda, dtype, window):
+    """flash_attention_vjp on the card (the kernel's forward and lse, the
+    plain tiled backward) against autograd through ref.attention_ref. fp32
+    (the CUDA-core kernel): to 1e-4. bf16 (the tensor-core kernel): no
+    further from the fp32 gradients (relative L2) than 2x the same function
+    with the plain forward."""
+    B, T, Hq, Hkv, D = 2, 512, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(7)
+    td = DTYPES[dtype]
+    q, k, v, do = (torch.randn((B, T, H, D), generator=g, device=cuda).to(td)
+                   for H in (Hq, Hkv, Hkv, Hq))
+    n = fk.lse_launches
+    got = _vjp_grads(q, k, v, do, window)
+    assert fk.lse_launches == n + 1
+    exact = _exact_grads(q, k, v, do, window)
+    if dtype == "float32":
+        for a, b in zip(got, exact):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        from repro_torch.models import flash_vjp
+        mp.setattr(flash_vjp, "ops", ref_ops())
+        plain = _vjp_grads(q, k, v, do, window)
+    for a, p, e in zip(got, plain, exact):
+        assert a.dtype == torch.bfloat16
+        assert _rel_l2(a, e) <= 2 * _rel_l2(p, e), (_rel_l2(a, e), _rel_l2(p, e))
+
+
+def ref_ops():
+    """A stand-in for kernels/ops.py that calls the plain versions."""
+    import types
+    return types.SimpleNamespace(flash_attention=ref.flash_attention_ref,
+                                 decode_attention=ref.decode_attention_ref,
+                                 moe_gmm=ref.moe_gmm_ref, ssd_scan=ref.ssd_scan_ref)
+
+
+@pytest.mark.cuda
+def test_every_kernel_wrapper_raises_under_grad(cuda):
+    """A CUDA input that requires grad, with grad enabled: the kernels have
+    no backward, so each op raises instead of returning an output that
+    autograd would silently cut off. Under no_grad the same call runs."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+    q, k = rnd(1, 4, 64, 64), rnd(1, 2, 64, 64)
+    dq, dc = rnd(2, 4, 64), rnd(2, 2, 128, 64)
+    valid = torch.tensor([100, 128], dtype=torch.int32, device=cuda)
+    x, w = rnd(2, 8, 64), rnd(2, 64, 128)
+    sx, sdt = rnd(1, 2, 64, 16, dtype=torch.float32), rnd(1, 2, 64, dtype=torch.float32).abs()
+    sA, sb = -rnd(2, dtype=torch.float32).abs(), rnd(1, 1, 64, 16, dtype=torch.float32)
+    calls = {
+        "flash_attention": (lambda a: ops.flash_attention(a, k, k), q),
+        "decode_attention": (lambda a: ops.decode_attention(a, dc, dc, valid), dq),
+        "moe_gmm": (lambda a: ops.moe_gmm(a, w), x),
+        "ssd_scan": (lambda a: ops.ssd_scan(a, sdt, sA, sb, sb, chunk=32), sx),
+    }
+    for name, (call, arg) in calls.items():
+        live = arg.clone().requires_grad_()
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call(live)
+        with torch.no_grad():
+            call(live)
+        call(arg)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_plain_kernels(cuda, monkeypatch):
+    """One AdamW step of llama3 SMOKE at fp32 (2 microbatches) on the card:
+    through the flash kernel with the lse (forward and remat, per layer and
+    microbatch), and against the same step with the plain kernels: loss and
+    grad norm to 1e-4; the new params within 2 lr + 1e-6 everywhere (AdamW's
+    first step moves an entry by lr * g / (|g| + 1e-8), which a gradient
+    near 0 can flip) and within 1e-6 on at least 99% of the entries."""
+    from repro_torch.models import flash_vjp, layers
+    from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
+    from repro_torch.train.steps import make_init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_config("llama3-8b", smoke=True).replace(param_dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (4, 65), generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].to(cuda), "targets": toks[:, 1:].to(cuda)}
+    lr_fn = warmup_cosine(1e-3, 0, 10)   # lr 1e-3 at step 1
+    out = {}
+    for name in ("kernel", "plain"):
+        model = build_model(cfg, device=cuda)
+        opt = make_optimizer("adamw")
+        state = make_init_state(model, opt)(torch.Generator(device=cuda).manual_seed(0))
+        state["step"].fill_(1)
+        with pytest.MonkeyPatch.context() as mp:
+            if name == "plain":
+                mp.setattr(layers, "ops", ref_ops())
+                mp.setattr(flash_vjp, "ops", ref_ops())
+            n = (fk.launches, fk.lse_launches)
+            state, metrics = make_train_step(model, opt, lr_fn, n_microbatches=2)(state, batch)
+            torch.cuda.synchronize()
+            launched = (fk.launches - n[0], fk.lse_launches - n[1])
+        want = 2 * cfg.n_layers * 2 if name == "kernel" else 0
+        assert launched == (want, want), (name, launched)
+        out[name] = (metrics, leaves(state["params"]))
+    (mk, pk), (mp_, pp) = out["kernel"], out["plain"]
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(mk[key], mp_[key], atol=0, rtol=1e-4)
+    lr = float(mk["lr"])
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pk, pp)])
+    assert float(diffs.max()) <= 2 * lr + 1e-6
+    assert float((diffs <= 1e-6).float().mean()) >= 0.99

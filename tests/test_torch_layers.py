@@ -6,7 +6,9 @@ to float rounding (atol=rtol=2e-5, a few ulps of the O(1) values involved);
 bf16 results agree to bf16 rounding (2e-2, as tests/test_kernels.py states
 for bf16), since both sides cast at the same places.
 """
+import ast
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,8 @@ from repro.models import layers as JL
 from repro_torch import bridge
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import layers as L
+
+ROOT = Path(__file__).resolve().parents[1]
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -65,6 +69,26 @@ def test_config_copies_match_jax(arch, smoke):
     left_out = {f.name for f in dataclasses.fields(ref)} - kept
     assert left_out == {"xlstm", "encdec", "vlm", "long_context_window",
                         "sub_quadratic", "optimizer", "fsdp"}
+
+
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    """The port and chip_smoke.py import no `jax` and nothing of `repro`
+    (the JAX package), not even a module of it that has no JAX."""
+    def banned(name):
+        return any(name == m or name.startswith(m + ".") for m in ("jax", "repro"))
+
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(banned(n) for n in names), f"{path}:{node.lineno} imports {names}"
 
 
 def test_unported_families_point_to_the_roadmap():
