@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's four paths on the card and checks them: dense-LM
+Drives the port's paths on the card and checks them: dense-LM
 continuous-batching serving, MoE serving, the zamba2 hybrid's prefill and
-decode, and dense-LM training. Every phase exits non-zero on failure;
-nothing is caught and carried on.
+decode, and training of the dense, MoE and hybrid families. Every phase
+exits non-zero on failure; nothing is caught and carried on.
 
   1. requires a CUDA device; prints the card's name and power limit;
   2. builds the four kernels from `src/repro_torch/kernels/csrc/`;
@@ -81,9 +81,31 @@ nothing is caught and carried on.
      model's than NOISE_FACTOR times the plain bf16 path's; c. the `demo`
      preset of examples/train_torch.py trained 12 steps with checkpoints,
      then crashed at step 9 and restarted by a fresh Trainer: the final
-     states equal leaf for leaf;
-  9. prints the kernel table as one JSON line and, last, the device line
-     `{"ok": true, "device": {...}}`.
+     states equal leaf for leaf; d. moe_gmm's backward products, dx = dy
+     w^T and dw = x^T dy, against their plain versions at phi3.5-moe's
+     width in both directions at C = 4, 160 and 320 (the training
+     microbatch's capacity), naming the kernel `route` chose; at C=320 the
+     time of each, the plain version's, torch.bmm's and the bound; then the
+     gradients of GroupedMatmul (phi's C=320, bf16) and SSDScan (zamba2's
+     B=2 T=1024, the model's fp32 views) against autograd through the plain
+     versions in fp64, the kernel path no further than NOISE_FACTOR times
+     the plain path's, and the SSD backward's time and bound; e. phi3.5-moe at its
+     published width and 2 of its 32 layers, trained as in b: gated on
+     finite losses and grad norms, on exact launch counts (flash with the
+     lse and moe_gmm's three products in the forward and the remat of each
+     layer and microbatch, dx and dw once each), every moe_gmm, dx and dw
+     launch through the tensor-core kernel, then on the gradients at B=1
+     against the plain bf16 path, with the kernel path replaying the plain
+     path's routing (`routed_as`); f. zamba2-2.7b at its published width
+     and depth, trained as in b: every ssd_scan launch (forward and remat
+     of each mamba2 layer and microbatch) through the tensor-core path and
+     every flash launch through `flash_wgmma` with the lse, then the
+     gradients of the embeddings, one mamba2 block's w_zx, w_out, conv_w,
+     dt_bias and A_log, the shared block's wq and the final norm at B=1
+     against the fp32 model, as in b;
+  9. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+     at C=320, ssd_scan's with its plain backward) and, last, the device
+     line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -530,6 +552,146 @@ def gmm_phase(gen, dev):
     return rows
 
 
+# tests/test_torch_cuda.py::test_moe_gmm_kernel_matches_plain_on_cuda's
+# bf16 tolerance, which the backward products' card tests share
+GMM_BF16_TOL = 5e-2
+
+
+def gmm_bwd_phase(gen, dev, E=16, caps=(4, 160, 320), dims=((4096, 6400), (6400, 4096))):
+    """8d: moe_gmm's two backward products, dx = dy w^T and dw = x^T dy,
+    against their plain versions at phi3.5-moe's width in both directions,
+    at the decode (C=4), prefill (C=160) and training (C=320) capacities;
+    at C=320 the time of each, its bound, torch.bmm's on the same operands
+    and the plain version's. Returns {"dx": row, "dw": row} at C=320
+    4096->6400."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gk
+    from repro_torch.kernels import ops, ref
+
+    rnd = _rnd(gen, dev)
+    rows = {}
+    for C in caps:
+        for din, dout in dims:
+            x = rnd(E, C, din)
+            w = rnd(E, din, dout, scale=din ** -0.5)
+            dy = rnd(E, C, dout)
+            for kind, fn, plain_fn, lib_fn, args in (
+                    ("dx", ops.moe_gmm_dx, ref.moe_gmm_dx_ref,
+                     lambda a, b: torch.bmm(a, b.transpose(1, 2)), (dy, w)),
+                    ("dw", ops.moe_gmm_dw, ref.moe_gmm_dw_ref,
+                     lambda a, b: torch.bmm(a.transpose(1, 2), b), (x, dy))):
+                out = fn(*args)
+                path = gk.route_for(*args, out, kind)
+                err = gate(f"moe_gmm {kind} bf16 E={E} C={C} {din}->{dout} ({path})", out,
+                           plain_fn(*args), GMM_BF16_TOL)
+                if (C, din, dout) != (caps[-1], *dims[0]):
+                    continue
+                ms = cuda_ms(lambda: fn(*args), 20)
+                plain = cuda_ms(lambda: plain_fn(*args), 3)
+                lib = cuda_ms(lambda: lib_fn(*args), 20)
+                bound, by, flops, nbytes = gmm_bound(E, C, din, dout)
+                say(f"  time {kind} C={C} bf16 ({path}): kernel {ms:.4f} ms, plain {plain:.4f} "
+                    f"ms, torch.bmm {lib:.4f} ms, bound {bound:.4f} ms by {by} "
+                    f"({nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.1f} TFLOP/s)")
+                rows[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                                  bound_by=by, library_ms=lib, path=path,
+                                  shape=f"E={E} C={C} d={din} f={dout} bf16")
+            del x, w, dy, out
+    return rows
+
+
+def ssd_bwd_bound(B, H, T, P, N, Q):
+    """(bound ms, bound_by, flops, bytes) of the SSD scan's backward from its
+    inputs (fp32): x, dt, A, B, C and dy read once, their gradients written
+    once; the forward's products recomputed and each product's two backward
+    products (3x ssd_bound's operations), at the TF32 tensor-core rate."""
+    _, _, flops, _ = ssd_bound(B, H, T, P, N, Q, 4)
+    flops *= 3
+    nbytes = 4 * 2 * (2 * B * H * T * P + B * H * T + 2 * B * T * N + H)
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
+            flops, nbytes)
+
+
+def grad_gate(label, kern, plain, exact, names) -> dict:
+    """Each gradient of the kernel path no further (relative L2) from the
+    fp64 run than NOISE_FACTOR times the plain path's. Returns name ->
+    (kernel, plain) distances."""
+    import torch
+    errs = {}
+    for name, gk, gp, ge in zip(names, kern, plain, exact):
+        e_k, e_p = rel_l2(gk, ge), rel_l2(gp, ge)
+        ok = bool(torch.isfinite(gk.float()).all()) and e_k <= NOISE_FACTOR * e_p
+        say(f"  {'ok  ' if ok else 'FAIL'} {label} d{name}: rel L2 err vs fp64: kernel path "
+            f"{e_k:.3e}, plain path {e_p:.3e} (gate: kernel <= {NOISE_FACTOR:g} x plain)")
+        if not ok:
+            fail(f"{label} d{name}: the kernel path is further from fp64 than the plain path "
+                 "explains")
+        errs[name] = (e_k, e_p)
+    return errs
+
+
+def function_grad_phase(gen, dev, gmm_shape=(16, 320, 4096, 6400),
+                        ssd_shape=(2, 1024, 80, 64, 64, 1, 256)):
+    """8d: the gradients of the two autograd Functions on the card against
+    autograd through their plain versions in fp64, gated as grad_gate says:
+    GroupedMatmul at phi3.5-moe's training capacity (bf16; the plain path
+    sums in fp32 and rounds to bf16 as the kernels do), SSDScan at
+    zamba2-2.7b's training microbatch (B=2 T=1024, the model's fp32 views);
+    the SSD backward's time and its bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models.moe import GroupedMatmul
+
+    rnd = _rnd(gen, dev)
+    E, C, din, dout = gmm_shape
+    x, w, dy = rnd(E, C, din), rnd(E, din, dout, scale=din ** -0.5), rnd(E, C, dout)
+
+    def gmm_grads():
+        a, b = x.detach().requires_grad_(), w.detach().requires_grad_()
+        GroupedMatmul.apply(a, b).backward(dy)
+        return a.grad, b.grad
+    kern = gmm_grads()
+    with plain_kernels():
+        plain = gmm_grads()
+    x64, w64 = x.double().requires_grad_(), w.double().requires_grad_()
+    torch.einsum("ecd,edf->ecf", x64, w64).backward(dy.double())
+    say(f"  GroupedMatmul E={E} C={C} {din}->{dout} bf16:")
+    errs = {"gmm": grad_gate("GroupedMatmul", kern, plain, (x64.grad, w64.grad), ("x", "w"))}
+    del x, w, dy, kern, plain, x64, w64
+
+    B, T, H, P, N, G, Q = ssd_shape
+    args = _ssd_inputs(rnd, B, T, H, P, G, N, torch.float32)
+    dy = torch.randn(args[0].shape, generator=gen, device=dev)
+
+    def ssd_grads():
+        live = [t.detach().requires_grad_() for t in args]
+        y, _ = M2.SSDScan.apply(*live, Q)
+        y.backward(dy)
+        return [t.grad for t in live]
+    kern = ssd_grads()
+    with plain_kernels():
+        plain = ssd_grads()
+    # the plain version sums in fp64 when handed fp64 (the same function as
+    # the model's chunked scan, which casts to fp32)
+    live64 = [t.double().requires_grad_() for t in args]
+    ref.ssd_scan_ref(*live64, chunk=Q)[0].backward(dy.double())
+    say(f"  SSDScan B={B} T={T} H={H} P={P} N={N} chunk {Q} fp32 (the model's views):")
+    errs["ssd"] = grad_gate("SSDScan", kern, plain, [t.grad for t in live64],
+                            ("x", "dt", "A", "B", "C"))
+    del kern, plain, live64
+    live = [t.detach().requires_grad_() for t in args]
+    y, _ = M2.SSDScan.apply(*live, Q)
+    ms = cuda_ms(lambda: torch.autograd.grad(y, live, dy, retain_graph=True), 5)
+    bound, by, flops, nbytes = ssd_bwd_bound(B, H, T, P, N, Q)
+    say(f"  SSD backward (the model's chunked scan in plain PyTorch, fp32 products): "
+        f"{ms:.4f} ms, bound {bound:.4f} ms by {by} ({flops / 1e9:.1f} GFLOP at the TF32 rate, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return dict(grad_errs=errs, ssd_bwd_ms=ms, ssd_bwd_bound_ms=bound, ssd_bwd_bound_by=by,
+                ssd_bwd_shape=f"B={B} H={H} T={T} P={P} N={N} chunk {Q} fp32")
+
+
 def _ssd_inputs(rnd, B, T, H, P, G, N, dtype):
     """Inputs as the model lays them out, (B,T,H,P) etc., handed over as the
     kernel's (B,H,T,P) views; the distributions of tests/test_kernels.py."""
@@ -718,13 +880,19 @@ def _to_f32(tree):
 
 
 KERNEL_MODULES = ("flash_attention", "decode_attention", "moe_gmm", "ssm_scan")
+# moe_gmm's two backward products, counted apart by its wrapper
+GMM_BACKWARD = ("dx", "dw")
 
 
 def kernel_counts():
-    """name -> the launch counter of each kernel wrapper."""
+    """name -> the launch counter of each kernel wrapper, and of moe_gmm's
+    backward products (moe_gmm_dx, moe_gmm_dw)."""
     import importlib
-    return {n: importlib.import_module(f"repro_torch.kernels.{n}").launches
-            for n in KERNEL_MODULES}
+    from repro_torch.kernels import moe_gmm as gk
+    counts = {n: importlib.import_module(f"repro_torch.kernels.{n}").launches
+              for n in KERNEL_MODULES}
+    counts.update({f"moe_gmm_{k}": getattr(gk, f"{k}_launches") for k in GMM_BACKWARD})
+    return counts
 
 
 def reset_counts():
@@ -736,8 +904,10 @@ def reset_counts():
     for n in KERNEL_MODULES:
         importlib.import_module(f"repro_torch.kernels.{n}").launches = 0
     fk.lse_launches = 0
+    for k in GMM_BACKWARD:
+        setattr(gk, f"{k}_launches", 0)
     for counts in (fk.launches_by_path, gk.launches_by_path, dk.launches_by_path,
-                   sk.launches_by_path):
+                   sk.launches_by_path, gk.dx_launches_by_path, gk.dw_launches_by_path):
         for path in counts:
             counts[path] = 0
 
@@ -814,7 +984,8 @@ def plain_kernels():
     from repro_torch.models import dense, flash_vjp, hybrid, layers, mamba2, moe
     plain_ops = types.SimpleNamespace(flash_attention=ref.flash_attention_ref,
                                       decode_attention=ref.decode_attention_ref,
-                                      moe_gmm=ref.moe_gmm_ref, ssd_scan=ref.ssd_scan_ref)
+                                      moe_gmm=ref.moe_gmm_ref, moe_gmm_dx=ref.moe_gmm_dx_ref,
+                                      moe_gmm_dw=ref.moe_gmm_dw_ref, ssd_scan=ref.ssd_scan_ref)
     with contextlib.ExitStack() as stack:
         for module in (layers, dense, moe, mamba2, hybrid, flash_vjp):
             stack.enter_context(mock.patch.object(module, "ops", plain_ops))
@@ -839,6 +1010,30 @@ def record_routing(choices):
         return out
     with mock.patch.object(moe, "_dispatch_one_group", recorded):
         yield
+
+
+@contextlib.contextmanager
+def routed_as(choices, replay: bool):
+    """Record each MoE dispatch's top-k experts (N, k) into `choices` for
+    the duration, or, with `replay`, hand them back in the same order in
+    place of the dispatch's own top k (moe._dispatch_one_group's `top_e`):
+    the kernel path then routes as the recorded path did, with its own gate
+    values. Every recorded choice must be replayed."""
+    import torch
+    from repro_torch.models import moe
+    dispatch = moe._dispatch_one_group
+    given = iter(list(choices))
+
+    def routed(x, logits, top_k, cap):
+        if replay:
+            return dispatch(x, logits, top_k, cap, top_e=next(given))
+        out = dispatch(x, logits, top_k, cap)
+        choices.append(torch.topk(out[3], top_k, dim=-1).indices)
+        return out
+    with mock.patch.object(moe, "_dispatch_one_group", routed):
+        yield
+    if replay and next(given, None) is not None:
+        fail("the replayed run made fewer MoE dispatches than the recorded one")
 
 
 def routing_agreement(kern, plain) -> float:
@@ -1087,7 +1282,8 @@ def serve_phase(cfg, seed, n_requests, batch_slots, max_len, new_tokens,
     n_gmm = 3 * cfg.n_layers if cfg.family == "moe" else 0
     want = {"flash_attention": cfg.n_layers * s["prefills"],
             "decode_attention": cfg.n_layers * steps,
-            "moe_gmm": n_gmm * (s["prefills"] + steps), "ssm_scan": 0}
+            "moe_gmm": n_gmm * (s["prefills"] + steps), "ssm_scan": 0,
+            "moe_gmm_dx": 0, "moe_gmm_dw": 0}
     say(f"  kernel launches on this path: {launches} (per prefill {cfg.n_layers} flash"
         f"{f' and {n_gmm} moe_gmm' if n_gmm else ''}, per decode step {cfg.n_layers} "
         f"decode{f' and {n_gmm} moe_gmm' if n_gmm else ''})")
@@ -1187,7 +1383,7 @@ def hybrid_phase(cfg, seed, batch, prompt_len, new_tokens, dev):
         say(f"  decode: {new_tokens} steps of {B} sequences, {sum(step_s):.3f} s, "
             f"{B * new_tokens / sum(step_s):.0f} tokens/s; {spread(step_s)} per step")
         want_prefill = {"flash_attention": nb, "decode_attention": 0, "moe_gmm": 0,
-                        "ssm_scan": cfg.n_layers}
+                        "ssm_scan": cfg.n_layers, "moe_gmm_dx": 0, "moe_gmm_dw": 0}
         want = dict(want_prefill, decode_attention=nb * new_tokens)
         say(f"  kernel launches: prefill {at_prefill}, prefill and decode {launches} (per "
             f"prefill {cfg.n_layers} ssd_scan and {nb} flash, per decode step {nb} decode)")
@@ -1331,19 +1527,90 @@ MATMUL_KERNELS = ("gemm", "nvjet", "cutlass", "xmma")
 # depth 1 of 4)
 GRAD_GATE_LEAVES = (("embed", "tok"), ("embed", "out"), ("layers", 1, "attn", "wq"),
                     ("layers", 1, "attn", "wo"), ("layers", 1, "mlp", "w2"), ("final_norm",))
+# phi3.5-moe's (at depth 1 of 2): attention, two expert weights, the router
+MOE_GRAD_GATE_LEAVES = (("embed", "tok"), ("embed", "out"), ("layers", 1, "attn", "wq"),
+                        ("layers", 1, "attn", "wo"), ("layers", 1, "moe", "w1"),
+                        ("layers", 1, "moe", "w2"), ("layers", 1, "moe", "router"),
+                        ("final_norm",))
+# zamba2-2.7b's: one mamba2 block's (super-block 4 of 9, block 2 of 6), the
+# shared block's query projection (summed over its 9 applications)
+HYBRID_GRAD_GATE_LEAVES = (("embed", "tok"), ("mamba", 4, 2, "w_zx"), ("mamba", 4, 2, "w_out"),
+                           ("mamba", 4, 2, "conv_w"), ("mamba", 4, 2, "dt_bias"),
+                           ("mamba", 4, 2, "A_log"), ("shared_attn", "attn", "wq"),
+                           ("final_norm",))
+# the kernels a family's training launches, by kind of the profiled step's
+# device time (the rest: cuBLAS matmuls, and elementwise passes and copies)
+TRAIN_KERNEL_KINDS = {"dense": {"flash_wgmma": ("flash_wgmma",)},
+                      "moe": {"flash_wgmma": ("flash_wgmma",), "gmm_wgmma": ("gmm_wgmma",)},
+                      "hybrid": {"flash_wgmma": ("flash_wgmma",),
+                                 "ssd_scan": ("ssd_chunk_tc", "ssd_state_tc", "ssd_out_tc")}}
 
 
-def train_phase(cfg, seed, batch, seq, n_micro, steps, dev):
-    """8b: `steps` AdamW steps of `cfg` through make_train_step, with
+def train_launches(cfg, n_micro, steps) -> dict:
+    """The kernel launches `steps` training steps in `n_micro` microbatches
+    ask for: each layer's kernels in the forward and again in its remat
+    recompute, per microbatch (flash with the lse; moe_gmm 3 a MoE layer;
+    ssd_scan 1 a mamba2 layer), and moe_gmm's dx and dw once each per
+    expert product in the backward."""
+    k = n_micro * steps
+    want = {n: 0 for n in kernel_counts()}
+    if cfg.family == "hybrid":
+        nb = cfg.n_layers // cfg.hybrid.attn_every
+        want.update(flash_attention=2 * nb * k, ssm_scan=2 * cfg.n_layers * k)
+    else:
+        want["flash_attention"] = 2 * cfg.n_layers * k
+    if cfg.family == "moe":
+        n_gmm = 3 * cfg.n_layers * k
+        want.update(moe_gmm=2 * n_gmm, moe_gmm_dx=n_gmm, moe_gmm_dw=n_gmm)
+    return want
+
+
+def gmm_train_path_gate(label, want) -> dict:
+    """Training's moe_gmm launches by kernel, forward and backward: every
+    one through the tensor-core kernel (phi's bf16 expert tensors and the
+    contiguous gradients GroupedMatmul hands over are what TMA reads)."""
+    from repro_torch.kernels import moe_gmm as gk
+    got = {"fwd": dict(gk.launches_by_path), "dx": dict(gk.dx_launches_by_path),
+           "dw": dict(gk.dw_launches_by_path)}
+    exp = {kind: {"wgmma": want[key], "rows": 0, "tiled": 0}
+           for kind, key in (("fwd", "moe_gmm"), ("dx", "moe_gmm_dx"), ("dw", "moe_gmm_dw"))}
+    say(f"  moe_gmm launches by kernel: {got}")
+    if got != exp:
+        fail(f"{label}: moe_gmm's products did not all go through the tensor-core kernel: "
+             f"{got}, want {exp}")
+    return got
+
+
+def active_matmul_params(cfg, params) -> int:
+    """Parameters one token's matmuls use, each as often as the token meets
+    it: all but the input embedding (a gather); of a MoE layer's experts
+    only top_k of n_experts; the hybrid's shared attention block once per
+    application (n_layers / attn_every). 6 x this x tokens leaves out what
+    is not a weight product: attention's scores and P.V, and the SSD
+    scan's chunked products."""
+    from repro_torch.tree import leaves
+    n = sum(t.numel() for t in leaves(params)) - params["embed"]["tok"].numel()
+    if cfg.family == "moe":
+        m = cfg.moe
+        experts = sum(lp["moe"][w].numel() for lp in params["layers"] for w in ("w1", "w2", "w3"))
+        n -= experts * (m.n_experts - m.top_k) // m.n_experts
+    if cfg.family == "hybrid":
+        n += (len(params["mamba"]) - 1) * sum(t.numel() for t in leaves(params["shared_attn"]))
+    return n
+
+
+def train_phase(cfg, seed, batch, seq, n_micro, steps, dev, gate_leaves=GRAD_GATE_LEAVES):
+    """8b, 8e, 8f: `steps` AdamW steps of `cfg` through make_train_step, with
     TokenPipeline batches of `batch` x `seq` in `n_micro` microbatches: step
     times, tokens/s, MFU, peak memory, a profiled step, the launch gates;
-    then the gradient gate at B=1, one microbatch, against the fp32 model."""
+    then the gradient gate at B=1, one microbatch: against the fp32 model
+    (dense, hybrid), or against the plain bf16 path under the same routing
+    (MoE)."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.models import build_model
-    from repro_torch.models import dense
     from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
     from repro_torch.train.steps import make_init_state, make_train_step
     from repro_torch.tree import get, leaves, tree_map
@@ -1356,12 +1623,12 @@ def train_phase(cfg, seed, batch, seq, n_micro, steps, dev):
     state = make_init_state(model, opt)(gen)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(state["params"]))
-    n_matmul = n_params - state["params"]["embed"]["tok"].numel()
+    n_matmul = active_matmul_params(cfg, state["params"])
     state_gb = sum(t.numel() * t.element_size() for t in leaves(state)) / 1e9
     say(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B params "
-        f"({n_matmul / 1e9:.3f} B in matmuls), params and AdamW state {state_gb:.2f} GB, init "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"({n_matmul / 1e9:.3f} B in {'active ' if cfg.family == 'moe' else ''}matmuls), params "
+        f"and AdamW state {state_gb:.2f} GB, init {time.perf_counter() - t0:.1f} s")
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     global_batch=batch, seed=seed))
 
@@ -1398,54 +1665,90 @@ def train_phase(cfg, seed, batch, seq, n_micro, steps, dev):
         f"TFLOP/s); peak device memory {peak:.2f} GB")
     if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
         fail(f"{cfg.name}: a loss or grad norm is not finite")
-    n_flash = 2 * cfg.n_layers * n_micro * steps
-    want = {"flash_attention": n_flash, "decode_attention": 0, "moe_gmm": 0, "ssm_scan": 0}
+    want = train_launches(cfg, n_micro, steps)
+    n_flash = want["flash_attention"]
     say(f"  kernel launches on this path: {launches}, {n_lse} flash launches wrote the lse "
-        f"(per step {cfg.n_layers} layers x {n_micro} microbatches x 2: forward and remat)")
+        f"(per step and microbatch, each layer's kernels twice: forward and remat"
+        f"{'; moe_gmm dx and dw once an expert product' if cfg.family == 'moe' else ''})")
     if launches != want or n_lse != n_flash:
         fail(f"{cfg.name}: training did not go through the kernels as its layers ask: "
-             f"{launches}, {n_lse} with lse; want {want}, all with lse")
+             f"{launches}, {n_lse} with lse; want {want}, all flash with lse")
     launches["flash_attention_by_path"] = flash_path_gate(cfg.name, n_flash)
+    if cfg.family == "moe":
+        launches["moe_gmm_by_path"] = gmm_train_path_gate(cfg.name, want)
+    if cfg.family == "hybrid":
+        launches["ssm_scan_by_path"] = ssd_path_gate(cfg.name, want["ssm_scan"])
+    named = TRAIN_KERNEL_KINDS[cfg.family]
     prof = profile_steps(lambda: step_fn(state, device_batch(steps)), 1, what="train",
-                         kernels=("flash_wgmma", "flash_fwd_kernel"), label="flash forward")
-    kinds = {"matmul": 0.0, "flash_wgmma": 0.0, "other": 0.0}
+                         kernels=[n for ns in named.values() for n in ns],
+                         label="the path's kernels")
+    kinds = {"matmul": 0.0, **{k: 0.0 for k in named}, "other": 0.0}
     for key, ms in prof["device_ms"].items():
-        kind = ("flash_wgmma" if "flash_wgmma" in key else
-                "matmul" if any(n in key for n in MATMUL_KERNELS) else "other")
+        kind = next((k for k, ns in named.items() if any(n in key for n in ns)),
+                    "matmul" if any(n in key for n in MATMUL_KERNELS) else "other")
         kinds[kind] += ms
     say("    device ms in the profiled step by kind: " + ", ".join(
         f"{k} {ms:.2f}" for k, ms in kinds.items()) + " (other: elementwise, reductions, "
         "copies, embedding)")
     run = dict(launches, step_ms=t_step * 1e3, tokens_per_s=tokens / t_step, mfu=mfu,
-               peak_gb=peak, busy=prof["busy"], device_ms_by_kind=kinds, walls=walls)
+               peak_gb=peak, busy=prof["busy"], device_ms_by_kind=kinds, walls=walls,
+               losses=[m["loss"] for m in metrics])
     params = state["params"]
     del state, step_fn, m
     torch.cuda.empty_cache()
 
-    cfg32 = cfg.replace(param_dtype="float32")
     b1 = device_batch(steps + 1, rows=1)
 
-    def grads(params, cfg):
+    def grads(params, model):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, _ = dense.lm_loss(live, b1, cfg)
-        return torch.autograd.grad(loss, [get(live, path) for path in GRAD_GATE_LEAVES])
+        loss, _ = model.loss(live, b1)
+        return torch.autograd.grad(loss, [get(live, path) for path in gate_leaves])
 
-    kern = grads(params, cfg)
+    if cfg.family == "moe":
+        # bf16 rounding flips near-tie router choices, and a flip sends a
+        # token to another expert outright: the kernel path replays the
+        # plain path's choices and is held to it, not to fp32
+        choices = []
+        with plain_kernels(), routed_as(choices, replay=False):
+            plain = grads(params, model)
+        with routed_as(choices, replay=True):
+            kern = grads(params, model)
+        say(f"  gradient gate at B=1 T={seq}, one microbatch: the kernel path replays the "
+            f"plain bf16 path's routing ({len(choices)} dispatches, forward and remat) and is "
+            f"held to it:")
+        for path, gk, gp in zip(gate_leaves, kern, plain):
+            e = rel_l2(gk, gp)
+            ok = bool(torch.isfinite(gk.float()).all()) and e <= MOE_PLAIN_L2
+            name = "/".join(str(p) for p in path)
+            say(f"  {'ok  ' if ok else 'FAIL'} d {name}: rel L2 kernel vs plain path {e:.3e} "
+                f"(gate: <= {MOE_PLAIN_L2:g})")
+            if not ok:
+                fail(f"{cfg.name}: the gradient of {name} on the kernel path is further from "
+                     "the plain bf16 path than the order of the kernels' sums explains")
+        run["grad_gate"] = {"/".join(map(str, p)): rel_l2(a, b)
+                            for p, a, b in zip(gate_leaves, kern, plain)}
+        del kern, plain, params
+        return run
+
+    kern = grads(params, model)
     with plain_kernels():
-        plain = grads(params, cfg)
+        plain = grads(params, model)
         params32 = tree_map(lambda t: t.float(), params)
         del params
-        exact = grads(params32, cfg32)
+        exact = grads(params32, build_model(cfg.replace(param_dtype="float32"), device=dev))
     say(f"  gradient gate at B=1 T={seq}, one microbatch, against the fp32 model:")
-    for path, gk, gp, ge in zip(GRAD_GATE_LEAVES, kern, plain, exact):
+    gate_errs = {}
+    for path, gk, gp, ge in zip(gate_leaves, kern, plain, exact):
         e_k, e_p = rel_l2(gk, ge), rel_l2(gp, ge)
         ok = bool(torch.isfinite(gk.float()).all()) and e_k <= NOISE_FACTOR * e_p
         name = "/".join(str(p) for p in path)
+        gate_errs[name] = (e_k, e_p)
         say(f"  {'ok  ' if ok else 'FAIL'} d {name}: rel L2 err vs fp32: kernel path {e_k:.3e}, "
             f"plain path {e_p:.3e} (gate: kernel <= {NOISE_FACTOR:g} x plain)")
         if not ok:
             fail(f"{cfg.name}: the gradient of {name} on the kernel path is further from fp32 "
                  "than bf16 rounding explains")
+    run["grad_gate"] = gate_errs
     del kern, plain, exact, params32
     return run
 
@@ -1604,6 +1907,21 @@ def main() -> int:
                       seq=1024, n_micro=2, steps=6, dev=dev)
     say("phase 8c: crash and bit-exact restart, the demo preset of examples/train_torch.py")
     timed("8c restart", restart_phase, args.seed + 5, dev)
+    say("phase 8d: training's backward kernels: moe_gmm's dx and dw, and the gradients of "
+        "GroupedMatmul and SSDScan")
+    table["moe_gmm_bwd"] = timed("8d moe_gmm dx, dw", gmm_bwd_phase, gen, dev)
+    table["ssd_scan"].update(timed("8d gradients", function_grad_phase, gen, dev))
+    # 32 layers are 41.9 B params; 2 are 2.88 B, whose bf16 params and grads,
+    # fp32 gradient accumulator and AdamW moments come to 46 GB (3: 67 GB)
+    say("phase 8e: MoE training, phi3.5-moe at published width, 2 of 32 layers, bf16, AdamW")
+    runs["8e"] = timed("8e phi3.5-moe training", train_phase,
+                       get_config("phi3.5-moe-42b-a6.6b").replace(n_layers=2), args.seed + 6,
+                       batch=4, seq=1024, n_micro=2, steps=6, dev=dev,
+                       gate_leaves=MOE_GRAD_GATE_LEAVES)
+    say("phase 8f: hybrid training, zamba2-2.7b at published width and depth, bf16, AdamW")
+    runs["8f"] = timed("8f zamba2-2.7b training", train_phase, get_config("zamba2-2.7b"),
+                       args.seed + 7, batch=4, seq=1024, n_micro=2, steps=6, dev=dev,
+                       gate_leaves=HYBRID_GRAD_GATE_LEAVES)
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 
@@ -1627,7 +1945,7 @@ def main() -> int:
     flash = table["flash_attention"]
     kernels[0].update(kernel=flash["path"], simt_ms=flash["simt_ms"],
                       event_ms=flash["event_ms"], lse=True,
-                      lse_launches=runs["8"]["flash_attention"],
+                      lse_launches=sum(runs[k]["flash_attention"] for k in ("8", "8e", "8f")),
                       **{k: flash[k] for k in ("nolse_ms", "lse_ms", "bwd_ms", "bwd_sdpa_ms",
                                                "bwd_bound_ms", "bwd_shape")},
                       launches_by_kernel={p: sum(r["flash_attention_by_path"][p]
@@ -1639,12 +1957,26 @@ def main() -> int:
                                                  for r in runs.values()
                                                  if "decode_attention_by_path" in r)
                                           for p in ("split", "simt")})
+    train_gmm = runs["8e"]["moe_gmm_by_path"]
     kernels[2].update(kernel=table["moe_gmm"]["path"],
-                      launches_by_kernel=runs["6"]["moe_gmm_by_path"])
+                      launches_by_kernel={p: runs["6"]["moe_gmm_by_path"][p] + train_gmm["fwd"][p]
+                                          for p in train_gmm["fwd"]})
+    for kind in GMM_BACKWARD:   # the backward products, at phi's training capacity
+        row = table["moe_gmm_bwd"][kind]
+        kernels[2][kind] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms", "max_abs_err",
+                                                "path", "shape")}
+        kernels[2][kind].update(launches=runs["8e"][f"moe_gmm_{kind}"],
+                                launches_by_kernel=train_gmm[kind])
     ssd = table["ssd_scan"]
     kernels[3].update(kernel=ssd["path"], simt_ms=ssd["simt_ms"], event_ms=ssd["event_ms"],
-                      dist_fp64=ssd["dist_fp64"], launches_by_kernel=runs["7"]["ssm_scan_by_path"],
-                      prefill_ms=runs["7"]["ssd_prefill_ms"])
+                      dist_fp64=ssd["dist_fp64"],
+                      launches_by_kernel={p: runs["7"]["ssm_scan_by_path"][p]
+                                          + runs["8f"]["ssm_scan_by_path"][p]
+                                          for p in runs["7"]["ssm_scan_by_path"]},
+                      prefill_ms=runs["7"]["ssd_prefill_ms"],
+                      **{k: ssd[k] for k in ("ssd_bwd_ms", "ssd_bwd_bound_ms",
+                                             "ssd_bwd_bound_by", "ssd_bwd_shape")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

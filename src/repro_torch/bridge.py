@@ -14,10 +14,12 @@ array is copied, since numpy views of JAX arrays are read-only.
 
 A train state ({"params", "opt", "step"}) crosses whole: AdamW's m and v
 are unstacked as the params are; Adafactor's per-leaf state follows the
-port's grouping (`optim/optimizers.py::per_layer`): the state of a layer
-leaf that the reference updates layer by layer is unstacked into
-`s["layers"]`, the state of the others (the per-layer norms and biases,
-factored over the stack) stays stacked in `s["layers_stacked"]`.
+port's grouping (`optim/optimizers.py::per_layer`): the state of a stacked
+leaf that the reference updates item by item along the stack's first axis
+is split along that axis only, into `s["layers"]` (one per layer) or
+`s["mamba"]` (one per super-block, each still stacked over attn_every);
+the state of the others (the per-layer norms and biases, factored over
+the stack) stays stacked in `s["layers_stacked"]` or `s["mamba_stacked"]`.
 
 This module imports neither JAX nor the JAX package: it works on anything
 `numpy.asarray` accepts, and returns numpy arrays.
@@ -104,11 +106,6 @@ def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: array_from_tensor(v) for k, v in cache.items()}
 
 
-def _jax_layer_paths(jparams):
-    """(path, stacked shape) of each leaf of the reference's stacked layers."""
-    return [(path, tuple(np.shape(a))) for path, a in flatten(jparams.get("layers", {}))]
-
-
 def train_state_from_jax(state: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """A JAX train state {"params", "opt", "step"} (AdamW's {"m", "v",
     "step"} or Adafactor's {"s", "step"}) -> the port's."""
@@ -121,16 +118,17 @@ def train_state_from_jax(state: Dict[str, Any], device="cpu") -> Dict[str, Any]:
         opt["m"] = params_from_jax(jopt["m"], device)
         opt["v"] = params_from_jax(jopt["v"], device)
     else:
-        s = {k: tensors(v) for k, v in jopt["s"].items() if k != "layers"}
-        paths = _jax_layer_paths(state["params"])
-        if paths:
-            js = jopt["s"]["layers"]
-            n = paths[0][1][0]
-            s["layers"] = [unflatten((path, tensors(tree_map(lambda a: a[i], get(js, path))))
-                                     for path, shape in paths if per_layer(shape))
-                           for i in range(n)]
-            s["layers_stacked"] = unflatten((path, tensors(get(js, path)))
-                                            for path, shape in paths if not per_layer(shape))
+        s = {}
+        for k, js in jopt["s"].items():
+            if k not in _STACKED:
+                s[k] = tensors(js)
+                continue
+            paths = [(path, np.shape(a)) for path, a in flatten(state["params"][k])]
+            s[k] = [unflatten((path, tensors(tree_map(lambda a: a[i], get(js, path))))
+                              for path, shape in paths if per_layer(shape))
+                    for i in range(paths[0][1][0])]
+            s[k + "_stacked"] = unflatten((path, tensors(get(js, path)))
+                                          for path, shape in paths if not per_layer(shape))
         opt["s"] = s
     return {"params": params_from_jax(state["params"], device), "opt": opt,
             "step": tensor_from_array(state["step"], device)}
@@ -140,18 +138,19 @@ def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
     """The port's train state -> numpy arrays in the JAX layout."""
     opt = state["opt"]
     out_opt = {"step": array_from_tensor(opt["step"])}
+    params = params_to_numpy(state["params"])
     if "m" in opt:
         out_opt["m"] = params_to_numpy(opt["m"])
         out_opt["v"] = params_to_numpy(opt["v"])
     else:
-        s = {k: tree_map(array_from_tensor, v) for k, v in opt["s"].items()
-             if k not in ("layers", "layers_stacked")}
-        if "layers" in opt["s"]:
-            per = _stack([tree_map(array_from_tensor, ls) for ls in opt["s"]["layers"]], 1)
-            stacked = tree_map(array_from_tensor, opt["s"]["layers_stacked"])
-            s["layers"] = unflatten(
-                (path, get(per, path) if per_layer(shape) else get(stacked, path))
-                for path, shape in _jax_layer_paths(params_to_numpy(state["params"])))
+        s = {}
+        for k in params:
+            if k not in _STACKED:
+                s[k] = tree_map(array_from_tensor, opt["s"][k])
+                continue
+            per = _stack([tree_map(array_from_tensor, si) for si in opt["s"][k]], 1)
+            stacked = tree_map(array_from_tensor, opt["s"][k + "_stacked"])
+            s[k] = unflatten((path, get(per, path) if per_layer(np.shape(a))
+                              else get(stacked, path)) for path, a in flatten(params[k]))
         out_opt["s"] = s
-    return {"params": params_to_numpy(state["params"]), "opt": out_opt,
-            "step": array_from_tensor(state["step"])}
+    return {"params": params, "opt": out_opt, "step": array_from_tensor(state["step"])}

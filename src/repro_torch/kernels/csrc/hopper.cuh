@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA-fed kernels
-// (moe_gmm.cu's gmm_wgmma, flash_attention.cu's flash_wgmma,
-// decode_attention.cu's decode_split, ssm_scan.cu's tensor-core path):
+// (moe_gmm.cu's gmm_wgmma in its three layouts, flash_attention.cu's
+// flash_wgmma, decode_attention.cu's decode_split, ssm_scan.cu's tensor-core
+// path):
 // mbarriers with a trap on a stuck wait, TMA tile loads, 128-byte-swizzle
 // wgmma descriptors, the wgmma products the kernels issue (bf16 and tf32),
 // and the host's tensor-map encoder.
@@ -129,9 +130,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 // row 16 w + lane / 4 (the first two) and of the row 8 below (the last two).
 // scale_d = 0 ignores d's old value (d = A @ B).
 
-// d (64 x 64, fp32) (+)= A (64 x 16, K-major) @ B (16 x 64); both in shared
-// memory. TRANS_B: 0 when B is K-major, 1 when it is MN-major.
-template <int TRANS_B>
+// d (64 x 64, fp32) (+)= A (64 x 16) @ B (16 x 64); both in shared memory.
+// TRANS_A / TRANS_B: 0 when the operand is K-major, 1 when it is MN-major.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
                                                  int scale_d) {
   asm volatile(
@@ -139,18 +140,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-// d (64 x 128, fp32) (+)= A (64 x 16, K-major) @ B (16 x 128); both in shared
-// memory. TRANS_B: 0 when B is K-major, 1 when it is MN-major.
-template <int TRANS_B>
+// d (64 x 128, fp32) (+)= A (64 x 16) @ B (16 x 128); both in shared memory.
+// TRANS_A / TRANS_B: 0 when the operand is K-major, 1 when it is MN-major.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
                                                  int scale_d) {
   asm volatile(
@@ -160,7 +161,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -172,7 +173,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // d (64 x 64, fp32) += A (64 x 16, bf16 in registers, the k16 A fragment) @

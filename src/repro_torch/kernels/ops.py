@@ -3,12 +3,15 @@
 launch error propagates); a CPU tensor goes to the plain PyTorch version in
 `ref.py`. The tensor's device decides, and nothing else.
 
-The CUDA kernels have no backward: their outputs carry no `grad_fn`, so a
-gradient through one would silently leave its inputs out. A CUDA call with
-grad enabled and an input that requires grad therefore raises
-(`check_no_grad`). Training differentiates attention through
-`models/flash_vjp.py`, whose forward calls `flash_attention` under no_grad.
-The plain versions are differentiable, so a CPU call never raises."""
+The CUDA kernels' outputs carry no `grad_fn`, so a gradient through one
+would silently leave its inputs out. A CUDA call with grad enabled and an
+input that requires grad therefore raises (`check_no_grad`). Training
+differentiates each kernel through a `torch.autograd.Function` that calls
+it under no_grad: attention through `models/flash_vjp.py`, the grouped
+matmul through `models/moe.py::GroupedMatmul` (whose backward is the two
+products `moe_gmm_dx` and `moe_gmm_dw`), the SSD scan through
+`models/mamba2.py::SSDScan`. The plain versions are differentiable, so a
+CPU call never raises."""
 from __future__ import annotations
 
 from typing import Optional
@@ -22,14 +25,16 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _ssd
 
 
-# what each kernel lacks for a gradient on the card (ROADMAP.md, Queue 2,
-# "Backward kernels")
+# where each kernel's gradient on the card comes from instead (ROADMAP.md,
+# Queue 2, "Backward kernels")
 NO_BACKWARD = {
     "flash_attention": "differentiate through models.flash_vjp.flash_attention_vjp, "
                        "whose backward is plain PyTorch until the flash backward kernel",
     "decode_attention": "decoding is inference only; no backward is queued",
-    "moe_gmm": "its grouped backward products come with MoE training (Queue 1, item 2)",
-    "ssd_scan": "its backward comes with the hybrid's lm_loss (Queue 1, item 3)",
+    "moe_gmm": "differentiate through models.moe.GroupedMatmul, whose backward is the "
+               "grouped products moe_gmm_dx and moe_gmm_dw (themselves not differentiable)",
+    "ssd_scan": "differentiate through models.mamba2.SSDScan, whose backward is the "
+                "model's chunked scan in plain PyTorch until an SSD backward kernel",
 }
 
 
@@ -78,6 +83,22 @@ def moe_gmm(x, w):
     return ref.moe_gmm_ref(x, w)
 
 
+def moe_gmm_dx(dy, w):
+    """The input gradient of moe_gmm: (E,C,f) @ (E,d,f)^T -> (E,C,d)."""
+    if _on_cuda(dy):
+        check_no_grad("moe_gmm", dy, w)
+        return _gmm.moe_gmm_dx(dy, w)
+    return ref.moe_gmm_dx_ref(dy, w)
+
+
+def moe_gmm_dw(x, dy):
+    """The weight gradient of moe_gmm: (E,C,d)^T @ (E,C,f) -> (E,d,f)."""
+    if _on_cuda(x):
+        check_no_grad("moe_gmm", x, dy)
+        return _gmm.moe_gmm_dw(x, dy)
+    return ref.moe_gmm_dw_ref(x, dy)
+
+
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256):
     """Mamba2 SSD: x (B,H,T,P), dt (B,H,T), A (H,), Bm/Cm (B,G,T,N)."""
     if _on_cuda(x):
@@ -86,4 +107,5 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256):
     return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
 
 
-__all__ = ["flash_attention", "decode_attention", "moe_gmm", "ssd_scan", "ref"]
+__all__ = ["flash_attention", "decode_attention", "moe_gmm", "moe_gmm_dx", "moe_gmm_dw",
+           "ssd_scan", "ref"]

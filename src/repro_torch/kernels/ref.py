@@ -3,8 +3,9 @@
 `attention_ref` is the twin of the JAX package's `kernels/ref.py::
 attention_ref` (same layout, same masks, causal alignment of the sequence
 ends), and `ssd_chunk_ref` of its sequential SSD oracle. `flash_attention_ref`,
-`decode_attention_ref`, `moe_gmm_ref` and `ssd_scan_ref` compute exactly what
-the four CUDA kernels compute, with their signatures, so that `ops.py` can
+`decode_attention_ref`, `moe_gmm_ref` (with `moe_gmm_dx_ref` and
+`moe_gmm_dw_ref`, its two backward products) and `ssd_scan_ref` compute
+exactly what the CUDA kernels compute, with their signatures, so that `ops.py` can
 hand a CPU tensor to them and `chip_smoke.py` can hold each kernel against
 them on the card. Every argument may be a strided view (the model passes
 its (B, T, H, D) tensors transposed to (B, H, T, D) without a copy).
@@ -87,6 +88,20 @@ def moe_gmm_ref(x, w):
     """What `moe_gmm.cu` computes: x (E, C, d) @ w (E, d, f) -> (E, C, f),
     summed in fp32 and cast to x's dtype (the JAX `moe_gmm_ref`)."""
     return torch.einsum("ecd,edf->ecf", x.to(F32), w.to(F32)).to(x.dtype)
+
+
+def moe_gmm_dx_ref(dy, w):
+    """What `moe_gmm.cu`'s dx computes: dy (E, C, f) @ w (E, d, f)^T -> (E,
+    C, d), summed in fp32 and cast to dy's dtype (the input gradient that
+    autodiff of the JAX model's einsum gives)."""
+    return torch.einsum("ecf,edf->ecd", dy.to(F32), w.to(F32)).to(dy.dtype)
+
+
+def moe_gmm_dw_ref(x, dy):
+    """What `moe_gmm.cu`'s dw computes: x (E, C, d)^T @ dy (E, C, f) -> (E,
+    d, f), summed in fp32 over C and cast to x's dtype (the weight
+    gradient)."""
+    return torch.einsum("ecd,ecf->edf", x.to(F32), dy.to(F32)).to(x.dtype)
 
 
 def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):

@@ -1,6 +1,6 @@
-"""zamba2-style hybrid model, inference only: a mamba2 backbone with one
-*shared* attention + FFN block applied after every `attn_every` mamba2
-blocks.
+"""zamba2-style hybrid model: a mamba2 backbone with one *shared* attention
++ FFN block applied after every `attn_every` mamba2 blocks. Training
+(`lm_loss`), prefill and decode.
 
 The port of the JAX package's `models/hybrid.py`. Where JAX scans over
 `nb = n_layers // attn_every` super-blocks, the port loops:
@@ -13,7 +13,10 @@ state per mamba2 block:
 and a decode step updates it in place. Prefill attention goes through the
 flash kernel, decode attention through the decode kernel over the rolling
 cache (slot pos % W), and the mamba2 prefill through the SSD scan kernel, all
-via `kernels/ops.py`.
+via `kernels/ops.py`. The loss differentiates attention through
+`flash_vjp.FlashAttention` and the scan through `mamba2.SSDScan`, and
+recomputes each super-block in the backward (remat), as the JAX
+`backbone_fwd` checkpoints its scan body.
 
 The hybrid is driven through this model interface, not through `ServeEngine`:
 the engine's cache scatter, copied from the JAX engine, knows only caches
@@ -24,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -80,23 +84,45 @@ def _shared_attn_fwd(sp, x, positions, cfg: ModelConfig, window):
     return _shared_ffn(sp, x + h, cfg), kv
 
 
+def _super_block(blocks, sp, x, positions, cfg: ModelConfig, window):
+    """attn_every mamba2 blocks, then the shared block: the JAX scan body."""
+    for mp in blocks:
+        x = M.mamba_fwd(mp, x, cfg)
+    x, _ = _shared_attn_fwd(sp, x, positions, cfg, window)
+    return x
+
+
 def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
-                 window: Optional[int] = None):
-    """The stack over x (B, T, d) without a cache, then the final norm (the
-    JAX `backbone_fwd` with remat off)."""
+                 window: Optional[int] = None, remat: bool = True):
+    """The stack over x (B, T, d) without a cache, then the final norm. With
+    `remat` (the JAX default) and autograd recording, each super-block keeps
+    only its input for the backward and runs again there (`jax.checkpoint`
+    of the JAX scan body, `hybrid.py:68-86` of the reference): the scan and
+    attention kernels launch twice per super-block. Without autograd there
+    is nothing to keep, and the super-blocks run plainly."""
+    sp = params["shared_attn"]
     for blocks in params["mamba"]:
-        for mp in blocks:
-            x = M.mamba_fwd(mp, x, cfg)
-        x, _ = _shared_attn_fwd(params["shared_attn"], x, positions, cfg, window)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_super_block, blocks, sp, x, positions, cfg, window,
+                           use_reentrant=False)
+        else:
+            x = _super_block(blocks, sp, x, positions, cfg, window)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def lm_loss(params, batch, cfg: ModelConfig):
-    """Not ported yet: the hybrid's loss needs a backward of the SSD scan
-    kernel on the card and the mamba2 block under remat."""
-    raise NotImplementedError(
-        f"{cfg.name}: the hybrid's lm_loss is not ported yet (ROADMAP.md, Queue 1, "
-        "item 3: hybrid training)")
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """Next-token loss of batch {"tokens", "targets"} (B, T) [+ "loss_mask"]:
+    embed, the stack, unembed with the padded vocab masked, the fp32 cross
+    entropy. Returns (xent, {"xent": xent}), as the JAX `lm_loss` (the
+    hybrid has no aux loss)."""
+    tokens, targets = batch["tokens"], batch["targets"]
+    B, T = tokens.shape
+    positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
+    x = L.embed(params["embed"], tokens)
+    x = backbone_fwd(params, x, positions, cfg, remat=remat)
+    logits = L.unembed(params["embed"], x, cfg.vocab_size)
+    loss = L.softmax_xent(logits, targets, batch.get("loss_mask"))
+    return loss, {"xent": loss}
 
 
 # ----------------------------------------------------------------------------

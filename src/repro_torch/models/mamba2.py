@@ -1,18 +1,20 @@
-"""Mamba2 (SSD) blocks, inference only: the full-sequence forward (prefill)
+"""Mamba2 (SSD) blocks: the full-sequence forward (prefill and training)
 and the one-token recurrent update (decode).
 
-The port of the JAX package's `models/mamba2.py`. Prefill runs the chunked
-SSD scan through `kernels/ops.py::ssd_scan` (the CUDA kernel on the card, the
-plain version on the CPU) on the (B, H, T, P) view of the model's
-(B, T, H, P) tensors, with no transpose copy.
+The port of the JAX package's `models/mamba2.py`. The full-sequence forward
+runs the chunked SSD scan through `kernels/ops.py::ssd_scan` (the CUDA kernel
+on the card, the plain version on the CPU) on the (B, H, T, P) view of the
+model's (B, T, H, P) tensors, with no transpose copy. Under autograd it goes
+through `SSDScan`, whose backward differentiates the model's own chunked
+scan (`_ssd_chunked`), as the JAX package differentiates its jnp scan.
 
 Numerics: the kernel returns y in the dtype of its x, while the model's
 chunked scan keeps y in fp32 and adds the D skip in fp32 before one cast to
 the working dtype. So `mamba_fwd` hands the kernel x, B and C in fp32, as the
 model's `_ssd_chunked` casts them inside, and the port keeps the model's
-numerics exactly at bf16 too. `_ssd_chunked` itself is kept as the oracle of
-the model's own form of the scan: the tests hold `ops.ssd_scan` to it; no
-forward path calls it.
+numerics exactly at bf16 too. `_ssd_chunked` is the oracle of the model's
+own form of the scan (the tests hold `ops.ssd_scan` to it) and the function
+`SSDScan`'s backward differentiates; no forward path calls it.
 """
 from __future__ import annotations
 
@@ -76,7 +78,8 @@ def _causal_conv(xbc, w, b):
 def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     """The model's chunked SSD in its own layout (the JAX `_ssd_chunked`):
     x (B,T,H,P), dt (B,T,H), A (H,), Bm/Cm (B,T,G,N) -> (y (B,T,H,P) fp32,
-    final state (B,H,P,N) fp32). The tests' oracle for `ops.ssd_scan`."""
+    final state (B,H,P,N) fp32). The tests' oracle for `ops.ssd_scan`, and
+    what `SSDScan`'s backward differentiates."""
     Bsz, T, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
@@ -107,6 +110,60 @@ def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
         S = torch.exp(la_end[:, c])[:, :, None, None] * S + S_c[:, c]
     y = y_intra + torch.stack(y_inter, dim=1)
     return y.reshape(Bsz, T, H, P), S
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with its gradient, in the kernel's layout: x (B,H,T,P),
+    dt (B,H,T), A (H,), Bm/Cm (B,G,T,N), any strides (`mamba_fwd` passes
+    (B,T,H,P) tensors read as (B,H,T,P) views) -> (y (B,H,T,P), final state
+    (B,H,P,N) fp32).
+
+    The forward is `ops.ssd_scan` (the kernel on the card: its tensor-core
+    path at the model's fp32 views), keeping only the inputs. The backward
+    recomputes the model's own form of the scan, `_ssd_chunked`, in fp32
+    and differentiates it with autograd: exactly what the JAX reference
+    differentiates, since its backward is autodiff of the jnp scan, not a
+    Pallas kernel. So this is the port's backward and not a fallback; a
+    Hopper SSD backward kernel is queued (ROADMAP.md, Queue 2). Either
+    output's gradient may be absent (training takes no final state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        live = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        x, dt, A, Bm, Cm = live
+        with torch.enable_grad():
+            # the (B,H,T,.) views back in the model's (B,T,H,.) layout
+            y, S = _ssd_chunked(x.transpose(1, 2), dt.transpose(1, 2), A,
+                                Bm.transpose(1, 2), Cm.transpose(1, 2), ctx.chunk)
+        outs, grads = [], []
+        if dy is not None:
+            outs.append(y)
+            grads.append(dy.transpose(1, 2))
+        if dS is not None:
+            outs.append(S)
+            grads.append(dS)
+        wanted = [t for t, n in zip(live, need) if n]
+        got = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True)
+                   if outs and wanted else ())
+        return (*(next(got) if n else None for n in need), None)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, chunk: int):
+    """The SSD scan of `mamba_fwd`: through `SSDScan` when autograd records
+    (a training step), else `ops.ssd_scan` directly (prefill)."""
+    args = (x, dt, A, Bm, Cm)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return SSDScan.apply(*args, chunk)
+    return ops.ssd_scan(*args, chunk=chunk)
 
 
 def _in_proj(p, xn, cfg: ModelConfig):
@@ -142,9 +199,8 @@ def mamba_fwd(p, x, cfg: ModelConfig, return_state: bool = False):
     if T % chunk:
         raise ValueError(f"sequence length {T} is not a multiple of the SSD chunk {chunk}")
     # (B,T,H,P) etc. read as (B,H,T,P) through strides; y comes back in xh's layout
-    y, S_fin = ops.ssd_scan(xh.transpose(1, 2), dt.transpose(1, 2), A,
-                            Bm.to(F32).transpose(1, 2), Cm.to(F32).transpose(1, 2),
-                            chunk=chunk)
+    y, S_fin = ssd_scan(xh.transpose(1, 2), dt.transpose(1, 2), A,
+                        Bm.to(F32).transpose(1, 2), Cm.to(F32).transpose(1, 2), chunk)
     y = y.transpose(1, 2) + p["D"][None, None, :, None] * xh
     out = _out_proj(p, x, y.reshape(B, T, d_in).to(x.dtype), z, cfg)
     if not return_state:

@@ -8,8 +8,11 @@ the identity, but the group-major (G, E, C, d) and expert-major (E, G, C, d)
 shapes are kept so the two packages can be compared step by step. The three
 expert products go through `kernels/ops.py::moe_gmm` on the (E, G*C, d) view
 of the expert-major tensor: the CUDA kernel on the card, the plain version
-on the CPU (the JAX model computes them with `jnp.einsum`). The router runs
-in fp32.
+on the CPU (the JAX model computes them with `jnp.einsum`). Under autograd
+they go through `GroupedMatmul`, whose backward is the two grouped products
+`ops.moe_gmm_dx` and `ops.moe_gmm_dw`; the router, the gates, the dispatch,
+the combine and the aux loss are differentiated by plain autograd. The
+router runs in fp32.
 """
 from __future__ import annotations
 
@@ -22,6 +25,39 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 F32 = torch.float32
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """x (E, C, d) @ w (E, d, f) -> (E, C, f) with its gradient: the forward
+    is `ops.moe_gmm` (the kernel on the card), the backward the two grouped
+    products dx = dy w^T (`ops.moe_gmm_dx`) and dw = x^T dy
+    (`ops.moe_gmm_dw`), each only where autograd asks for it. They are what
+    autodiff of the JAX model's einsum computes, summed in fp32 and returned
+    in the inputs' dtype. Autograd runs both methods with grad off, so the
+    CUDA ops' grad guard passes; a double backward would make it raise."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return ops.moe_gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        # autograd may hand over an expanded (stride-0) or transposed
+        # gradient, which TMA cannot read: the kernels want it contiguous
+        dy = dy.contiguous()
+        dx = ops.moe_gmm_dx(dy, w) if ctx.needs_input_grad[0] else None
+        dw = ops.moe_gmm_dw(x, dy) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def grouped_matmul(x, w):
+    """The expert product: through `GroupedMatmul` when autograd records (a
+    training step), else `ops.moe_gmm` directly (serving)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMatmul.apply(x, w)
+    return ops.moe_gmm(x, w)
 
 
 def capacity(cfg: ModelConfig, n_tokens_per_group: int) -> int:
@@ -50,14 +86,19 @@ def init_moe_layer(generator: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-def _dispatch_one_group(x, logits, top_k: int, cap: int):
+def _dispatch_one_group(x, logits, top_k: int, cap: int, top_e=None):
     """Sort-based dispatch for one token group. x: (N, d), logits: (N, E) ->
     (slots (E*C, d), slot of each (token, k) or the dump row E*C, gates of the
-    top k renormalised (N, k), all gates (N, E))."""
+    top k renormalised (N, k), all gates (N, E)). `top_e` (N, k), if given,
+    names the experts to take instead of the top k of these gates (to replay
+    one run's routing in another: chip_smoke.py's MoE gradient gate)."""
     n, e = logits.shape
     dev = x.device
     gates = torch.softmax(logits.to(F32), dim=-1)
-    top_g, top_e = torch.topk(gates, top_k, dim=-1)
+    if top_e is None:
+        top_g, top_e = torch.topk(gates, top_k, dim=-1)
+    else:
+        top_g = torch.gather(gates, -1, top_e)
     top_g = top_g / torch.clamp_min(top_g.sum(-1, keepdim=True), 1e-9)
 
     flat_e = top_e.reshape(-1)
@@ -97,10 +138,10 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig,
 
     # group-major (G, E, C, d) -> expert-major (E, G, C, d), seen as (E, G*C, d)
     xe = slots.reshape(n_groups, e, cap, d).transpose(0, 1).reshape(e, n_groups * cap, d)
-    h1 = ops.moe_gmm(xe, p["w1"])
-    h3 = ops.moe_gmm(xe, p["w3"])
+    h1 = grouped_matmul(xe, p["w1"])
+    h3 = grouped_matmul(xe, p["w3"])
     h = torch.nn.functional.silu(h1.to(F32)).to(h1.dtype) * h3
-    out_e = ops.moe_gmm(h, p["w2"])                       # (E, G*C, d)
+    out_e = grouped_matmul(h, p["w2"])                    # (E, G*C, d)
     out_g = out_e.reshape(e, n_groups, cap, d).transpose(0, 1).reshape(n_groups, e * cap, d)
 
     # combine: gather each (token, k) slot row, weight by its gate

@@ -15,13 +15,18 @@ reference, `update` writes the new parameters and state into the given
 tensors (under no_grad) and returns the same containers: at full width a
 second copy of the parameters and moments would not fit beside the first.
 
-The reference stacks a model's layers on a leading axis, so its Adafactor
-sees one (L, ...) leaf per layer parameter. The port keeps a list of
-layers, and reproduces that grouping (`per_layer`): a leaf whose stacked
-shape the reference updates layer by layer (`lax.map`) is updated here per
-layer, with per-layer state in `s["layers"]`; any other (a per-layer 1-D
-norm or bias: factored over the stack, one RMS clip over the stack) is
-stacked for its update, with its state stacked in `s["layers_stacked"]`.
+The reference stacks a model's layers on leading axes, so its Adafactor
+sees one stacked leaf per layer parameter: (L, ...) for `params["layers"]`,
+(nb, attn_every, ...) for the hybrid's `params["mamba"]`. The port keeps
+such a stack as nested lists (a params entry that is a list of lists of
+dicts stacks two axes), and reproduces that grouping (`per_layer`): a leaf
+whose stacked shape the reference updates item by item along the first
+axis (`lax.map`) is updated here per item of the outer list, the inner
+lists stacked into one tensor (a hybrid super-block's attn_every blocks:
+one factored update, one RMS clip), with its state in `s[key][i]`; any
+other (a per-layer 1-D norm or bias: factored over the stack, one RMS clip
+over the stack) is stacked whole for its update, with its state stacked in
+`s[key + "_stacked"]`.
 """
 from __future__ import annotations
 
@@ -93,17 +98,43 @@ def _factored(shape) -> bool:
 
 
 def per_layer(stacked_shape) -> bool:
-    """Whether the reference updates a stacked (L, ...) leaf layer by layer
-    (`lax.map`), or as one tensor."""
+    """Whether the reference updates a stacked (n, ...) leaf item by item
+    along its first axis (`lax.map`), or as one tensor."""
     return len(stacked_shape) >= 3 and _factored(stacked_shape) and stacked_shape[0] <= 1024
 
 
-def _layer_paths(params):
-    """(path, stacked shape) of each leaf of a layer, or [] without layers."""
-    layers = params.get("layers") or []
-    if not layers:
-        return []
-    return [(path, (len(layers),) + tuple(p.shape)) for path, p in flatten(layers[0])]
+def _stack_depth(tree) -> int:
+    """How many list axes a params entry stacks its leaves on: 0 for a
+    plain subtree, 1 for a list of layer dicts, 2 for a list of lists."""
+    depth = 0
+    while isinstance(tree, list) and tree:
+        tree, depth = tree[0], depth + 1
+    return depth
+
+
+def _stacked_paths(stack, depth: int):
+    """(path, stacked shape) of each leaf of a stack of `depth` list axes."""
+    lead = []
+    for _ in range(depth):
+        lead.append(len(stack))
+        stack = stack[0]
+    return [(path, tuple(lead) + tuple(p.shape)) for path, p in flatten(stack)]
+
+
+def _stacked_leaf(stack, path, depth: int):
+    """The leaf at `path` of every item of the stack, as one tensor."""
+    if depth == 0:
+        return get(stack, path)
+    return torch.stack([_stacked_leaf(item, path, depth - 1) for item in stack])
+
+
+def _write_leaf(stack, path, depth: int, new) -> None:
+    """The inverse of _stacked_leaf: each item's leaf takes its row of `new`."""
+    if depth == 0:
+        get(stack, path).copy_(new)
+        return
+    for item, row in zip(stack, new):
+        _write_leaf(item, path, depth - 1, row)
 
 
 def adafactor(eps1: float = 1e-30, eps2: float = 1e-3, clip: float = 1.0,
@@ -116,15 +147,17 @@ def adafactor(eps1: float = 1e-30, eps2: float = 1e-3, clip: float = 1.0,
 
     def init(params):
         dev = _device(params)
-        s = {k: tree_map(lambda p: per(tuple(p.shape), dev), v)
-             for k, v in params.items() if k != "layers"}
-        paths = _layer_paths(params)
-        if paths:
-            s["layers"] = [unflatten((path, per(shape[1:], dev))
-                                     for path, shape in paths if per_layer(shape))
-                           for _ in params["layers"]]
-            s["layers_stacked"] = unflatten((path, per(shape, dev)) for path, shape in paths
-                                            if not per_layer(shape))
+        s = {}
+        for k, v in params.items():
+            depth = _stack_depth(v)
+            if not depth:
+                s[k] = tree_map(lambda p: per(tuple(p.shape), dev), v)
+                continue
+            paths = _stacked_paths(v, depth)
+            s[k] = [unflatten((path, per(shape[1:], dev))
+                              for path, shape in paths if per_layer(shape)) for _ in v]
+            s[k + "_stacked"] = unflatten((path, per(shape, dev)) for path, shape in paths
+                                          if not per_layer(shape))
         return {"s": s, "step": _step0(params)}
 
     @torch.no_grad()
@@ -158,21 +191,21 @@ def adafactor(eps1: float = 1e-30, eps2: float = 1e-3, clip: float = 1.0,
 
         s = state["s"]
         for k, sub in params.items():
-            if k == "layers":
+            depth = _stack_depth(sub)
+            if not depth:
+                for path, p in flatten(sub):
+                    p.copy_(upd_core(p, get(grads[k], path), get(s[k], path)))
                 continue
-            for path, p in flatten(sub):
-                p.copy_(upd_core(p, get(grads[k], path), get(s[k], path)))
-        layers, glayers = params.get("layers") or [], grads.get("layers") or []
-        for path, shape in _layer_paths(params):
-            if per_layer(shape):
-                for lp, lg, ls in zip(layers, glayers, s["layers"]):
-                    get(lp, path).copy_(upd_core(get(lp, path), get(lg, path), get(ls, path)))
-                continue
-            stacked = torch.stack([get(lp, path) for lp in layers])
-            new = upd_core(stacked, torch.stack([get(lg, path) for lg in glayers]),
-                           get(s["layers_stacked"], path))
-            for lp, row in zip(layers, new):
-                get(lp, path).copy_(row)
+            for path, shape in _stacked_paths(sub, depth):
+                if per_layer(shape):   # item by item along the stack's first axis
+                    for item, g, si in zip(sub, grads[k], s[k]):
+                        _write_leaf(item, path, depth - 1, upd_core(
+                            _stacked_leaf(item, path, depth - 1),
+                            _stacked_leaf(g, path, depth - 1), get(si, path)))
+                else:
+                    _write_leaf(sub, path, depth, upd_core(
+                        _stacked_leaf(sub, path, depth), _stacked_leaf(grads[k], path, depth),
+                        get(s[k + "_stacked"], path)))
         state["step"] = step
         return params, state, {"grad_norm": global_norm(grads)}
 

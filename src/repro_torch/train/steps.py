@@ -3,7 +3,8 @@
 train_step: microbatched gradient accumulation (a loop over microbatches
 split on the batch axis, fp32 accumulators), gradient clipping by the
 global norm, the optimizer update. The loss and its gradients come from
-`model.loss` under autograd, with the model's remat (`dense.backbone_fwd`).
+`model.loss` under autograd, with the model's remat (`dense.backbone_fwd`,
+`hybrid.backbone_fwd`).
 
 The reference's `grad_shardings` (a sharded accumulator across devices)
 waits for the multi-device item (ROADMAP.md, Queue 1). The step updates

@@ -319,6 +319,106 @@ def test_moe_gmm_kernel_matches_plain_on_cuda(cuda, E, C, d, f, dtype):
     torch.testing.assert_close(got.float(), ref.moe_gmm_ref(x, w).float(), **tol)
 
 
+GMM_BWD_CASES = [   # (E, C, d, f)
+    (2, 4, 200, 64),       # the decode capacity; d off the 64-deep k step
+    (3, 12, 136, 264),     # C, d and f each off a tile
+    (2, 160, 256, 320),    # the prefill capacity of a 1024-token prompt
+    (2, 320, 328, 200),    # phi3.5-moe's training capacity; d and f off a tile
+    (1, 320, 4096, 640),   # a long contraction over d for dx, a tall dw
+    # bf16 that TMA cannot stride: the CUDA-core kernels
+    (3, 20, 200, 36),      # f not a multiple of 8
+    (3, 12, 300, 264),     # rows of x and dx of 600 bytes
+    (2, 40, 24, 64),       # d <= 32: fp32 dw on the row kernel, contracting over C
+    (2, 40, 24, 36),       # and bf16 dw there too (f off TMA's stride)
+]
+
+
+def _gmm_bwd_want(kind, td, E, C, d, f):
+    """The kernel `route` names for product `kind`: the tensor-core one for
+    bf16 whose rows TMA can stride, else by M (C for dx, d for dw)."""
+    M = C if kind == "dx" else d
+    tma = d % 8 == 0 and f % 8 == 0
+    return ("wgmma" if td == torch.bfloat16 and tma
+            else "rows" if M <= gk.ROWS_MAX_C else "tiled")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,f", GMM_BWD_CASES)
+def test_moe_gmm_backward_kernels_match_plain_on_cuda(cuda, E, C, d, f, dtype):
+    """dx = dy w^T and dw = x^T dy, each through the kernel `route` names and
+    held to its plain version with the forward's tolerances."""
+    g = torch.Generator(device=cuda).manual_seed(E + C + d + f)
+    td = DTYPES[dtype]
+    x = torch.randn((E, C, d), generator=g, device=cuda).to(td)
+    w = (torch.randn((E, d, f), generator=g, device=cuda) * d ** -0.5).to(td)
+    dy = torch.randn((E, C, f), generator=g, device=cuda).to(td)
+    tol = dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
+    for kind, call, want, shape in (
+            ("dx", lambda: ops.moe_gmm_dx(dy, w), lambda: ref.moe_gmm_dx_ref(dy, w), (E, C, d)),
+            ("dw", lambda: ops.moe_gmm_dw(x, dy), lambda: ref.moe_gmm_dw_ref(x, dy), (E, d, f))):
+        counts = getattr(gk, f"{kind}_launches_by_path")
+        path = _gmm_bwd_want(kind, td, E, C, d, f)
+        n, by_path = getattr(gk, f"{kind}_launches"), dict(counts)
+        got = call()
+        torch.cuda.synchronize()
+        assert getattr(gk, f"{kind}_launches") == n + 1 and got.dtype == td
+        assert got.shape == shape and counts == dict(by_path, **{path: by_path[path] + 1})
+        torch.testing.assert_close(got.float(), want().float(), **tol, msg=kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f", [(2, 4, 200, 64), (2, 320, 328, 200), (3, 100, 64, 136),
+                                     (2, 129, 136, 264)])
+def test_moe_gmm_tensor_core_tiles(cuda, E, C, d, f):
+    """The tensor-core kernel in each of its three layouts, each with its
+    own tile (64 rows a CTA for the forward and dx, 128 for dw, the output
+    staged through shared memory), against the plain versions; the shapes
+    leave ragged row and column tiles of both sizes."""
+    g = torch.Generator(device=cuda).manual_seed(C)
+    x = torch.randn((E, C, d), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((E, d, f), generator=g, device=cuda) * d ** -0.5).bfloat16()
+    dy = torch.randn((E, C, f), generator=g, device=cuda).bfloat16()
+    tol = dict(atol=5e-2, rtol=5e-2)
+    n = dict(gk.launches_by_path), dict(gk.dx_launches_by_path), dict(gk.dw_launches_by_path)
+    for got, want in ((gk.moe_gmm(x, w), ref.moe_gmm_ref(x, w)),
+                      (gk.moe_gmm_dx(dy, w), ref.moe_gmm_dx_ref(dy, w)),
+                      (gk.moe_gmm_dw(x, dy), ref.moe_gmm_dw_ref(x, dy))):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    for before, after in zip(n, (gk.launches_by_path, gk.dx_launches_by_path,
+                                 gk.dw_launches_by_path)):
+        assert after == dict(before, wgmma=before["wgmma"] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_gradients_on_cuda(cuda, dtype):
+    """GroupedMatmul's forward and gradients on the card (the kernels)
+    against autograd through the plain einsum on the same inputs. The loss
+    is a sum, so autograd hands the backward an expanded (stride-0)
+    gradient: the Function makes it contiguous, and the products still go
+    through the tensor-core kernel at bf16."""
+    from repro_torch.models.moe import GroupedMatmul
+    E, C, d, f = 4, 160, 256, 320
+    g = torch.Generator(device=cuda).manual_seed(11)
+    td = DTYPES[dtype]
+    x0 = torch.randn((E, C, d), generator=g, device=cuda).to(td)
+    w0 = (torch.randn((E, d, f), generator=g, device=cuda) * d ** -0.5).to(td)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    n = (gk.dx_launches_by_path["wgmma"], gk.dw_launches_by_path["wgmma"])
+    out = GroupedMatmul.apply(x, w)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    ref.moe_gmm_ref(xr, wr).sum().backward()
+    tol = dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
+    for got, want in ((x.grad, xr.grad), (w.grad, wr.grad)):
+        assert got.dtype == td
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    wgmma = (gk.dx_launches_by_path["wgmma"] - n[0], gk.dw_launches_by_path["wgmma"] - n[1])
+    assert wgmma == ((1, 1) if dtype == "bfloat16" else (0, 0))
+
+
 def _ssd_inputs(dev, B, H, T, P, G, N, dtype, seed):
     """Inputs in the model's (B,T,H,P) layout, read as (B,H,T,P) views; the
     distributions of tests/test_kernels.py."""
@@ -386,6 +486,47 @@ def test_ssd_tensor_core_kernel_keeps_fp32_precision(cuda):
         dist[path] = (_rel_l2(y, exact_y), _rel_l2(s, exact_s))
     assert dist["mma"][0] <= 2 * dist["simt"][0], dist
     assert dist["mma"][1] <= 2 * dist["simt"][1], dist
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state_grad", [False, True])
+def test_ssd_scan_function_gradients_on_cuda(cuda, with_state_grad):
+    """SSDScan on the card: the forward through the tensor-core path (the
+    model's fp32 views at P = N = 64), the gradients of every input equal
+    (to 1e-6) to autograd through the model's chunked scan on the same
+    device, which its backward differentiates, and within 1e-4 (relative L2)
+    of an fp64 run of the plain version."""
+    from repro_torch.models import mamba2 as M2
+    args = _ssd_inputs(cuda, 2, 8, 512, 64, 1, 64, torch.float32, 5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    dy = torch.randn(args[0].shape, generator=g, device=cuda)
+    dS = torch.randn((2, 8, 64, 64), generator=g, device=cuda) if with_state_grad else None
+    assert sk.route_for(args[0], args[3], args[4]) == "mma"
+
+    def grads(fn):
+        live = [t.detach().requires_grad_() for t in args]
+        y, S = fn(*live)
+        outs, cots = [y], [dy]
+        if dS is not None:
+            outs, cots = [y, S], [dy, dS]
+        return torch.autograd.grad(outs, live, cots)
+    n = sk.launches_by_path["mma"]
+    got = grads(lambda *a: M2.SSDScan.apply(*a, 256))
+    torch.cuda.synchronize()
+    assert sk.launches_by_path["mma"] == n + 1
+
+    def model_scan(x, dt, A, Bm, Cm):
+        y, S = M2._ssd_chunked(x.transpose(1, 2), dt.transpose(1, 2), A, Bm.transpose(1, 2),
+                               Cm.transpose(1, 2), 256)
+        return y.transpose(1, 2), S
+    want = grads(model_scan)
+    args = [t.double() for t in args]
+    dy = dy.double()
+    dS = None if dS is None else dS.double()
+    exact = grads(lambda *a: ref.ssd_scan_ref(*a, chunk=256))
+    for a, b, e in zip(got, want, exact):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+        assert _rel_l2(a, e) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -585,7 +726,8 @@ def ref_ops():
     import types
     return types.SimpleNamespace(flash_attention=ref.flash_attention_ref,
                                  decode_attention=ref.decode_attention_ref,
-                                 moe_gmm=ref.moe_gmm_ref, ssd_scan=ref.ssd_scan_ref)
+                                 moe_gmm=ref.moe_gmm_ref, moe_gmm_dx=ref.moe_gmm_dx_ref,
+                                 moe_gmm_dw=ref.moe_gmm_dw_ref, ssd_scan=ref.ssd_scan_ref)
 
 
 @pytest.mark.cuda
@@ -653,6 +795,64 @@ def test_train_step_on_the_card_matches_the_plain_kernels(cuda, monkeypatch):
             launched = (fk.launches - n[0], fk.lse_launches - n[1])
         want = 2 * cfg.n_layers * 2 if name == "kernel" else 0
         assert launched == (want, want), (name, launched)
+        out[name] = (metrics, leaves(state["params"]))
+    (mk, pk), (mp_, pp) = out["kernel"], out["plain"]
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(mk[key], mp_[key], atol=0, rtol=1e-4)
+    lr = float(mk["lr"])
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pk, pp)])
+    assert float(diffs.max()) <= 2 * lr + 1e-6
+    assert float((diffs <= 1e-6).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "zamba2-2.7b"])
+def test_moe_and_hybrid_train_steps_on_the_card_match_the_plain_kernels(cuda, arch):
+    """One AdamW step of phi3.5-moe SMOKE and of zamba2 SMOKE at fp32 (2
+    microbatches) on the card, against the same step with the plain
+    kernels, with test_train_step_on_the_card_matches_the_plain_kernels's
+    bounds. Each kernel launches as the layers ask: flash with the lse twice
+    per attention and microbatch (forward and remat); moe_gmm 3 times per
+    MoE layer twice, with dx and dw once per expert product; ssd_scan twice
+    per mamba2 block."""
+    from repro_torch.models import flash_vjp, hybrid, layers, mamba2, moe
+    from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
+    from repro_torch.train.steps import make_init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch, smoke=True).replace(param_dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (4, 65), generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].to(cuda), "targets": toks[:, 1:].to(cuda)}
+    lr_fn = warmup_cosine(1e-3, 0, 10)   # lr 1e-3 at step 1
+    k = 2   # microbatches
+    if cfg.family == "moe":
+        n_gmm = 3 * cfg.n_layers * k
+        want = {"flash": 2 * cfg.n_layers * k, "gmm": 2 * n_gmm, "dx": n_gmm, "dw": n_gmm,
+                "ssd": 0}
+    else:
+        nb = cfg.n_layers // cfg.hybrid.attn_every
+        want = {"flash": 2 * nb * k, "gmm": 0, "dx": 0, "dw": 0, "ssd": 2 * cfg.n_layers * k}
+
+    def counts():
+        return {"flash": fk.lse_launches, "gmm": gk.launches, "dx": gk.dx_launches,
+                "dw": gk.dw_launches, "ssd": sk.launches}
+    out = {}
+    for name in ("kernel", "plain"):
+        model = build_model(cfg, device=cuda)
+        opt = make_optimizer("adamw")
+        state = make_init_state(model, opt)(torch.Generator(device=cuda).manual_seed(0))
+        state["step"].fill_(1)
+        with pytest.MonkeyPatch.context() as mp:
+            if name == "plain":
+                for module in (layers, flash_vjp, moe, mamba2, hybrid):
+                    mp.setattr(module, "ops", ref_ops())
+            n = counts()
+            state, metrics = make_train_step(model, opt, lr_fn, n_microbatches=k)(state, batch)
+            torch.cuda.synchronize()
+            launched = {key: v - n[key] for key, v in counts().items()}
+        assert launched == (want if name == "kernel" else dict.fromkeys(want, 0)), \
+            (name, launched)
         out[name] = (metrics, leaves(state["params"]))
     (mk, pk), (mp_, pp) = out["kernel"], out["plain"]
     for key in ("loss", "grad_norm"):
