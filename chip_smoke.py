@@ -5,8 +5,9 @@
 
 Drives the port's paths on the card and checks them: dense-LM
 continuous-batching serving, MoE serving, the zamba2 hybrid's prefill and
-decode, and training of the dense, MoE and hybrid families. Every phase
-exits non-zero on failure; nothing is caught and carried on.
+decode, training of the dense, MoE and hybrid families, and prefill and
+decode of the xLSTM, whisper and VLM families. Every phase exits non-zero
+on failure; nothing is caught and carried on.
 
   1. requires a CUDA device; prints the card's name and power limit;
   2. builds the four kernels from `src/repro_torch/kernels/csrc/`;
@@ -39,6 +40,13 @@ exits non-zero on failure; nothing is caught and carried on.
         first version's on the same inputs and the bound, and both kernels'
         relative L2 distance to an fp64 run; no single PyTorch call
         computes it;
+     f. flash and decode attention at phase 9's shapes: whisper-tiny's
+        non-causal encoder (B=8 T=1536 H=6 D=64), its cross-attention
+        (Tq=64, Tk=1536) and decoder, internvl2-76b's prefill (Hq=64 Hkv=8
+        D=128); decode over whisper's self cache and its full 1536-row
+        cross cache (D=64) and over internvl2's replicated cache (Hq=64
+        Hc=16 D=128), each held to its plain version and timed beside the
+        plain version, SDPA and the bound;
   4. llama3-8b at its published width and depth with random bf16 weights
      from a seeded generator: a ServeEngine with 8 slots of 2048 tokens
      serves 16 requests (prompts of 16-1024 tokens, 32 new tokens each); the
@@ -103,9 +111,33 @@ exits non-zero on failure; nothing is caught and carried on.
      gradients of the embeddings, one mamba2 block's w_zx, w_out, conv_w,
      dt_bias and A_log, the shared block's wq and the final norm at B=1
      against the fp32 model, as in b;
-  9. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
-     at C=320, ssd_scan's with its plain backward) and, last, the device
-     line `{"ok": true, "device": {...}}`.
+  9. the families with no earlier path, through the model interface with
+     bf16 random weights from the seed: a. whisper-tiny at its published
+     width and depth (4 encoder and 4 decoder layers, d_model 384, 6 heads
+     of 64): the encoder over 8 stub inputs of 1536 frames (timed), the
+     prefill of 8 prompts of 64 tokens, 32 decode steps on a cache of 128
+     rows; exactly 12 flash launches a prefill (4 encoder non-causal, 4
+     decoder causal, 4 cross non-causal with Tq=64, Tk=1536), all
+     `flash_wgmma`, and 8 decode launches a step (4 self, 4 cross), all
+     `decode_split`; the logits gate (logits_gate) on the prefill and on one
+     decode step; a profiled decode window; b. xlstm-350m at its published
+     width and depth (24 layers, d_model 1024, mLSTM heads of 512): the
+     prefill of 4 prompts of 1024 tokens (median of three), 32 decode
+     steps, no kernel launched (the reference's xLSTM is jnp), finite
+     logits and the bf16 run's distance to fp32 printed, one sLSTM and one
+     mLSTM block timed (the sequential sLSTM's host cost) and the decode
+     step profiled, and in fp32 over 256 tokens each block's parallel form
+     held to its decode step replayed over the same input
+     (XLSTM_BLOCK_L2), the whole model's two forms printed; c.
+     internvl2-76b at its published width and 24 of its 80 layers: the prefill of 4 prompts of 1024 positions whose first
+     256 are patch embeddings, 32 decode steps on the replicated (16-head)
+     cache; exactly 24 flash launches a prefill, all `flash_wgmma`, and 24
+     decode launches a step, all `decode_split`; the logits gate on the
+     first 4 layers, as phase 6;
+ 10. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+     at C=320, ssd_scan's with its plain backward, flash's and decode's
+     with their rows at phase 9's shapes) and, last, the device line
+     `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -151,6 +183,19 @@ NOISE_FACTOR = 2.0
 # and decode split over S.
 MOE_PLAIN_L2 = 5e-2
 MOE_ROUTING_AGREEMENT = 0.95
+# xlstm-350m's two forms in fp32 (phase 9b): each block's parallel output
+# over 256 tokens against its decode step replayed over the same input,
+# relative L2. tests/test_torch_xlstm.py::
+# test_each_block_s_two_forms_agree holds each block of the SMOKE config
+# to this bound on the CPU (and the SMOKE model's last logits, in
+# test_decode_replay_equals_the_chunked_prefill). The whole model's last
+# logits are printed, not gated: with random weights at full width each
+# layer amplifies a perturbation of its input (JAX's own bf16 run sits
+# 0.38 from its fp32 run at 8 of the 24 layers, and its two fp32 forms
+# 1.2e-4 apart, while one block's stay 1e-6 apart: tools/xlstm_depth_drift.py
+# on the CPU), so fp32 rounding reaches the logits at ~1e-2 after 24
+# layers on either package.
+XLSTM_BLOCK_L2 = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -486,6 +531,92 @@ def head_dim_phase(gen, dev):
                 say(f"    plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
                 times[f"decode_d{D}"] = t
     return times
+
+
+def attention_bound(B, Hq, Hkv, Tq, Tk, D, causal):
+    """(bound ms, bound_by) of bf16 flash attention: q, k, v read once, the
+    output written once; the products (causal: those on or below the
+    diagonal, Tq == Tk) at the bf16 tensor-core rate."""
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+    t_ops = 4 * B * Hq * D * pairs / PEAK_BF16_FLOPS
+    t_bytes = 2 * B * D * (2 * Hq * Tq + 2 * Hkv * Tk) / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+# the attention shapes of phase 9's paths: (label, B, Tq, Tk, Hq, Hkv, D,
+# causal, launches a prefill)
+NEW_FLASH_SHAPES = (
+    ("whisper-tiny encoder", 8, 1536, 1536, 6, 6, 64, False, 4),
+    ("whisper-tiny cross", 8, 64, 1536, 6, 6, 64, False, 4),
+    ("whisper-tiny decoder", 8, 64, 64, 6, 6, 64, True, 4),
+    ("internvl2-76b prefill", 4, 1024, 1024, 64, 8, 128, True, 24),
+)
+# (label, B, Hq, Hc, S, D, valid rows of each sequence, launches a step)
+NEW_DECODE_SHAPES = (
+    ("whisper-tiny self cache", 8, 6, 6, 128, 64, 80, 4),
+    ("whisper-tiny cross cache", 8, 6, 6, 1536, 64, 1536, 4),
+    ("internvl2-76b replicated cache", 4, 64, 16, 1056, 128, 1040, 24),
+)
+
+
+def new_shape_phase(gen, dev) -> dict:
+    """Flash and decode attention at the shapes of phase 9's paths
+    (non-causal prefill, cross-attention with Tq != Tk, decode over a fixed
+    1536-row encoder cache, internvl2's GQA 64/8 and replicated 16-head
+    cache), each checked against its plain version in bf16 and timed:
+    kernel device ms, plain ms, SDPA's device ms and the bound. Returns
+    {"flash_attention": rows, "decode_attention": rows}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops, ref
+
+    rnd = _rnd(gen, dev)
+    rows = {"flash_attention": [], "decode_attention": []}
+    say("phase 3f: flash and decode attention at phase 9's shapes, bf16, (B,T,H,D) read "
+        "in place")
+    for label, B, Tq, Tk, Hq, Hkv, D, causal, n in NEW_FLASH_SHAPES:
+        q = rnd(B, Tq, Hq, D).transpose(1, 2)
+        k = rnd(B, Tk, Hkv, D).transpose(1, 2)
+        v = rnd(B, Tk, Hkv, D).transpose(1, 2)
+        path = fk.route_for(q, k, v)
+        shape = (f"B={B} Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+                 f"{'causal' if causal else 'non-causal'}")
+        err = gate(f"flash {label}, {shape} ({path})", ops.flash_attention(q, k, v, causal=causal),
+                   ref.flash_attention_ref(q, k, v, causal=causal), BF16_TOL)
+        gqa = {"enable_gqa": True} if Hq != Hkv else {}
+        ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 20)
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                                **gqa), 20)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 3)
+        bound, by = attention_bound(B, Hq, Hkv, Tq, Tk, D, causal)
+        say(f"    {path}: kernel {ms:.4f} ms, sdpa {sdpa:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+        rows["flash_attention"].append(dict(
+            path_of=label, shape=shape, kernel=path, launches_per_prefill=n, max_abs_err=err,
+            ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=sdpa))
+        del q, k, v
+    for label, B, Hq, Hc, S, D, n_valid, n in NEW_DECODE_SHAPES:
+        q = rnd(B, Hq, D)
+        # the (B,S,Hc,D) layer view of a model cache, read as (B,Hc,S,D)
+        kc = rnd(B, S, Hc, D).transpose(1, 2)
+        vc = rnd(B, S, Hc, D).transpose(1, 2)
+        valid = torch.full((B,), n_valid, device=dev, dtype=torch.int32)
+        path = dk.route_for(kc, vc)
+        shape = f"B={B} Hq={Hq} Hc={Hc} S={S} D={D} bf16, {n_valid} valid rows each"
+        err = gate(f"decode {label}, {shape} ({path})", ops.decode_attention(q, kc, vc, valid),
+                   ref.decode_attention_ref(q, kc, vc, valid), BF16_TOL)
+        t = decode_times(q, kc, vc, valid)
+        plain = cuda_ms(lambda: ref.decode_attention_ref(q, kc, vc, valid), 5)
+        bound, _ = decode_bound(B, Hq, Hc, D, B * n_valid)
+        say(f"    plain {plain:.4f} ms, bound {bound:.4f} ms")
+        rows["decode_attention"].append(dict(
+            path_of=label, shape=shape, kernel=path, launches_per_step=n, max_abs_err=err,
+            ms=t["kernel"], plain_ms=plain, bound_ms=bound, bound_by="bytes",
+            library_ms=t["sdpa"], simt_ms=t["simt"]))
+        del q, kc, vc
+    return rows
 
 
 def gmm_bound(E, C, din, dout):
@@ -981,13 +1112,13 @@ def plain_kernels():
     every model module's `ops` is swapped for a namespace of the plain
     ones."""
     from repro_torch.kernels import ref
-    from repro_torch.models import dense, flash_vjp, hybrid, layers, mamba2, moe
+    from repro_torch.models import dense, flash_vjp, hybrid, layers, mamba2, moe, whisper
     plain_ops = types.SimpleNamespace(flash_attention=ref.flash_attention_ref,
                                       decode_attention=ref.decode_attention_ref,
                                       moe_gmm=ref.moe_gmm_ref, moe_gmm_dx=ref.moe_gmm_dx_ref,
                                       moe_gmm_dw=ref.moe_gmm_dw_ref, ssd_scan=ref.ssd_scan_ref)
     with contextlib.ExitStack() as stack:
-        for module in (layers, dense, moe, mamba2, hybrid, flash_vjp):
+        for module in (layers, dense, moe, mamba2, hybrid, flash_vjp, whisper):
             stack.enter_context(mock.patch.object(module, "ops", plain_ops))
         yield
 
@@ -1810,6 +1941,306 @@ def restart_phase(seed, dev):
     return {"leaves": len(ref)}
 
 
+# ----------------------------------------------------------------------------
+# phase 9: the xLSTM, whisper and VLM families
+# ----------------------------------------------------------------------------
+
+def fill_cache(cache, pc, T):
+    """Copy a prefill's cache into a decode cache: the leaves of the same
+    shape whole (whisper's cross k/v), the others into their first T rows
+    along axis 2 (self k/v, (L, B, S, H, D))."""
+    for name, big in cache.items():
+        if big.shape == pc[name].shape:
+            big.copy_(pc[name])
+        else:
+            big[:, :, :T] = pc[name]
+
+
+def frontend_phase(cfg, seed, B, T, cache_len, new_tokens, dev, *, frontend, n_flash,
+                   n_decode, gate_layers=None):
+    """whisper-tiny (frontend ("enc_embeds", ENC_LEN): stub frame
+    embeddings) or internvl2 (("patch_embeds", n_patches): stub patch
+    embeddings, the first positions) through the model interface: prefill B
+    prompts of T tokens with bf16 frontend embeddings drawn from the seed,
+    copy the cache into one of cache_len rows, decode `new_tokens` greedy
+    steps; launch counts (exactly n_flash flash launches a prefill, all
+    `flash_wgmma`, and n_decode decode launches a step, all `decode_split`),
+    times, a profiled decode window, and the logits gate on the prefill and
+    on one decode step, on the first `gate_layers` layers when given (an
+    fp32 copy of the whole model would not fit)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import whisper as W
+    from repro_torch.models.dense import param_dtype
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init_params(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    enc = f", {cfg.encdec.n_enc_layers} encoder layers" if cfg.encdec else ""
+    say(f"  {cfg.name}: {cfg.n_layers} layers{enc}, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim} (cache "
+        f"{cfg.cache_kv_heads}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
+    name, rows = frontend
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (B, T)), dtype=torch.int32,
+                                    device=dev),
+             name: torch.randn((B, rows, cfg.d_model), generator=gen, device=dev)
+             .to(param_dtype(cfg))}
+    label = cfg.name
+    out = {}
+    with torch.inference_mode():
+        if name == "enc_embeds":
+            enc_s = prefill_times(lambda: W.encode(params, batch[name], cfg), 3)
+            say(f"  encode: {B} x {rows} frames, median of 3 {np.median(enc_s):.4f} s "
+                f"({', '.join(f'{t:.4f}' for t in enc_s)})")
+            out["encode_s"] = enc_s
+        prefill_s = prefill_times(lambda: model.prefill(params, batch), 2)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, pc = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        at_prefill = kernel_counts()
+        want_prefill = {"flash_attention": n_flash, "decode_attention": 0, "moe_gmm": 0,
+                        "ssm_scan": 0, "moe_gmm_dx": 0, "moe_gmm_dw": 0}
+        if at_prefill != want_prefill:
+            fail(f"{label}: the prefill did not go through the kernels as its layers ask: "
+                 f"{at_prefill}, want {want_prefill}")
+        cache = model.init_cache(B, cache_len)
+        fill_cache(cache, pc, T)
+        del pc
+        base = {k: v.clone() for k, v in cache.items()}
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        first = {"tokens": tok, "positions": torch.full((B,), T, dtype=torch.int32, device=dev)}
+        toks, step_s = [tok], []
+        for i in range(new_tokens):
+            pos = torch.full((B,), T + i, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, cache, {"tokens": tok, "positions": pos})
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            toks.append(tok)
+        launches = kernel_counts()
+        toks = torch.cat(toks, dim=1)
+        if not bool(torch.isfinite(logits.float()).all()) or \
+                not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"{label}: non-finite prefill logits or out-of-vocab tokens")
+        t_prefill = float(np.median(prefill_s))
+        say(f"  prefill: {B} x {T} tokens ({name} {B} x {rows}), median of {len(prefill_s)} "
+            f"{t_prefill:.4f} s ({', '.join(f'{t:.4f}' for t in prefill_s)}), "
+            f"{B * T / t_prefill:.0f} tokens/s")
+        say(f"  decode: {new_tokens} steps of {B} sequences on a cache of {cache_len} rows, "
+            f"{sum(step_s):.3f} s, {B * new_tokens / sum(step_s):.0f} tokens/s; "
+            f"{spread(step_s)} per step")
+        want = dict(want_prefill, decode_attention=n_decode * new_tokens)
+        say(f"  kernel launches: prefill {at_prefill}, prefill and decode {launches} (per "
+            f"prefill {n_flash} flash, per decode step {n_decode} decode)")
+        if launches != want:
+            fail(f"{label}: the path did not go through the kernels as its layers ask: "
+                 f"{launches}, want {want}")
+        launches["flash_attention_by_path"] = flash_path_gate(label, n_flash)
+        launches["decode_attention_by_path"] = decode_path_gate(label, launches["decode_attention"])
+        launches.update(out, prefill_s=prefill_s, step_s=step_s)
+        say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+        state = {"tok": tok, "pos": T + new_tokens}
+
+        def step():
+            pos = torch.full((B,), state["pos"], dtype=torch.int32, device=dev)
+            lg, _ = model.decode_step(params, cache, {"tokens": state["tok"], "positions": pos})
+            state["tok"] = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            state["pos"] += 1
+        launches["profile"] = profile_steps(step, 4)
+        del cache
+
+        if gate_layers:
+            say(f"  logits gate on the first {gate_layers} of {cfg.n_layers} layers")
+            cfg = cfg.replace(n_layers=gate_layers)
+            params = dict(params, layers=params["layers"][:gate_layers])
+            base = {k: v[:gate_layers].clone() for k, v in base.items()}
+            model = build_model(cfg, device=dev)
+            torch.cuda.empty_cache()
+            logits, _ = model.prefill(params, batch)
+        cfg32 = cfg.replace(param_dtype="float32")
+        params32 = _to_f32(params)
+        model32 = build_model(cfg32, device=dev)
+        with plain_kernels():
+            plain, _ = model.prefill(params, batch)
+            exact, _ = model32.prefill(params32, batch)
+        logits_gate(f"prefill logits (B={B}, T={T})", logits, plain, exact, cfg.vocab_size)
+        del plain, exact
+        kern, _ = model.decode_step(params, {k: v.clone() for k, v in base.items()}, first)
+        with plain_kernels():
+            plain, _ = model.decode_step(params, {k: v.clone() for k, v in base.items()}, first)
+            exact, _ = model32.decode_step(params32, _to_f32(base), first)
+        logits_gate(f"decode-step logits (B={B}, pos {T})", kern, plain, exact, cfg.vocab_size)
+    return launches
+
+
+def xlstm_block_replay(params, tokens, cfg) -> dict:
+    """Each block of the xLSTM stack fed the chunked forward's hidden state
+    over `tokens`: the relative L2 distance of its parallel output (the
+    chunked mLSTM, the sLSTM scan) from its decode step replayed over the
+    same input from the empty state, by block."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import xlstm as X
+
+    empty = X.init_cache(cfg, tokens.shape[0], device=tokens.device)
+    x = L.embed(params["embed"], tokens)
+    dist = {}
+
+    def replay(step, block, state):
+        ys = []
+        for t in range(x.shape[1]):
+            y, state = step(block, x[:, t:t + 1], state, cfg)
+            ys.append(y)
+        return torch.cat(ys, dim=1)
+    for a, (blocks, sp) in enumerate(zip(params["mlstm"], params["slstm"])):
+        for j, mp in enumerate(blocks):
+            y = X.mlstm_fwd(mp, x, cfg)
+            state = tuple(empty[k][a, j] for k in ("m_C", "m_n", "m_m"))
+            dist[f"m{a}.{j}"] = rel_l2(replay(X.mlstm_decode, mp, state), y)
+            x = y
+        y = X.slstm_fwd(sp, x, cfg)
+        state = tuple(empty[k][a] for k in ("s_c", "s_n", "s_m", "s_h"))
+        dist[f"s{a}"] = rel_l2(replay(X.slstm_decode, sp, state), y)
+        x = y
+    return dist
+
+
+def xlstm_phase(cfg, seed, B, T, new_tokens, replay_T, dev):
+    """xlstm-350m through the model interface. No kernel of the port runs
+    here (the reference's xLSTM is jnp, with no Pallas mLSTM), so the path
+    is plain PyTorch on the card and the gate is that no kernel launched.
+    Prefill B prompts of T tokens (timed, the median of three; one sLSTM
+    and one mLSTM block timed alone, for the host's cost of the sequential
+    sLSTM), decode
+    `new_tokens` greedy steps from the prefill's cache, which is empty as
+    the reference's is; the bf16 prefill's distance to the fp32 model;
+    then, in fp32 over replay_T tokens, each block's parallel form against
+    its decode step replayed over the same input (XLSTM_BLOCK_L2), and the
+    whole model's chunked prefill against decode replayed from an empty
+    cache (printed)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import xlstm as X
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init_params(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    d_in, H, Dh = X._mlstm_dims(cfg)
+    nb = X._nb(cfg)
+    say(f"  {cfg.name}: {cfg.n_layers} layers ({nb} super-blocks of "
+        f"{cfg.xlstm.slstm_every - 1} mLSTM and 1 sLSTM), d_model {cfg.d_model}, mLSTM "
+        f"{H} heads of {Dh} (d_in {d_in}), sLSTM {cfg.n_heads} heads of "
+        f"{cfg.d_model // cfg.n_heads}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+        f"params, init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (B, T)), dtype=torch.int32,
+                          device=dev)
+    out = {}
+    with torch.inference_mode():
+        reset_counts()
+        prefill_s = prefill_times(lambda: model.prefill(params, {"tokens": tokens}), 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(logits.float()).all()):
+            fail(f"{cfg.name}: non-finite prefill logits")
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        step_s = []
+        for _ in range(new_tokens):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, cache, {"tokens": tok})
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = kernel_counts()
+        if any(launches.values()):
+            fail(f"{cfg.name}: a kernel launched on a path that has none: {launches}")
+        if not bool(torch.isfinite(lg.float()).all()):
+            fail(f"{cfg.name}: non-finite decode logits")
+        t_prefill = float(np.median(prefill_s))
+        say(f"  prefill: {B} x {T} tokens, median of {len(prefill_s)} {t_prefill:.4f} s "
+            f"({', '.join(f'{t:.4f}' for t in prefill_s)}), {B * T / t_prefill:.0f} tokens/s")
+        say(f"  decode: {new_tokens} steps of {B} sequences, {sum(step_s):.3f} s, "
+            f"{B * new_tokens / sum(step_s):.0f} tokens/s; {spread(step_s)} per step")
+        say(f"  kernel launches of the port: {launches} (none: the path has no kernel)")
+
+        x = torch.randn((B, T, cfg.d_model), generator=gen, device=dev).to(logits.dtype)
+        blocks = {"sLSTM": lambda: X.slstm_fwd(params["slstm"][0], x, cfg),
+                  "mLSTM": lambda: X.mlstm_fwd(params["mlstm"][0][0], x, cfg)}
+        out["block_s"] = {n: prefill_times(fn, 3) for n, fn in blocks.items()}
+        say(f"  one block's forward over {B} x {T}, median of 3: " + ", ".join(
+            f"{n} {np.median(t):.4f} s" for n, t in out["block_s"].items())
+            + f" ({nb} sLSTM and {cfg.n_layers - nb} mLSTM blocks a prefill; the sLSTM scans "
+            f"its {T} steps one by one)")
+        del x
+        state = {"tok": tok, "cache": cache}
+
+        def step():
+            lg, _ = model.decode_step(params, state["cache"], {"tokens": state["tok"]})
+            state["tok"] = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        out["profile"] = profile_steps(step, 4, kernels=(), label="kernels of the port")
+        del cache, state
+        say(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+        cfg32 = cfg.replace(param_dtype="float32")
+        params32 = _to_f32(params)
+        model32 = build_model(cfg32, device=dev)
+        exact, _ = model32.prefill(params32, {"tokens": tokens})
+        V = cfg.vocab_size
+
+        def rate(same):
+            return same.float().mean().item() * 100
+        out["bf16_vs_fp32"] = rel_l2(logits[..., :V], exact[..., :V])
+        say(f"  prefill logits (B={B}, T={T}): bf16 rel L2 to fp32 {out['bf16_vs_fp32']:.3e}, "
+            f"greedy-token agreement "
+            f"{rate(logits[..., :V].float().argmax(-1) == exact[..., :V].argmax(-1)):.1f}%")
+        del exact
+        Br = 2
+        toks = tokens[:Br, :replay_T]
+        blocks = xlstm_block_replay(params32, toks, cfg32)
+        out["block_replay_l2"] = max(blocks.values())
+        say(f"  fp32, each block's parallel form vs its decode replayed over {Br} x "
+            f"{replay_T} tokens (the block's input in the chunked forward): rel L2 "
+            + ", ".join(f"{n} {e:.2e}" for n, e in blocks.items())
+            + f"; max {out['block_replay_l2']:.3e} (gate <= {XLSTM_BLOCK_L2:g})")
+        if not out["block_replay_l2"] <= XLSTM_BLOCK_L2:
+            fail(f"{cfg.name}: a block's chunked and recurrent forms disagree beyond fp32 "
+                 f"rounding")
+        par, _ = model32.prefill(params32, {"tokens": toks})
+        rcache = model32.init_cache(Br)
+        for t in range(replay_T):
+            dec, rcache = model32.decode_step(params32, rcache, {"tokens": toks[:, t:t + 1]})
+        out["replay_l2"] = rel_l2(dec[:, 0, :V], par[:, -1, :V])
+        say(f"  fp32, the whole model's chunked prefill vs decode replayed over the same "
+            f"tokens: last logits rel L2 {out['replay_l2']:.3e}, max abs "
+            f"{max_err(dec[:, 0, :V], par[:, -1, :V]):.3e}, greedy-token agreement "
+            f"{rate(dec[:, 0, :V].argmax(-1) == par[:, -1, :V].argmax(-1)):.1f}% "
+            f"(printed, not gated: see XLSTM_BLOCK_L2)")
+    launches.update(out, prefill_s=prefill_s, step_s=step_s)
+    return launches
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1870,6 +2301,7 @@ def main() -> int:
     # moe_gmm at the prefill capacity its tensor-core kernel was built for
     table["moe_gmm"] = timed("3d moe_gmm", gmm_phase, gen, dev)[160]
     table["ssd_scan"] = timed("3e ssd_scan", ssd_phase, gen, dev)
+    new_shapes = timed("3f phase 9's attention shapes", new_shape_phase, gen, dev)
 
     runs = {}
     say("phase 4: dense serving, llama3-8b at published width and depth, bf16")
@@ -1922,6 +2354,30 @@ def main() -> int:
     runs["8f"] = timed("8f zamba2-2.7b training", train_phase, get_config("zamba2-2.7b"),
                        args.seed + 7, batch=4, seq=1024, n_micro=2, steps=6, dev=dev,
                        gate_leaves=HYBRID_GRAD_GATE_LEAVES)
+    # whisper-tiny's published depth: 4 encoder and 4 decoder layers; the
+    # cross cache holds ENC_LEN = 1536 encoder rows
+    say("phase 9a: whisper-tiny at published width and depth, bf16, through the model "
+        "interface")
+    cfg = get_config("whisper-tiny")
+    n_dec, n_enc = cfg.n_layers, cfg.encdec.n_enc_layers
+    runs["9a"] = timed("9a whisper-tiny", frontend_phase, cfg, args.seed + 8, B=8, T=64,
+                       cache_len=128, new_tokens=32, dev=dev, frontend=("enc_embeds", 1536),
+                       n_flash=n_enc + 2 * n_dec, n_decode=2 * n_dec)
+    say("phase 9b: xlstm-350m at published width and depth, bf16, through the model "
+        "interface (no kernel: the reference's xLSTM is jnp)")
+    runs["9b"] = timed("9b xlstm-350m", xlstm_phase, get_config("xlstm-350m"), args.seed + 9,
+                       B=4, T=1024, new_tokens=32, replay_T=256, dev=dev)
+    # 80 layers are 68.4 B params, 137 GB of bf16 weights; 24 layers are
+    # 24 x 1.711 GB + 4.20 GB of embeddings, 45 GB, which leaves room for
+    # the fp32 copy of 4 layers that the logits gate reads
+    say("phase 9c: internvl2-76b at published width, 24 of 80 layers, bf16, 256 patch "
+        "embeddings a prompt, through the model interface")
+    cfg = get_config("internvl2-76b").replace(n_layers=24)
+    runs["9c"] = timed("9c internvl2-76b", frontend_phase, cfg, args.seed + 10, B=4, T=1024,
+                       cache_len=1024 + 32, new_tokens=32, dev=dev,
+                       frontend=("patch_embeds", cfg.vlm.n_patches), n_flash=cfg.n_layers,
+                       n_decode=cfg.n_layers, gate_layers=4)
+    say("phase 10: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 
@@ -1949,14 +2405,17 @@ def main() -> int:
                       **{k: flash[k] for k in ("nolse_ms", "lse_ms", "bwd_ms", "bwd_sdpa_ms",
                                                "bwd_bound_ms", "bwd_shape")},
                       launches_by_kernel={p: sum(r["flash_attention_by_path"][p]
-                                                 for r in runs.values())
-                                          for p in ("wgmma", "simt")})
+                                                 for r in runs.values()
+                                                 if "flash_attention_by_path" in r)
+                                          for p in ("wgmma", "simt")},
+                      phase9_shapes=new_shapes["flash_attention"])
     dec = table["decode_attention"]
     kernels[1].update(kernel=dec["path"], simt_ms=dec["simt_ms"], event_ms=dec["event_ms"],
                       launches_by_kernel={p: sum(r["decode_attention_by_path"][p]
                                                  for r in runs.values()
                                                  if "decode_attention_by_path" in r)
-                                          for p in ("split", "simt")})
+                                          for p in ("split", "simt")},
+                      phase9_shapes=new_shapes["decode_attention"])
     train_gmm = runs["8e"]["moe_gmm_by_path"]
     kernels[2].update(kernel=table["moe_gmm"]["path"],
                       launches_by_kernel={p: runs["6"]["moe_gmm_by_path"][p] + train_gmm["fwd"][p]

@@ -3,12 +3,16 @@
 The JAX side hands over pytrees (nested dicts) of arrays; the port takes
 nested dicts of tensors with the same keys, except that stacked layer
 parameters become lists: the leading L axis on every leaf of
-`params["layers"]` (dense, MoE) a list of per-layer dicts, and the leading
-(nb, attn_every) axes of the hybrid's `params["mamba"]` a list of nb lists of
-per-block dicts. Caches keep their stacked layout on both sides (dense k/v
-(L,B,S,H,D); hybrid k/v (nb,B,W,H,hd), conv (nb,k,B,K-1,C), ssm
-(nb,k,B,H,P,N)). Weights keep their (d_in, d_out) orientation on both
-sides. bf16 arrays cross through float32, which is exact in both
+`params["layers"]` (dense, MoE, VLM), of whisper's `params["enc_layers"]`
+and `params["dec_layers"]` and of xLSTM's `params["slstm"]` a list of
+per-layer dicts, and the leading two axes of the hybrid's `params["mamba"]`
+(nb, attn_every) and of xLSTM's `params["mlstm"]` (nb, slstm_every - 1) a
+list of nb lists of per-block dicts. Caches keep their stacked layout on
+both sides (dense k/v (L,B,S,H,D); hybrid k/v (nb,B,W,H,hd), conv
+(nb,k,B,K-1,C), ssm (nb,k,B,H,P,N); whisper k/v (L,B,S,H,hd) and
+cross_k/cross_v (L,B,T_enc,H,hd); xLSTM m_C (nb,n_m,B,H,Dh,Dh), m_n, m_m
+and s_c, s_n, s_m, s_h (nb,B,H,Dhs)). Weights keep their (d_in, d_out)
+orientation on both sides. bf16 arrays cross through float32, which is exact in both
 directions (`torch.from_numpy` does not take ml_dtypes' bfloat16). Every
 array is copied, since numpy views of JAX arrays are read-only.
 
@@ -56,7 +60,8 @@ def array_from_tensor(t: torch.Tensor) -> np.ndarray:
 
 
 # params keys whose leaves are stacked, with the number of stacked axes
-_STACKED = {"layers": 1, "mamba": 2}
+_STACKED = {"layers": 1, "mamba": 2, "mlstm": 2, "slstm": 1, "enc_layers": 1,
+            "dec_layers": 1}
 
 
 def _unstack(tree, depth: int):
@@ -98,7 +103,9 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
 
 def cache_from_jax(cache: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
     """A JAX cache (dense: {"k", "v"[, "k_scale", "v_scale"]}; hybrid:
-    {"k", "v", "conv", "ssm"}) -> tensors of the same layout."""
+    {"k", "v", "conv", "ssm"}; whisper: {"k", "v", "cross_k", "cross_v"};
+    xLSTM: {"m_C", "m_n", "m_m", "s_c", "s_n", "s_m", "s_h"}) -> tensors of
+    the same layout."""
     return {k: tensor_from_array(v, device) for k, v in cache.items()}
 
 

@@ -1,15 +1,14 @@
 """Model configuration for the PyTorch port.
 
 The port's own copy of the JAX package's `configs/base.py`: `ModelConfig`
-cut to the fields and derived properties that the serving paths of the
-dense, MoE and hybrid families read, and the family configs `MoEConfig`,
-`SSMConfig` and `HybridConfig`, with the same names and defaults, so a
+cut to the fields and derived properties that the port's models read, and
+the family configs `MoEConfig`, `SSMConfig`, `XLSTMConfig`, `HybridConfig`,
+`EncDecConfig` and `VLMConfig`, with the same names and defaults, so a
 config built here describes the model that the JAX reference builds from
-the same-named config there. The other families (xLSTM, encoder-decoder,
-VLM) add their own fields when their slices are ported; the long-context
-fields (`long_context_window`, `sub_quadratic`) come with the long_500k
+the same-named config there. Left out: the long-context fields
+(`long_context_window`, `sub_quadratic`), which come with the long_500k
 shape, and the fields only the JAX package's dry-run launcher reads
-(`optimizer`, `fsdp`) with its counterpart.
+(`optimizer`, `fsdp`), which come with its counterpart.
 """
 from __future__ import annotations
 
@@ -41,6 +40,15 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block stack: mLSTM with a periodic sLSTM block."""
+    slstm_every: int = 8        # 7:1 mLSTM:sLSTM
+    mlstm_expand: float = 2.0
+    slstm_proj_factor: float = 4.0 / 3.0
+    conv_dim: int = 4
+
+
+@dataclass(frozen=True)
 class HybridConfig:
     """zamba2-style hybrid: mamba2 backbone + shared attention block."""
     attn_every: int = 6         # one (shared) attention block per 6 mamba blocks
@@ -48,9 +56,23 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    """Whisper-style encoder-decoder split (conv frontend is a stub)."""
+    n_enc_layers: int = 4
+    enc_seq_ratio: float = 1.0  # encoder frames per decoder token in train shapes
+
+
+@dataclass(frozen=True)
+class VLMConfig:
+    """InternVL-style: precomputed ViT patch embeddings prepended to the LM."""
+    n_patches: int = 256
+    patch_dim: int = 0          # 0 => already projected to d_model (stub frontend)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | hybrid (the families ported yet)
+    family: str                 # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -60,7 +82,10 @@ class ModelConfig:
     head_dim: int = 0           # 0 => d_model // n_heads
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    vlm: Optional[VLMConfig] = None
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5

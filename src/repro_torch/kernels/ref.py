@@ -2,7 +2,8 @@
 
 `attention_ref` is the twin of the JAX package's `kernels/ref.py::
 attention_ref` (same layout, same masks, causal alignment of the sequence
-ends), and `ssd_chunk_ref` of its sequential SSD oracle. `flash_attention_ref`,
+ends), `ssd_chunk_ref` of its sequential SSD oracle and `mlstm_ref` of its
+sequential mLSTM oracle. `flash_attention_ref`,
 `decode_attention_ref`, `moe_gmm_ref` (with `moe_gmm_dx_ref` and
 `moe_gmm_dw_ref`, its two backward products) and `ssd_scan_ref` compute
 exactly what the CUDA kernels compute, with their signatures, so that `ops.py` can
@@ -157,3 +158,31 @@ def ssd_chunk_ref(x, dt, A, Bm, Cm):
             (dtf[:, t, :, None] * xf[:, t])[..., None] * Bh[:, t, :, None, :]
         ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], S))
     return torch.stack(ys, dim=1)
+
+
+def mlstm_ref(q, k, v, ig, lf):
+    """The sequential stabilized mLSTM recurrence (ground truth of
+    `models/xlstm.py::_mlstm_chunked`, the JAX `mlstm_ref`; no kernel has
+    it as its plain version: the reference's mLSTM is jnp, not Pallas).
+    q/k/v (B,T,H,Dh); ig/lf (B,T,H) (input-gate preact, log-sigmoid forget)
+    -> h (B,T,H,Dh) fp32."""
+    B, T, H, Dh = q.shape
+    scale = Dh ** -0.5
+    q, k, v, ig, lf = (a.to(F32) for a in (q, k, v, ig, lf))
+    C = torch.zeros((B, H, Dh, Dh), dtype=F32, device=q.device)
+    n = torch.zeros((B, H, Dh), dtype=F32, device=q.device)
+    m = torch.full((B, H), -30.0, dtype=F32, device=q.device)
+    hs = []
+    for t in range(T):
+        qt, kt, vt, it, ft = q[:, t], k[:, t], v[:, t], ig[:, t], lf[:, t]
+        m_new = torch.maximum(ft + m, it)
+        fp = torch.exp(ft + m - m_new)
+        ip = torch.exp(it - m_new)
+        C = fp[..., None, None] * C + ip[..., None, None] * torch.einsum("bhd,bhe->bhde", kt, vt)
+        n = fp[..., None] * n + ip[..., None] * kt
+        num = torch.einsum("bhd,bhde->bhe", qt * scale, C)
+        den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", qt * scale, n)),
+                            torch.exp(-m_new))
+        m = m_new
+        hs.append(num / den[..., None])
+    return torch.stack(hs, dim=1)

@@ -1,7 +1,8 @@
-"""Dense (llama-family) decoder LM, and the same block with an MoE FFN
-(family "moe"): the training loss (`lm_loss`, with remat), prefill,
-one-token decode against a KV cache, and the full forward that the decode
-path is checked against.
+"""Dense (llama-family) decoder LM, the same block with an MoE FFN (family
+"moe"), and the VLM (family "vlm": the dense LM whose first n_patches
+token embeddings a stub frontend's patch embeddings replace): the training
+loss (`lm_loss`, with remat), prefill, one-token decode against a KV cache,
+and the full forward that the decode path is checked against.
 
 The port of the JAX package's `models/dense.py`. Parameters are plain
 dictionaries of tensors with the JAX pytree's keys; `params["layers"]` is a
@@ -11,9 +12,8 @@ The cache keeps the JAX layout, (L, B, S, Hc, D) per buffer plus fp32
 at a time where JAX threads it through the scan carry. Attention goes through
 `kernels/ops.py`: the CUDA kernels on the card, the plain versions on the
 CPU; so does the MoE FFN's expert matmul (`models/moe.py`). Under autograd,
-attention goes through the flash backward (`models/flash_vjp.py`); the
-expert matmul has no backward on the card yet, so MoE training runs on the
-CPU only (its kernel raises under grad, `kernels/ops.py::check_no_grad`).
+attention goes through the flash backward (`models/flash_vjp.py`) and the
+expert matmul through `moe.GroupedMatmul`.
 """
 from __future__ import annotations
 
@@ -120,22 +120,29 @@ def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
-    """Next-token loss of batch {"tokens", "targets"} (B, T) [+ "loss_mask"]:
-    embed, the block stack, unembed with the padded vocab masked, the fp32
-    cross entropy. Returns (xent + aux, {"xent", "aux"}), as the JAX
+    """Next-token loss of batch {"tokens", "targets"} (B, T) [+ "loss_mask",
+    the VLM's "patch_embeds"]: embed, the VLM's patches, the block stack,
+    unembed with the padded vocab masked, the fp32 cross entropy. Returns (xent + aux, {"xent", "aux"}), as the JAX
     `lm_loss`."""
-    if cfg.family not in ("dense", "moe") or "patch_embeds" in batch:
-        raise NotImplementedError(
-            f"lm_loss of family {cfg.family!r}: the VLM frontend (_inject_frontend) is not "
-            "ported yet; see ROADMAP.md, Queue 1")
     tokens, targets = batch["tokens"], batch["targets"]
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
-    x = L.embed(params["embed"], tokens)
+    x = _inject_frontend(batch, L.embed(params["embed"], tokens), cfg)
     x, aux = backbone_fwd(params, x, positions, cfg, remat=remat)
     logits = L.unembed(params["embed"], x, cfg.vocab_size)
     loss = L.softmax_xent(logits, targets, batch.get("loss_mask"))
     return loss + aux, {"xent": loss, "aux": aux}
+
+
+def _inject_frontend(batch, x, cfg: ModelConfig):
+    """The VLM's stub frontend: precomputed patch embeddings
+    batch["patch_embeds"] (B, n_patches, d) replace the first n_patches
+    token embeddings of x (B, T, d). Other families, and a VLM batch without
+    patches (text only), keep x."""
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
 
 
 # ----------------------------------------------------------------------------
@@ -242,14 +249,15 @@ def lm_decode_step(params, cache, batch, cfg: ModelConfig):
 
 
 def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None):
-    """Full forward that also materializes the KV cache.
+    """Full forward of batch {"tokens" (B, T)} [+ the VLM's "patch_embeds"
+    (B, n_patches, d)] that also materializes the KV cache.
 
     Returns (last-token logits (B, 1, V), cache) with cache buffers of
     length T: (L, B, T, Hc, D) [+ int8 scales]."""
     tokens = batch["tokens"]
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
-    x = L.embed(params["embed"], tokens)
+    x = _inject_frontend(batch, L.embed(params["embed"], tokens), cfg)
     kvs: Dict[str, List[torch.Tensor]] = {}
     for lp in params["layers"]:
         xn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)

@@ -11,7 +11,7 @@ recording, through `flash_vjp.py`, whose backward is the flash backward.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -117,22 +117,36 @@ def qkv(p, x, positions, cfg):
 
 
 def attention(p, x, positions, cfg, *, causal: bool = True,
-              window: Optional[int] = None):
-    """Self-attention over this call's tokens. Returns (out, (k, v)) with
-    k/v (B,T,Hkv,hd) for the cache. Under autograd (training) it goes
-    through the flash backward's Function, with the reference's blocks of
-    512; otherwise (serving) straight to the kernel, which writes no lse."""
+              window: Optional[int] = None,
+              cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Self-attention over this call's tokens, or with `cross_kv` = (k, v)
+    (B,Tk,Hkv,hd) cross-attention over those: q projected and not roped,
+    non-causal, Tk free. Returns (out, (k, v)) with this call's k/v
+    (B,T,Hkv,hd) for the cache, or (out, None) for cross-attention. Under
+    autograd (training) it goes through the flash backward's Function, with
+    the reference's blocks of 512; otherwise (serving) straight to the
+    kernel, which writes no lse."""
     B, T, _ = x.shape
-    q, k, v = qkv(p, x, positions, cfg)
-    if torch.is_grad_enabled() and q.requires_grad:
+    hd = cfg.resolved_head_dim
+    if cross_kv is None:
+        q, k, v = qkv(p, x, positions, cfg)
+        new_kv = (k, v)
+    else:
+        q = x @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        q = q.reshape(B, T, cfg.eff_q_heads, hd)
+        (k, v), new_kv = cross_kv, None
+        causal, window = False, None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out = flash_vjp.flash_attention_vjp(q, k, v, causal=causal, window=window)
     else:
         # (B,T,H,hd) read as (B,H,T,hd) through strides: no copy
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
                                   window=window).transpose(1, 2)
-    out = out.reshape(B, T, cfg.eff_q_heads * cfg.resolved_head_dim)
-    return out @ p["wo"], (k, v)
+    out = out.reshape(B, T, cfg.eff_q_heads * hd)
+    return out @ p["wo"], new_kv
 
 
 # ----------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Uniform model interface of the port (the dense, MoE and hybrid families).
+"""Uniform model interface of the port, over every family of the JAX package.
 
 build_model(cfg, device=...) returns a Model whose members close over the
 config and the device:
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import dense, hybrid
+from repro_torch.models import dense, hybrid, whisper, xlstm
 
 
 @dataclass(frozen=True)
@@ -35,7 +35,7 @@ class Model:
 def build_model(cfg: ModelConfig, *, device="cuda",
                 window: Optional[int] = None) -> Model:
     dev = resolve_device(device)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return Model(
             cfg=cfg,
             device=dev,
@@ -56,5 +56,24 @@ def build_model(cfg: ModelConfig, *, device="cuda",
             init_cache=functools.partial(hybrid.init_cache, cfg, window=window,
                                          device=dev),
         )
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to PyTorch yet; see ROADMAP.md, Queue 1")
+    if cfg.family == "ssm":
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init_params=functools.partial(xlstm.init_params, cfg=cfg, device=dev),
+            loss=functools.partial(xlstm.lm_loss, cfg=cfg),
+            prefill=functools.partial(xlstm.lm_prefill, cfg=cfg),
+            decode_step=functools.partial(xlstm.lm_decode_step, cfg=cfg),
+            init_cache=functools.partial(xlstm.init_cache, cfg, device=dev),
+        )
+    if cfg.family == "audio":
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init_params=functools.partial(whisper.init_params, cfg=cfg, device=dev),
+            loss=functools.partial(whisper.lm_loss, cfg=cfg),
+            prefill=functools.partial(whisper.lm_prefill, cfg=cfg),
+            decode_step=functools.partial(whisper.lm_decode_step, cfg=cfg),
+            init_cache=functools.partial(whisper.init_cache, cfg, device=dev),
+        )
+    raise ValueError(f"unknown family {cfg.family!r}")

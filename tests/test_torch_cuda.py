@@ -861,3 +861,109 @@ def test_moe_and_hybrid_train_steps_on_the_card_match_the_plain_kernels(cuda, ar
     diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pk, pp)])
     assert float(diffs.max()) <= 2 * lr + 1e-6
     assert float((diffs <= 1e-6).float().mean()) >= 0.99
+
+
+# ---------------------------------------------------------------- xLSTM, whisper, VLM
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", [
+    (8, 6, 6, 1536, 1536, 64, False),   # whisper-tiny's encoder
+    (8, 6, 6, 64, 1536, 64, False),     # its cross-attention
+    (8, 6, 6, 64, 64, 64, True),        # its decoder
+    (4, 64, 8, 1024, 1024, 128, True),  # internvl2-76b's prefill
+])
+def test_flash_at_the_new_families_shapes_matches_plain_on_cuda(cuda, B, Hq, Hkv, Tq, Tk, D,
+                                                                causal, lse):
+    """bf16 (B,T,H,D) views through the tensor-core kernel, non-causal with
+    Tq != Tk too, against the plain version; with `lse`, the row lse to 1e-4
+    as test_flash_lse_matches_plain_on_cuda holds it."""
+    g = torch.Generator(device=cuda).manual_seed(Tq + Tk + Hq)
+    q, k, v = (torch.randn((B, n, H, D), generator=g, device=cuda).bfloat16().transpose(1, 2)
+               for n, H in ((Tq, Hq), (Tk, Hkv), (Tk, Hkv)))
+    assert fk.route_for(q, k, v) == "wgmma"
+    before = fk.launches_by_path["wgmma"]
+    got = ops.flash_attention(q, k, v, causal=causal, return_lse=lse)
+    torch.cuda.synchronize()
+    assert fk.launches_by_path["wgmma"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, return_lse=lse)
+    if lse:
+        (got, got_lse), (want, want_lse) = got, want
+        assert got_lse.shape == (B, Hq, Tq)
+        torch.testing.assert_close(got_lse, want_lse, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **_tol("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hc,S,D", [
+    (8, 6, 6, 1536, 64),     # whisper-tiny's cross cache
+    (4, 64, 16, 1536, 128),  # internvl2-76b's replicated heads
+])
+def test_decode_over_a_full_cross_cache_on_cuda(cuda, B, Hq, Hc, S, D):
+    """Every one of the cache's S rows valid, as whisper's cross-attention
+    reads its encoder cache, through the split kernel."""
+    g = torch.Generator(device=cuda).manual_seed(S + Hq)
+    q, kc, vc, scales, tol = _decode_inputs(g, B, Hq, Hc, S, D, "bfloat16", cuda)
+    assert dk.route_for(kc, vc) == "split"
+    vl = torch.full((B,), S, device=cuda, dtype=torch.int32)
+    before = dk.launches_by_path["split"]
+    got = ops.decode_attention(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    assert dk.launches_by_path["split"] == before + 1
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, kc, vc, vl).float(),
+                               **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-tiny", "internvl2-76b"])
+def test_new_families_on_the_card_match_the_cpu(cuda, arch):
+    """The SMOKE config at fp32: prefill (whisper over ENC_LEN frames,
+    internvl2 with its patch embeddings) and two decode steps on the card
+    agree with the CPU, through the kernels as often as the layers ask
+    (xLSTM: none; whisper: a flash launch per encoder layer and two per
+    decoder layer, two decode launches per decoder layer and step; internvl2:
+    one of each per layer)."""
+    from repro_torch.models import whisper
+    cfg = get_config(arch, smoke=True).replace(param_dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    cpu_params = build_model(cfg, device="cpu").init_params(gen)
+    B, T = 2, 32
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                                     dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["enc_embeds"] = torch.randn((B, whisper.ENC_LEN, cfg.d_model), generator=gen)
+        want = (cfg.encdec.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers)
+    elif cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((B, cfg.vlm.n_patches, cfg.d_model), generator=gen)
+        want = (cfg.n_layers, cfg.n_layers)
+    else:
+        want = (0, 0)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        m = build_model(cfg, device=dev)
+        p = _to(cpu_params, dev)
+        before = (fk.launches, dk.launches)
+        logits, pc = m.prefill(p, {k: v.to(dev) for k, v in batch.items()})
+        pre = (fk.launches - before[0], dk.launches - before[1])
+        if cfg.family == "ssm":
+            cache = pc
+        else:
+            cache = m.init_cache(B, T + 4)
+            for name, buf in cache.items():
+                if buf.shape == pc[name].shape:
+                    buf.copy_(pc[name])
+                else:
+                    buf[:, :, :T] = pc[name]
+        tok, outs = logits[:, -1].argmax(-1).to(torch.int32)[:, None], [logits.cpu()]
+        for i in range(2):
+            pos = torch.full((B,), T + i, dtype=torch.int32, device=dev)
+            dec, cache = m.decode_step(p, cache, {"tokens": tok, "positions": pos})
+            tok = dec[:, -1].argmax(-1).to(torch.int32)[:, None]
+            outs.append(dec.cpu())
+        got[dev] = outs
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert pre == (want[0], 0)
+            assert (fk.launches - before[0], dk.launches - before[1]) == (want[0], 2 * want[1])
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

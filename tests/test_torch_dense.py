@@ -238,5 +238,5 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         D.init_params(torch.Generator(), cfg)
     assert build_model(cfg, device="cpu").device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg.replace(family="ssm"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(cfg.replace(family="no-such-family"), device="cpu")
