@@ -5,8 +5,8 @@
 
 Drives the port's paths on the card and checks them: dense-LM
 continuous-batching serving, MoE serving, the zamba2 hybrid's prefill and
-decode, training of the dense, MoE and hybrid families, and prefill and
-decode of the xLSTM, whisper and VLM families. Every phase exits non-zero
+decode, training of every family, prefill and decode of the xLSTM, whisper
+and VLM families, and the paper's RL rollouts. Every phase exits non-zero
 on failure; nothing is caught and carried on.
 
   1. requires a CUDA device; prints the card's name and power limit;
@@ -110,7 +110,21 @@ on failure; nothing is caught and carried on.
      every flash launch through `flash_wgmma` with the lse, then the
      gradients of the embeddings, one mamba2 block's w_zx, w_out, conv_w,
      dt_bias and A_log, the shared block's wq and the final norm at B=1
-     against the fp32 model, as in b;
+     against the fp32 model, as in b; g. whisper-tiny at its published
+     width and depth, trained as in b on 4 x 448 tokens (its decoder's
+     context) with 4 x 1536 bf16 stub frames from the seed: every flash
+     launch with the lse through `flash_wgmma`, 2 x (encoder layers + 2 x
+     decoder layers) a microbatch and step (self- and cross-attention,
+     forward and remat), then the gradients of the embeddings, an encoder
+     layer's wq and w2, a decoder layer's wq, cross wk and wo and w2, and
+     the final norm at B=1 against the fp32 model; MFU counts the encoder's
+     weights and the cross k/v projections over the frames, the rest over
+     the tokens; h. xlstm-350m at its published width and depth, trained
+     on 32 x 64 tokens: no kernel launched, and its bf16 gradients'
+     distance to the fp32 model's printed; i. internvl2-76b at its
+     published width and 2 of its 80 layers, trained as in b on 4 x 1024
+     positions whose first 256 are bf16 patch embeddings from the seed,
+     gated as in b;
   9. the families with no earlier path, through the model interface with
      bf16 random weights from the seed: a. whisper-tiny at its published
      width and depth (4 encoder and 4 decoder layers, d_model 384, 6 heads
@@ -134,7 +148,15 @@ on failure; nothing is caught and carried on.
      cache; exactly 24 flash launches a prefill, all `flash_wgmma`, and 24
      decode launches a step, all `decode_split`; the logits gate on the
      first 4 layers, as phase 6;
- 10. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+ 10. the RL rollout unit: `rollout_task` of 1000 steps for each of the 14
+     environments on the card (the artifact's shape, Humanoid's 376
+     columns, finite rewards, interactions/s), the same weights and initial
+     state run on the CPU (observations within RL_L2 over the first
+     RL_COMPARE_STEPS steps, the distance over all 1000 printed, the CPU's
+     interactions/s), no kernel launched; then `run_benchmark_local` with 4
+     tasks of 1000 steps for Cartpole and Humanoid through a pool of
+     threads (`ThreadPoolCluster`);
+ 11. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
      at C=320, ssd_scan's with its plain backward, flash's and decode's
      with their rows at phase 9's shapes) and, last, the device line
      `{"ok": true, "device": {...}}`.
@@ -1273,6 +1295,47 @@ def profile_window(engine, prompts, steps=4):
 DECODE_KERNELS = ("decode_split", "decode_merge", "decode_kernel")
 
 
+def profile_totals(prof) -> dict:
+    """name -> [count, device us, self host us] of a finished profile, from
+    its raw events: what `key_averages()` sums (the same names left out, an
+    op that is the one child of an op of its name counted once), without
+    the event tree it builds, which takes 40 s on the CPU for 10^5 host
+    events (one xLSTM train step issues about that many). An event on the
+    card counts its duration as device time; a host event its duration less
+    that of the events nested in it on its thread."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import _filter_name
+    totals, threads = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name) or e.is_hidden_event():
+            continue
+        t = totals.setdefault(name, [0, 0.0, 0.0])
+        t[0] += 1
+        if e.device_type() == DeviceType.CPU:
+            threads.setdefault(e.start_thread_id(), []).append((e.start_ns(), e.end_ns(), name))
+        else:
+            t[1] += e.duration_ns() / 1e3
+    for spans in threads.values():
+        spans.sort(key=lambda sp: (sp[0], -sp[1]))
+        # [end, name, duration, nested duration, children, children of its name]
+        stack = []
+        for start, end, name in spans + [(float("inf"), 0, None)]:
+            while stack and stack[-1][0] <= start:
+                top = stack.pop()
+                totals[top[1]][2] += (top[2] - top[3]) / 1e3
+                if top[4] == top[5] == 1:   # its one child is the same op
+                    totals[top[1]][0] -= 1
+            if name is None:
+                break
+            if stack:
+                stack[-1][3] += end - start
+                stack[-1][4] += 1
+                stack[-1][5] += stack[-1][1] == name
+            stack.append([end, name, end - start, 0, 0, 0])
+    return totals
+
+
 def profile_steps(step, steps, what="decode", kernels=DECODE_KERNELS, label="decode attention"):
     """Profile `steps` calls of `step()` (one `what` step each): device busy
     share of the window, the largest device and host costs, and the device
@@ -1286,30 +1349,26 @@ def profile_steps(step, steps, what="decode", kernels=DECODE_KERNELS, label="dec
             step()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    totals = profile_totals(prof)
     # kernels (and copies) are the events that run on the card; the host
     # ops that launch them carry the same time again, so they are left out
-    device = [e for e in events if e.device_type.name == "CUDA"]
-    busy = sum(dev_us(e) for e in device) / 1e6
+    device = {k: t for k, t in totals.items() if t[1] > 0}
+    busy = sum(t[1] for t in device.values()) / 1e6
     say(f"  profiled {steps} {what} steps: {window / steps * 1e3:.2f} ms per step (profiler on), "
         f"device busy {busy / window * 100:.1f}% (idle {100 - busy / window * 100:.1f}%), "
-        f"{sum(e.count for e in device) / steps:.0f} device kernels per step")
-    for e in sorted(device, key=dev_us, reverse=True)[:6]:
-        say(f"    device {dev_us(e) / steps / 1e3:8.3f} ms/step  x{e.count // steps:<4d} {e.key[:70]}")
-    named = {n: [e for e in device if n in e.key] for n in kernels}
+        f"{sum(t[0] for t in device.values()) / steps:.0f} device kernels per step")
+    for k, (n, dev_us, _) in sorted(device.items(), key=lambda kt: kt[1][1], reverse=True)[:6]:
+        say(f"    device {dev_us / steps / 1e3:8.3f} ms/step  x{n // steps:<4d} {k[:70]}")
+    named = {n: [(k, t) for k, t in device.items() if n in k] for n in kernels}
     say(f"    {label}: device "
-        f"{sum(dev_us(e) for es in named.values() for e in es) / steps / 1e3:.3f} ms/step: "
-        + (", ".join(f"{n} x{sum(e.count for e in es) // steps} "
-                     f"{sum(dev_us(e) for e in es) / steps / 1e3:.3f} ms"
-                     for n, es in named.items() if es) or "no kernel"))
-    for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
-        say(f"    host   {e.self_cpu_time_total / steps / 1e3:8.3f} ms/step  "
-            f"x{e.count // steps:<4d} {e.key[:70]}")
+        f"{sum(t[1] for ks in named.values() for _, t in ks) / steps / 1e3:.3f} ms/step: "
+        + (", ".join(f"{n} x{sum(t[0] for _, t in ks) // steps} "
+                     f"{sum(t[1] for _, t in ks) / steps / 1e3:.3f} ms"
+                     for n, ks in named.items() if ks) or "no kernel"))
+    for k, (n, _, host_us) in sorted(totals.items(), key=lambda kt: kt[1][2], reverse=True)[:6]:
+        say(f"    host   {host_us / steps / 1e3:8.3f} ms/step  x{n // steps:<4d} {k[:70]}")
     return {"busy": busy / window, "step_ms": window / steps * 1e3,
-            "device_ms": {e.key: dev_us(e) / steps / 1e3 for e in device}}
+            "device_ms": {k: t[1] / steps / 1e3 for k, t in device.items()}}
 
 
 # the SSD scan's kernels (csrc/ssm_scan.cu), which ssd_prefill_ms reports
@@ -1341,15 +1400,11 @@ def ssd_prefill_ms(prefill) -> dict:
         torch.cuda.synchronize()
     del out
     got = {}
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
-            continue
+    for key, (count, dev_us, _) in profile_totals(prof).items():
         for name in SSD_KERNELS:
-            if name in e.key:
-                dev_us = (getattr(e, "self_device_time_total", None)
-                          or getattr(e, "self_cuda_time_total", 0))
+            if name in key and dev_us:
                 ms, n = got.get(name, (0.0, 0))
-                got[name] = (ms + dev_us / 1e3, n + e.count)
+                got[name] = (ms + dev_us / 1e3, n + count)
     return got
 
 
@@ -1669,9 +1724,27 @@ HYBRID_GRAD_GATE_LEAVES = (("embed", "tok"), ("mamba", 4, 2, "w_zx"), ("mamba", 
                            ("mamba", 4, 2, "conv_w"), ("mamba", 4, 2, "dt_bias"),
                            ("mamba", 4, 2, "A_log"), ("shared_attn", "attn", "wq"),
                            ("final_norm",))
+# whisper-tiny's (4 encoder and 4 decoder layers): the embeddings, an
+# encoder layer's attention and FFN, a decoder layer's self-attention,
+# cross-attention (its k over the encoder's output, its output projection)
+# and FFN, the final norm
+WHISPER_GRAD_GATE_LEAVES = (("embed", "tok"), ("embed", "out"),
+                            ("enc_layers", 1, "attn", "wq"), ("enc_layers", 1, "mlp", "w2"),
+                            ("dec_layers", 1, "attn", "wq"), ("dec_layers", 1, "cross", "wk"),
+                            ("dec_layers", 1, "cross", "wo"), ("dec_layers", 1, "mlp", "w2"),
+                            ("final_norm",))
+# xlstm-350m's (3 super-blocks of 7 mLSTM and 1 sLSTM): the tied embedding,
+# one mLSTM block's up and down projections, one sLSTM block's input and
+# recurrent gate weights, the final norm; its distance to fp32 is printed
+# (the path has no kernel, so the kernel path is the plain one)
+XLSTM_GRAD_LEAVES = (("embed", "tok"), ("mlstm", 1, 3, "w_up"), ("mlstm", 1, 3, "w_down"),
+                     ("slstm", 1, "w_gates"), ("slstm", 1, "r_gates"), ("final_norm",))
 # the kernels a family's training launches, by kind of the profiled step's
 # device time (the rest: cuBLAS matmuls, and elementwise passes and copies)
 TRAIN_KERNEL_KINDS = {"dense": {"flash_wgmma": ("flash_wgmma",)},
+                      "vlm": {"flash_wgmma": ("flash_wgmma",)},
+                      "audio": {"flash_wgmma": ("flash_wgmma",)},
+                      "ssm": {},
                       "moe": {"flash_wgmma": ("flash_wgmma",), "gmm_wgmma": ("gmm_wgmma",)},
                       "hybrid": {"flash_wgmma": ("flash_wgmma",),
                                  "ssd_scan": ("ssd_chunk_tc", "ssd_state_tc", "ssd_out_tc")}}
@@ -1680,15 +1753,18 @@ TRAIN_KERNEL_KINDS = {"dense": {"flash_wgmma": ("flash_wgmma",)},
 def train_launches(cfg, n_micro, steps) -> dict:
     """The kernel launches `steps` training steps in `n_micro` microbatches
     ask for: each layer's kernels in the forward and again in its remat
-    recompute, per microbatch (flash with the lse; moe_gmm 3 a MoE layer;
-    ssd_scan 1 a mamba2 layer), and moe_gmm's dx and dw once each per
-    expert product in the backward."""
+    recompute, per microbatch (flash with the lse: one an attention layer,
+    whisper's encoder layer one, its decoder layer two, self and cross;
+    moe_gmm 3 a MoE layer; ssd_scan 1 a mamba2 layer; the xLSTM none), and
+    moe_gmm's dx and dw once each per expert product in the backward."""
     k = n_micro * steps
     want = {n: 0 for n in kernel_counts()}
     if cfg.family == "hybrid":
         nb = cfg.n_layers // cfg.hybrid.attn_every
         want.update(flash_attention=2 * nb * k, ssm_scan=2 * cfg.n_layers * k)
-    else:
+    elif cfg.family == "audio":
+        want["flash_attention"] = 2 * (cfg.encdec.n_enc_layers + 2 * cfg.n_layers) * k
+    elif cfg.family != "ssm":
         want["flash_attention"] = 2 * cfg.n_layers * k
     if cfg.family == "moe":
         n_gmm = 3 * cfg.n_layers * k
@@ -1714,13 +1790,17 @@ def gmm_train_path_gate(label, want) -> dict:
 
 def active_matmul_params(cfg, params) -> int:
     """Parameters one token's matmuls use, each as often as the token meets
-    it: all but the input embedding (a gather); of a MoE layer's experts
-    only top_k of n_experts; the hybrid's shared attention block once per
-    application (n_layers / attn_every). 6 x this x tokens leaves out what
-    is not a weight product: attention's scores and P.V, and the SSD
-    scan's chunked products."""
+    it: all but the input embedding (a gather; tied, as xLSTM's, it is the
+    unembedding too and counts); of a MoE layer's experts only top_k of
+    n_experts; the hybrid's shared attention block once per application
+    (n_layers / attn_every). 6 x this x tokens leaves out what is not a
+    weight product: attention's scores and P.V, and the SSD scan's chunked
+    products. Whisper's encoder runs over frames, not tokens: see
+    train_matmul_flops."""
     from repro_torch.tree import leaves
-    n = sum(t.numel() for t in leaves(params)) - params["embed"]["tok"].numel()
+    n = sum(t.numel() for t in leaves(params))
+    if "out" in params["embed"]:
+        n -= params["embed"]["tok"].numel()
     if cfg.family == "moe":
         m = cfg.moe
         experts = sum(lp["moe"][w].numel() for lp in params["layers"] for w in ("w1", "w2", "w3"))
@@ -1730,13 +1810,33 @@ def active_matmul_params(cfg, params) -> int:
     return n
 
 
-def train_phase(cfg, seed, batch, seq, n_micro, steps, dev, gate_leaves=GRAD_GATE_LEAVES):
-    """8b, 8e, 8f: `steps` AdamW steps of `cfg` through make_train_step, with
-    TokenPipeline batches of `batch` x `seq` in `n_micro` microbatches: step
-    times, tokens/s, MFU, peak memory, a profiled step, the launch gates;
-    then the gradient gate at B=1, one microbatch: against the fp32 model
-    (dense, hybrid), or against the plain bf16 path under the same routing
-    (MoE)."""
+def train_matmul_flops(cfg, params, batch, seq, frames=0) -> float:
+    """A training step's weight-product FLOPs: 6 x each weight x the rows it
+    meets. One token of batch x seq meets active_matmul_params; whisper's
+    encoder weights and its cross-attention's k and v projections meet the
+    batch x `frames` encoder frames instead, the rest of its decoder the
+    tokens."""
+    from repro_torch.tree import leaves
+    if cfg.family != "audio":
+        return 6.0 * active_matmul_params(cfg, params) * batch * seq
+    on_frames = sum(t.numel() for t in leaves(params["enc_layers"])) \
+        + sum(lp["cross"][w].numel() for lp in params["dec_layers"] for w in ("wk", "wv"))
+    on_tokens = active_matmul_params(cfg, params) - on_frames
+    return 6.0 * (on_frames * batch * frames + on_tokens * batch * seq)
+
+
+def train_phase(cfg, seed, batch, seq, n_micro, steps, dev, gate_leaves=GRAD_GATE_LEAVES,
+                frontend=None):
+    """8b, 8e-8i: `steps` AdamW steps of `cfg` through make_train_step, with
+    TokenPipeline batches of `batch` x `seq` in `n_micro` microbatches
+    (and, given `frontend` = (name, rows), bf16 frontend embeddings of
+    batch x rows x d_model drawn from a generator seeded per step: whisper's
+    enc_embeds, the VLM's patch_embeds): step times, tokens/s, MFU, peak
+    memory, a profiled step, the launch gates; then the gradient gate at
+    B=1, one microbatch: against the fp32 model (dense, hybrid, whisper,
+    VLM), or against the plain bf16 path under the same routing (MoE); the
+    xLSTM, which launches no kernel, prints its bf16 gradients' distance to
+    the fp32 model's."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -1764,8 +1864,14 @@ def train_phase(cfg, seed, batch, seq, n_micro, steps, dev, gate_leaves=GRAD_GAT
                                     global_batch=batch, seed=seed))
 
     def device_batch(step, rows=None):
-        return {k: torch.from_numpy(np.ascontiguousarray(v[:rows])).to(dev)
-                for k, v in pipe.batch_at(step).items()}
+        out = {k: torch.from_numpy(np.ascontiguousarray(v[:rows])).to(dev)
+               for k, v in pipe.batch_at(step).items()}
+        if frontend:
+            name, n = frontend
+            fgen = torch.Generator(device=dev).manual_seed(seed * 1000 + step)
+            out[name] = torch.randn((rows or batch, n, cfg.d_model), generator=fgen,
+                                    device=dev).to(torch.bfloat16)
+        return out
 
     # the Trainer's default schedule (TrainerConfig: base lr 3e-4, 10 warmup
     # steps) over a 100-step run
@@ -1789,18 +1895,25 @@ def train_phase(cfg, seed, batch, seq, n_micro, steps, dev, gate_leaves=GRAD_GAT
     for s, (w, m) in enumerate(zip(walls, metrics)):
         say(f"  step {s + 1}: {w * 1e3:.1f} ms, loss {m['loss']:.4f}, grad norm "
             f"{m['grad_norm']:.4f}, lr {m['lr']:.3e}")
-    mfu = 6 * n_matmul * tokens / t_step / PEAK_BF16_FLOPS
-    say(f"  {steps} steps of {batch} x {seq} tokens in {n_micro} microbatches: median of steps "
+    frames = frontend[1] if cfg.family == "audio" else 0
+    flops = train_matmul_flops(cfg, state["params"], batch, seq, frames)
+    mfu = flops / t_step / PEAK_BF16_FLOPS
+    how = (f"6 x {n_matmul / 1e9:.3f} B x tokens" if not frames else
+           f"6 x (encoder weights x {batch} x {frames} frames + decoder weights x tokens)")
+    say(f"  {steps} steps of {batch} x {seq} tokens"
+        + (f" ({frontend[0]} {batch} x {frontend[1]})" if frontend else "")
+        + f" in {n_micro} microbatches: median of steps "
         f"2-{steps} {t_step * 1e3:.2f} ms, {tokens / t_step:.0f} tokens/s, MFU {mfu * 100:.2f}% "
-        f"(6 x {n_matmul / 1e9:.3f} B x tokens / step time / {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"({how} = {flops / 1e12:.2f} TFLOP / step time / {PEAK_BF16_FLOPS / 1e12:.0f} "
         f"TFLOP/s); peak device memory {peak:.2f} GB")
     if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
         fail(f"{cfg.name}: a loss or grad norm is not finite")
     want = train_launches(cfg, n_micro, steps)
     n_flash = want["flash_attention"]
     say(f"  kernel launches on this path: {launches}, {n_lse} flash launches wrote the lse "
-        f"(per step and microbatch, each layer's kernels twice: forward and remat"
-        f"{'; moe_gmm dx and dw once an expert product' if cfg.family == 'moe' else ''})")
+        + ("(per step and microbatch, each layer's kernels twice: forward and remat"
+           f"{'; moe_gmm dx and dw once an expert product' if cfg.family == 'moe' else ''})"
+           if TRAIN_KERNEL_KINDS[cfg.family] else "(none: the path has no kernel)"))
     if launches != want or n_lse != n_flash:
         fail(f"{cfg.name}: training did not go through the kernels as its layers ask: "
              f"{launches}, {n_lse} with lse; want {want}, all flash with lse")
@@ -1812,7 +1925,7 @@ def train_phase(cfg, seed, batch, seq, n_micro, steps, dev, gate_leaves=GRAD_GAT
     named = TRAIN_KERNEL_KINDS[cfg.family]
     prof = profile_steps(lambda: step_fn(state, device_batch(steps)), 1, what="train",
                          kernels=[n for ns in named.values() for n in ns],
-                         label="the path's kernels")
+                         label="the path's kernels" if named else "kernels of the port")
     kinds = {"matmul": 0.0, **{k: 0.0 for k in named}, "other": 0.0}
     for key, ms in prof["device_ms"].items():
         kind = next((k for k, ns in named.items() if any(n in key for n in ns)),
@@ -1822,8 +1935,8 @@ def train_phase(cfg, seed, batch, seq, n_micro, steps, dev, gate_leaves=GRAD_GAT
         f"{k} {ms:.2f}" for k, ms in kinds.items()) + " (other: elementwise, reductions, "
         "copies, embedding)")
     run = dict(launches, step_ms=t_step * 1e3, tokens_per_s=tokens / t_step, mfu=mfu,
-               peak_gb=peak, busy=prof["busy"], device_ms_by_kind=kinds, walls=walls,
-               losses=[m["loss"] for m in metrics])
+               flops=flops, peak_gb=peak, busy=prof["busy"], device_ms_by_kind=kinds,
+               walls=walls, losses=[m["loss"] for m in metrics])
     params = state["params"]
     del state, step_fn, m
     torch.cuda.empty_cache()
@@ -1862,6 +1975,20 @@ def train_phase(cfg, seed, batch, seq, n_micro, steps, dev, gate_leaves=GRAD_GAT
         return run
 
     kern = grads(params, model)
+    if not named:
+        # no kernel on the path: the kernel path is the plain one
+        params32 = tree_map(lambda t: t.float(), params)
+        del params
+        exact = grads(params32, build_model(cfg.replace(param_dtype="float32"), device=dev))
+        run["grad_vs_fp32"] = {"/".join(map(str, p)): rel_l2(g, e)
+                               for p, g, e in zip(gate_leaves, kern, exact)}
+        say(f"  gradients at B=1 T={seq}, one microbatch, bf16 against the fp32 model (printed; "
+            f"no kernel on this path): " + ", ".join(
+                f"d {n} {e:.3e}" for n, e in run["grad_vs_fp32"].items()))
+        if not all(bool(torch.isfinite(g.float()).all()) for g in kern):
+            fail(f"{cfg.name}: a gradient is not finite")
+        del kern, exact, params32
+        return run
     with plain_kernels():
         plain = grads(params, model)
         params32 = tree_map(lambda t: t.float(), params)
@@ -2241,6 +2368,101 @@ def xlstm_phase(cfg, seed, B, T, new_tokens, replay_T, dev):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 10: RL rollouts
+# ----------------------------------------------------------------------------
+
+# the card's rollout against the CPU's from the same weights and initial
+# state: observations over the first RL_COMPARE_STEPS steps, relative L2
+# (each step's rounding differs a few ulps, and 64 steps of the classic
+# controls' and the surrogates' maps carry it no further; over 1000 steps it
+# is printed, not gated)
+RL_COMPARE_STEPS = 64
+RL_L2 = 1e-4
+
+
+class ThreadPoolCluster:
+    """SyndeoCluster's `submit(fn, *args, group=, **kwargs)` and
+    `wait_all(tasks, timeout)` over a pool of threads, for
+    `rl/rollout.py::run_benchmark_local` (this script imports nothing of the
+    JAX package, whose `repro.core` holds the real cluster)."""
+
+    def __init__(self, workers: int):
+        from concurrent.futures import ThreadPoolExecutor
+        self.pool = ThreadPoolExecutor(max_workers=workers)
+
+    def submit(self, fn, *args, group="default", **kwargs):
+        return self.pool.submit(fn, *args, **kwargs)
+
+    def wait_all(self, tasks, timeout: float):
+        return [t.result(timeout=timeout) for t in tasks]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True)
+
+
+def rl_phase(seed, dev, n_steps=1000, workers=4, bench_envs=("Cartpole", "Humanoid")):
+    """The paper's RL rollout unit on the card: `rollout_task` of n_steps
+    for each of the 14 environments (obs shape, finite rewards,
+    interactions/s); the same weights and initial state run on the CPU
+    (`rollout.core`), the card's observations within RL_L2 of the CPU's over
+    the first RL_COMPARE_STEPS steps (over all n_steps printed), the CPU's
+    interactions/s beside the card's; no kernel of the port launched; then
+    `run_benchmark_local` with `workers` tasks of n_steps for `bench_envs`
+    through a thread pool."""
+    import numpy as np
+    import torch
+    from repro_torch.rl import envs as E
+    from repro_torch.rl import rollout as R
+
+    R.rollout_task("Humanoid", 8, seed, device=dev)   # the card's first matmuls, untimed
+    reset_counts()
+    out = {}
+    for i, (name, spec) in enumerate(E.ENV_SPECS.items()):
+        task = R.rollout_task(name, n_steps, seed + i, device=dev)
+        obs = task["obs"]
+        if obs.shape != (n_steps, spec.obs_dim) or not np.isfinite(obs).all() \
+                or not np.isfinite(task["reward_sum"]):
+            fail(f"{name}: the rollout's artifact is {obs.shape}, want ({n_steps}, "
+                 f"{spec.obs_dim}), or not finite (reward sum {task['reward_sum']})")
+        fn, _ = R.make_rollout_fn(name, n_steps, device=dev)
+        params, state0 = fn.init(seed + i)
+        cpu_fn, _ = R.make_rollout_fn(name, n_steps, device="cpu")
+        t0 = time.perf_counter()
+        cpu_obs, _ = cpu_fn.core({k: v.cpu() for k, v in params.items()}, state0.cpu())
+        cpu_s = time.perf_counter() - t0
+        head = rel_l2(torch.from_numpy(obs[:RL_COMPARE_STEPS]), cpu_obs[:RL_COMPARE_STEPS])
+        whole = rel_l2(torch.from_numpy(obs), cpu_obs)
+        row = dict(obs_shape=list(obs.shape), reward_sum=task["reward_sum"],
+                   wall_s=task["wall_s"], per_s=n_steps / task["wall_s"],
+                   cpu_per_s=n_steps / cpu_s, l2_head=head, l2_all=whole)
+        out[name] = row
+        say(f"  {'ok  ' if head <= RL_L2 else 'FAIL'} {name}: obs {tuple(obs.shape)}, reward sum "
+            f"{task['reward_sum']:.4f}, {row['per_s']:.0f} interactions/s on the card "
+            f"({task['wall_s']:.3f} s), {row['cpu_per_s']:.0f} on the CPU; card vs CPU obs rel "
+            f"L2 {head:.2e} over {RL_COMPARE_STEPS} steps (gate <= {RL_L2:g}), {whole:.2e} over "
+            f"{n_steps}")
+        if not head <= RL_L2:
+            fail(f"{name}: the card's rollout is further from the CPU's than rounding explains")
+    launches = kernel_counts()
+    say(f"  kernel launches of the port: {launches} (none: the rollout has no kernel)")
+    if any(launches.values()):
+        fail(f"RL rollouts: a kernel launched on a path that has none: {launches}")
+    bench = {}
+    with ThreadPoolCluster(workers) as pool:
+        for name in bench_envs:
+            tput, stats = R.run_benchmark_local(pool, name, workers, n_steps, device=dev)
+            bench[name] = dict(stats, per_s=tput)
+            say(f"  run_benchmark_local {name}: {workers} tasks x {n_steps} steps on {workers} "
+                f"threads, {tput:.0f} interactions/s ({stats['wall_s']:.3f} s wall)")
+            if stats["n_tasks"] != workers or not tput > 0:
+                fail(f"run_benchmark_local {name}: {stats}")
+    return dict(launches, envs=out, bench=bench)
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2354,6 +2576,30 @@ def main() -> int:
     runs["8f"] = timed("8f zamba2-2.7b training", train_phase, get_config("zamba2-2.7b"),
                        args.seed + 7, batch=4, seq=1024, n_micro=2, steps=6, dev=dev,
                        gate_leaves=HYBRID_GRAD_GATE_LEAVES)
+    # the decoder's published context is 448 tokens; the encoder reads
+    # ENC_LEN = 1536 stub frames a sequence
+    say("phase 8g: audio training, whisper-tiny at published width and depth, bf16, AdamW")
+    runs["8g"] = timed("8g whisper-tiny training", train_phase, get_config("whisper-tiny"),
+                       args.seed + 11, batch=4, seq=448, n_micro=2, steps=6, dev=dev,
+                       gate_leaves=WHISPER_GRAD_GATE_LEAVES, frontend=("enc_embeds", 1536))
+    # the sLSTM scans its steps one by one, in the forward, again in the remat
+    # and in the backward, ~100 launches a step in all: at 8 x 256 tokens a
+    # train step took 4.6 s (NVIDIA H100 80GB HBM3, 700 W), so the length is
+    # cut to 64 (the step's time follows the length, not the batch)
+    say("phase 8h: xLSTM training, xlstm-350m at published width and depth, bf16, AdamW "
+        "(no kernel)")
+    runs["8h"] = timed("8h xlstm-350m training", train_phase, get_config("xlstm-350m"),
+                       args.seed + 12, batch=32, seq=64, n_micro=2, steps=6, dev=dev,
+                       gate_leaves=XLSTM_GRAD_LEAVES)
+    # 80 layers are 68.4 B params; 16 bytes a param (bf16 params and grads,
+    # the fp32 accumulator, AdamW's moments) allow 2: 3.81 B params, 61 GB,
+    # 2.1 B of them the untied embeddings
+    say("phase 8i: VLM training, internvl2-76b at published width, 2 of 80 layers, bf16, "
+        "AdamW, 256 patch embeddings a sequence")
+    cfg = get_config("internvl2-76b").replace(n_layers=2)
+    runs["8i"] = timed("8i internvl2-76b training", train_phase, cfg, args.seed + 13, batch=4,
+                       seq=1024, n_micro=2, steps=6, dev=dev, gate_leaves=GRAD_GATE_LEAVES,
+                       frontend=("patch_embeds", cfg.vlm.n_patches))
     # whisper-tiny's published depth: 4 encoder and 4 decoder layers; the
     # cross cache holds ENC_LEN = 1536 encoder rows
     say("phase 9a: whisper-tiny at published width and depth, bf16, through the model "
@@ -2377,7 +2623,10 @@ def main() -> int:
                        cache_len=1024 + 32, new_tokens=32, dev=dev,
                        frontend=("patch_embeds", cfg.vlm.n_patches), n_flash=cfg.n_layers,
                        n_decode=cfg.n_layers, gate_layers=4)
-    say("phase 10: the kernel table and the device")
+    say("phase 10: RL rollouts, the 14 environments of the paper's benchmark, 1000 steps each, "
+        "on the card and on the CPU")
+    runs["10"] = timed("10 RL rollouts", rl_phase, args.seed + 14, dev)
+    say("phase 11: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 
@@ -2401,7 +2650,8 @@ def main() -> int:
     flash = table["flash_attention"]
     kernels[0].update(kernel=flash["path"], simt_ms=flash["simt_ms"],
                       event_ms=flash["event_ms"], lse=True,
-                      lse_launches=sum(runs[k]["flash_attention"] for k in ("8", "8e", "8f")),
+                      lse_launches=sum(runs[k]["flash_attention"]
+                                       for k in ("8", "8e", "8f", "8g", "8i")),
                       **{k: flash[k] for k in ("nolse_ms", "lse_ms", "bwd_ms", "bwd_sdpa_ms",
                                                "bwd_bound_ms", "bwd_shape")},
                       launches_by_kernel={p: sum(r["flash_attention_by_path"][p]

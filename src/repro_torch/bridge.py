@@ -25,6 +25,10 @@ is split along that axis only, into `s["layers"]` (one per layer) or
 the state of the others (the per-layer norms and biases, factored over
 the stack) stays stacked in `s["layers_stacked"]` or `s["mamba_stacked"]`.
 
+The RL rollout's policy weights ({"w1", "w2", "w3"}) and a surrogate
+environment's matrices (W, Pobs, Pact) cross as they are
+(`policy_from_jax`, `surrogate_matrices_from_numpy`).
+
 This module imports neither JAX nor the JAX package: it works on anything
 `numpy.asarray` accepts, and returns numpy arrays.
 """
@@ -161,3 +165,14 @@ def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
                               else get(stacked, path)) for path, a in flatten(params[k]))
         out_opt["s"] = s
     return {"params": params, "opt": out_opt, "step": array_from_tensor(state["step"])}
+
+
+def policy_from_jax(params: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
+    """The RL policy's weights (`rl/rollout.py::init_policy`) -> tensors."""
+    return {k: tensor_from_array(v, device) for k, v in params.items()}
+
+
+def surrogate_matrices_from_numpy(matrices, device="cpu"):
+    """A surrogate environment's (W, Pobs, Pact) -> tensors, for
+    `rl/envs.py::surrogate_step_fn(..., matrices=...)`."""
+    return tuple(tensor_from_array(m, device) for m in matrices)

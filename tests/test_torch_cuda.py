@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and its serving path on the card.
+"""The port's CUDA kernels, and its serving, training and RL rollout paths,
+on the card.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and skips
 without an NVIDIA GPU. This file imports no JAX: it runs on a machine with
@@ -967,3 +968,81 @@ def test_new_families_on_the_card_match_the_cpu(cuda, arch):
             assert (fk.launches - before[0], dk.launches - before[1]) == (want[0], 2 * want[1])
     for a, b in zip(got["cuda"], got["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-tiny", "internvl2-76b"])
+def test_new_families_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One AdamW step of the SMOKE config at fp32 (2 microbatches of 2 x 64
+    tokens; whisper with 64 stub frames a sequence, internvl2 with its patch
+    embeddings) on the card, against the same step on the CPU with
+    test_train_step_on_the_card_matches_the_plain_kernels's bounds. Flash
+    launches with the lse twice per attention and microbatch (forward and
+    remat): whisper's encoder layer has one attention, its decoder layer
+    two (self and cross), internvl2's layer one, the xLSTM none."""
+    from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_config(arch, smoke=True).replace(param_dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (4, 65), generator=gen, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    k = 2   # microbatches
+    if cfg.family == "audio":
+        batch["enc_embeds"] = torch.randn((4, 64, cfg.d_model), generator=gen)
+        want = 2 * (cfg.encdec.n_enc_layers + 2 * cfg.n_layers) * k
+    elif cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((4, cfg.vlm.n_patches, cfg.d_model), generator=gen)
+        want = 2 * cfg.n_layers * k
+    else:
+        want = 0
+    cpu_params = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    lr_fn = warmup_cosine(1e-3, 0, 10)   # lr 1e-3 at step 1
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        opt = make_optimizer("adamw")
+        # a copy: the step updates its params in place
+        params = tree_map(lambda t: t.to(dev, copy=True), cpu_params)
+        state = {"params": params, "opt": opt.init(params),
+                 "step": torch.ones((), dtype=torch.int32, device=dev)}
+        n = (fk.launches, fk.lse_launches)
+        state, metrics = make_train_step(model, opt, lr_fn, n_microbatches=k)(
+            state, {name: t.to(dev) for name, t in batch.items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (fk.launches - n[0], fk.lse_launches - n[1]) == (want, want)
+        out[dev] = ({key: v.cpu() for key, v in metrics.items()},
+                    [t.cpu() for t in leaves(state["params"])])
+    (mk, pk), (mc, pc) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(mk[key], mc[key], atol=0, rtol=1e-4)
+    lr = float(mk["lr"])
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pk, pc)])
+    assert float(diffs.max()) <= 2 * lr + 1e-6
+    assert float((diffs <= 1e-6).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Pendulum", "Humanoid"])
+def test_rollout_on_the_card_matches_the_cpu(cuda, name):
+    """32 steps of the RL rollout on the card from the weights and initial
+    state of a seed, against the CPU's from the same ones: observations and
+    rewards to 1e-4 (fp32 products in another order, carried through 32
+    steps); `rollout_task` of the seed reads back that same trajectory, and
+    no kernel of the port launches."""
+    from repro_torch.rl import rollout as R
+
+    before = (fk.launches, dk.launches, gk.launches, sk.launches)
+    fn, spec = R.make_rollout_fn(name, 32, device=cuda)
+    params, state0 = fn.init(5)
+    obs, rew = fn.core(params, state0)
+    assert obs.is_cuda and tuple(obs.shape) == (32, spec.obs_dim)
+    cpu_fn, _ = R.make_rollout_fn(name, 32, device="cpu")
+    cobs, crew = cpu_fn.core({key: v.cpu() for key, v in params.items()}, state0.cpu())
+    torch.testing.assert_close(obs.cpu(), cobs, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(rew.cpu(), crew, atol=1e-4, rtol=1e-4)
+    task = R.rollout_task(name, 32, 5, device=cuda)
+    torch.testing.assert_close(torch.from_numpy(task["obs"]), obs.cpu(), atol=0, rtol=0)
+    assert (fk.launches, dk.launches, gk.launches, sk.launches) == before

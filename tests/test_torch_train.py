@@ -12,13 +12,17 @@ Tolerances, with their reasons (all fp32):
     gap is about 1e-6);
   * remat on and off: bit-identical gradients (the same ops again);
   * one optimizer update from the same (params, grads, state):
-    atol=rtol=1e-6 (one update's rounding);
+    atol=rtol=1e-6 (one update's rounding), on the dense, hybrid, xLSTM
+    (also in a variant whose super-blocks hold more than one mLSTM block),
+    whisper and VLM SMOKE configs;
   * one microbatched train step: loss, grad_norm and lr to 1e-5 relative;
     the new params to atol 1e-6, except where the JAX gradient is below
     1e-7 in magnitude: AdamW's first step moves an entry by lr * g / (|g| +
     1e-8), so near g = 0 the two sides' gradient rounding (about 1e-9 here)
     can flip that by up to 2 lr, and those entries are held to 2 lr + 1e-6.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,19 +69,52 @@ def _assert_trees_close(got, want, **tol):
         np.testing.assert_allclose(_np(got[path]), _np(want[path]), err_msg=str(path), **tol)
 
 
+# the frames whisper's stub frontend hands the encoder in a training batch
+# (any length trains; serving's cross cache holds ENC_LEN)
+ENC_FRAMES = 24
+
+
 def _batch(cfg, B, T, seed=1):
+    """Tokens and next-token targets, and the frontend's embeddings where the
+    family takes them: whisper's ENC_FRAMES frames, the VLM's n_patches
+    patches (the first positions)."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (B, T + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1].copy(), "targets": toks[:, 1:].copy()}
+    batch = {"tokens": toks[:, :-1].copy(), "targets": toks[:, 1:].copy()}
+    if cfg.family == "audio":
+        batch["enc_embeds"] = rng.standard_normal((B, ENC_FRAMES, cfg.d_model)) \
+            .astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal((B, cfg.vlm.n_patches, cfg.d_model)) \
+            .astype(np.float32)
+    return batch
 
 
 def _torch_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+def _slstm_every_3(cfg):
+    return cfg.replace(n_layers=6, xlstm=dataclasses.replace(cfg.xlstm, slstm_every=3))
+
+
+# SMOKE variants, each a change made alike to both packages' SMOKE config.
+# xlstm SMOKE's super-blocks hold one mLSTM block (slstm_every=2), so its
+# (nb, 1, d) mLSTM leaves are not factored; with slstm_every=3 they are
+# (nb, 2, d), which the reference's Adafactor factors over the inner axis and
+# maps over nb, as it does the full-size (3, 7, 1024) leaves.
+VARIANTS = {"xlstm-350m:slstm_every=3": ("xlstm-350m", _slstm_every_3)}
+
+
+def _configs(arch):
+    """(JAX config, the port's config) of a SMOKE config or variant, fp32."""
+    base, change = VARIANTS.get(arch, (arch, lambda c: c))
+    return tuple(change(config(base, smoke=True)).replace(param_dtype="float32")
+                 for config in (jax_get_config, get_config))
+
+
 def _setup(arch, seed=0):
-    jcfg = jax_get_config(arch, smoke=True).replace(param_dtype="float32")
-    cfg = get_config(arch, smoke=True).replace(param_dtype="float32")
+    jcfg, cfg = _configs(arch)
     jm = jax_build_model(jcfg)
     jp = jm.init_params(jax.random.PRNGKey(seed))
     return jm, jp, cfg, build_model(cfg, device="cpu"), bridge.params_from_jax(jp)
@@ -267,12 +304,16 @@ def _opt_pair(name):
 
 
 @pytest.mark.parametrize("name", ["adamw", "adafactor"])
-@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-32b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-32b", "zamba2-2.7b", "xlstm-350m",
+                                  "xlstm-350m:slstm_every=3", "whisper-tiny",
+                                  "internvl2-76b"])
 def test_optimizer_update_matches_jax(arch, name):
     """Two updates from the same (params, grads, state): the second starts
     from nonzero moments. llama's and qwen's per-layer norms (and qwen's
     qkv biases) are Adafactor's stacked-1-D leaves; zamba2's mamba2 leaves
-    are stacked on two axes, and Adafactor groups them by super-block."""
+    and xLSTM's mLSTM leaves are stacked on two axes, and Adafactor groups
+    them by super-block; whisper stacks its encoder and decoder layers
+    apart; the VLM's layers are the dense family's."""
     _, jp, cfg, _, _ = _setup(arch)
     jopt, opt = _opt_pair(name)
     jstate = jopt.init(jp)
