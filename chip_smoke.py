@@ -6,7 +6,9 @@
 Drives the port's paths on the card and checks them: dense-LM
 continuous-batching serving, MoE serving, the zamba2 hybrid's prefill and
 decode, training of every family, prefill and decode of the xLSTM, whisper
-and VLM families, and the paper's RL rollouts. Every phase exits non-zero
+and VLM families, the paper's RL rollouts, and the multi-rank paths (the
+int8 ring all-reduce, data-parallel and ZeRO-2 training, MoE dispatch
+groups, the resharded restore). Every phase exits non-zero
 on failure; nothing is caught and carried on.
 
   1. requires a CUDA device; prints the card's name and power limit;
@@ -156,7 +158,33 @@ on failure; nothing is caught and carried on.
      interactions/s), no kernel launched; then `run_benchmark_local` with 4
      tasks of 1000 steps for Cartpole and Humanoid through a pool of
      threads (`ThreadPoolCluster`);
- 11. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+ 11. the multi-rank paths, their ranks spawned on the cards present
+     (`repro_torch.distributed.spawn`; NCCL with a card a rank, else gloo,
+     the payload through host memory; one line names W, the backend, each
+     rank's device and the card): a. the int8 ring all-reduce
+     (`compressed_psum_mean`) on 4 ranks over the gradient tree of one
+     llama3-8b layer at full width (218 M fp32 entries a rank): within 5%
+     of the exact mean, the 20-step error-feedback drift bound, the norms
+     and wq against the same ring on the CPU (RING_CPU_TOL), its median time
+     beside `dist.all_reduce`'s on the same tensors and its bytes a hop
+     beside a bf16 ring's; b. llama3-8b at its published width and 2 of its
+     32 layers trained on 2 ranks, 3 AdamW steps of 4 x 1024 tokens in 2
+     microbatches, plain data parallelism and ZeRO-2 (the accumulator and
+     AdamW's moments sharded by the reference dry-run's ZeRO specs), each
+     held to the single process's steps on the global batch, run first in
+     this process: losses and grad norms (DP_METRIC_TOL), the params'
+     distance over the update (DP_UPDATE_TOL), ZeRO-2 to plain DP alike,
+     the flash launches of each rank exact, all `flash_wgmma` with the lse;
+     each rank's median step, tokens/s, peak memory and accumulator bytes;
+     c. phi3.5-moe at its published width and 1 of its 32 layers, one step
+     on 2 ranks with one dispatch group each against one process with 2
+     groups: every (token, k) routing choice alike, the loss and the aux
+     loss (its means over the ranks) within DP_METRIC_TOL, `gmm_wgmma`'s
+     forward, dx and dw launches exact per rank; d. b's ZeRO-2 state saved
+     from the 2 ranks (rank 0 writes), restored into this process and, with
+     the DP axes moved off the layer axis, into 2 ranks: every block
+     bit-identical to the saving ranks' (`digest`);
+ 12. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
      at C=320, ssd_scan's with its plain backward, flash's and decode's
      with their rows at phase 9's shapes) and, last, the device line
      `{"ok": true, "device": {...}}`.
@@ -2463,6 +2491,505 @@ def rl_phase(seed, dev, n_steps=1000, workers=4, bench_envs=("Cartpole", "Humano
     return dict(launches, envs=out, bench=bench)
 
 
+# ----------------------------------------------------------------------------
+# phase 11: across ranks
+# ----------------------------------------------------------------------------
+
+# 11a: the ring on the card against the same call on the CPU: the same IEEE
+# fp32 operations (amax, a correctly rounded division, round half to even,
+# products and sums of two terms), so the two should agree bit for bit;
+# tests/test_torch_distributed.py holds the CPU ring to JAX's within 1e-6
+RING_CPU_TOL = 1e-6
+# 11b/11c: the data-parallel step against the single-process step on the
+# global batch, bf16. A rank's bf16 gradient of its rows, summed over the
+# ranks in fp32, and the single process's one bf16 gradient of all rows
+# round apart (2^-9 of an entry), and from the second step on the params do
+# too, so losses, aux losses and grad norms are held within 1e-2 relative
+# (a wrong mean over the ranks is off by 100%), and the params' update
+# within a tenth of its size: ||p_ranks - p_single|| <= DP_UPDATE_TOL *
+# ||p_single - p_0||. Where an update moves an entry by ~5 bf16 ulps, one
+# entry in a hundred a step rounds the other way, which gives about 0.02
+# (PERF.md, phase 11)
+DP_METRIC_TOL = 1e-2
+DP_UPDATE_TOL = 0.1
+# the learning rate of 11b and 11c: the Trainer's base rate, held constant
+# (warmup_cosine is 0 at step 0, where an update would compare nothing)
+DP_LR = 3e-4
+RING_WORLD, DP_WORLD = 4, 2
+
+
+def _rank_setup():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False   # the router's fp32 matmuls in fp32
+
+
+def layer_grads(seed, rank, dev):
+    """A gradient tree of one llama3-8b layer at full width: fp32 normal
+    draws from a generator seeded per rank, in the layer's shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import dense
+    from repro_torch.tree import tree_map
+    shapes = dense.init_block(torch.Generator(), get_config("llama3-8b"), torch.bfloat16, "meta")
+    gen = torch.Generator(device=dev).manual_seed(seed * 1000 + rank)
+    return tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev), shapes)
+
+
+def ring_rank(rank, world, dev, seed, reps=3, drift_steps=20):
+    """11a on one rank: compressed_psum_mean over the gradient tree of one
+    llama3-8b layer: its distance to the exact mean, its median time and
+    that of dist.all_reduce on the same tensors in the same group, the bytes
+    it sends, the CPU's run on the norms and wq, and the error-feedback
+    drift over `drift_steps` calls on wk."""
+    import numpy as np
+    import torch
+    from repro_torch import distributed as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import compressed_psum_mean, make_compressed_grad_reduce
+    from repro_torch.tree import get, leaves, tree_map
+    _rank_setup()
+    mesh = make_mesh((world,), ("data",), device=dev)
+    group = mesh.group("data")
+    reduce_tree = make_compressed_grad_reduce(mesh, "data")
+    grads = layer_grads(seed, rank, dev)
+    zeros = tree_map(torch.zeros_like, grads)
+    exact = tree_map(lambda g: D.all_reduce_(g.clone(), group=group) / world, grads)
+    mean, err = reduce_tree(grads, zeros)
+    rel = max(((m - e).abs().max() / e.abs().max()).item()
+              for m, e in zip(leaves(mean), leaves(exact)))
+
+    def median_ms(fn):
+        out = []
+        for _ in range(reps):
+            D.all_reduce_(torch.zeros(1, device=dev), group=group)   # start together
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return float(np.median(out)) * 1e3
+
+    ring_ms = median_ms(lambda: reduce_tree(grads, zeros))
+    allreduce_ms = median_ms(lambda: [D.all_reduce_(g.clone(), group=group)
+                                      for g in leaves(grads)])
+    cpu = {}
+    # NCCL takes no CPU tensor: the CPU's ring goes over gloo
+    cpu_group = group if torch.distributed.get_backend(group) == "gloo" else \
+        torch.distributed.new_group(backend="gloo")
+    for path in (("ln1",), ("ln2",), ("attn", "wq")):
+        g = get(grads, path).cpu()
+        cm, ce = compressed_psum_mean(g, torch.zeros_like(g), cpu_group)
+        m, e = get(mean, path).cpu(), get(err, path).cpu()
+        cpu["/".join(path)] = (max_err(m, cm), max_err(e, ce),
+                               bool(torch.equal(m, cm) and torch.equal(e, ce)))
+    g = grads["attn"]["wk"]
+    e, acc = torch.zeros_like(g), torch.zeros_like(g)
+    for _ in range(drift_steps):
+        m, e = compressed_psum_mean(g, e, group)
+        acc += m
+    ex = exact["attn"]["wk"]
+    n_entries, n_leaves = sum(t.numel() for t in leaves(grads)), len(leaves(grads))
+    # what a rank sends: n-1 reduce-scatter hops of (scale, codes) and n-1
+    # all-gather hops of (scale, id, codes) per leaf; a bf16 ring sends the
+    # same chunks in 2 bytes an entry
+    chunk = n_entries // world
+    return dict(rel=rel, ring_ms=ring_ms, allreduce_ms=allreduce_ms, cpu=cpu,
+                drift=(acc / drift_steps - ex).abs().max().item(),
+                drift_bound=0.02 * ex.abs().max().item() + 0.02, entries=n_entries,
+                hop_bytes=chunk + 8 * n_leaves, bf16_hop_bytes=2 * chunk,
+                sent_bytes=2 * (world - 1) * chunk + (world - 1) * 12 * n_leaves,
+                transport=D.transport(dev, group))
+
+
+def dp_cfgs():
+    """11b's llama3-8b x 2 of 32 layers and 11c's phi3.5-moe x 1 of 32, at
+    their published widths."""
+    from repro_torch.configs import get_config
+    return (get_config("llama3-8b").replace(n_layers=2),
+            get_config("phi3.5-moe-42b-a6.6b").replace(n_layers=1))
+
+
+def dp_batch(cfg, seed, step, dev, rows, seq):
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=rows,
+                                    seed=seed))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in pipe.batch_at(step).items()}
+
+
+def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_groups=1):
+    """`steps` AdamW steps of `cfg` at DP_LR from weights drawn from `seed`,
+    on global batches of rows x seq: (state, the per-step losses, grad norms
+    and walls, and the kernels' launches counted from the first step)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import moe_gmm as gk
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.steps import make_train_step, train_state
+    model = build_model(cfg, device=dev, mesh=mesh, n_groups=n_groups)
+    opt = make_optimizer("adamw")
+    state = train_state(model.init_params(torch.Generator(device=dev).manual_seed(seed)), opt,
+                        shard)
+    step = make_train_step(model, opt, lambda s: DP_LR, n_microbatches=n_micro,
+                           grad_shardings=shard, mesh=mesh)
+    losses, norms, walls = [], [], []
+    reset_counts()
+    for s in range(steps):
+        b = dp_batch(cfg, seed, s, dev, rows, seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return state, dict(losses=losses, norms=norms, walls=walls, launches=kernel_counts(),
+                       lse=fk.lse_launches, flash_by_path=dict(fk.launches_by_path),
+                       gmm_by_path={"fwd": dict(gk.launches_by_path),
+                                    "dx": dict(gk.dx_launches_by_path),
+                                    "dw": dict(gk.dw_launches_by_path)})
+
+
+def sq_dist(params, other) -> float:
+    """The squared L2 distance between two params trees (other's leaves on
+    any device)."""
+    import torch
+    from repro_torch.tree import leaves
+    return sum(float(torch.sum(torch.square(a.float() - b.to(a.device).float())))
+               for a, b in zip(leaves(params), leaves(other)))
+
+
+def digest(t):
+    """An exact fingerprint of a tensor's bits: its entries, their sum and
+    a position-weighted sum, in wrapping int64, computed on its device."""
+    import torch
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    bits = t.detach().contiguous().view(ints).reshape(-1)
+    s = w = 0
+    for at in range(0, bits.numel(), 1 << 26):
+        part = bits[at:at + (1 << 26)].to(torch.int64)
+        pos = torch.arange(at, at + part.numel(), device=part.device) % 1000003 + 1
+        s += int(part.sum())
+        w += int((part * pos).sum())
+    return [t.numel(), s % (1 << 64), w % (1 << 64)]
+
+
+def block_digests(state, shardings, rank):
+    """Path -> digest of `rank`'s block of each leaf of a train state,
+    taken from `state`, which holds that rank's blocks or whole leaves."""
+    from repro_torch.tree import flatten
+    own = shardings.index(state, rank)
+    out = {}
+    for (path, t), b in zip(flatten(state), own):
+        if b is None:
+            continue
+        whole = tuple(t.shape) == shardings.full_shape(path)
+        out["/".join(map(str, path))] = digest(t[b] if whole else t)
+    return out
+
+
+def dp_shardings(cfg, mesh, stack=True):
+    """(ZeRO-2 grad shardings, the train state's shardings) of `cfg` on
+    `mesh` under the single-pod rules, the DP axes on the layer axis or,
+    without `stack`, on an inner dim."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.sharding.axes import single_pod_rules
+    from repro_torch.sharding.rules import shardings_for, state_shardings
+    from repro_torch.train.steps import train_state
+    meta = build_model(cfg, device="meta").init_params(torch.Generator())
+    return (shardings_for(meta, cfg, mesh, single_pod_rules(), zero1=True, zero1_stack=stack),
+            state_shardings(train_state(meta, make_optimizer("adamw")), cfg, mesh,
+                            single_pod_rules(), zero1_stack=stack))
+
+
+def dp_rank(rank, world, dev, seed, single_path, ckpt_dir, steps, n_micro, rows, seq):
+    """11b-11d on one rank: plain DP and ZeRO-2 runs of llama3-8b x 2 (losses,
+    norms, walls, peak memory, accumulator bytes, launches, and the params'
+    squared distances to the single-process run's and to each other); the
+    ZeRO state saved (digests of this rank's blocks) and restored under the
+    other ZeRO choice (digests); phi3.5-moe x 1's step, its aux loss and its
+    routing."""
+    import torch
+    from repro_torch import distributed as D
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.steps import train_state
+    from repro_torch.tree import leaves, tree_map
+    _rank_setup()
+    cfg, moe_cfg = dp_cfgs()
+    mesh = make_mesh((world, 1), ("data", "model"), device=dev)
+    single = torch.load(single_path, mmap=True)
+    out, plain = {}, None
+    for name in ("plain", "zero"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shard, full = dp_shardings(cfg, mesh) if name == "zero" else (None, None)
+        state, run = dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh, shard)
+        run.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   acc_bytes=4 * sum(t.numel() for t in leaves(state["opt"]["m"])),
+                   sq_vs_single=sq_dist(state["params"], single))
+        if name == "plain":
+            plain = tree_map(lambda t: t.cpu(), state["params"])
+        else:
+            run["sq_vs_plain"] = sq_dist(state["params"], plain)
+            run["saved"] = block_digests(state, full, rank)
+            t0 = time.perf_counter()
+            Checkpointer(ckpt_dir).save(steps, state, blocking=True, shardings=full)
+            run["save_s"] = time.perf_counter() - t0
+        out[name] = run
+        del state
+    del plain, single
+    # 11d: the saved state restored under the other ZeRO choice
+    torch.cuda.empty_cache()
+    shard, full = dp_shardings(cfg, mesh, stack=False)
+    meta = build_model(cfg, device="meta").init_params(torch.Generator())
+    like = train_state(tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev), meta),
+                       make_optimizer("adamw"), shard)
+    t0 = time.perf_counter()
+    Checkpointer(ckpt_dir).restore(like, step=steps, shardings=full)
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored"] = block_digests(like, full, rank)
+    del like
+    # 11c: phi3.5-moe x 1, each rank's row of the batch in one dispatch group
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(moe_cfg, device=dev, mesh=mesh)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed + 1))
+    b = dp_batch(moe_cfg, seed + 1, 0, dev, world, seq)
+    with torch.no_grad():
+        _, metrics = model.loss(params, {k: v[rank:rank + 1] for k, v in b.items()})
+    del params
+    choices = []
+    with record_routing(choices):
+        _, run = dp_run(moe_cfg, seed + 1, dev, 1, 1, world, seq, mesh)
+    run.update(aux=float(metrics["aux"]), routing=[c.cpu().numpy() for c in choices],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out["moe"] = run
+    D.all_reduce_(torch.zeros(1, device=dev))   # every rank done before any frees the group
+    return out
+
+
+def dp_single(seed, dev, steps, n_micro, rows, seq, path):
+    """The yardsticks of 11b and 11c, in this process before the ranks start:
+    llama3-8b x 2's steps on the global batches (its params saved to `path`)
+    and phi3.5-moe x 1's step with n_groups = DP_WORLD, its aux loss and its
+    routing."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    cfg, moe_cfg = dp_cfgs()
+    torch.cuda.reset_peak_memory_stats()
+    state, run = dp_run(cfg, seed, dev, steps, n_micro, rows, seq)
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(tree_map(lambda t: t.cpu(), state["params"]), path)
+    p0 = build_model(cfg, device=dev).init_params(torch.Generator(device=dev).manual_seed(seed))
+    run["sq_update"] = sq_dist(state["params"], p0)
+    del state, p0
+    torch.cuda.empty_cache()
+    model = build_model(moe_cfg, device=dev, n_groups=DP_WORLD)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed + 1))
+    with torch.no_grad():
+        _, metrics = model.loss(params, dp_batch(moe_cfg, seed + 1, 0, dev, DP_WORLD, seq))
+    del params
+    choices = []
+    with record_routing(choices):
+        _, moe = dp_run(moe_cfg, seed + 1, dev, 1, 1, DP_WORLD, seq, n_groups=DP_WORLD)
+    moe.update(aux=float(metrics["aux"]), routing=[c.cpu().numpy() for c in choices])
+    torch.cuda.empty_cache()
+    return run, moe
+
+
+def rel_gate(label, got, want, tol):
+    ok = abs(got - want) <= tol * abs(want)
+    say(f"  {'ok  ' if ok else 'FAIL'} {label}: {got:.6f} against {want:.6f} "
+        f"(rel {abs(got - want) / abs(want):.2e}, gate <= {tol:g})")
+    if not ok:
+        fail(f"{label}: the ranks' value is further from the single process's than "
+             "bf16 rounding explains")
+
+
+def dp_launch_gate(label, run, cfg, n_micro, steps):
+    """A run's kernel launches: exactly what its layers ask for
+    (train_launches), every flash launch with the lse through `flash_wgmma`,
+    every moe_gmm product through `gmm_wgmma`."""
+    want = train_launches(cfg, n_micro, steps)
+    n_flash = want["flash_attention"]
+    got = (run["launches"], run["lse"], run["flash_by_path"])
+    ok = got == (want, n_flash, {"wgmma": n_flash, "simt": 0})
+    if cfg.family == "moe":
+        ok &= run["gmm_by_path"] == {
+            kind: {"wgmma": want[key], "rows": 0, "tiled": 0}
+            for kind, key in (("fwd", "moe_gmm"), ("dx", "moe_gmm_dx"), ("dw", "moe_gmm_dw"))}
+    say(f"  {'ok  ' if ok else 'FAIL'} {label}: launches {run['launches']}, {run['lse']} flash "
+        f"with the lse, flash by kernel {run['flash_by_path']}"
+        + (f", moe_gmm by kernel {run['gmm_by_path']}" if cfg.family == "moe" else ""))
+    if not ok:
+        fail(f"{label}: the ranks did not go through the kernels as their layers ask: want "
+             f"{want}, all flash with the lse on flash_wgmma, every moe_gmm on gmm_wgmma")
+    return run["launches"]
+
+
+def ranks_phase(seed, dev, smi, step_8b_ms=None, steps=3, n_micro=2, seq=1024):
+    """Phase 11: the port's multi-rank paths on the cards present (NCCL with
+    a card a rank, gloo when ranks share one; rank r on card r mod count):
+    11a the int8 ring all-reduce (W=4), 11b the data-parallel and ZeRO-2
+    train step of llama3-8b x 2 (W=2) against the single-process step,
+    11c phi3.5-moe x 1's MoE dispatch groups, 11d the ZeRO state saved at
+    W=2 and restored at W=1 and, under the other ZeRO choice, at W=2."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import distributed as D
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.steps import train_state
+    from repro_torch.tree import tree_map
+
+    def ranks_line(world):
+        say(f"  ranks: W={world}, backend {D.backend_for(world, dev)}, devices "
+            f"{[str(D.rank_device(r, dev)) for r in range(world)]}, card {smi}")
+
+    out = {}
+    say("phase 11a: the int8 ring all-reduce with error feedback, the gradient tree of one "
+        "llama3-8b layer at full width")
+    ranks_line(RING_WORLD)
+    ring = D.spawn(ring_rank, RING_WORLD, seed, device=dev.type, timeout=600)
+    r0 = ring[0]
+    say(f"  {r0['entries'] / 1e6:.1f} M fp32 entries a rank, over {r0['transport']}: ring "
+        f"{r0['ring_ms']:.1f} ms (median of 3, rank 0), dist.all_reduce on the same tensors "
+        f"{r0['allreduce_ms']:.1f} ms; a hop carries {r0['hop_bytes'] / 1e6:.2f} MB against "
+        f"{r0['bf16_hop_bytes'] / 1e6:.2f} MB in a bf16 ring; {r0['sent_bytes'] / 1e6:.1f} MB "
+        f"sent a rank in all")
+    for rank, r in enumerate(ring):
+        worst = max(v[0] for v in r["cpu"].values()), max(v[1] for v in r["cpu"].values())
+        ok = (r["rel"] < 0.05 and r["drift"] < r["drift_bound"]
+              and max(worst) <= RING_CPU_TOL)
+        say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: rel err to the exact mean {r['rel']:.4f} "
+            f"(< 0.05), 20-step drift on wk {r['drift']:.4f} (< {r['drift_bound']:.4f}); "
+            f"against the CPU's ring on ln1, ln2, wq: mean {worst[0]:.2e}, residual "
+            f"{worst[1]:.2e} (gate <= {RING_CPU_TOL:g}), bitwise "
+            f"{all(v[2] for v in r['cpu'].values())}")
+        if not ok:
+            fail(f"11a: rank {rank}'s ring is not the reference's")
+    out["11a"] = {k: r0[k] for k in ("ring_ms", "allreduce_ms", "hop_bytes", "bf16_hop_bytes",
+                                     "sent_bytes", "transport")}
+
+    cfg, moe_cfg = dp_cfgs()
+    rows = DP_WORLD * n_micro
+    tokens = rows * seq
+    with tempfile.TemporaryDirectory() as tmp:
+        say(f"phase 11b-d: the single process's steps first (llama3-8b x 2, {steps} steps of "
+            f"{rows} x {seq} tokens in {n_micro} microbatches; phi3.5-moe x 1, one step of "
+            f"{DP_WORLD} x {seq} in {DP_WORLD} dispatch groups)")
+        single, moe_single = dp_single(seed, dev, steps, n_micro, rows, seq, f"{tmp}/single.pt")
+        t_single = float(np.median(single["walls"][1:]))
+        dp_launch_gate("11b single process", single, cfg, n_micro, steps)
+        dp_launch_gate("11c single process", moe_single, moe_cfg, 1, 1)
+        say(f"  single process: median step {t_single * 1e3:.1f} ms, {tokens / t_single:.0f} "
+            f"tokens/s, peak {single['peak_gb']:.2f} GB"
+            + (f" (phase 8b, x 4 layers on 4 x 1024: {step_8b_ms:.1f} ms)" if step_8b_ms else ""))
+        ranks_line(DP_WORLD)
+        ranks = D.spawn(dp_rank, DP_WORLD, seed, f"{tmp}/single.pt", f"{tmp}/ckpt", steps,
+                        n_micro, rows, seq, device=dev.type, timeout=900)
+        say("phase 11b: data-parallel training, llama3-8b x 2 of 32 layers at full width, bf16, "
+            f"AdamW at {DP_LR:g}, plain DP and ZeRO-2 (ZeRO-1 state)")
+        upd = single["sq_update"] ** 0.5
+        for name in ("plain", "zero"):
+            for rank, r in enumerate(ranks):
+                run = r[name]
+                t = float(np.median(run["walls"][1:]))
+                say(f"  {name} rank {rank}: median step {t * 1e3:.1f} ms, {tokens / t:.0f} tokens/s,"
+                    f" peak {run['peak_gb']:.2f} GB, fp32 accumulator {run['acc_bytes'] / 1e9:.2f}"
+                    f" GB" + (f", save {run['save_s']:.1f} s" if "save_s" in run else ""))
+                for s in range(steps):
+                    rel_gate(f"{name} rank {rank} step {s + 1} loss", run["losses"][s],
+                             single["losses"][s], DP_METRIC_TOL)
+                    rel_gate(f"{name} rank {rank} step {s + 1} grad norm", run["norms"][s],
+                             single["norms"][s], DP_METRIC_TOL)
+                d = run["sq_vs_single"] ** 0.5 / upd
+                ok = d <= DP_UPDATE_TOL
+                if name == "zero":
+                    d_plain = run["sq_vs_plain"] ** 0.5 / upd
+                    ok &= d_plain <= DP_UPDATE_TOL
+                say(f"  {'ok  ' if ok else 'FAIL'} {name} rank {rank}: params' distance to the "
+                    f"single process's, over its update, {d:.3e}"
+                    + (f"; ZeRO-2 to plain DP {d_plain:.3e}" if name == "zero" else "")
+                    + f" (gate <= {DP_UPDATE_TOL:g}; update {upd:.3f})")
+                if not ok:
+                    fail(f"11b {name}: the ranks' params part from the single process's")
+                dp_launch_gate(f"11b {name} rank {rank}", run, cfg, n_micro, steps)
+        out["11b"] = {name: dict(step_ms=[float(np.median(r[name]["walls"][1:])) * 1e3
+                                          for r in ranks],
+                                 peak_gb=[r[name]["peak_gb"] for r in ranks],
+                                 acc_bytes=[r[name]["acc_bytes"] for r in ranks])
+                      for name in ("plain", "zero")}
+        out["11b"]["single_step_ms"] = t_single * 1e3
+        dp_runs = [r[name] for r in ranks for name in ("plain", "zero", "moe")]
+        out.update({n: sum(run["launches"][n] for run in dp_runs) for n in kernel_counts()})
+        out["flash_attention_by_path"] = {p: sum(run["flash_by_path"][p] for run in dp_runs)
+                                          for p in ("wgmma", "simt")}
+        out["moe_gmm_by_path"] = {kind: {p: sum(r["moe"]["gmm_by_path"][kind][p] for r in ranks)
+                                         for p in ("wgmma", "rows", "tiled")}
+                                  for kind in ("fwd", "dx", "dw")}
+
+        say("phase 11c: MoE dispatch groups, phi3.5-moe x 1 of 32 layers at full width, one "
+            f"step: {DP_WORLD} ranks of one group each against one process with {DP_WORLD}")
+        calls = len(ranks[0]["moe"]["routing"])
+        for rank, r in enumerate(ranks):
+            run = r["moe"]
+            same = all(np.array_equal(run["routing"][i], moe_single["routing"][i * DP_WORLD + rank])
+                       for i in range(calls))
+            n_choices = sum(c.size for c in run["routing"])
+            say(f"  {'ok  ' if same else 'FAIL'} rank {rank}: its {calls} dispatches (forward and "
+                f"remat) route its {n_choices} (token, k) choices as the single process's group "
+                f"{rank} did: {same}; peak {run['peak_gb']:.2f} GB")
+            if not same or len(moe_single["routing"]) != calls * DP_WORLD:
+                fail("11c: a rank routed its tokens otherwise than the single process's group")
+            rel_gate(f"11c rank {rank} loss", run["losses"][0], moe_single["losses"][0],
+                     DP_METRIC_TOL)
+            rel_gate(f"11c rank {rank} aux loss (the group's means)", run["aux"],
+                     moe_single["aux"], DP_METRIC_TOL)
+            dp_launch_gate(f"11c rank {rank}", run, moe_cfg, 1, 1)
+
+        say("phase 11d: the ZeRO-2 run's state, saved from 2 ranks, restored into one process "
+            "and, under the other ZeRO choice, into 2 ranks")
+        mesh = Mesh((DP_WORLD, 1), ("data", "model"))
+        _, saved_sh = dp_shardings(cfg, mesh)
+        _, other_sh = dp_shardings(cfg, mesh, stack=False)
+        t0 = time.perf_counter()
+        meta = build_model(cfg, device="meta").init_params(torch.Generator())
+        whole = train_state(tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev),
+                                     meta), make_optimizer("adamw"))
+        Checkpointer(f"{tmp}/ckpt").restore(whole, step=steps)
+        load_s = time.perf_counter() - t0
+        bad = []
+        for label, sh, got in (("saved", saved_sh, [r["zero"]["saved"] for r in ranks]),
+                               ("restored", other_sh, [r["restored"] for r in ranks])):
+            for rank in range(DP_WORLD):
+                want = block_digests(whole, sh, rank)
+                bad += [(label, rank, k) for k in want if got[rank].get(k) != want[k]]
+                bad += [(label, rank, k) for k in got[rank] if k not in want]
+        n_leaves = len(block_digests(whole, saved_sh, 0))
+        moved = [k for k in ranks[0]["restored"] if "layers/1/" in k and k.startswith("opt")]
+        say(f"  {'ok  ' if not bad else 'FAIL'} {n_leaves} leaves: each rank's saved blocks and "
+            f"its blocks restored under the other choice ({len(moved)} leaves of layer 1 now "
+            f"split on an inner dim on rank 0) bit-identical to the one process's restore; "
+            f"restore at W=1 {load_s:.1f} s, at W=2 {ranks[0]['restore_s']:.1f} s")
+        if bad:
+            fail(f"11d: restored leaves differ from the saved ones: {bad[:8]}")
+        del whole
+        torch.cuda.empty_cache()
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2626,7 +3153,9 @@ def main() -> int:
     say("phase 10: RL rollouts, the 14 environments of the paper's benchmark, 1000 steps each, "
         "on the card and on the CPU")
     runs["10"] = timed("10 RL rollouts", rl_phase, args.seed + 14, dev)
-    say("phase 11: the kernel table and the device")
+    say("phase 11: the multi-rank paths, ranks on the cards present")
+    runs["11"] = timed("11 ranks", ranks_phase, args.seed + 15, dev, smi, runs["8"]["step_ms"])
+    say("phase 12: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 
@@ -2651,7 +3180,7 @@ def main() -> int:
     kernels[0].update(kernel=flash["path"], simt_ms=flash["simt_ms"],
                       event_ms=flash["event_ms"], lse=True,
                       lse_launches=sum(runs[k]["flash_attention"]
-                                       for k in ("8", "8e", "8f", "8g", "8i")),
+                                       for k in ("8", "8e", "8f", "8g", "8i", "11")),
                       **{k: flash[k] for k in ("nolse_ms", "lse_ms", "bwd_ms", "bwd_sdpa_ms",
                                                "bwd_bound_ms", "bwd_shape")},
                       launches_by_kernel={p: sum(r["flash_attention_by_path"][p]
@@ -2666,7 +3195,9 @@ def main() -> int:
                                                  if "decode_attention_by_path" in r)
                                           for p in ("split", "simt")},
                       phase9_shapes=new_shapes["decode_attention"])
-    train_gmm = runs["8e"]["moe_gmm_by_path"]
+    train_gmm = {kind: {p: runs["8e"]["moe_gmm_by_path"][kind][p]
+                        + runs["11"]["moe_gmm_by_path"][kind][p] for p in by_path}
+                 for kind, by_path in runs["8e"]["moe_gmm_by_path"].items()}
     kernels[2].update(kernel=table["moe_gmm"]["path"],
                       launches_by_kernel={p: runs["6"]["moe_gmm_by_path"][p] + train_gmm["fwd"][p]
                                           for p in train_gmm["fwd"]})
@@ -2675,7 +3206,8 @@ def main() -> int:
         kernels[2][kind] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms", "max_abs_err",
                                                 "path", "shape")}
-        kernels[2][kind].update(launches=runs["8e"][f"moe_gmm_{kind}"],
+        kernels[2][kind].update(launches=runs["8e"][f"moe_gmm_{kind}"]
+                                + runs["11"][f"moe_gmm_{kind}"],
                                 launches_by_kernel=train_gmm[kind])
     ssd = table["ssd_scan"]
     kernels[3].update(kernel=ssd["path"], simt_ms=ssd["simt_ms"], event_ms=ssd["event_ms"],

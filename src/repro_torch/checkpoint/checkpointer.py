@@ -14,8 +14,20 @@
   * the newest `keep_n` checkpoints are kept, older ones removed.
 
 A leaf's key is its path, dict keys and list indices joined by "/"
-("params/layers/0/attn/wq"). The reference's resharding restore
-(`shardings=`) waits for the multi-device item (ROADMAP.md, Queue 1).
+("params/layers/0/attn/wq").
+
+Sharded state (`shardings=`, a `sharding/rules.py::Shardings` over the
+state's stacked view, e.g. `state_shardings` of the train state): every
+rank of the process group calls `save` with its blocks; each leaf is
+gathered whole onto rank 0 (each distinct block sent once, by its first
+holder) and only rank 0 writes, in the same layout, so a checkpoint does
+not record the topology that wrote it. `restore(like, shardings=...)`
+reshards to any mesh (the elastic restart after losing ranks): each rank
+reads every leaf memory-mapped and copies only its block into `like`, which
+holds the rank's blocks (empty tensors where another rank owns the leaf),
+so no rank holds the whole state on top of its own. The ranks meet at a
+barrier once rank 0's write has committed (at the next `wait`, `save` or
+`restore`, or before a blocking `save` returns).
 """
 from __future__ import annotations
 
@@ -28,7 +40,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import distributed as D
 from repro_torch.tree import flatten
 
 
@@ -43,6 +57,35 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _logical(t: torch.Tensor) -> str:
+    return "bfloat16" if t.dtype == torch.bfloat16 else str(t.dtype).replace("torch.", "")
+
+
+def _gather(state, shardings) -> Optional[Dict[str, Any]]:
+    """Every leaf of a sharded state, whole, on rank 0 (host copies); None
+    on the other ranks."""
+    rank, n = dist.get_rank(), dist.get_world_size()
+    blocks = [shardings.index(state, q) for q in range(n)]
+    out = {} if rank == 0 else None
+    for j, (path, t) in enumerate(flatten(state)):
+        whole = torch.empty(shardings.full_shape(path), dtype=t.dtype) if rank == 0 else None
+        sent = []
+        for q in range(n):
+            b = blocks[q][j]
+            if b is None or b in sent:
+                continue
+            sent.append(b)
+            if q == rank == 0:
+                whole[b] = t.detach().cpu()
+            elif rank == q:
+                D.send(t.detach(), 0)
+            elif rank == 0:
+                whole[b] = D.recv(t.new_empty(whole[b].shape), q).cpu()
+        if rank == 0:
+            out["/".join(str(k) for k in path)] = (_to_host(whole), _logical(t))
+    return out
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep_n: int = 3):
         self.dir = directory
@@ -50,16 +93,26 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False   # a sharded save's ranks have yet to meet
         self.stats = {"saves": 0, "restores": 0, "gcs": 0}
 
     # -- save -------------------------------------------------------------------
 
-    def save(self, step: int, state: Any, blocking: bool = False) -> None:
+    def save(self, step: int, state: Any, blocking: bool = False,
+             shardings=None) -> None:
         """Snapshot to host memory synchronously, write asynchronously (or
-        before returning, with `blocking`)."""
-        flat = {k: (_to_host(v), "bfloat16" if v.dtype == torch.bfloat16
-                    else str(v.dtype).replace("torch.", ""))
-                for k, v in _flatten(state).items()}
+        before returning, with `blocking`). With `shardings`, every rank
+        calls this with its blocks of `state`, and rank 0 writes."""
+        self.wait()
+        if shardings is None:
+            flat = {k: (_to_host(v), _logical(v)) for k, v in _flatten(state).items()}
+        else:
+            flat = _gather(state, shardings)
+            self._barrier = True
+            if flat is None:
+                if blocking:
+                    self.wait()
+                return
 
         def _write():
             tmp = os.path.join(self.dir, f".tmp-{step}")
@@ -88,18 +141,22 @@ class Checkpointer:
             except BaseException as e:   # re-raised by wait(), in the caller's thread
                 self._error = e
 
-        self.wait()
         if blocking:
             _write()
+            self.wait()
         else:
             self._thread = threading.Thread(target=_write_and_keep_error, daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
-        """Join the writer; raise what it raised."""
+        """Join the writer; raise what it raised. After a sharded save, meet
+        the other ranks once rank 0's write has committed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -111,9 +168,11 @@ class Checkpointer:
         return max(steps) if steps else None
 
     @torch.no_grad()
-    def restore(self, like: Any, step: Optional[int] = None) -> Any:
+    def restore(self, like: Any, step: Optional[int] = None, shardings=None) -> Any:
         """Copy checkpoint `step` (the latest by default) into the tensors
-        of `like`, in place, casting to their dtypes; returns `like`."""
+        of `like`, in place, casting to their dtypes; returns `like`. With
+        `shardings`, `like` holds this rank's blocks, and each takes its
+        block of the whole leaf."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -121,14 +180,21 @@ class Checkpointer:
         cdir = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(cdir, "manifest.json")) as f:
             manifest = json.load(f)
-        for key, t in _flatten(like).items():
+        items = _flatten(like).items()
+        blocks = shardings.index(like, dist.get_rank()) if shardings is not None \
+            else [()] * len(items)
+        for (key, t), b in zip(items, blocks):
             meta = manifest["leaves"].get(key)
             if meta is None:
                 raise KeyError(f"checkpoint step {step} has no leaf {key!r}")
-            arr = np.load(os.path.join(cdir, meta["file"]))
-            src = torch.from_numpy(arr)
+            if b is None:   # another rank owns this leaf
+                continue
+            arr = np.load(os.path.join(cdir, meta["file"]), mmap_mode="r")
             if meta["dtype"] == "bfloat16":
-                src = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                arr = arr.view(np.int16)
+            src = torch.from_numpy(np.array(arr[b]))   # a copy, read from the map
+            if meta["dtype"] == "bfloat16":
+                src = src.view(torch.bfloat16)
             if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: checkpoint shape {tuple(src.shape)}, "
                                  f"want {tuple(t.shape)}")

@@ -1,7 +1,8 @@
 """arctic-480b  [hf:Snowflake/snowflake-arctic-base]
 35L d_model=7168 56H (GQA kv=8) d_ff=4864 vocab=32000, MoE 128 experts top-2
-+ dense residual FFN. The serving fields only: the JAX config's training
-choices (Adafactor, FSDP) are not read by the port."""
++ dense residual FFN, weights sharded over the data axis too (FSDP). The
+JAX config's optimizer choice (Adafactor) is read only by its dry-run
+launcher and is left out."""
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
 CONFIG = ModelConfig(
@@ -14,6 +15,7 @@ CONFIG = ModelConfig(
     d_ff=4864,
     vocab_size=32000,
     moe=MoEConfig(n_experts=128, top_k=2, dense_residual_ff=2 * 7168),
+    fsdp=True,
     pad_heads_to=64,
     kv_replication=2,
 )

@@ -7,8 +7,8 @@ the family configs `MoEConfig`, `SSMConfig`, `XLSTMConfig`, `HybridConfig`,
 config built here describes the model that the JAX reference builds from
 the same-named config there. Left out: the long-context fields
 (`long_context_window`, `sub_quadratic`), which come with the long_500k
-shape, and the fields only the JAX package's dry-run launcher reads
-(`optimizer`, `fsdp`), which come with its counterpart.
+shape, and `optimizer`, which only the JAX package's dry-run launcher
+reads. `fsdp` is read by the sharding rules (`sharding/rules.py`).
 """
 from __future__ import annotations
 
@@ -91,6 +91,9 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     param_dtype: str = "bfloat16"
+    # shard parameters over the data axis too (FSDP / ZeRO-3 style weight
+    # sharding) -- required for the largest models.
+    fsdp: bool = False
     # int8 KV cache (per (token, head) scales in fp32)
     kv_cache_dtype: str = "bfloat16"
     # the cache stores n_kv * kv_replication heads (each kv head repeated in

@@ -3,9 +3,7 @@
 The ViT frontend is a STUB: input_specs() provides precomputed patch
 embeddings already projected to d_model (prepended to the token sequence).
 FSDP weight sharding: 152 GB bf16 over model=16 alone would be 9.5 GB/chip
-before activations/optimizer.
-The JAX config's `fsdp=True` is read only by its dry-run launcher and is
-left out."""
+before activations/optimizer."""
 from repro_torch.configs.base import ModelConfig, VLMConfig
 
 CONFIG = ModelConfig(
@@ -18,6 +16,7 @@ CONFIG = ModelConfig(
     d_ff=28672,
     vocab_size=128256,
     vlm=VLMConfig(n_patches=256),
+    fsdp=True,
     kv_replication=2,
 )
 

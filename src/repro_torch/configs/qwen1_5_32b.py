@@ -1,6 +1,7 @@
 """qwen1.5-32b  [hf:Qwen/Qwen1.5-* family]
 64L d_model=5120 40H (MHA kv=40) d_ff=27392 vocab=152064, QKV bias,
-int8 KV cache, heads padded 40 -> 48."""
+int8 KV cache, heads padded 40 -> 48, weights sharded over the data axis
+too (FSDP)."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -17,6 +18,7 @@ CONFIG = ModelConfig(
     kv_cache_dtype="int8",
     pad_heads_to=48,
     pad_kv_heads_to=48,
+    fsdp=True,
 )
 
 SMOKE = ModelConfig(

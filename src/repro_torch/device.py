@@ -7,7 +7,8 @@ import torch
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on. The default is the card; the CPU
     is used only when asked for by name. Without a card, a CUDA request
-    raises instead of quietly running on the CPU."""
+    raises instead of quietly running on the CPU. "meta" gives tensors with
+    shapes and no data (for sharding plans of configs too large to hold)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -15,6 +16,6 @@ def resolve_device(device="cuda") -> torch.device:
                 "no CUDA device is available; pass device='cpu' to run the "
                 "port's plain PyTorch path on the CPU")
         return dev
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
-    raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    raise ValueError(f"unsupported device {device!r}: use 'cuda', 'cpu' or 'meta'")

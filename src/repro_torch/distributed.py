@@ -1,0 +1,218 @@
+"""Ranks and collectives for the port's multi-rank paths.
+
+`spawn(fn, world_size, *args, device=...)` runs `fn(rank, world_size,
+device, *args)` in `world_size` fresh processes (the `spawn` start method)
+and returns their results by rank. Each rank's device is explicit: the CPU
+when asked for, else card `rank % torch.cuda.device_count()`. The group is
+initialised from a `file://` rendezvous in a temporary directory, so
+parallel test workers never contend for a port, with `timeout` on every
+collective, so a hung collective raises instead of hanging; it is torn down
+in a `finally`. A rank that raises makes `spawn` raise with its traceback,
+and the other ranks are stopped.
+
+The backend follows from the cards present (`backend_for`): NCCL needs a
+card of its own for every rank, so NCCL when there are at least as many
+cards as ranks, gloo otherwise (ranks on the CPU, or ranks sharing a card).
+Nothing switches one for the other on failure.
+
+The collectives below take tensors on the rank's device. gloo's
+point-to-point takes CPU tensors only (handed a card's tensor, `send`
+fails and `batch_isend_irecv` aborts the rank: tools/gloo_cuda_probe.py),
+so under gloo every payload of a card goes through host memory, as
+explicit copies, for the collectives too (`transport` names the route);
+the arithmetic stays on the card.
+"""
+from __future__ import annotations
+
+import datetime
+import multiprocessing as mp
+import os
+import queue
+import tempfile
+import traceback
+from typing import Any, Callable, List
+
+import torch
+import torch.distributed as dist
+
+SUM = dist.ReduceOp.SUM
+
+
+def backend_for(world_size: int, device="cuda") -> str:
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() >= world_size:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(rank: int, device="cuda") -> torch.device:
+    if torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run the ranks "
+                           "on the CPU")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def _rank_main(fn, rank, world_size, device, init, timeout, args, results):
+    dev = rank_device(rank, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:   # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    dist.init_process_group(backend_for(world_size, device), init_method=init, rank=rank,
+                            world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout))
+    try:
+        results.put((rank, True, fn(rank, world_size, dev, *args)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world_size: int, *args, device="cuda",
+          timeout: float = 300.0) -> List[Any]:
+    """Run `fn(rank, world_size, device, *args)` on `world_size` ranks; return
+    each rank's result, by rank. `fn` must be importable (a module-level
+    function) and return plain Python or numpy values, which are pickled back.
+    `timeout` (seconds) bounds the rendezvous and every collective."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="repro-torch-rdv-") as tmp:
+        init = "file://" + os.path.join(tmp, "init")
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(fn, r, world_size, device, init, timeout, args, results))
+                 for r in range(world_size)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            while len(got) < world_size:
+                try:
+                    rank, ok, value = results.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in got and p.exitcode not in (None, 0)]
+                    if dead:
+                        raise RuntimeError(f"rank {dead[0]} exited with code "
+                                           f"{procs[dead[0]].exitcode} and no result")
+                    continue
+                if not ok:
+                    raise RuntimeError(f"rank {rank} of {world_size} failed:\n{value}")
+                got[rank] = value
+        finally:
+            for p in procs:
+                p.join(timeout=30 if len(got) == world_size else 0)
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+            results.close()
+    return [got[r] for r in range(world_size)]
+
+
+# ----------------------------------------------------------------------------
+# Collectives on the rank's device
+# ----------------------------------------------------------------------------
+
+def host_staged(t: torch.Tensor, group=None) -> bool:
+    """Whether the payload of `t` travels through host memory: a card's
+    tensor under gloo."""
+    return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
+
+
+def transport(device, group=None) -> str:
+    """The route a payload on `device` takes: the backend, and whether the
+    bytes go through host memory."""
+    backend = dist.get_backend(group)
+    staged = torch.device(device).type != "cpu" and backend == "gloo"
+    return f"{backend}, through host memory" if staged else backend
+
+
+def _host(t, group):
+    return t.cpu() if host_staged(t, group) else t
+
+
+def _back(t, h):
+    if h is not t:
+        t.copy_(h)
+    return t
+
+
+def all_reduce_(t, op=SUM, group=None):
+    h = _host(t, group)
+    dist.all_reduce(h, op, group)
+    return _back(t, h)
+
+
+def reduce_(t, dst: int, op=SUM, group=None):
+    """Sum `t` over the group into rank `dst`'s `t`; the others' `t` are
+    left as they are, or with partial sums, as `dist.reduce` leaves them.
+    Ranks here are global ranks, as torch.distributed's."""
+    h = _host(t, group)
+    dist.reduce(h, dst, op, group)
+    return _back(t, h) if dist.get_rank() == dst else t
+
+
+def broadcast_(t, src: int, group=None):
+    h = _host(t, group)
+    dist.broadcast(h, src, group)
+    return _back(t, h)
+
+
+def reduce_scatter_(out, inp, group=None):
+    """`out` (the rank's part, dim 0) <- the sum over ranks of `inp`, which
+    stacks every rank's part on dim 0."""
+    ho, hi = _host(out, group), _host(inp, group)
+    dist.reduce_scatter_tensor(ho, hi, SUM, group)
+    return _back(out, ho)
+
+
+def all_gather_(out, inp, group=None):
+    """`out` <- every rank's `inp`, stacked on dim 0 in rank order."""
+    ho, hi = _host(out, group), _host(inp, group)
+    dist.all_gather_into_tensor(ho, hi, group)
+    return _back(out, ho)
+
+
+def send(t, dst: int, group=None):
+    dist.send(_host(t, group).contiguous(), dst, group)
+
+
+def recv(t, src: int, group=None):
+    h = _host(t, group)
+    dist.recv(h, src, group)
+    return _back(t, h)
+
+
+def shift(send_buf, recv_buf, group=None):
+    """One hop of a ring: send to rank (r+1) mod n, receive from (r-1) mod n,
+    as one `batch_isend_irecv`. Returns `recv_buf`."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (r + 1) % n) if group is not None else (r + 1) % n
+    prv = dist.get_global_rank(group, (r - 1) % n) if group is not None else (r - 1) % n
+    hs, hr = _host(send_buf, group), _host(recv_buf, group)
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, hs.contiguous(), nxt, group),
+                                     dist.P2POp(dist.irecv, hr, prv, group)]):
+        w.wait()
+    return _back(recv_buf, hr)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the group, whose gradient is the sum over the group of
+    the gradients (each rank's copy of the result feeds its own loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.detach().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return all_reduce_(dy.detach().clone(), group=ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable all-reduce (sum)."""
+    return _AllReduceSum.apply(x, group)

@@ -82,26 +82,28 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
 # Forward
 # ----------------------------------------------------------------------------
 
-def _ffn(p, xn, cfg: ModelConfig):
+def _ffn(p, xn, cfg: ModelConfig, n_groups: int = 1, group=None):
     """The block's FFN on normed x: (y, the MoE aux loss, or None for a dense
-    FFN, which has none)."""
+    FFN, which has none). `n_groups` and `group`: see moe.moe_ffn."""
     if cfg.family == "moe":
-        return moe_ffn(p["moe"], xn, cfg)
+        return moe_ffn(p["moe"], xn, cfg, n_groups, group)
     return L.swiglu(xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"]), None
 
 
-def block_fwd(p, x, positions, cfg: ModelConfig, *, window: Optional[int] = None):
+def block_fwd(p, x, positions, cfg: ModelConfig, *, window: Optional[int] = None,
+              n_groups: int = 1, group=None):
     """Full-sequence block: causal attention + FFN. Returns (x, aux), aux
     None for a dense block."""
     h, _ = L.attention(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                        positions, cfg, causal=True, window=window)
     x = x + h
-    y, aux = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    y, aux = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups, group)
     return x + y, aux
 
 
 def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
-                 window: Optional[int] = None, remat: bool = True):
+                 window: Optional[int] = None, remat: bool = True,
+                 n_groups: int = 1, group=None):
     """The block stack over x (B, T, d) without a cache, then the final norm.
     Returns (x, summed aux). With `remat` (the JAX default) and autograd
     recording, each block keeps only its input for the backward and runs
@@ -111,26 +113,31 @@ def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
     for lp in params["layers"]:
         if remat and torch.is_grad_enabled():
             x, a = checkpoint(block_fwd, lp, x, positions, cfg, window=window,
-                              use_reentrant=False)
+                              n_groups=n_groups, group=group, use_reentrant=False)
         else:
-            x, a = block_fwd(lp, x, positions, cfg, window=window)
+            x, a = block_fwd(lp, x, positions, cfg, window=window, n_groups=n_groups,
+                             group=group)
         if a is not None:
             aux = aux + a
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True, n_groups: int = 1,
+            group=None):
     """Next-token loss of batch {"tokens", "targets"} (B, T) [+ "loss_mask",
     the VLM's "patch_embeds"]: embed, the VLM's patches, the block stack,
     unembed with the padded vocab masked, the fp32 cross entropy. Returns (xent + aux, {"xent", "aux"}), as the JAX
-    `lm_loss`."""
+    `lm_loss`. Under a data-parallel `group` (each rank's batch a share of
+    the global one) the MoE aux loss and a masked mean are global: see
+    moe.moe_ffn and layers.softmax_xent."""
     tokens, targets = batch["tokens"], batch["targets"]
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
     x = _inject_frontend(batch, L.embed(params["embed"], tokens), cfg)
-    x, aux = backbone_fwd(params, x, positions, cfg, remat=remat)
+    x, aux = backbone_fwd(params, x, positions, cfg, remat=remat, n_groups=n_groups,
+                          group=group)
     logits = L.unembed(params["embed"], x, cfg.vocab_size)
-    loss = L.softmax_xent(logits, targets, batch.get("loss_mask"))
+    loss = L.softmax_xent(logits, targets, batch.get("loss_mask"), group)
     return loss + aux, {"xent": loss, "aux": aux}
 
 
@@ -208,7 +215,7 @@ def _store_kv(cfg: ModelConfig, cache, li: int, k, v, pos):
         buf[bidx, row] = torch.where(keep, val.to(buf.dtype), buf[bidx, row])
 
 
-def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig):
+def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, n_groups: int = 1):
     """One decode step through layer li. x: (B, 1, d); pos: (B,) int32, the
     current length of each sequence. Updates the cache in place."""
     B, T, _ = x.shape
@@ -220,7 +227,7 @@ def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig):
     _store_kv(cfg, cache, li, k, v, pos)
     out = _decode_attend(q, cache, li, (pos + T).to(torch.int32))
     x = x + out.reshape(B, T, cfg.eff_q_heads * hd) @ p["attn"]["wo"]
-    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups)
     return x + y
 
 
@@ -233,7 +240,7 @@ def _decode_attend(q, cache, li: int, valid):
                                 view("k_scale"), view("v_scale"))
 
 
-def lm_decode_step(params, cache, batch, cfg: ModelConfig):
+def lm_decode_step(params, cache, batch, cfg: ModelConfig, *, n_groups: int = 1):
     """One-token decode across the whole stack. batch: {"tokens": (B, 1),
     "positions": (B,)}. Returns (logits (B, 1, V), cache), the cache being
     the same dictionary, updated in place.
@@ -243,12 +250,13 @@ def lm_decode_step(params, cache, batch, cfg: ModelConfig):
     tokens, pos = batch["tokens"], batch["positions"]
     x = L.embed(params["embed"], tokens)
     for li, lp in enumerate(params["layers"]):
-        x = block_decode(lp, x, cache, li, pos, cfg)
+        x = block_decode(lp, x, cache, li, pos, cfg, n_groups)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg.vocab_size), cache
 
 
-def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None):
+def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None,
+               n_groups: int = 1):
     """Full forward of batch {"tokens" (B, T)} [+ the VLM's "patch_embeds"
     (B, n_patches, d)] that also materializes the KV cache.
 
@@ -264,7 +272,7 @@ def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None)
         h, (k, v) = L.attention(lp["attn"], xn, positions, cfg, causal=True,
                                 window=window)
         x = x + h
-        y, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+        y, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, n_groups)
         x = x + y
         k, v = _replicate_kv(cfg, k, v)
         if cfg.kv_cache_dtype == "int8":

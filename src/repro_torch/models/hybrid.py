@@ -110,7 +110,7 @@ def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True, group=None):
     """Next-token loss of batch {"tokens", "targets"} (B, T) [+ "loss_mask"]:
     embed, the stack, unembed with the padded vocab masked, the fp32 cross
     entropy. Returns (xent, {"xent": xent}), as the JAX `lm_loss` (the
@@ -121,7 +121,7 @@ def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
     x = L.embed(params["embed"], tokens)
     x = backbone_fwd(params, x, positions, cfg, remat=remat)
     logits = L.unembed(params["embed"], x, cfg.vocab_size)
-    loss = L.softmax_xent(logits, targets, batch.get("loss_mask"))
+    loss = L.softmax_xent(logits, targets, batch.get("loss_mask"), group)
     return loss, {"xent": loss}
 
 

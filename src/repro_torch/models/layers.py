@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import distributed as D
 from repro_torch.kernels import ops
 from repro_torch.models import flash_vjp
 
@@ -175,13 +176,25 @@ def unembed(p, x, n_valid: Optional[int] = None):
     return logits
 
 
-def softmax_xent(logits: torch.Tensor, targets: torch.Tensor, mask=None) -> torch.Tensor:
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor, mask=None,
+                 group=None) -> torch.Tensor:
     """Token-mean cross entropy: the fp32 logsumexp minus the gold logit,
-    averaged over the tokens, or over the mask's weight (at least 1)."""
+    averaged over the tokens, or over the mask's weight (at least 1).
+
+    Under a data-parallel `group` the mean over the ranks of what this
+    returns is the global mean: with a mask the divisor is the group's
+    summed weight (and the sum is scaled by the group's size); without one
+    the rank's own mean, which is the global mean's share when every rank
+    holds as many tokens (the train step splits the batch so)."""
     logits = logits.to(F32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = lse - gold
     if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        weight = torch.sum(mask).detach()
+        if group is None:
+            return torch.sum(nll * mask) / torch.clamp_min(weight, 1.0)
+        n = torch.distributed.get_world_size(group)
+        total = D.all_reduce_(weight.to(F32).clone(), group=group)
+        return n * torch.sum(nll * mask) / torch.clamp_min(total, 1.0)
     return torch.mean(nll)

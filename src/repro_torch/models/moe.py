@@ -13,6 +13,12 @@ they go through `GroupedMatmul`, whose backward is the two grouped products
 `ops.moe_gmm_dx` and `ops.moe_gmm_dw`; the router, the gates, the dispatch,
 the combine and the aux loss are differentiated by plain autograd. The
 router runs in fp32.
+
+Under data parallelism (`group`, a process group whose ranks each hold a
+contiguous share of the global tokens, as the reference's groups line up
+with its data shards) the Switch aux loss is the global one: its mean
+router probabilities and mean assignments are averaged over the group
+before their product, the probabilities through a differentiable all-reduce.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import distributed as D
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -119,9 +126,12 @@ def _dispatch_one_group(x, logits, top_k: int, cap: int, top_e=None):
     return slots, inv, top_g, gates
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig,
-            n_groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, d) -> (y: (B, T, d), Switch-style aux loss, a scalar)."""
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
+            group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, T, d) -> (y: (B, T, d), Switch-style aux loss, a scalar). The
+    B*T tokens are dispatched in `n_groups` contiguous groups; under a
+    data-parallel `group` the aux loss's means are the group's (every rank
+    holding as many tokens)."""
     m = cfg.moe
     B, T, d = x.shape
     e, k = m.n_experts, m.top_k
@@ -153,6 +163,10 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig,
     # load-balancing aux loss (Switch-style)
     me = gates.mean(dim=(0, 1))                           # mean router prob per expert
     ce = torch.nn.functional.one_hot(gates.argmax(-1), e).to(F32).mean(dim=(0, 1))
+    if group is not None:
+        n = torch.distributed.get_world_size(group)
+        me = D.all_reduce_sum(me, group) / n
+        ce = D.all_reduce_(ce, group=group) / n
     aux = e * torch.sum(me * ce) * m.aux_loss_weight
 
     if "dense" in p:

@@ -140,7 +140,7 @@ def _dec_block_loss(lp, x, positions, enc_out, cfg: ModelConfig):
     return y
 
 
-def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True, group=None):
     """Next-token loss of batch {"tokens", "targets"} (B, T), "enc_embeds"
     (B, T_enc, d) [+ "loss_mask"]. Returns (xent, {"xent": xent}), as the
     JAX `lm_loss`."""
@@ -153,7 +153,7 @@ def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
         x = _run(_dec_block_loss, remat, lp, x, positions, enc_out, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg.vocab_size)
-    loss = L.softmax_xent(logits, targets, batch.get("loss_mask"))
+    loss = L.softmax_xent(logits, targets, batch.get("loss_mask"), group)
     return loss, {"xent": loss}
 
 

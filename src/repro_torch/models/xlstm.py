@@ -298,13 +298,13 @@ def backbone_fwd(params, x, cfg: ModelConfig, *, remat: bool = True):
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True):
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True, group=None):
     """Next-token loss of batch {"tokens", "targets"} (B, T) [+ "loss_mask"].
     Returns (xent, {"xent": xent}), as the JAX `lm_loss`."""
     x = L.embed(params["embed"], batch["tokens"])
     x = backbone_fwd(params, x, cfg, remat=remat)
     logits = L.unembed(params["embed"], x, cfg.vocab_size)
-    loss = L.softmax_xent(logits, batch["targets"], batch.get("loss_mask"))
+    loss = L.softmax_xent(logits, batch["targets"], batch.get("loss_mask"), group)
     return loss, {"xent": loss}
 
 

@@ -1,1 +1,1 @@
-"""Optimizers of the port."""
+"""Optimizers of the port, and the compressed gradient all-reduce."""

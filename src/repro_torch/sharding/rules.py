@@ -1,0 +1,290 @@
+"""Parameter -> spec rules for every architecture family, the port of the JAX
+package's `sharding/rules.py`, and what the port makes of a spec: the block
+of a leaf that each rank holds.
+
+Name-based dispatch over the param tree paths that `models/` produce.
+Conventions (logical axes; bound to physical axes by `axes.py`):
+  * column-parallel (d -> wide):   (..., "fsdp", "model")
+  * row-parallel   (wide -> d):    (..., "model", "fsdp")
+  * experts: ("expert" = data axis) leading, d_ff over "model" (expert-TP)
+  * embeddings: vocab over "model", d over "fsdp"
+  * norms / small vectors / convs: replicated
+"fsdp" resolves to the DP axes only for archs with cfg.fsdp=True (arctic,
+internvl2, qwen1.5-32b); otherwise to () = no sharding.
+
+The stacked view. The reference stacks a model's layers on leading axes;
+the port keeps them as lists (`bridge.py`): `params["layers"][i]`, or
+`params["mamba"][i][j]` for the hybrid's (nb, attn_every) stack. Every rule
+here runs on the stacked view (`stacked_view`): a leaf's path without its
+list indices, and its shape with the lists' lengths prepended, which is the
+reference's leaf. Adafactor's state keeps the stacked statistics of a stack
+under `key + "_stacked"` (`optim/optimizers.py::per_layer`); the view files
+them under `key`, where the reference keeps them. A spec entry on a stacked
+axis becomes ownership of whole items of the list: with L layers and the
+data axis of size n on the layer axis, rank r holds layers [r L/n, (r+1)
+L/n). An entry on an inner dim is a `Shard(dim)` placement of each item.
+`Shardings.index` gives, for each leaf of a port tree, the rank's block of
+it: a tuple of slices, or None where another rank owns the item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.axes import Spec, axis_sizes, guard_divisibility
+from repro_torch.tree import flatten
+
+Path = Tuple[str, ...]
+
+# suffix -> logical spec for the trailing (non-stacked) dims
+_COL = ("fsdp", "model")      # (d_in, d_out_wide)
+_ROW = ("model", "fsdp")      # (d_in_wide, d_out)
+_RULES: Dict[str, Tuple] = {
+    # dense attention / mlp
+    "wq": _COL, "wk": _COL, "wv": _COL, "wo": _ROW,
+    "w1": _COL, "w3": _COL, "w2": _ROW,
+    "bq": ("model",), "bk": ("model",), "bv": ("model",),
+    # embeddings
+    "tok": ("model", "fsdp"), "out": ("model", "fsdp"),
+    # mamba2
+    "w_zx": _COL, "w_bc": (None, None), "w_dt": (None, None),
+    "w_out": _ROW, "conv_w": (None, None), "conv_b": (None,),
+    "A_log": (None,), "D": (None,), "dt_bias": (None,), "norm_w": (None,),
+    # xlstm
+    "w_up": _COL, "w_down": _ROW,
+    "w_q": (None, "model"), "w_k": (None, "model"), "w_v": (None, "model"),
+    "w_if": (None, None), "b_if": (None,), "r_gates": (None, None, None),
+    "w_gates": _COL, "b_gates": (None,), "w_ff1": _COL, "w_ff2": _ROW,
+    # moe
+    "router": (None, None),
+}
+_MOE_RULES = {
+    # experts over the in-pod DP axis (EP), d_ff over model (expert-TP),
+    # d_model over the pod axis on multi-pod meshes (expert FSDP across
+    # pods: "pod_fsdp" resolves to () on a single pod)
+    "w1": ("expert", "pod_fsdp", "model"),
+    "w3": ("expert", "pod_fsdp", "model"),
+    "w2": ("expert", "model", "pod_fsdp"),
+}
+
+_STACKED_SUFFIX = "_stacked"
+
+
+# ----------------------------------------------------------------------------
+# The stacked view
+# ----------------------------------------------------------------------------
+
+def split_path(path) -> Tuple[Path, Tuple[int, ...]]:
+    """A port path -> (its stacked-view path, its indices into the lists)."""
+    keys = tuple(k[:-len(_STACKED_SUFFIX)] if k.endswith(_STACKED_SUFFIX) else k
+                 for k in path if isinstance(k, str))
+    return keys, tuple(k for k in path if isinstance(k, int))
+
+
+@dataclasses.dataclass(frozen=True)
+class Stacked:
+    shape: Tuple[int, ...]   # the reference's leaf shape
+    depth: int               # how many leading axes are list axes in the port
+
+
+def stacked_view(tree) -> Dict[Path, Stacked]:
+    """Stacked path -> the reference's leaf, for every leaf of a port tree
+    (params, optimizer or train state; tensors of any device, meta too)."""
+    lengths: Dict[Path, List[int]] = {}
+    inner: Dict[Path, Tuple[int, ...]] = {}
+    for path, leaf in flatten(tree):
+        spath, idx = split_path(path)
+        inner[spath] = tuple(leaf.shape)
+        seen = lengths.setdefault(spath, [0] * len(idx))
+        for axis, i in enumerate(idx):
+            seen[axis] = max(seen[axis], i + 1)
+    return {p: Stacked(tuple(lengths[p]) + inner[p], len(lengths[p])) for p in inner}
+
+
+# ----------------------------------------------------------------------------
+# Specs
+# ----------------------------------------------------------------------------
+
+def logical_spec(path: Path, shape, cfg: ModelConfig) -> Tuple:
+    """The logical spec of the (stacked) leaf at `path`: the rule of its
+    last name, padded with None over its leading (stacked) dims."""
+    names = [k for k in path if isinstance(k, str)]
+    name = names[-1] if names else ""
+    if "moe" in names and name in _MOE_RULES and "dense" not in names:
+        rule = _MOE_RULES[name]
+    else:
+        rule = _RULES.get(name, ())   # norms, scalars -> replicated
+    lead = len(shape) - len(rule)
+    if lead < 0:
+        raise ValueError(f"{path}: rule {rule} has more dims than the leaf {tuple(shape)}")
+    return (None,) * lead + tuple(rule)
+
+
+def _effective_rules(cfg: ModelConfig, rules) -> Dict[str, Tuple[str, ...]]:
+    eff = dict(rules)
+    if not cfg.fsdp:
+        eff["fsdp"] = ()
+    return eff
+
+
+def _physical(spec, rules) -> Spec:
+    out = []
+    for ax in spec:
+        if ax is None:
+            out.append(None)
+        else:
+            phys = rules.get(ax, ())
+            out.append(phys if phys else None)
+    return tuple(out)
+
+
+def param_specs(view: Dict[Path, Stacked], cfg: ModelConfig,
+                rules: Dict[str, Tuple[str, ...]]) -> Dict[Path, Spec]:
+    """Stacked path -> physical spec (the reference's `param_pspecs`).
+    `rules` maps logical names to physical axes (axes.single_pod_rules);
+    for non-FSDP archs "fsdp" is stripped here."""
+    eff = _effective_rules(cfg, rules)
+    return {p: _physical(logical_spec(p, s.shape, cfg), eff) for p, s in view.items()}
+
+
+def zero1_extend(spec: Spec, shape, mesh, dp_axes: Tuple[str, ...]) -> Spec:
+    """ZeRO-1: shard optimizer state over the DP axes by assigning them to
+    the first unsharded dim they divide (no-op if none divides)."""
+    sizes = axis_sizes(mesh)
+    dp = [a for a in dp_axes if a in sizes]
+    if not dp:
+        return spec
+    used = set()
+    for e in spec:
+        if e is None:
+            continue
+        for a in (e if isinstance(e, tuple) else (e,)):
+            used.add(a)
+    dp = [a for a in dp if a not in used]
+    if not dp:
+        return spec
+    dp_size = math.prod(sizes[a] for a in dp)
+    entries = list(tuple(spec) + (None,) * (len(shape) - len(spec)))
+    for i, (dim, e) in enumerate(zip(shape, entries)):
+        if e is None and dim % dp_size == 0 and dim >= dp_size:
+            entries[i] = tuple(dp)
+            return tuple(entries)
+    return spec
+
+
+def leaf_spec(path: Path, leaf: Stacked, cfg: ModelConfig, mesh, rules,
+              dp_axes: Tuple[str, ...], zero1: bool, zero1_stack: bool = True) -> Spec:
+    """The spec of one stacked leaf on `mesh`: its rule, guarded; with
+    `zero1`, extended over the DP axes and guarded again (the reference
+    dry-run's `_leaf_sharding`). `zero1_stack=False` keeps the DP axes off
+    the stacked axes: each item of the list is split instead of owned."""
+    spec = guard_divisibility(mesh, leaf.shape,
+                              _physical(logical_spec(path, leaf.shape, cfg),
+                                        _effective_rules(cfg, rules)))
+    if zero1:
+        lead = 0 if zero1_stack else leaf.depth
+        spec = spec[:lead] + zero1_extend(spec[lead:], leaf.shape[lead:], mesh, dp_axes)
+        spec = guard_divisibility(mesh, leaf.shape, spec)
+    return spec
+
+
+# ----------------------------------------------------------------------------
+# Where a leaf lives
+# ----------------------------------------------------------------------------
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DeviceMesh placements of a tensor under `spec`: per mesh axis,
+    `Shard(dim)` where the spec names the axis on dim, else `Replicate()`
+    (the counterpart of the reference's `NamedSharding`)."""
+    dims = {a: d for d, e in enumerate(spec) for a in _axes(e)}
+    return tuple(Shard(dims[a]) if a in dims else Replicate() for a in mesh.axis_names)
+
+
+def coordinate(mesh, rank: int) -> Tuple[int, ...]:
+    """Rank -> its coordinates on the mesh (row-major, as
+    `init_device_mesh` lays the ranks out)."""
+    out = []
+    for n in reversed(mesh.shape):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def block(shape, spec: Spec, mesh, coord) -> Tuple[slice, ...]:
+    """The block of a `shape` array under `spec` held at mesh coordinates
+    `coord`: a dim sharded over axes (a, b) is cut into size(a) * size(b)
+    equal parts, taken row-major over the axes."""
+    sizes, pos = axis_sizes(mesh), dict(zip(mesh.axis_names, coord))
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        n, k = 1, 0
+        for a in _axes(entry):
+            n, k = n * sizes[a], k * sizes[a] + pos[a]
+        if dim % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split {n} ways ({spec})")
+        out.append(slice(k * (dim // n), (k + 1) * (dim // n)))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shardings:
+    """The port's counterpart of a tree of `NamedSharding`: a mesh and, per
+    stacked path of a tree, the reference's leaf shape and its spec."""
+    mesh: Any
+    shapes: Dict[Path, Tuple[int, ...]]
+    specs: Dict[Path, Spec]
+
+    def full_shape(self, path) -> Tuple[int, ...]:
+        """The whole shape of the port leaf at `path`."""
+        spath, idx = split_path(path)
+        return self.shapes[spath][len(idx):]
+
+    def index(self, tree, rank: int) -> List[Optional[Tuple[slice, ...]]]:
+        """For each leaf of `tree` (in `tree.leaves` order), the block of the
+        whole port leaf that `rank` holds, or None where another rank owns
+        its item of the stack. Only the paths of `tree` are read, so it may
+        hold whole leaves or the rank's blocks."""
+        coord = coordinate(self.mesh, rank)
+        out = []
+        for path, _ in flatten(tree):
+            spath, idx = split_path(path)
+            b = block(self.shapes[spath], self.specs[spath], self.mesh, coord)
+            owned = all(s.start <= i < s.stop for s, i in zip(b, idx))
+            out.append(b[len(idx):] if owned else None)
+        return out
+
+
+def shardings_for(tree, cfg: ModelConfig, mesh, rules, *, zero1: bool = False,
+                  zero1_stack: bool = True) -> Shardings:
+    """Shardings of a params-like tree (params, AdamW's m or v, a gradient
+    accumulator) on `mesh`: guarded param specs (the reference's
+    `named_shardings`), or with `zero1` its ZeRO-1 extension over the
+    rules' batch axes (the dry-run's `grad_shardings`). `tree` holds whole
+    leaves; meta tensors will do."""
+    view = stacked_view(tree)
+    dp_axes = tuple(rules.get("batch", ()))
+    return Shardings(mesh, {p: s.shape for p, s in view.items()},
+                     {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, zero1, zero1_stack)
+                      for p, s in view.items()})
+
+
+def state_shardings(state, cfg: ModelConfig, mesh, rules, *,
+                    zero1_stack: bool = True) -> Shardings:
+    """Shardings of a train state {"params", "opt", "step"}: the params'
+    guarded specs, the optimizer state's ZeRO-1 specs (the dry-run's
+    `state_shardings`). `state` holds whole leaves; meta tensors will do."""
+    view = stacked_view(state)
+    dp_axes = tuple(rules.get("batch", ()))
+    return Shardings(mesh, {p: s.shape for p, s in view.items()},
+                     {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, p[0] == "opt", zero1_stack)
+                      for p, s in view.items()})

@@ -4,33 +4,165 @@ train_step: microbatched gradient accumulation (a loop over microbatches
 split on the batch axis, fp32 accumulators), gradient clipping by the
 global norm, the optimizer update. The loss and its gradients come from
 `model.loss` under autograd, with the model's remat (`dense.backbone_fwd`,
-`hybrid.backbone_fwd`).
+`hybrid.backbone_fwd`). The step updates the state's tensors in place and
+returns the same containers.
 
-The reference's `grad_shardings` (a sharded accumulator across devices)
-waits for the multi-device item (ROADMAP.md, Queue 1). The step updates
-the state's tensors in place and returns the same containers.
+Under a data-parallel `mesh` (`launch/mesh.py`; the port runs no tensor
+parallelism, so its other axes have size 1) every rank runs the step on the
+global batch, of which it takes its rows: the reference cuts the global
+batch into microbatches first and splits each over the data axis, so rank r
+of n takes rows [r B/(M n), (r+1) B/(M n)) of each microbatch of B/M rows.
+The model must be built under the same mesh (its loss takes the MoE aux
+loss's means over the group). The result is the single-device step on the
+global batch, to rounding, as the reference's SPMD step is.
+  * Without `grad_shardings` (plain data parallelism) each rank accumulates
+    its own fp32 gradient over the microbatches and the sum is all-reduced
+    once, in one flat buffer; the optimizer state is replicated.
+  * With `grad_shardings` (`sharding/rules.py::shardings_for(..., zero1=True)`,
+    the reference dry-run's ZeRO-2 grad shardings) each rank keeps only its
+    block of every fp32 accumulator (1/n of it), and each microbatch's
+    gradient is reduced into the blocks: a reduce-scatter for a leaf split
+    along a dim, a reduce to the owner for a layer a rank owns whole, an
+    all-reduce for a leaf every rank holds. The optimizer state is the
+    rank's ZeRO-1 share (`make_init_state` with the same shardings; AdamW,
+    whose update is elementwise); after the update each rank's blocks of the
+    params are all-gathered (or broadcast from their owner), so the params
+    stay whole on every rank.
+The clip's global norm sums the squares of each block once (on its first
+holder) and all-reduces the sum.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import distributed as D
+from repro_torch.launch.mesh import dp_group
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 F32 = torch.float32
+ACC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _full(block, shape) -> bool:
+    return block is not None and all(s.start == 0 and s.stop == n for s, n in zip(block, shape))
+
+
+class _Layout:
+    """How each leaf of the params is spread over the ranks under the
+    shardings, and the collectives that reduce into it and gather from it."""
+
+    def __init__(self, params, shardings, n: int, rank: int):
+        self.rank = rank
+        self.blocks = [shardings.index(params, q) for q in range(n)]
+        self.mine = self.blocks[rank]
+        self.modes = []
+        for j, p in enumerate(leaves(params)):
+            bs = [b[j] for b in self.blocks]
+            holders = [q for q, b in enumerate(bs) if b is not None]
+            if all(_full(b, p.shape) for b in bs):
+                mode = ("all",)
+            elif len(holders) == 1 and _full(bs[holders[0]], p.shape):
+                mode = ("owner", holders[0])
+            else:
+                mode = ("general",)
+                split = [d for d in range(p.ndim)
+                         if all(b is not None and b[d].stop - b[d].start == p.shape[d] // n
+                                and b[d].start == q * (p.shape[d] // n) for q, b in enumerate(bs))]
+                if n > 1 and len(split) == 1 and all(
+                        _full(tuple(s for d, s in enumerate(b) if d != split[0]),
+                              [m for d, m in enumerate(p.shape) if d != split[0]]) for b in bs):
+                    mode = ("split", split[0])
+            # the first rank holding this rank's block counts it in the norm
+            first = min(q for q, b in enumerate(bs) if b == self.mine[j]) \
+                if self.mine[j] is not None else None
+            self.modes.append((mode, first == rank))
+
+    def reduce_into(self, acc, grads, acc_dtype, group):
+        """Add the group's sum of `grads` (a list, emptied as it goes, so
+        each gradient is freed once reduced) into this rank's blocks."""
+        for j, ((mode, _), a, b) in enumerate(zip(self.modes, acc, self.mine)):
+            g, grads[j] = grads[j], None
+            if mode[0] == "split":   # one fp32 copy, laid out split dim first
+                d = mode[1]
+                inp = a.new_empty(g.movedim(d, 0).shape).copy_(g.movedim(d, 0))
+                out = a.new_empty(a.movedim(d, 0).shape)
+                a.add_(D.reduce_scatter_(out, inp, group).movedim(0, d))
+                continue
+            g = g.to(acc_dtype)
+            if mode[0] == "all":
+                a.add_(D.all_reduce_(g, group=group))
+            elif mode[0] == "owner":
+                D.reduce_(g, mode[1], group=group)
+                if mode[1] == self.rank:
+                    a.add_(g)
+            else:
+                D.all_reduce_(g, group=group)
+                if b is not None:
+                    a.add_(g[b])
+
+    def sq_norm(self, acc) -> torch.Tensor:
+        """This rank's share of the sum of squares (each block once)."""
+        return sum((torch.sum(torch.square(a.to(F32))) for (_, counted), a in
+                    zip(self.modes, acc) if counted), torch.zeros((), dtype=F32))
+
+    def gather(self, params, group):
+        """Every rank's updated blocks of the params, onto every rank."""
+        for j, ((mode, _), p) in enumerate(zip(self.modes, leaves(params))):
+            if mode[0] == "owner":
+                D.broadcast_(p, mode[1], group=group)
+            elif mode[0] == "split":
+                d, own = mode[1], p[self.mine[j]].movedim(mode[1], 0).contiguous()
+                out = p.new_empty(p.movedim(d, 0).shape)
+                p.copy_(D.all_gather_(out, own, group).movedim(0, d))
+            elif mode[0] == "general":
+                done = []
+                for q, blocks in enumerate(self.blocks):
+                    b = blocks[j]
+                    if b is None or b in done:
+                        continue
+                    done.append(b)
+                    part = p[b].contiguous()
+                    p[b].copy_(D.broadcast_(part, q, group=group))
+
+
+def _local(tree, index):
+    """The rank's blocks of the leaves of `tree`: views where it holds one,
+    empty tensors where another rank owns the leaf."""
+    return unflatten_like(tree, [t[b] if b is not None else t.new_empty((0,))
+                                 for t, b in zip(leaves(tree), index)])
 
 
 def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
-                    n_microbatches: int = 1, clip_norm: float = 1.0):
+                    n_microbatches: int = 1, clip_norm: float = 1.0,
+                    grad_shardings=None, accum_dtype: str = "float32", mesh=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     state = {"params", "opt", "step"}; batch leaves lead with the global
     batch. metrics = {"loss", "grad_norm", "lr"}, 0-d tensors on the
-    device (reading one waits for the step). Gradients are accumulated in
-    fp32 (the reference's default `accum_dtype`)."""
+    device (reading one waits for the step), the loss the global batch's.
+    Gradients are accumulated in `accum_dtype`. Under `mesh` or
+    `grad_shardings` (whose mesh is then the step's), see the module's
+    docstring."""
+    acc_dtype = ACC_DTYPES[accum_dtype]
+    if grad_shardings is not None:
+        if mesh is not None and mesh is not grad_shardings.mesh:
+            raise ValueError("grad_shardings were made for another mesh")
+        mesh = grad_shardings.mesh
+        if opt.name != "adamw":
+            raise ValueError(f"ZeRO-1 state sharding needs an elementwise update (AdamW); "
+                             f"{opt.name}'s factored statistics read whole rows and columns")
+    if mesh is not None and model.mesh is not mesh:
+        raise ValueError("build the model under the step's mesh: its loss takes the "
+                         "group's means")
+    group = dp_group(mesh) if mesh is not None else None
+    n = dist.get_world_size(group) if mesh is not None else 1
+    rank = dist.get_rank(group) if mesh is not None else 0
+    layouts: Dict[int, _Layout] = {}
 
     def grads_of(params, mb):
         # leaves that share the parameters' storage and require grad, so the
@@ -42,43 +174,93 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
 
     def train_step(state, batch):
         params = state["params"]
-        if n_microbatches == 1:
-            loss, grads = grads_of(params, batch)
-            acc = [g.to(F32) for g in grads]
+        plist = leaves(params)
+        M = n_microbatches
+        rows = next(iter(batch.values())).shape[0]
+        if rows % (M * n):
+            raise ValueError(f"batch {rows} does not split into {M} microbatches of {n} "
+                             "equal shares")
+
+        def share(x, i):   # microbatch i's rows of this rank
+            return x.reshape(M, n, rows // (M * n), *x.shape[1:])[i, rank]
+
+        if grad_shardings is None:
+            flat = torch.zeros(sum(p.numel() for p in plist), dtype=acc_dtype,
+                               device=plist[0].device)
+            acc, at = [], 0
+            for p in plist:
+                acc.append(flat[at:at + p.numel()].view(p.shape))
+                at += p.numel()
         else:
-            def split_mb(x):
-                b = x.shape[0]
-                if b % n_microbatches:
-                    raise ValueError(f"batch {b} is not a multiple of {n_microbatches} "
-                                     "microbatches")
-                return x.reshape(n_microbatches, b // n_microbatches, *x.shape[1:])
-
-            mbs = {k: split_mb(v) for k, v in batch.items()}
-            acc = [torch.zeros(p.shape, dtype=F32, device=p.device)
-                   for p in leaves(params)]
-            loss_sum = torch.zeros((), dtype=F32, device=state["step"].device)
-            for i in range(n_microbatches):
-                loss, grads = grads_of(params, {k: v[i] for k, v in mbs.items()})
+            layout = layouts.get(id(params))
+            if layout is None:
+                layout = layouts[id(params)] = _Layout(params, grad_shardings, n, rank)
+            acc = [torch.zeros(p[b].shape if b is not None else (0,), dtype=acc_dtype,
+                               device=p.device) for p, b in zip(plist, layout.mine)]
+        loss_sum = torch.zeros((), dtype=F32, device=state["step"].device)
+        for i in range(M):
+            loss, grads = grads_of(params, {k: share(v, i) for k, v in batch.items()})
+            grads = list(grads)
+            if grad_shardings is None:
                 for a, g in zip(acc, grads):
-                    a.add_(g.to(F32))
-                del grads
-                loss_sum = loss_sum + loss
-            for a in acc:
-                a.div_(n_microbatches)
-            loss = loss_sum / n_microbatches
+                    a.add_(g.to(acc_dtype))
+            else:
+                layout.reduce_into(acc, grads, acc_dtype, group)
+            del grads
+            loss_sum = loss_sum + loss
+        if grad_shardings is None and mesh is not None:
+            D.all_reduce_(flat, group=group)
+        for a in acc:
+            a.div_(M * n)
+        loss = loss_sum / M
+        if mesh is not None:
+            loss = D.all_reduce_(loss, group=group) / n
 
-        grads, gnorm = clip_by_global_norm(unflatten_like(params, acc), clip_norm)
+        if grad_shardings is None:
+            grads, gnorm = clip_by_global_norm(unflatten_like(params, acc), clip_norm)
+        else:
+            gnorm = torch.sqrt(D.all_reduce_(layout.sq_norm(acc).to(loss.device), group=group))
+            scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+            for a in acc:
+                a.copy_((a.to(F32) * scale).to(a.dtype))
         lr = lr_fn(state["step"])
-        new_params, new_opt, _ = opt.update(params, grads, state["opt"], lr)
-        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+        if grad_shardings is None:
+            opt.update(params, grads, state["opt"], lr)
+        else:
+            held = [j for j, b in enumerate(layout.mine) if b is not None]
+            m, v = leaves(state["opt"]["m"]), leaves(state["opt"]["v"])
+            sub = {"m": [m[j] for j in held], "v": [v[j] for j in held],
+                   "step": state["opt"]["step"]}
+            opt.update([plist[j][layout.mine[j]] for j in held], [acc[j] for j in held],
+                       sub, lr)
+            state["opt"]["step"] = sub["step"]
+            layout.gather(params, group)
+        new_state = {"params": params, "opt": state["opt"], "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
     return train_step
 
 
-def make_init_state(model: Model, opt: Optimizer):
+def train_state(params, opt: Optimizer, shardings=None) -> Dict[str, Any]:
+    """{"params", "opt", "step"} at step 0 for whole `params`. With
+    `shardings` (the step's `grad_shardings`), the optimizer state is this
+    rank's ZeRO-1 share: its block of each moment, an empty tensor where
+    another rank owns the leaf."""
+    if shardings is None:
+        opt_state = opt.init(params)
+    else:
+        if opt.name != "adamw":
+            raise ValueError(f"ZeRO-1 state sharding needs AdamW, not {opt.name}")
+        rank = dist.get_rank(dp_group(shardings.mesh))
+        opt_state = opt.init(_local(params, shardings.index(params, rank)))
+    step = torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
+    return {"params": params, "opt": opt_state, "step": step}
+
+
+def make_init_state(model: Model, opt: Optimizer, shardings=None):
+    """init_state(generator) -> `train_state` of the model's params drawn
+    from `generator` (under `shardings`, the same seed gives every rank the
+    same draw, so the params are whole and alike on every rank)."""
     def init_state(generator: torch.Generator) -> Dict[str, Any]:
-        params = model.init_params(generator)
-        return {"params": params, "opt": opt.init(params),
-                "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+        return train_state(model.init_params(generator), opt, shardings)
     return init_state

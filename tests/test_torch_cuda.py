@@ -16,6 +16,9 @@ another order, with exp of the summed decays), bf16 2e-2. The flash
 tensor-core kernel is also held to the CUDA-core kernel's distance from an
 fp32 run (within 5%), which fails if P is rounded to bf16 before P.V; the
 SSD scan's tensor-core path to 2x the first version's distance from fp64.
+The multi-rank paths (the int8 ring all-reduce, the ZeRO-2 step) run their
+ranks on the cards present (`repro_torch.distributed.spawn`; on one card
+they share it over gloo) against the same ranks on the CPU.
 """
 import pytest
 import torch
@@ -1046,3 +1049,54 @@ def test_rollout_on_the_card_matches_the_cpu(cuda, name):
     task = R.rollout_task(name, 32, 5, device=cuda)
     torch.testing.assert_close(torch.from_numpy(task["obs"]), obs.cpu(), atol=0, rtol=0)
     assert (fk.launches, dk.launches, gk.launches, sk.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_compressed_psum_mean_on_the_card_matches_the_cpu(cuda, world):
+    """The int8 ring all-reduce on `world` ranks on the cards present (NCCL
+    with a card a rank, else gloo, the payload through host memory) against
+    the same ranks on the CPU, on the same (world, 128) input and 5 steps of
+    error feedback: the mean, the residual and the fed-back mean within 1e-6
+    (the same fp32 operations; expected bit for bit)."""
+    import numpy as np
+    from repro_torch import distributed as D
+    import _torch_dist_ranks as R
+
+    g = np.random.default_rng(world).standard_normal((world, 128)).astype(np.float32)
+    card = D.spawn(R.compression_rank, world, g, 5, device="cuda", timeout=120)
+    cpu = D.spawn(R.compression_rank, world, g, 5, device="cpu", timeout=120)
+    for got, want in zip(card, cpu):
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_zero2_step_on_the_card_matches_the_cpu(cuda):
+    """Three ZeRO-2 data-parallel steps of llama3-8b SMOKE in fp32 on 2 ranks
+    on the cards present against the same ranks on the CPU: losses and grad
+    norms to 1e-4 relative, the params as the single-card train test holds
+    them (an entry whose gradient sits near 0 may flip AdamW's first step,
+    by up to 2 lr)."""
+    import numpy as np
+    from repro_torch import bridge, distributed as D
+    import _torch_dist_ranks as R
+
+    cfg = R.smoke_cfg("llama3-8b")
+    params = bridge.params_to_numpy(build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(3):
+        t = rng.integers(0, cfg.vocab_size, (8, 33)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1].copy(), "targets": t[:, 1:].copy()})
+    card, cpu = (D.spawn(R.dp_train_rank, 2, "llama3-8b", params, batches, 2, True,
+                         device=dev, timeout=120)[0] for dev in ("cuda", "cpu"))
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=1e-4)
+    np.testing.assert_allclose(card["norms"], cpu["norms"], rtol=1e-4)
+    from repro_torch.tree import flatten
+    diffs = np.concatenate([np.abs(a - b).ravel() for (_, a), (_, b) in
+                            zip(flatten(card["params"]), flatten(cpu["params"]))])
+    assert diffs.max() <= 2 * R.LR + 1e-6
+    assert (diffs <= 1e-6).mean() >= 0.99
+    assert card["held"] == card["whole"] // 2

@@ -51,8 +51,8 @@ def _close(got, want, **tol):
 def test_config_copies_match_jax(arch, smoke):
     """Every field the port keeps equals the JAX config's, the family configs
     (moe, ssm, xlstm, hybrid, encdec, vlm) field by field; it leaves out the
-    long-context fields (read only by the long_500k shape) and the fields
-    only the JAX dry-run launcher reads (optimizer, fsdp)."""
+    long-context fields (read only by the long_500k shape) and the field
+    only the JAX dry-run launcher reads (optimizer)."""
     port, ref = get_config(arch, smoke), jax_get_config(arch, smoke)
     for f in dataclasses.fields(port):
         got, want = getattr(port, f.name), getattr(ref, f.name)
@@ -66,7 +66,7 @@ def test_config_copies_match_jax(arch, smoke):
     kept = {f.name for f in dataclasses.fields(port)}
     assert {"xlstm", "encdec", "vlm"} <= kept
     left_out = {f.name for f in dataclasses.fields(ref)} - kept
-    assert left_out == {"long_context_window", "sub_quadratic", "optimizer", "fsdp"}
+    assert left_out == {"long_context_window", "sub_quadratic", "optimizer"}
 
 
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
