@@ -184,7 +184,26 @@ on failure; nothing is caught and carried on.
      from the 2 ranks (rank 0 writes), restored into this process and, with
      the DP axes moved off the layer axis, into 2 ranks: every block
      bit-identical to the saving ranks' (`digest`);
- 12. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+ 12. the dry-run (`repro_torch.launch.dryrun`) held to the card: a. for 8b's
+     train step (llama3-8b x 4 layers, 4 x 1024 tokens in 2 microbatches),
+     8e's (phi3.5-moe x 2 layers, the same batch), one llama3-8b decode step
+     at full size on a cache of 8 slots x 2048 rows and phase 7's zamba2
+     prefill (4 x 1024), the account of the step on the meta device and the
+     same step's on the card under the same `roofline.CostModel`: FLOPs,
+     HBM bytes, kernel ops by name and the live bytes' high-water mark
+     equal, the kernel ops equal to the wrappers' launch counts, the
+     allocator's peak (`max_memory_allocated`) within ACCOUNT_PEAK_RATIO of
+     the account's, and the step's measured time no shorter than the
+     roofline's largest term; b. 11b's ZeRO-2 step on an abstract (2, 1)
+     mesh: its accumulator bytes a rank equal to 11b's ranks', its peak
+     beside theirs within ACCOUNT_PEAK_RATIO; c. the production sweep of
+     llama3-8b, phi3.5-moe and zamba2 on the (1, 1) and (4, 1) meshes (the
+     dry-run's CLI, in low-priority processes started after the build that
+     run beside phases 3-11), one line a cell: status, peak_per_device_gb,
+     fits_80gb, the dominant term, roofline_fraction. The kernels' bounds
+     everywhere come from the kernel ops' cost formulas
+     (`kernels/costs.py`) and `roofline.py`'s peaks;
+ 13. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
      at C=320, ssd_scan's with its plain backward, flash's and decode's
      with their rows at phase 9's shapes) and, last, the device line
      `{"ok": true, "device": {...}}`.
@@ -192,6 +211,7 @@ on failure; nothing is caught and carried on.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import subprocess
 import sys
@@ -203,13 +223,6 @@ from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores,
-# fp32 outside the tensor cores, HBM3
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_F32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 
 BF16_TOL = 2e-2      # tests/test_kernels.py::_tol
 F32_TOL = 2e-5
@@ -321,19 +334,14 @@ def _rnd(gen, dev):
     return rnd
 
 
-def flash_bound(B, Hq, Hkv, T, D):
-    """(bound ms, flops) of causal attention over T tokens in bf16."""
-    flops = 4 * B * Hq * D * (T * (T + 1) // 2)
-    nbytes = 2 * B * D * T * (2 * Hq + 2 * Hkv)
-    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3, flops
-
-
-def decode_bound(B, Hq, Hc, D, rows):
-    """(bound ms, bytes) of one bf16 query per sequence over `rows` valid
-    cache rows in all."""
-    nbytes = 2 * (2 * rows * Hc * D + 2 * B * Hq * D) + 4 * B
-    flops = 4 * Hq * D * rows
-    return max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS) * 1e3, nbytes
+def bound_ms(cost, peak=None):
+    """(ms, "operations" or "bytes"): the least time the card takes for a
+    kernel op's (FLOPs, bytes), from its cost formula
+    (`kernels/costs.py`), at `peak` (default bf16) and the HBM rate
+    (`roofline.bound`)."""
+    from repro_torch import roofline
+    seconds, by = roofline.bound(*cost, peak or roofline.PEAK_FLOPS)
+    return seconds * 1e3, by
 
 
 def decode_times(q, kc, vc, valid, scales=(None, None), nbytes=None):
@@ -346,7 +354,7 @@ def decode_times(q, kc, vc, valid, scales=(None, None), nbytes=None):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import costs, ops
 
     B, Hq, D = q.shape
     Hc, S = kc.shape[1], kc.shape[2]
@@ -359,7 +367,7 @@ def decode_times(q, kc, vc, valid, scales=(None, None), nbytes=None):
     dev = {n: device_ms(fn, 50) for n, fn in calls.items()}
     event = {n: cuda_ms(fn, 50) for n, fn in calls.items()}
     if nbytes is None:
-        _, nbytes = decode_bound(B, Hq, Hc, D, int(valid.sum()))
+        _, nbytes = costs.decode_cost(B, Hq, Hc, S, D, rows=int(valid.sum()))
     say(f"    {dk.route_for(kc, vc)}: kernel {dev['kernel']:.4f} ms "
         f"({nbytes / dev['kernel'] / 1e6:.1f} GB/s), "
         + ", ".join(f"{n} {t:.4f} ms" for n, t in dev.items() if n != "kernel")
@@ -375,11 +383,12 @@ def split_sweep(q, kc, vc, valid, scales=(None, None), nbytes=None):
     SPLIT_SWEEP_ROWS (decode_attention.plan picks one from shapes alone;
     its pick is marked)."""
     from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import costs
 
     B, Hq, D = q.shape
     Hc, S = kc.shape[1], kc.shape[2]
     if nbytes is None:
-        _, nbytes = decode_bound(B, Hq, Hc, D, int(valid.sum()))
+        _, nbytes = costs.decode_cost(B, Hq, Hc, S, D, rows=int(valid.sum()))
     planned, _ = dk.plan(B, Hc, S, D, dk._sm_count(q.device))
     cells = []
     for rows in SPLIT_SWEEP_ROWS:
@@ -416,7 +425,7 @@ def flash_sweep(rnd, B, Hq, Hkv, D, label, timed_T=1024):
     plain version's time."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import costs, ops, ref
 
     gqa = {"enable_gqa": True} if Hq != Hkv else {}
     say(f"  sweep, bf16 causal B={B} Hq={Hq} Hkv={Hkv} D={D} ({label}):")
@@ -434,7 +443,8 @@ def flash_sweep(rnd, B, Hq, Hkv, D, label, timed_T=1024):
                                                                  **gqa), 20)}
         dev = {n: device_ms(fn, n_it) for n, (fn, n_it) in calls.items()}
         event = {n: cuda_ms(fn, n_it) for n, (fn, n_it) in calls.items()}
-        bound, flops = flash_bound(B, Hq, Hkv, T, D)
+        flops, nbytes = costs.flash_cost(B, Hq, Hkv, T, T, D)
+        bound, _ = bound_ms((flops, nbytes))
         say(f"    T={T}: {path}, kernel {dev['kernel']:.4f} ms "
             f"({flops / dev['kernel'] / 1e9:.1f} TFLOP/s), simt {dev['simt']:.4f} ms, sdpa "
             f"{dev['sdpa']:.4f} ms, bound {bound:.4f} ms; event time: "
@@ -457,7 +467,7 @@ def kernel_phase(gen, dev):
     import torch
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import costs, ops, ref
 
     rnd = _rnd(gen, dev)
     table = {}
@@ -494,7 +504,7 @@ def kernel_phase(gen, dev):
             times = decode_times(q, kc, vc, valid)
             split_sweep(q, kc, vc, valid)
             plain = cuda_ms(lambda: ref.decode_attention_ref(q, kc, vc, valid), 5)
-            bound, _ = decode_bound(B, Hq, Hc, D, rows)
+            bound, _ = bound_ms(costs.decode_cost(B, Hq, Hc, S, D, rows=rows))
             say(f"  time bf16: plain {plain:.4f} ms, bound {bound:.4f} ms")
             table["decode_attention"] = dict(
                 max_abs_err=err, ms=times["kernel"], plain_ms=plain, bound_ms=bound,
@@ -521,11 +531,11 @@ def kernel_phase(gen, dev):
                  f"({dk.route_for(k8, v8)})", out,
                  ref.decode_attention_ref(q, k8, v8, valid, ks, vs), tol)
             if dtype == torch.bfloat16:   # the serving path's
-                rows = int(valid.sum())
-                nbytes = 2 * rows * Hc * (D + 4) + 2 * 2 * B * Hq * D + 4 * B
-                decode_times(q, k8, v8, valid, (ks, vs), nbytes=nbytes)
-                split_sweep(q, k8, v8, valid, (ks, vs), nbytes=nbytes)
-                say(f"  bound int8: {nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms ({nbytes / 1e6:.2f} MB)")
+                cost = costs.decode_cost(B, Hq, Hc, S, D, rows=int(valid.sum()),
+                                       cache_itemsize=1, scales=True)
+                decode_times(q, k8, v8, valid, (ks, vs), nbytes=cost[1])
+                split_sweep(q, k8, v8, valid, (ks, vs), nbytes=cost[1])
+                say(f"  bound int8: {bound_ms(cost)[0]:.4f} ms ({cost[1] / 1e6:.2f} MB)")
     return table
 
 
@@ -537,7 +547,7 @@ def head_dim_phase(gen, dev):
     import torch
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import costs, ops, ref
 
     rnd = _rnd(gen, dev)
     times = {}
@@ -577,20 +587,10 @@ def head_dim_phase(gen, dev):
                 t = decode_times(q, kc, vc, vl)
                 split_sweep(q, kc, vc, vl)
                 t["plain_ms"] = cuda_ms(lambda: ref.decode_attention_ref(q, kc, vc, vl), 5)
-                t["bound_ms"], _ = decode_bound(B, Hq, Hc, D, int(vl.sum()))
+                t["bound_ms"], _ = bound_ms(costs.decode_cost(B, Hq, Hc, S, D, rows=int(vl.sum())))
                 say(f"    plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
                 times[f"decode_d{D}"] = t
     return times
-
-
-def attention_bound(B, Hq, Hkv, Tq, Tk, D, causal):
-    """(bound ms, bound_by) of bf16 flash attention: q, k, v read once, the
-    output written once; the products (causal: those on or below the
-    diagonal, Tq == Tk) at the bf16 tensor-core rate."""
-    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
-    t_ops = 4 * B * Hq * D * pairs / PEAK_BF16_FLOPS
-    t_bytes = 2 * B * D * (2 * Hq * Tq + 2 * Hkv * Tk) / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
 # the attention shapes of phase 9's paths: (label, B, Tq, Tk, Hq, Hkv, D,
@@ -620,7 +620,7 @@ def new_shape_phase(gen, dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import costs, ops, ref
 
     rnd = _rnd(gen, dev)
     rows = {"flash_attention": [], "decode_attention": []}
@@ -640,7 +640,7 @@ def new_shape_phase(gen, dev) -> dict:
         sdpa = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                                 **gqa), 20)
         plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 3)
-        bound, by = attention_bound(B, Hq, Hkv, Tq, Tk, D, causal)
+        bound, by = bound_ms(costs.flash_cost(B, Hq, Hkv, Tq, Tk, D, causal=causal))
         say(f"    {path}: kernel {ms:.4f} ms, sdpa {sdpa:.4f} ms, plain {plain:.4f} ms, "
             f"bound {bound:.4f} ms ({by})")
         rows["flash_attention"].append(dict(
@@ -659,7 +659,7 @@ def new_shape_phase(gen, dev) -> dict:
                    ref.decode_attention_ref(q, kc, vc, valid), BF16_TOL)
         t = decode_times(q, kc, vc, valid)
         plain = cuda_ms(lambda: ref.decode_attention_ref(q, kc, vc, valid), 5)
-        bound, _ = decode_bound(B, Hq, Hc, D, B * n_valid)
+        bound, _ = bound_ms(costs.decode_cost(B, Hq, Hc, S, D, rows=B * n_valid))
         say(f"    plain {plain:.4f} ms, bound {bound:.4f} ms")
         rows["decode_attention"].append(dict(
             path_of=label, shape=shape, kernel=path, launches_per_step=n, max_abs_err=err,
@@ -667,16 +667,6 @@ def new_shape_phase(gen, dev) -> dict:
             library_ms=t["sdpa"], simt_ms=t["simt"]))
         del q, kc, vc
     return rows
-
-
-def gmm_bound(E, C, din, dout):
-    """(bound ms, bound_by, flops, bytes) of a bf16 grouped matmul: x, w read
-    once, out written once; the products at the bf16 tensor-core rate."""
-    flops = 2 * E * C * din * dout
-    nbytes = 2 * (E * C * din + E * din * dout + E * C * dout)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
-            flops, nbytes)
 
 
 def gmm_phase(gen, dev):
@@ -687,7 +677,7 @@ def gmm_phase(gen, dev):
     torch.bmm's and the bound."""
     import torch
     from repro_torch.kernels import moe_gmm as gk
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import costs, ops, ref
 
     rnd = _rnd(gen, dev)
     rows = {}
@@ -708,7 +698,8 @@ def gmm_phase(gen, dev):
                 ms = cuda_ms(lambda: ops.moe_gmm(x, w), 20)
                 plain = cuda_ms(lambda: ref.moe_gmm_ref(x, w), 3)
                 lib = cuda_ms(lambda: torch.bmm(x, w), 20)
-                bound, by, flops, nbytes = gmm_bound(E, C, din, dout)
+                flops, nbytes = costs.gmm_cost(E, C, din, dout)
+                bound, by = bound_ms((flops, nbytes))
                 say(f"  time C={C} bf16 ({path}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                     f"torch.bmm {lib:.4f} ms, bound {bound:.4f} ms by {by} "
                     f"({nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.1f} TFLOP/s)")
@@ -726,7 +717,7 @@ def gmm_phase(gen, dev):
         gate(f"moe_gmm bf16 C={C} ({path})", out, ref.moe_gmm_ref(x, w), BF16_TOL)
         ms = cuda_ms(lambda: ops.moe_gmm(x, w), 10)
         lib = cuda_ms(lambda: torch.bmm(x, w), 10)
-        bound, by, _, _ = gmm_bound(16, C, 4096, 6400)
+        bound, by = bound_ms(costs.gmm_cost(16, C, 4096, 6400))
         say(f"    C={C}: {path}, kernel {ms:.4f} ms, torch.bmm {lib:.4f} ms, "
             f"bound {bound:.4f} ms by {by}")
     del x, w, out
@@ -747,7 +738,7 @@ def gmm_bwd_phase(gen, dev, E=16, caps=(4, 160, 320), dims=((4096, 6400), (6400,
     4096->6400."""
     import torch
     from repro_torch.kernels import moe_gmm as gk
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import costs, ops, ref
 
     rnd = _rnd(gen, dev)
     rows = {}
@@ -770,7 +761,8 @@ def gmm_bwd_phase(gen, dev, E=16, caps=(4, 160, 320), dims=((4096, 6400), (6400,
                 ms = cuda_ms(lambda: fn(*args), 20)
                 plain = cuda_ms(lambda: plain_fn(*args), 3)
                 lib = cuda_ms(lambda: lib_fn(*args), 20)
-                bound, by, flops, nbytes = gmm_bound(E, C, din, dout)
+                flops, nbytes = costs.gmm_cost(E, C, din, dout)
+                bound, by = bound_ms((flops, nbytes))
                 say(f"  time {kind} C={C} bf16 ({path}): kernel {ms:.4f} ms, plain {plain:.4f} "
                     f"ms, torch.bmm {lib:.4f} ms, bound {bound:.4f} ms by {by} "
                     f"({nbytes / ms / 1e6:.1f} GB/s, {flops / ms / 1e9:.1f} TFLOP/s)")
@@ -785,13 +777,13 @@ def ssd_bwd_bound(B, H, T, P, N, Q):
     """(bound ms, bound_by, flops, bytes) of the SSD scan's backward from its
     inputs (fp32): x, dt, A, B, C and dy read once, their gradients written
     once; the forward's products recomputed and each product's two backward
-    products (3x ssd_bound's operations), at the TF32 tensor-core rate."""
-    _, _, flops, _ = ssd_bound(B, H, T, P, N, Q, 4)
-    flops *= 3
+    products (3x the forward's operations, `costs.ssd_cost`), at the TF32
+    tensor-core rate."""
+    from repro_torch import roofline
+    from repro_torch.kernels import costs
+    flops = 3 * costs.ssd_cost(B, H, T, P, 1, N, Q, 4)[0]
     nbytes = 4 * 2 * (2 * B * H * T * P + B * H * T + 2 * B * T * N + H)
-    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
-            flops, nbytes)
+    return (*bound_ms((flops, nbytes), roofline.PEAK_TF32_FLOPS), flops, nbytes)
 
 
 def grad_gate(label, kern, plain, exact, names) -> dict:
@@ -886,18 +878,14 @@ def _ssd_inputs(rnd, B, T, H, P, G, N, dtype):
 
 
 def ssd_bound(B, H, T, P, N, Q, el, peak=None):
-    """(bound ms, bound_by, flops, bytes) of the chunked scan: x, dt, B, C
-    read once, y and the state written once; the causal half of each
-    chunk's products, and the state terms; at the tensor cores' rate for
-    the inputs' type (TF32 for fp32) unless `peak` names another."""
-    nc = T // Q
-    pairs = Q * (Q + 1) // 2
-    flops = B * H * nc * (2 * pairs * (N + P) + 4 * Q * N * P)
-    nbytes = el * (2 * B * H * T * P + 2 * B * T * N) + 4 * (B * H * T + B * H * P * N + H)
-    peak = peak or (PEAK_TF32_FLOPS if el == 4 else PEAK_BF16_FLOPS)
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
-            flops, nbytes)
+    """(bound ms, bound_by, flops, bytes) of the chunked scan at one group
+    (`costs.ssd_cost`), at the tensor cores' rate for the inputs' type (TF32
+    for fp32) unless `peak` names another."""
+    from repro_torch import roofline
+    from repro_torch.kernels import costs
+    flops, nbytes = costs.ssd_cost(B, H, T, P, 1, N, Q, el)
+    peak = peak or (roofline.PEAK_TF32_FLOPS if el == 4 else roofline.PEAK_FLOPS)
+    return (*bound_ms((flops, nbytes), peak), flops, nbytes)
 
 
 def ssd_precision(args, Q) -> dict:
@@ -920,6 +908,7 @@ def ssd_phase(gen, dev):
     kernel route names against the first version, with both kernels'
     distance to fp64."""
     import torch
+    from repro_torch import roofline
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssm_scan as sk
 
@@ -955,7 +944,7 @@ def ssd_phase(gen, dev):
         ms = device_ms(lambda: ops.ssd_scan(*args, chunk=Q), 20)
         simt = device_ms(lambda: sk.ssd_scan(*args, chunk=Q, path="simt"), 5)
         bound, by, flops, nbytes = ssd_bound(B, H, T, P, N, Q, 4)
-        cores, _, _, _ = ssd_bound(B, H, T, P, N, Q, 4, PEAK_F32_FLOPS)
+        cores, _, _, _ = ssd_bound(B, H, T, P, N, Q, 4, roofline.PEAK_F32_FLOPS)
         dist = ssd_precision(args, Q)
         say(f"    T={T}: {path} {ms:.4f} ms, simt {simt:.4f} ms ({simt / ms:.2f}x), bound "
             f"{bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
@@ -1654,10 +1643,12 @@ LSE_TOL = 1e-4
 def flash_bwd_bound(B, Hq, Hkv, T, D):
     """(bound ms, flops) of the causal flash backward at the bf16 tensor-core
     rate: five products over the unmasked pairs (S and dP recomputed, dQ,
-    dK, dV); q, k, v, out, dout and lse read once, dq, dk, dv written once."""
-    flops = 10 * B * Hq * D * (T * (T + 1) // 2)
+    dK, dV: 2.5x the forward's, `costs.flash_cost`); q, k, v, out, dout and
+    lse read once, dq, dk, dv written once."""
+    from repro_torch.kernels import costs
+    flops = 5 * costs.flash_cost(B, Hq, Hkv, T, T, D)[0] // 2
     nbytes = 2 * B * D * T * (3 * Hq + 2 * Hkv) + 4 * B * Hq * T + 2 * B * D * T * (Hq + 2 * Hkv)
-    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3, flops
+    return bound_ms((flops, nbytes))[0], flops
 
 
 def vjp_grads(q, k, v, do, window):
@@ -1867,6 +1858,8 @@ def train_phase(cfg, seed, batch, seq, n_micro, steps, dev, gate_leaves=GRAD_GAT
     the fp32 model's."""
     import numpy as np
     import torch
+    from repro_torch import roofline
+    from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.models import build_model
@@ -1925,15 +1918,19 @@ def train_phase(cfg, seed, batch, seq, n_micro, steps, dev, gate_leaves=GRAD_GAT
             f"{m['grad_norm']:.4f}, lr {m['lr']:.3e}")
     frames = frontend[1] if cfg.family == "audio" else 0
     flops = train_matmul_flops(cfg, state["params"], batch, seq, frames)
-    mfu = flops / t_step / PEAK_BF16_FLOPS
+    mfu = flops / t_step / roofline.PEAK_FLOPS
+    # the reference's analytic useful FLOPs of the same step (6 N D plus
+    # attention), whose share of the peak the dry-run's records carry
+    mf = roofline.model_flops(cfg, ShapeConfig("train", "train", seq, batch))
     how = (f"6 x {n_matmul / 1e9:.3f} B x tokens" if not frames else
            f"6 x (encoder weights x {batch} x {frames} frames + decoder weights x tokens)")
     say(f"  {steps} steps of {batch} x {seq} tokens"
         + (f" ({frontend[0]} {batch} x {frontend[1]})" if frontend else "")
         + f" in {n_micro} microbatches: median of steps "
         f"2-{steps} {t_step * 1e3:.2f} ms, {tokens / t_step:.0f} tokens/s, MFU {mfu * 100:.2f}% "
-        f"({how} = {flops / 1e12:.2f} TFLOP / step time / {PEAK_BF16_FLOPS / 1e12:.0f} "
-        f"TFLOP/s); peak device memory {peak:.2f} GB")
+        f"({how} = {flops / 1e12:.2f} TFLOP / step time / {roofline.PEAK_FLOPS / 1e12:.0f} "
+        f"TFLOP/s); model_flops share of peak {mf / t_step / roofline.PEAK_FLOPS * 100:.2f}% "
+        f"({mf / 1e12:.2f} TFLOP); peak device memory {peak:.2f} GB")
     if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in metrics):
         fail(f"{cfg.name}: a loss or grad norm is not finite")
     want = train_launches(cfg, n_micro, steps)
@@ -2990,6 +2987,205 @@ def ranks_phase(seed, dev, smi, step_8b_ms=None, steps=3, n_micro=2, seq=1024):
     return out
 
 
+
+# ----------------------------------------------------------------------------
+# phase 12: the dry-run held to the card
+# ----------------------------------------------------------------------------
+
+# the allocator's peak over a step against the account's high-water mark:
+# the allocator adds each kernel's scratch (decode's split partials, the
+# SSD scan's dS), cuBLAS's workspace and its own rounding of each block
+ACCOUNT_PEAK_RATIO = (0.8, 1.25)
+# kernel op of the account -> the wrapper's launch counter (kernel_counts)
+OP_COUNTERS = {"flash_attention": "flash_attention", "flash_attention_lse": "flash_attention",
+               "decode_attention": "decode_attention", "moe_gmm": "moe_gmm",
+               "moe_gmm_dx": "moe_gmm_dx", "moe_gmm_dw": "moe_gmm_dw",
+               "ssd_scan": "ssm_scan"}
+# the production sweep's archs on the card (the rest: the dry-run's CLI,
+# PERF.md), each on the one-card and the four-card mesh, in processes of
+# their own that run beside phases 3-11
+SWEEP_ARCHS = ("llama3-8b", "phi3.5-moe-42b-a6.6b", "zamba2-2.7b")
+SWEEP_TAG = "chip_smoke"
+
+
+def step_account(kind, cfg, device, rows, seq, seed, n_micro=2, mesh=None):
+    """The dry-run's account (`launch/dryrun.py`) of one step of `cfg` on
+    `device`: a train step of rows x seq tokens in n_micro microbatches, a
+    prefill of rows x seq, or one decode step of `rows` sequences on a
+    cache of `seq` rows; random weights and batch from the seed."""
+    import torch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import build_model, make_batch
+    dev = torch.device(device)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
+    batch = make_batch(cfg, ShapeConfig(kind, kind, seq, rows), device=dev, generator=gen)
+    if kind == "train":
+        return dryrun.train_account(cfg, batch, n_micro=n_micro, device=dev, mesh=mesh,
+                                    generator=gen)[0]
+    if kind == "prefill":
+        return dryrun.prefill_account(cfg, batch, device=dev, generator=gen)[0]
+    cache = build_model(cfg, device=dev).init_cache(rows, seq)
+    return dryrun.decode_account(cfg, batch, cache, device=dev, generator=gen)[0]
+
+
+def account_gate(label, kind, cfg, seed, dev, smi, rows, seq):
+    """12a: the meta account of one step against the same step's account on
+    the card: FLOPs, bytes, kernel ops by name and the high-water mark
+    equal; the kernel ops equal to the wrappers' launch counts; the
+    allocator's peak within ACCOUNT_PEAK_RATIO of the account's; the
+    step's measured time (median of three, outside the account) no shorter
+    than the roofline's largest term. Returns the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch import roofline
+    meta = step_account(kind, cfg, "meta", rows, seq, seed)
+    reset_counts()
+    card = step_account(kind, cfg, dev, rows, seq, seed)
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in kernel_counts().items() if c}
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        card.again()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    m, c = meta.cost, card.cost
+    by_counter = {}
+    for op, n in c.kernels.items():
+        by_counter[OP_COUNTERS[op]] = by_counter.get(OP_COUNTERS[op], 0) + n
+    terms = roofline.roofline_terms(c.totals)
+    top = max(("compute_s", "memory_s", "collective_s"), key=lambda k: terms[k])
+    wall = float(np.median(walls))
+    ratio = card.allocator_peak_bytes / c.peak_bytes
+    same = {"flops": m.totals.flops == c.totals.flops, "bytes": m.totals.bytes == c.totals.bytes,
+            "kernel ops": m.kernels == c.kernels, "high-water": m.peak_bytes == c.peak_bytes,
+            "launches": by_counter == launched}
+    ok = all(same.values()) and ACCOUNT_PEAK_RATIO[0] <= ratio <= ACCOUNT_PEAK_RATIO[1] \
+        and wall >= terms[top]
+    say(f"  {'ok  ' if ok else 'FAIL'} {label} [{smi}]: meta {m.totals.flops / 1e12:.4f} TFLOP "
+        f"{m.totals.bytes / 1e9:.4f} GB, card {c.totals.flops / 1e12:.4f} TFLOP "
+        f"{c.totals.bytes / 1e9:.4f} GB; kernel ops {c.kernels}, launched {launched}; "
+        f"high-water meta {m.peak_bytes / 1e9:.3f} GB, card {c.peak_bytes / 1e9:.3f} GB, "
+        f"allocator {card.allocator_peak_bytes / 1e9:.3f} GB (ratio {ratio:.3f}, gate "
+        f"{ACCOUNT_PEAK_RATIO}); step {wall * 1e3:.2f} ms against the roofline's {top} "
+        f"{terms[top] * 1e3:.3f} ms (compute {terms['compute_s'] * 1e3:.3f}, memory "
+        f"{terms['memory_s'] * 1e3:.3f} ms); equal: {same}")
+    if not ok:
+        fail(f"12a {label}: the dry-run's account and the card disagree")
+    out = dict(flops=c.totals.flops, bytes=c.totals.bytes, kernels=dict(c.kernels),
+               peak_bytes=c.peak_bytes, allocator_peak_bytes=card.allocator_peak_bytes,
+               step_ms=wall * 1e3, **{k: terms[k] * 1e3 for k in ("compute_s", "memory_s")})
+    del meta, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_sweep():
+    """12c's production sweep on the meta device, one process an arch and
+    mesh, started at low priority so that they run beside the card's
+    phases. Returns the processes."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log_dir = ROOT / "build" / "dryrun" / SWEEP_TAG
+    log_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for arch in SWEEP_ARCHS:
+        for mesh_flag in ("--one-card", None):
+            cmd = ["nice", "-n", "19", sys.executable, "-W", "ignore", "-m",
+                   "repro_torch.launch.dryrun", "--arch", arch, "--force", "--tag", SWEEP_TAG]
+            cmd += [mesh_flag] if mesh_flag else []
+            log = open(log_dir / f"{arch}{mesh_flag or ''}.log", "w")
+            procs.append((subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def stop_sweep(procs):
+    for proc, log in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+
+
+def sweep_phase(procs, smi, timeout=600):
+    """12c: wait for the sweep's processes, then one line a cell: status,
+    peak_per_device_gb, fits_80gb, the dominant term, roofline_fraction."""
+    from repro_torch.configs import SHAPES
+    t0 = time.perf_counter()
+    for proc, _ in procs:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    stop_sweep(procs)
+    say(f"  [{smi}] the sweep's records (meta device; rank 0 of each mesh):")
+    records = []
+    for mesh in ("1x1", "4x1"):
+        for arch in SWEEP_ARCHS:
+            for shape in SHAPES:
+                path = ROOT / "build" / "dryrun" / SWEEP_TAG / mesh / f"{arch}__{shape}.json"
+                if not path.exists():
+                    fail(f"12c: no record {path}")
+                r = json.loads(path.read_text())
+                records.append(r)
+                if r["status"] == "ok":
+                    m, t = r["memory"], r["roofline"]
+                    say(f"    {mesh} {arch} x {shape}: ok, peak {m['peak_per_device_gb']:.2f} GiB, "
+                        f"fits_80gb {m['fits_80gb']}, dominant {t['dominant']}, "
+                        f"roofline_fraction {t['roofline_fraction']:.3f}")
+                else:
+                    say(f"    {mesh} {arch} x {shape}: {r['status']} "
+                        f"({r.get('reason') or r.get('error')})")
+                    if r["status"] == "error":
+                        fail(f"12c: {arch} x {shape} on {mesh}: {r['error']}")
+    return records
+
+
+def dryrun_phase(seed, dev, smi, runs, procs):
+    """Phase 12: the dry-run held to the card. a. 8b's, 8e's, llama3-8b's
+    decode and zamba2's prefill steps, their meta account against the
+    card's (account_gate); b. 11b's ZeRO-2 step on an abstract (2, 1) mesh
+    against 11b's ranks; c. the production sweep (sweep_phase)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    out = {}
+    say("phase 12a: the dry-run's account on meta against the same step's on the card")
+    out["8b"] = account_gate("8b: llama3-8b x 4 layers, train 4 x 1024 in 2 microbatches",
+                             "train", get_config("llama3-8b").replace(n_layers=4), seed, dev,
+                             smi, 4, 1024)
+    out["8e"] = account_gate("8e: phi3.5-moe x 2 layers, train 4 x 1024 in 2 microbatches",
+                             "train", get_config("phi3.5-moe-42b-a6.6b").replace(n_layers=2),
+                             seed + 1, dev, smi, 4, 1024)
+    out["4"] = account_gate("4: llama3-8b decode step, 8 slots of 2048 rows", "decode",
+                            get_config("llama3-8b"), seed + 2, dev, smi, 8, 2048)
+    out["7"] = account_gate("7: zamba2-2.7b prefill 4 x 1024", "prefill",
+                            get_config("zamba2-2.7b"), seed + 3, dev, smi, 4, 1024)
+
+    say("phase 12b: 11b's ZeRO-2 step, llama3-8b x 2 layers, rank 0 of an abstract (2, 1) "
+        "mesh on meta, against 11b's ranks")
+    cfg = dp_cfgs()[0]
+    with dryrun.fake_group(DP_WORLD):
+        acct = step_account("train", cfg, "meta", DP_WORLD * 2, 1024, seed, n_micro=2,
+                            mesh=Mesh((DP_WORLD, 1), ("data", "model")))
+    zero = runs["11"]["11b"]["zero"]
+    peak = acct.cost.peak_bytes
+    ratios = [p * 1e9 / peak for p in zero["peak_gb"]]
+    ok = all(b == acct.accum_bytes for b in zero["acc_bytes"]) and all(
+        ACCOUNT_PEAK_RATIO[0] <= r <= ACCOUNT_PEAK_RATIO[1] for r in ratios)
+    say(f"  {'ok  ' if ok else 'FAIL'} [{smi}] accumulator a rank: account {acct.accum_bytes} "
+        f"bytes, 11b's ranks {zero['acc_bytes']}; peak a rank: account {peak / 1e9:.3f} GB, 11b "
+        f"measured {[round(p, 3) for p in zero['peak_gb']]} GB (ratios "
+        f"{[round(r, 3) for r in ratios]}, gate {ACCOUNT_PEAK_RATIO}); collectives "
+        f"{acct.cost.totals.collectives}")
+    if not ok:
+        fail("12b: the ZeRO-2 account disagrees with 11b's ranks")
+    out["11b"] = dict(accum_bytes=acct.accum_bytes, peak_bytes=peak, ratios=ratios)
+
+    say("phase 12c: the production sweep, every shape of " + ", ".join(SWEEP_ARCHS)
+        + " on the one-card (1, 1) and the four-card (4, 1) mesh, on meta")
+    out["sweep"] = sweep_phase(procs, smi)
+    return out
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3032,6 +3228,9 @@ def main() -> int:
                 .splitlines() if "registers" in ln]
         say(f"  {n}: {p.name}, {len(regs)} instantiations, e.g. {regs[:1]}")
     say(f"  built in {time.perf_counter() - t0:.1f} s")
+    # phase 12c's sweep runs on the CPU beside phases 3-11
+    procs = start_sweep()
+    atexit.register(stop_sweep, procs)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     walls = {"2 build": time.perf_counter() - t0}
@@ -3155,7 +3354,9 @@ def main() -> int:
     runs["10"] = timed("10 RL rollouts", rl_phase, args.seed + 14, dev)
     say("phase 11: the multi-rank paths, ranks on the cards present")
     runs["11"] = timed("11 ranks", ranks_phase, args.seed + 15, dev, smi, runs["8"]["step_ms"])
-    say("phase 12: the kernel table and the device")
+    say("phase 12: the dry-run held to the card")
+    timed("12 dry-run", dryrun_phase, args.seed + 16, dev, smi, runs, procs)
+    say("phase 13: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 

@@ -5,7 +5,9 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (EncDecConfig, HybridConfig, ModelConfig, MoEConfig,
-                                      SSMConfig, VLMConfig, XLSTMConfig)
+                                      SSMConfig, VLMConfig, XLSTMConfig, active_param_count,
+                                      param_count)
+from repro_torch.configs.shapes import SHAPES, ShapeConfig, applicable
 
 _MODULES = {
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
@@ -31,4 +33,5 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
 
 
 __all__ = ["ARCH_IDS", "EncDecConfig", "HybridConfig", "ModelConfig", "MoEConfig",
-           "SSMConfig", "VLMConfig", "XLSTMConfig", "get_config"]
+           "SHAPES", "SSMConfig", "ShapeConfig", "VLMConfig", "XLSTMConfig",
+           "active_param_count", "applicable", "get_config", "param_count"]

@@ -1,8 +1,6 @@
 """xlstm-350m  [arXiv:2405.04517]
 24L d_model=1024 4H d_ff=0 vocab=50304. sLSTM + mLSTM blocks (7:1 mLSTM:sLSTM).
-Fully recurrent, O(1) decode state => long_500k runs.
-The long-context field of the JAX config (`sub_quadratic`, read only by the
-long_500k shape) is left out."""
+Fully recurrent, O(1) decode state => long_500k runs."""
 from repro_torch.configs.base import ModelConfig, XLSTMConfig
 
 CONFIG = ModelConfig(
@@ -16,6 +14,7 @@ CONFIG = ModelConfig(
     vocab_size=50304,
     xlstm=XLSTMConfig(slstm_every=8),
     tie_embeddings=True,
+    sub_quadratic=True,
 )
 
 SMOKE = ModelConfig(
@@ -29,4 +28,5 @@ SMOKE = ModelConfig(
     vocab_size=256,
     xlstm=XLSTMConfig(slstm_every=2),
     tie_embeddings=True,
+    sub_quadratic=True,
 )

@@ -7,8 +7,8 @@ mesh: enough for the sharding rules (`sharding/`), which read only the axis
 names and sizes, as the reference's read `mesh.axis_names` and
 `mesh.devices.shape`.
 
-The reference's `make_production_mesh` (16x16 or 2x16x16 TPU chips) comes
-with the dry-run slice: such a mesh has no one-host counterpart until then.
+`make_production_mesh` gives the dry-run's (`launch/dryrun.py`) abstract
+meshes of H100s.
 """
 from __future__ import annotations
 
@@ -36,6 +36,17 @@ class Mesh:
     def group(self, axis: str):
         """The process group of the ranks that differ only along `axis`."""
         return self.device_mesh.get_group(axis)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The abstract production mesh: one node's four H100s, (4, 1) over
+    ("data", "model"), or with `multi_pod` two such nodes, (2, 4, 1) over
+    ("pod", "data", "model"). Not the reference's 16x16 and 2x16x16 TPU
+    meshes: those put 16 ways of tensor parallelism on "model", and the
+    port runs none (`dp_group`), so its meshes are data-parallel only."""
+    if multi_pod:
+        return Mesh((2, 4, 1), ("pod", "data", "model"))
+    return Mesh((4, 1), ("data", "model"))
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device="cuda") -> Mesh:

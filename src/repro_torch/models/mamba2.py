@@ -154,7 +154,19 @@ class SSDScan(torch.autograd.Function):
         wanted = [t for t, n in zip(live, need) if n]
         got = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True)
                    if outs and wanted else ())
-        return (*(next(got) if n else None for n in need), None)
+        return (*(_laid_out_as(t, next(got)) if n else None for t, n in zip(saved, need)),
+                None)
+
+
+def _laid_out_as(t, g):
+    """The gradient `g` of input `t` in t's strides. Autograd hands it on
+    to the input's producers, and an elementwise op there whose inputs lie
+    in two layouts picks its output's by a rule that differs between the
+    meta device and the card (the dry-run's account must see the card's
+    ops: launch/dryrun.py)."""
+    if g is None or g.stride() == t.stride():
+        return g
+    return torch.empty_like(t).copy_(g)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, chunk: int):

@@ -162,7 +162,11 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
 
     # load-balancing aux loss (Switch-style)
     me = gates.mean(dim=(0, 1))                           # mean router prob per expert
-    ce = torch.nn.functional.one_hot(gates.argmax(-1), e).to(F32).mean(dim=(0, 1))
+    # one-hot as a comparison: F.one_hot takes other ops on each device
+    # (a range check that reads the values back on the CPU), and the
+    # dry-run's account must see the card's ops on the meta device
+    experts = torch.arange(e, device=gates.device)
+    ce = (gates.argmax(-1)[..., None] == experts).to(F32).mean(dim=(0, 1))
     if group is not None:
         n = torch.distributed.get_world_size(group)
         me = D.all_reduce_sum(me, group) / n

@@ -9,6 +9,12 @@ data-parallel `mesh`):
   decode_step(params, cache, batch)     -> (logits, cache updated in place)
   init_cache(batch_size, max_len)       -> cache
 
+input_specs(cfg, shape) gives meta tensors (shapes and dtypes, no data)
+for every model input of an (arch x shape) cell, cache_specs(cfg, shape)
+the decode cache of the cell as meta tensors, built by the model's own
+init_cache on the meta device, so no full-width cache is ever allocated;
+make_batch(cfg, shape) a concrete random batch of those specs.
+
 `n_groups` splits each MoE layer's tokens into that many contiguous dispatch
 groups (the reference sets it to the data-parallel degree). Under a `mesh`
 (`launch/mesh.py`) each rank's model runs its share of the global batch:
@@ -21,14 +27,16 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import dp_group
 from repro_torch.models import dense, hybrid, whisper, xlstm
+from repro_torch.models.whisper import ENC_LEN
 
 
 @dataclass(frozen=True)
@@ -94,3 +102,82 @@ def build_model(cfg: ModelConfig, *, device="cuda", window: Optional[int] = None
             mesh=mesh,
         )
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+# ----------------------------------------------------------------------------
+# Input specs (dry-run stand-ins)
+# ----------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _frontend_specs(cfg: ModelConfig, B: int) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.family == "audio":
+        out["enc_embeds"] = _spec((B, ENC_LEN, cfg.d_model), torch.bfloat16)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = _spec((B, cfg.vlm.n_patches, cfg.d_model), torch.bfloat16)
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """Meta tensors of every input of the cell, with the reference's shapes
+    and dtypes: int32 tokens, targets and positions, bf16 frontend
+    embeddings."""
+    i32 = torch.int32
+    B, T = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        specs = {"tokens": _spec((B, T), i32), "targets": _spec((B, T), i32)}
+        specs.update(_frontend_specs(cfg, B))
+        return specs
+    if shape.kind == "prefill":
+        specs = {"tokens": _spec((B, T), i32)}
+        specs.update(_frontend_specs(cfg, B))
+        return specs
+    if shape.kind == "decode":
+        return {"tokens": _spec((B, 1), i32), "positions": _spec((B,), i32)}
+    raise ValueError(shape.kind)
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, window: Optional[int] = None,
+                batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The decode cache of this cell as meta tensors: the model's own
+    init_cache on the meta device (zamba2 keeps `window` rows of k/v, the
+    xLSTM its O(1) recurrent state). `batch` overrides the shape's global
+    batch (a rank's share)."""
+    model = build_model(cfg, device="meta", window=window)
+    B = shape.global_batch if batch is None else batch
+    if cfg.family == "ssm":
+        return model.init_cache(B)
+    return model.init_cache(B, shape.seq_len)
+
+
+def shape_window(cfg: ModelConfig, shape: ShapeConfig) -> Optional[int]:
+    """Long-context cells use the arch's sliding window (if any)."""
+    if shape.name == "long_500k":
+        return cfg.long_context_window
+    return None
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, *, device="cuda",
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """A concrete random batch matching input_specs, drawn from `generator`
+    (default: seed 0) on `device`: tokens and targets uniform over the
+    vocabulary, positions zero, frontend embeddings standard normal in
+    bf16. A meta batch takes a CPU generator (meta has none of its own)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(0)
+    out = {}
+    for name, s in input_specs(cfg, shape).items():
+        if s.dtype == torch.int32:
+            if name == "positions":
+                out[name] = torch.zeros(s.shape, dtype=torch.int32, device=dev)
+            else:
+                out[name] = torch.randint(0, cfg.vocab_size, s.shape, generator=generator,
+                                          dtype=torch.int32, device=dev)
+        else:
+            out[name] = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                                    device=dev).to(s.dtype)
+    return out

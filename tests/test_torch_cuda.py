@@ -20,6 +20,8 @@ The multi-rank paths (the int8 ring all-reduce, the ZeRO-2 step) run their
 ranks on the cards present (`repro_torch.distributed.spawn`; on one card
 they share it over gloo) against the same ranks on the CPU.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -1100,3 +1102,116 @@ def test_zero2_step_on_the_card_matches_the_cpu(cuda):
     assert diffs.max() <= 2 * R.LR + 1e-6
     assert (diffs <= 1e-6).mean() >= 0.99
     assert card["held"] == card["whole"] // 2
+
+
+def _op_cases(dev):
+    """Each kernel op's call at small shapes on `dev`, the wrapper's direct
+    call on the same inputs, and the wrapper module whose launch counter
+    the op moves."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    q, k = rnd(1, 64, 4, 64).transpose(1, 2), rnd(1, 64, 2, 64).transpose(1, 2)
+    dq, dc = rnd(2, 4, 64), rnd(2, 128, 2, 64).transpose(1, 2)
+    valid = torch.tensor([100, 128], dtype=torch.int32, device=dev)
+    x, w, dy = rnd(2, 8, 64), rnd(2, 64, 128), rnd(2, 8, 128)
+    sx = rnd(1, 64, 2, 64, dtype=torch.float32).transpose(1, 2)
+    sdt = rnd(1, 2, 64, dtype=torch.float32).abs()
+    sA = -rnd(2, dtype=torch.float32).abs()
+    sb = rnd(1, 64, 1, 64, dtype=torch.float32).transpose(1, 2)
+    return {
+        "flash_attention": (lambda *a: ops.flash_attention(*a), (q, k, k),
+                            lambda *a: fk.flash_attention(*a), fk),
+        "flash_attention_lse": (lambda *a: ops.flash_attention(*a, return_lse=True), (q, k, k),
+                                lambda *a: fk.flash_attention(*a, return_lse=True), fk),
+        "decode_attention": (ops.decode_attention, (dq, dc, dc, valid), dk.decode_attention, dk),
+        "moe_gmm": (ops.moe_gmm, (x, w), gk.moe_gmm, gk),
+        "moe_gmm_dx": (ops.moe_gmm_dx, (dy, w), gk.moe_gmm_dx, gk),
+        "moe_gmm_dw": (ops.moe_gmm_dw, (x, dy), gk.moe_gmm_dw, gk),
+        "ssd_scan": (lambda *a: ops.ssd_scan(*a, chunk=64), (sx, sdt, sA, sb, sb),
+                     lambda *a: sk.ssd_scan(*a, chunk=64), sk),
+    }
+
+
+_COUNTER = {"moe_gmm_dx": "dx_launches", "moe_gmm_dw": "dw_launches"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_lse", "decode_attention",
+                                  "moe_gmm", "moe_gmm_dx", "moe_gmm_dw", "ssd_scan"])
+def test_kernel_op_launches_its_kernel_and_is_counted_once(cuda, name, monkeypatch):
+    """Each kernel op (`torch.ops.repro_torch.*`) on CUDA tensors: one
+    launch of the wrapper's kernel, the wrapper's own output bit for bit;
+    it raises under grad; a CostModel on the card counts it as exactly one
+    op with its cost formula's FLOPs and bytes (its inputs read and outputs
+    written once), as the same op on meta tensors; a launch error
+    propagates."""
+    from repro_torch import roofline
+    call, args, direct, module = _op_cases(cuda)[name]
+    counter = _COUNTER.get(name, "launches")
+    before = getattr(module, counter)
+    with roofline.CostModel("cuda") as cm:
+        got = call(*args)
+    assert getattr(module, counter) == before + 1
+    want = direct(*args)
+    got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for a, b in zip(got_t, want_t):
+        assert a.shape == b.shape and a.stride() == b.stride() and torch.equal(a, b)
+    assert cm.kernels == {name: 1} and list(cm.by_op) == [f"repro_torch::{name}"]
+    io = sum(roofline.tensor_bytes(t) for t in (*args, *got_t))
+    assert cm.totals.bytes == io and cm.totals.flops > 0
+    meta_args = tuple(torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="meta")
+                      for t in args)
+    with roofline.CostModel("meta") as mm:
+        meta_out = call(*meta_args)
+    meta_t = meta_out if isinstance(meta_out, tuple) else (meta_out,)
+    assert [(t.shape, t.stride(), t.dtype) for t in meta_t] == \
+        [(t.shape, t.stride(), t.dtype) for t in got_t]
+    assert dataclasses.astuple(mm.totals) == dataclasses.astuple(cm.totals)
+    live = args[0].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(live, *args[1:])
+    monkeypatch.setattr(module, "_kernel", lambda: (lambda *a: 1))
+    with pytest.raises(RuntimeError, match="kernel"):
+        call(*args)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", [("llama3-8b", "train"), ("phi3.5-moe-42b-a6.6b", "train"),
+                                       ("llama3-8b", "decode"), ("zamba2-2.7b", "prefill")])
+def test_meta_account_equals_the_card_account_at_smoke(cuda, arch, kind):
+    """Phase 12a of chip_smoke.py at SMOKE: the dry-run's account of a step
+    on the meta device equals the same step's on the card (FLOPs, bytes,
+    every op, the kernel ops, the high-water mark), and the kernel ops
+    equal the wrappers' launches."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import make_batch
+    cfg = get_config(arch, smoke=True)
+    accts = {}
+    for dev in ("meta", cuda):
+        gen = torch.Generator(device="cpu" if dev == "meta" else dev).manual_seed(0)
+        batch = make_batch(cfg, ShapeConfig(kind, kind, 64, 4), device=dev, generator=gen)
+        before = (fk.launches, dk.launches, gk.launches, gk.dx_launches, gk.dw_launches,
+                  sk.launches)
+        if kind == "train":
+            acct, _ = dryrun.train_account(cfg, batch, n_micro=2, device=dev, generator=gen)
+        elif kind == "prefill":
+            acct, _ = dryrun.prefill_account(cfg, batch, device=dev, generator=gen)
+        else:
+            cache = build_model(cfg, device=dev).init_cache(4, 64)
+            acct, _ = dryrun.decode_account(cfg, batch, cache, device=dev, generator=gen)
+        after = (fk.launches, dk.launches, gk.launches, gk.dx_launches, gk.dw_launches,
+                 sk.launches)
+        accts[str(dev)] = (acct, [a - b for a, b in zip(after, before)])
+    (meta, _), (card, launched) = accts["meta"], accts[str(cuda)]
+    assert meta.cost.by_op == card.cost.by_op
+    assert dataclasses.astuple(meta.cost.totals) == dataclasses.astuple(card.cost.totals)
+    assert meta.cost.kernels == card.cost.kernels
+    assert meta.cost.peak_bytes == card.cost.peak_bytes
+    k = card.cost.kernels
+    assert launched == [k.get("flash_attention", 0) + k.get("flash_attention_lse", 0),
+                        k.get("decode_attention", 0), k.get("moe_gmm", 0),
+                        k.get("moe_gmm_dx", 0), k.get("moe_gmm_dw", 0), k.get("ssd_scan", 0)]

@@ -1,0 +1,545 @@
+"""The port's dry-run slice against the JAX package's: the shapes and their
+applicability, the analytic parameter counts, the input and cache specs,
+`model_flops` and the roofline arithmetic, the kernel ops' cost formulas
+and meta outputs, the FLOPs and argument bytes of the reference's compiled
+steps, the ZeRO state per rank, and `launch/dryrun.py` end to end at SMOKE.
+
+The reference's `launch/dryrun.py` sets XLA_FLAGS when imported, so it is
+read here with `ast` (its MICROBATCH table), never imported. JAX meshes
+are stand-ins with `axis_names` and `devices.shape`, as
+tests/test_torch_sharding.py builds them. The port's steps run on the meta
+device, and on the CPU with each kernel op given its plain version as a CPU
+kernel (`cpu_kernel_ops`), so that the CPU step runs the same ops as the
+card's and its account can be held to the meta account op for op.
+"""
+import ast
+import dataclasses
+import math
+import os
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import roofline as JR
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import active_param_count as j_active
+from repro.configs import applicable as j_applicable
+from repro.configs import get_config as jax_get_config
+from repro.configs import param_count as j_params
+from repro.models import build_model as jax_build_model
+from repro.models import registry as JM
+from repro.optim import optimizers as JO
+from repro.sharding import axes as JA
+from repro.sharding import rules as JRU
+from repro.train import steps as JS
+from repro_torch import roofline as R
+from repro_torch.configs import (ARCH_IDS, SHAPES, active_param_count, applicable, get_config,
+                                 param_count)
+from repro_torch.kernels import costs, ops, ref
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.models import registry as M
+from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.sharding import axes as A
+from repro_torch.sharding import rules as RU
+from repro_torch.train.steps import train_state
+from repro_torch.tree import flatten, leaves
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DTYPES = {jnp.int32: torch.int32, jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32,
+          jnp.int8: torch.int8}
+# the SMOKE sweep cuts each shape's length and batch, as SMOKE cuts widths:
+# the xLSTM's sLSTM runs one step a token, ~50 meta ops each
+SMOKE_SHAPE = {"seq_len": 32, "global_batch": 8}
+
+
+def _torch_dtype(dt):
+    return DTYPES[jnp.dtype(dt).type]
+
+
+def _jax_leaves(tree):
+    return {tuple(str(getattr(e, "key", getattr(e, "idx", e))) for e in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _jax_mesh(shape, axes):
+    return types.SimpleNamespace(axis_names=axes, devices=np.empty(shape, dtype=np.int8))
+
+
+# ----------------------------------------------------------------------------
+# 1-2. shapes, applicability, counts
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_shapes_and_applicable_match_jax(arch):
+    assert {k: dataclasses.astuple(v) for k, v in SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in JSHAPES.items()}
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    for name in SHAPES:
+        assert applicable(cfg.family, cfg.sub_quadratic, name) == \
+            j_applicable(jcfg.family, jcfg.sub_quadratic, name), name
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_counts_match_jax(arch, smoke):
+    cfg, jcfg = get_config(arch, smoke), jax_get_config(arch, smoke)
+    assert param_count(cfg) == j_params(jcfg)
+    assert active_param_count(cfg) == j_active(jcfg)
+    assert cfg.n_rep == jcfg.n_rep
+    assert (cfg.long_context_window, cfg.sub_quadratic, cfg.optimizer) == \
+        (jcfg.long_context_window, jcfg.sub_quadratic, jcfg.optimizer)
+
+
+# ----------------------------------------------------------------------------
+# 3-5. input specs, cache specs, window, make_batch
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_input_specs_match_jax(arch):
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    for name, shape in SHAPES.items():
+        got = M.input_specs(cfg, shape)
+        want = JM.input_specs(jcfg, JSHAPES[name])
+        assert got.keys() == want.keys(), name
+        for k, s in want.items():
+            assert got[k].device.type == "meta"
+            want_k = (s.shape, _torch_dtype(s.dtype))
+            assert (tuple(got[k].shape), got[k].dtype) == want_k, (name, k)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_specs_match_jax(arch):
+    """Every applicable decode cell's cache, zamba2's windowed and xlstm's
+    long_500k ones included, through the port's stacked view."""
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    for name, shape in SHAPES.items():
+        if shape.kind != "decode" or not applicable(cfg.family, cfg.sub_quadratic, name):
+            continue
+        window = M.shape_window(cfg, shape)
+        assert window == JM.shape_window(jcfg, JSHAPES[name])
+        got = RU.stacked_view(M.cache_specs(cfg, shape, window=window))
+        want = _jax_leaves(JM.cache_specs(jcfg, JSHAPES[name], window=window))
+        port = {p: (s.shape, leaf.dtype) for (p, s), leaf in
+                zip(got.items(), [l for _, l in flatten(M.cache_specs(cfg, shape, window))])}
+        assert port == {p: (tuple(l.shape), _torch_dtype(l.dtype)) for p, l in want.items()}, name
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_shape_window_and_make_batch(arch):
+    cfg, jcfg = get_config(arch, smoke=True), jax_get_config(arch, smoke=True)
+    for name, shape in SHAPES.items():
+        assert M.shape_window(cfg, shape) == JM.shape_window(jcfg, JSHAPES[name])
+        small = dataclasses.replace(shape, **SMOKE_SHAPE)
+        specs = M.input_specs(cfg, small)
+        batch = M.make_batch(cfg, small, device="cpu",
+                             generator=torch.Generator().manual_seed(1))
+        assert batch.keys() == specs.keys()
+        for k, t in batch.items():
+            assert (t.shape, t.dtype, t.device.type) == (specs[k].shape, specs[k].dtype, "cpu")
+            if k == "positions":
+                assert not t.any()
+            elif t.dtype == torch.int32:
+                assert 0 <= int(t.min()) and int(t.max()) < cfg.vocab_size
+            else:
+                assert torch.isfinite(t.float()).all()
+        meta = M.make_batch(cfg, small, device="meta")
+        assert all(t.device.type == "meta" for t in meta.values())
+
+
+# ----------------------------------------------------------------------------
+# 6. model_flops and the roofline arithmetic
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_model_flops_match_jax(arch):
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    for name, shape in SHAPES.items():
+        got, want = R.model_flops(cfg, shape), JR.model_flops(jcfg, JSHAPES[name])
+        assert got == pytest.approx(want, rel=1e-12), name
+
+
+def test_roofline_arithmetic_matches_jax(monkeypatch):
+    """The same CostTotals through both sides' roofline_terms,
+    dominant_term and roofline_fraction: each side's constants, the
+    reference's arithmetic."""
+    colls = {"all-reduce": [3.0, 4e9, 6e9], "all-gather": [1.0, 1e8, 3e8]}
+    for flops, nbytes in ((1e15, 1e12), (1e12, 1e13), (1e9, 1e6)):
+        jc = JR.CostTotals(flops=flops, bytes=nbytes, collectives=colls)
+        pc = R.CostTotals(flops=flops, bytes=nbytes, collectives=colls)
+        ref_terms = JR.roofline_terms(jc)
+        assert ref_terms["compute_s"] == flops / 197e12
+        monkeypatch.setattr(JR, "PEAK_FLOPS", R.PEAK_FLOPS)
+        monkeypatch.setattr(JR, "HBM_BW", R.HBM_BW)
+        monkeypatch.setattr(JR, "LINK_BW", R.LINK_BW)
+        want, got = JR.roofline_terms(jc), R.roofline_terms(pc)
+        monkeypatch.undo()
+        assert got == want
+        assert R.dominant_term(got) == JR.dominant_term(want)
+        assert R.roofline_fraction(got) == JR.roofline_fraction(want)
+    assert (R.PEAK_FLOPS, R.HBM_BW, R.HBM_BYTES, R.LINK_BW) == (989e12, 3.35e12, 80 * 2**30,
+                                                                 450e9)
+
+
+# ----------------------------------------------------------------------------
+# 7. the kernel ops' cost formulas and meta outputs
+# ----------------------------------------------------------------------------
+
+# the bounds PERF.md's kernel table records, at their shapes (ms, bound_by);
+# decode's 10272 valid rows are phase 3b's draw (chip_smoke.py, seed 0)
+PERF_BOUNDS = {
+    "flash": (costs.flash_cost(1, 32, 8, 1024, 1024, 128), R.PEAK_FLOPS, 0.00869, "operations"),
+    "decode": (costs.decode_cost(8, 32, 16, 2048, 128, rows=10272), R.PEAK_FLOPS, 0.02516,
+               "bytes"),
+    "moe_gmm": (costs.gmm_cost(16, 4, 4096, 6400), R.PEAK_FLOPS, 0.2508, "bytes"),
+    "moe_gmm_dx": (costs.gmm_cost(16, 320, 6400, 4096), R.PEAK_FLOPS, 0.2825, "bytes"),
+    "ssd_scan": (costs.ssd_cost(4, 80, 1024, 64, 1, 64, 256, 4), R.PEAK_TF32_FLOPS, 0.0527,
+                 "bytes"),
+}
+
+
+@pytest.mark.parametrize("name", list(PERF_BOUNDS))
+def test_kernel_cost_formulas_give_perf_md_bounds(name):
+    (flops, nbytes), peak, want_ms, by = PERF_BOUNDS[name]
+    seconds, bound_by = R.bound(flops, nbytes, peak)
+    assert seconds * 1e3 == pytest.approx(want_ms, rel=1e-3)
+    assert bound_by == by
+
+
+def _meta_like(t):
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="meta")
+
+
+def _kernel_cases():
+    g = torch.Generator().manual_seed(0)
+    rnd = lambda *s, dt=torch.float32: torch.randn(s, generator=g).to(dt)   # noqa: E731
+    q = rnd(2, 16, 4, 16).transpose(1, 2)
+    k = rnd(2, 16, 2, 16).transpose(1, 2)
+    valid = torch.tensor([3, 16], dtype=torch.int32)
+    k8 = torch.randint(-127, 128, (2, 16, 2, 16), generator=g, dtype=torch.int8).transpose(1, 2)
+    sc = rnd(2, 16, 2, 1).abs().transpose(1, 2)
+    x = rnd(2, 64, 4, 16).transpose(1, 2)
+    dt = rnd(2, 64, 4).abs().transpose(1, 2)
+    bm = rnd(2, 64, 1, 16).transpose(1, 2)
+    e = rnd(4, 8, 32, dt=torch.bfloat16)
+    w = rnd(4, 32, 48, dt=torch.bfloat16)
+    dy = rnd(4, 8, 48, dt=torch.bfloat16)
+    return {
+        "flash_attention": (lambda *a: ops.flash_attention(*a, causal=True), (q, k, k)),
+        "flash_attention_lse": (lambda *a: ops.flash_attention(*a, window=5, return_lse=True),
+                                (q, k, k)),
+        "decode_attention": (ops.decode_attention, (q[:, :, 0], k, k, valid)),
+        "decode_attention_int8": (ops.decode_attention, (q[:, :, 0], k8, k8, valid, sc, sc)),
+        "moe_gmm": (ops.moe_gmm, (e, w)),
+        "moe_gmm_dx": (ops.moe_gmm_dx, (dy, w)),
+        "moe_gmm_dw": (ops.moe_gmm_dw, (e, dy)),
+        "ssd_scan": (lambda *a: ops.ssd_scan(*a, chunk=32), (x, dt, -rnd(4).abs(), bm, bm)),
+    }
+
+
+@pytest.mark.parametrize("case", list(_kernel_cases()))
+def test_kernel_ops_meta_outputs_match_plain(case):
+    """Each op on meta tensors gives its plain version's output shapes,
+    dtypes and strides, counted by the CostModel as one kernel op with its
+    formula's FLOPs and bytes (its inputs read and outputs written once)."""
+    fn, args = _kernel_cases()[case]
+    want = fn(*args)
+    meta_args = tuple(_meta_like(a) for a in args)
+    with R.CostModel("meta") as cm:
+        got = fn(*meta_args)
+    want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
+    for w, t in zip(want, got):
+        assert (t.device.type, t.shape, t.dtype) == ("meta", w.shape, w.dtype)
+    assert got[0].stride() == torch.empty_like(meta_args[0]).stride() or case.startswith(
+        ("decode", "moe"))
+    assert sum(cm.kernels.values()) == 1 and len(cm.by_op) == 1
+    io = sum(R.tensor_bytes(t) for t in meta_args + got)
+    (name, (calls, flops, nbytes)), = cm.by_op.items()
+    assert nbytes == io
+    assert flops == cm.totals.flops > 0
+
+
+# ----------------------------------------------------------------------------
+# 8-9. FLOPs and argument bytes against the reference's compiled steps
+# ----------------------------------------------------------------------------
+
+def _jax_flops(fn, *args):
+    compiled = jax.jit(fn).lower(*args).compile()
+    return JR.HloCostModel(compiled.as_text()).entry_cost(), compiled
+
+
+def _ref_attention_flops(B, Tq, Tk, Hq, Dh, causal, block=512):
+    """The block footprint of the reference's flash_attention_ref (its
+    layers.py:108-117): each q block's kv blocks, two products a block."""
+    bq, bk = min(block, Tq), min(block, Tk)
+    nq, nk = Tq // bq, Tk // bk
+    steps = sum(min(nk, ((i * bq + bq - 1) // bk) + 1) if causal else nk for i in range(nq))
+    return steps * 4 * B * Hq * Dh * bq * bk
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_flops_match_jax_after_the_attention_terms(kind):
+    """llama3-8b SMOKE's prefill and decode: the port's account against
+    HloCostModel of the reference's step lowered on one CPU device, each
+    side's attention term taken out and the rest held to 2%."""
+    cfg, jcfg = get_config("llama3-8b", smoke=True), jax_get_config("llama3-8b", smoke=True)
+    B, T = 2, 64
+    Hq, Dh, L = cfg.n_heads, cfg.resolved_head_dim, cfg.n_layers
+    jmodel = jax_build_model(jcfg)
+    jparams = jax.eval_shape(jmodel.init_params, jax.random.PRNGKey(0))
+    if kind == "prefill":
+        batch = {"tokens": torch.empty((B, T), dtype=torch.int32, device="meta")}
+        acct, _ = D.prefill_account(cfg, batch, device="meta")
+        jb = {"tokens": jax.ShapeDtypeStruct((B, T), jnp.int32)}
+        jcost, _ = _jax_flops(lambda p, b: jmodel.prefill(p, b), jparams, jb)
+        j_attn = L * _ref_attention_flops(B, T, T, Hq, Dh, True)
+        p_attn = L * costs.flash_cost(B, Hq, cfg.n_kv_heads, T, T, Dh)[0]
+    else:
+        cache = M.cache_specs(cfg, SHAPES["decode_32k"], batch=B)
+        cache = {k: torch.empty((*v.shape[:2], T, *v.shape[3:]), dtype=v.dtype, device="meta")
+                 for k, v in cache.items()}
+        batch = {"tokens": torch.empty((B, 1), dtype=torch.int32, device="meta"),
+                 "positions": torch.empty((B,), dtype=torch.int32, device="meta")}
+        acct, _ = D.decode_account(cfg, batch, cache, device="meta")
+        jcache = jax.eval_shape(lambda: jmodel.init_cache(B, T))
+        jb = {"tokens": jax.ShapeDtypeStruct((B, 1), jnp.int32),
+              "positions": jax.ShapeDtypeStruct((B,), jnp.int32)}
+        jcost, _ = _jax_flops(lambda p, c, b: jmodel.decode_step(p, c, b), jparams, jcache, jb)
+        j_attn = L * _ref_attention_flops(B, 1, T, Hq, Dh, False)
+        p_attn = L * costs.decode_cost(B, Hq, cfg.cache_kv_heads, T, Dh)[0]
+    assert acct.cost.kernels == {"flash_attention" if kind == "prefill" else "decode_attention": L}
+    got, want = acct.cost.totals.flops - p_attn, jcost.flops - j_attn
+    print(f"{kind}: port {acct.cost.totals.flops:.4g} (attention {p_attn:.4g}), "
+          f"reference {jcost.flops:.4g} (attention {j_attn:.4g})")
+    assert got == pytest.approx(want, rel=2e-2)
+
+
+def _jax_train(jcfg, B, T, n_micro):
+    jmodel = jax_build_model(jcfg)
+    opt = JO.make_optimizer("adamw")
+    state = jax.eval_shape(JS.make_init_state(jmodel, opt), jax.random.PRNGKey(0))
+    step = JS.make_train_step(jmodel, opt, JO.warmup_cosine(3e-4, 2000, 100000),
+                              n_microbatches=n_micro)
+    batch = {"tokens": jax.ShapeDtypeStruct((B, T), jnp.int32),
+             "targets": jax.ShapeDtypeStruct((B, T), jnp.int32)}
+    compiled = jax.jit(step, donate_argnums=(0,)).lower(state, batch).compile()
+    return compiled
+
+
+def test_train_argument_bytes_and_totals_against_jax():
+    """llama3-8b SMOKE's train step on one rank: the AdamW state and batch
+    the port's step is called with equal the reference's argument bytes on
+    one CPU device. The FLOP and byte totals of both are printed."""
+    cfg, jcfg = get_config("llama3-8b", smoke=True), jax_get_config("llama3-8b", smoke=True)
+    B, T, mb = 8, 64, 2
+    compiled = _jax_train(jcfg, B, T, mb)
+    specs = M.input_specs(cfg, dataclasses.replace(SHAPES["train_4k"], seq_len=T,
+                                                   global_batch=B))
+    acct, _ = D.train_account(cfg, specs, n_micro=mb, device="meta")
+    assert acct.argument_bytes == compiled.memory_analysis().argument_size_in_bytes
+    jcost = JR.HloCostModel(compiled.as_text()).entry_cost()
+    c = acct.cost.totals
+    print(f"train: port {c.flops:.4g} FLOP {c.bytes:.4g} B; reference {jcost.flops:.4g} FLOP "
+          f"{jcost.bytes:.4g} B; ratio {c.flops / jcost.flops:.4f}, {c.bytes / jcost.bytes:.4f}")
+
+
+def _ref_zero_bytes(arch, shape, axes):
+    """Rank 0's bytes of the reference's ZeRO-1 extended blocks (fp32) and
+    of its guarded param blocks (param dtype), summed over the leaves."""
+    jcfg = jax_get_config(arch)
+    jshapes = jax.eval_shape(jax_build_model(jcfg).init_params, jax.random.PRNGKey(0))
+    jmesh = _jax_mesh(shape, axes)
+    rules = JA.single_pod_rules()
+    sizes = dict(zip(axes, shape))
+    pspecs = _jax_leaves(JRU.param_pspecs(jshapes, jcfg, rules))
+    zero = param = 0
+    for p, leaf in _jax_leaves(jshapes).items():
+        guarded = JA._guard_divisibility(jmesh, leaf.shape, pspecs[p])
+        z = JA._guard_divisibility(jmesh, leaf.shape,
+                                   JRU.zero1_extend(guarded, leaf.shape, jmesh, rules["batch"]))
+        for spec, el, acc in ((z, 4, "zero"), (guarded, leaf.dtype.itemsize, "param")):
+            n = 1
+            for dim, e in zip(leaf.shape, tuple(spec) + (None,) * leaf.ndim):
+                names = () if e is None else (e if isinstance(e, tuple) else (e,))
+                n *= dim // math.prod(sizes[a] for a in names)
+            if acc == "zero":
+                zero += n * el
+            else:
+                param += n * el
+    return zero, param
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_zero_state_bytes_per_rank_match_jax(arch):
+    """On the (4, 1) mesh at full width: rank 0's AdamW moments (ZeRO-1)
+    and ZeRO-2 accumulator equal the reference's blocks of that rank. The
+    params are whole on every rank: that is the reference's block where its
+    param specs put nothing on the data axis, and more where they do (the
+    FSDP configs, cfg.fsdp, and the MoE experts over "expert"), since the
+    port runs neither FSDP nor expert parallelism (ROADMAP.md, Queue 1)."""
+    cfg = get_config(arch)
+    mesh = make_production_mesh()
+    params = M.build_model(cfg, device="meta").init_params(torch.Generator())
+    g_sh = RU.shardings_for(params, cfg, mesh, A.single_pod_rules(), zero1=True)
+    with D.fake_group(mesh.size):
+        state = train_state(params, make_optimizer("adamw"), g_sh)
+    accum = 4 * sum(p[b].numel() for p, b in zip(leaves(params), g_sh.index(params, 0))
+                    if b is not None)
+    moments = 4 * sum(t.numel() for t in leaves(state["opt"]["m"]))
+    zero, param = _ref_zero_bytes(arch, mesh.shape, mesh.axis_names)
+    assert accum == moments == zero
+    whole = sum(t.numel() * t.element_size() for t in leaves(params))
+    if cfg.fsdp or cfg.family == "moe":
+        assert whole > param
+    else:
+        assert whole == param
+
+
+def test_dryrun_microbatch_table_is_the_reference_s():
+    src = open(os.path.join(REPO, "src/repro/launch/dryrun.py")).read()
+    tree = ast.parse(src)
+    table = next(ast.literal_eval(n.value) for n in tree.body if isinstance(n, ast.Assign)
+                 and any(getattr(t, "id", None) == "MICROBATCH" for t in n.targets))
+    assert D.MICROBATCH == table
+
+
+# ----------------------------------------------------------------------------
+# 10. the dry-run end to end at SMOKE
+# ----------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cpu_kernel_ops():
+    """The kernel ops with their plain versions as CPU kernels, their
+    outputs laid out as the CUDA kernels lay them out (y and out with the
+    input's strides): under `use()` a CPU tensor reaches the custom op, as
+    a CUDA tensor does."""
+    def like(t, value):
+        return torch.empty_like(t).copy_(value)
+
+    def flash(q, k, v, c, w):
+        return like(q, ref.flash_attention_ref(q, k, v, causal=c, window=w))
+
+    def flash_lse(q, k, v, c, w):
+        out, lse = ref.flash_attention_ref(q, k, v, causal=c, window=w, return_lse=True)
+        return like(q, out), lse.contiguous()
+
+    def ssd(x, dt, A_, b, c, chunk):
+        y, state = ref.ssd_scan_ref(x, dt, A_, b, c, chunk=chunk)
+        return like(x, y), state.contiguous()
+
+    plain = {"flash_attention": flash, "flash_attention_lse": flash_lse,
+             "decode_attention": lambda *a: ref.decode_attention_ref(*a).contiguous(),
+             "moe_gmm": ref.moe_gmm_ref, "moe_gmm_dx": ref.moe_gmm_dx_ref,
+             "moe_gmm_dw": ref.moe_gmm_dw_ref, "ssd_scan": ssd}
+    for name, fn in plain.items():
+        torch.library.register_kernel(f"repro_torch::{name}", "cpu", fn)
+
+    def use(monkeypatch):
+        monkeypatch.setattr(ops, "_kernel_device", lambda t: True)
+    return use
+
+
+def _cell_step_on(device, arch, kind):
+    """A SMOKE step of `arch` on `device`: its account."""
+    cfg = get_config(arch, smoke=True)
+    shape = dataclasses.replace(SHAPES[{"train": "train_4k", "prefill": "prefill_32k",
+                                        "decode": "decode_32k"}[kind]], seq_len=32,
+                                global_batch=4)
+    gen = torch.Generator().manual_seed(0)
+    batch = M.make_batch(cfg, shape, device=device, generator=gen)
+    if kind == "train":
+        acct, _ = D.train_account(cfg, batch, n_micro=2, device=device, generator=gen)
+    elif kind == "prefill":
+        acct, _ = D.prefill_account(cfg, batch, device=device, generator=gen)
+    else:
+        model = M.build_model(cfg, device=device)
+        cache = model.init_cache(4) if cfg.family == "ssm" else model.init_cache(4, 32)
+        acct, _ = D.decode_account(cfg, batch, cache, device=device, generator=gen)
+    return acct
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b", "zamba2-2.7b",
+                                  "internvl2-76b"])
+def test_meta_account_equals_the_cpu_account(arch, kind, cpu_kernel_ops, monkeypatch):
+    """The same SMOKE step on meta tensors and on the CPU (the kernel ops
+    given their plain versions as CPU kernels): every op's calls, FLOPs and
+    bytes, the kernel ops, the collectives and the live-bytes high-water
+    mark are equal (what chip_smoke.py phase 12 holds on the card)."""
+    cpu_kernel_ops(monkeypatch)
+    meta, cpu = _cell_step_on("meta", arch, kind), _cell_step_on("cpu", arch, kind)
+    assert meta.cost.by_op == cpu.cost.by_op
+    assert meta.cost.kernels == cpu.cost.kernels and meta.cost.kernels
+    assert dataclasses.astuple(meta.cost.totals) == dataclasses.astuple(cpu.cost.totals)
+    assert meta.cost.peak_bytes == cpu.cost.peak_bytes
+    assert (meta.argument_bytes, meta.output_bytes) == (cpu.argument_bytes, cpu.output_bytes)
+
+
+def _expected_wire(params, g_sh, n, n_micro):
+    """The (4, 1) train step's wire bytes a rank, from the shardings: per
+    microbatch each fp32 gradient is all-reduced where every rank holds it
+    whole, reduced to the rank owning it whole, reduce-scattered where the
+    ranks split it along one dim; after the update each rank's blocks are
+    broadcast from their owner or all-gathered; the loss and the squared
+    norm are all-reduced as fp32 scalars."""
+    blocks = [g_sh.index(params, q) for q in range(n)]
+    wire = 0.0
+    for j, p in enumerate(leaves(params)):
+        bs = [b[j] for b in blocks]
+        grad, whole = 4 * p.numel(), p.numel() * p.element_size()
+        full = [b is not None and all(s.stop - s.start == d for s, d in zip(b, p.shape))
+                for b in bs]
+        if all(full):
+            wire += n_micro * 2 * grad * (n - 1) / n
+        elif sum(b is not None for b in bs) == 1:
+            wire += n_micro * grad + whole
+        else:
+            wire += n_micro * grad * (n - 1) / n + whole / n * (n - 1)
+    return wire + 2 * (2 * 4 * (n - 1) / n)
+
+
+def test_train_wire_bytes_follow_the_shardings():
+    cfg = get_config("llama3-8b", smoke=True)
+    shape = dataclasses.replace(SHAPES["train_4k"], **SMOKE_SHAPE)
+    mesh = make_production_mesh()
+    acct, meta = D.account_cell("llama3-8b", "train_4k", mesh,
+                                {"smoke": True, "shape": SMOKE_SHAPE})
+    params = M.build_model(cfg, device="meta").init_params(torch.Generator())
+    g_sh = RU.shardings_for(params, cfg, mesh, A.single_pod_rules(), zero1=True)
+    want = _expected_wire(params, g_sh, mesh.size, meta["microbatches"])
+    got = sum(v[2] for v in acct.cost.totals.collectives.values())
+    assert got == pytest.approx(want, rel=1e-12)
+    assert shape.global_batch % (meta["microbatches"] * mesh.size) == 0
+
+
+@pytest.mark.parametrize("mesh", ["1x1", "4x1"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_run_cell_at_smoke(arch, mesh, tmp_path):
+    """run_cell on (1, 1) and (4, 1) for every shape: ok where applicable
+    says, skipped where it does not; arctic's train cells are errors that
+    name Adafactor's ZeRO-1. Each record has the reference's fields."""
+    cfg = get_config(arch, smoke=True)
+    mesh = D.MESHES[mesh]
+    if True:
+        for name in SHAPES:
+            rec = D.run_cell(arch, name, mesh, overrides={"smoke": True, "shape": SMOKE_SHAPE},
+                             out_dir=tmp_path)
+            assert (tmp_path / "baseline" / D.mesh_name(mesh) / f"{arch}__{name}.json").exists()
+            if not applicable(cfg.family, cfg.sub_quadratic, name):
+                assert rec["status"] == "skipped", rec
+            elif cfg.optimizer == "adafactor" and SHAPES[name].kind == "train":
+                assert rec["status"] == "error" and "ZeRO-1" in rec["error"] \
+                    and "adafactor" in rec["error"], rec
+            else:
+                assert rec["status"] == "ok", rec.get("traceback", rec)
+                r, m = rec["roofline"], rec["memory"]
+                assert r["dominant"] in ("compute_s", "memory_s", "collective_s")
+                assert 0 < r["roofline_fraction"] <= 1
+                assert r["flops_global"] == r["hlo_flops_per_device"] * mesh.size
+                assert m["fits_80gb"] and m["peak_per_device_gb"] > 0
+                if SHAPES[name].kind != "train" and mesh.size > 1:
+                    assert rec["serve_weights"] in ("whole", "replicated")

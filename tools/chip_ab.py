@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Phases 3a-3e, 4, 6 and 7 of chip_smoke.py for several trees of this
+"""Phases 3a-3e, 4, 6, 7 and 8b of chip_smoke.py for several trees of this
 repository, one after the other on one card, so that their times compare.
 
     python3 tools/chip_ab.py TREE [TREE ...]     # e.g. parent change change parent
@@ -13,13 +13,16 @@ too (phase 3d), the SSD scan (phase 3e), llama3-8b is served at its
 published width and depth
 (phase 4), phi3.5-moe at its published width and 16 layers (phase 6), and
 zamba2-2.7b prefills and decodes at its published width and depth (phase
-7), with the arguments `chip_smoke.py` gives them.
+7), and llama3-8b at its published width and 4 layers trains 6 steps
+(phase 8b), with the arguments `chip_smoke.py` gives them.
 
-Five measurements are this script's own, the same for every tree: decode
+Six measurements are this script's own, the same for every tree: decode
 attention's device and event times at phases 3b's, 3b''s and 3c's shapes
 through the tree's `ops.decode_attention`, beside SDPA's and the bound
-(`decode_ab`); flash attention's distance to an fp32 run, by kernel, at
-llama3-8b's, zamba2-2.7b's and stablelm-12b's prefill shapes
+(`decode_ab`); the host time a call of its `ops.decode_attention` and
+`ops.flash_attention` at host-paced shapes (`call_ab`); flash attention's
+distance to an fp32 run, by kernel, at llama3-8b's, zamba2-2.7b's and
+stablelm-12b's prefill shapes
 (`flash_precision_ab`); the SSD scan's device time and distance to an
 fp64 run (this script's own plain version) through the tree's
 `ops.ssd_scan` at zamba2-2.7b's prefill widths (`ssd_ab`); zamba2-2.7b's
@@ -42,11 +45,16 @@ from pathlib import Path
 OWN_ROOT = Path(__file__).resolve().parents[1]
 OWN_SMOKE = OWN_ROOT / "chip_smoke.py"
 OWN_REF = OWN_ROOT / "src" / "repro_torch" / "kernels" / "ref.py"   # imports torch only
+# the kernels' cost formulas (plain Python) and the card's peaks (torch only):
+# the bounds printed for every tree
+OWN_COSTS = OWN_ROOT / "src" / "repro_torch" / "kernels" / "costs.py"
+OWN_ROOFLINE = OWN_ROOT / "src" / "repro_torch" / "roofline.py"
 
 
 def _load(path: Path, name: str):
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module        # a dataclass looks its module up there
     spec.loader.exec_module(module)   # puts the tree's src first on sys.path
     return module
 
@@ -61,6 +69,7 @@ def decode_ab(own, gen, dev):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    costs, roofline = _load(OWN_COSTS, "own_costs"), _load(OWN_ROOFLINE, "own_roofline")
 
     rnd = own._rnd(gen, dev)
     for label, B, Hq, Hc, S, D, int8 in (("llama3-8b", 8, 32, 16, 2048, 128, False),
@@ -80,11 +89,11 @@ def decode_ab(own, gen, dev):
             kc, vc = (torch.round(x / s).to(torch.int8).transpose(1, 2)
                       for x, s in ((kf, ks), (vf, vs)))
             scales = (ks.transpose(1, 2), vs.transpose(1, 2))
-            nbytes = 2 * rows * Hc * (D + 4) + 2 * 2 * B * Hq * D + 4 * B
-            bound = nbytes / own.PEAK_HBM_BYTES * 1e3
+            cost = costs.decode_cost(B, Hq, Hc, S, D, rows=rows, cache_itemsize=1, scales=True)
         else:
             kc, vc, scales = kf.transpose(1, 2), vf.transpose(1, 2), (None, None)
-            bound, nbytes = own.decode_bound(B, Hq, Hc, D, rows)
+            cost = costs.decode_cost(B, Hq, Hc, S, D, rows=rows)
+        bound, nbytes = roofline.bound(*cost)[0] * 1e3, cost[1]
         own.gate(f"decode_ab {label}", ops.decode_attention(q, kc, vc, valid, *scales),
                  ref.decode_attention_ref(q, kc, vc, valid, *scales), own.BF16_TOL)
         calls = {"kernel": lambda: ops.decode_attention(q, kc, vc, valid, *scales)}
@@ -126,6 +135,7 @@ def ssd_ab(own, dev):
     import torch
     from repro_torch.kernels import ops
     own_ref = _load(OWN_REF, "own_ref")
+    costs, roofline = _load(OWN_COSTS, "own_costs"), _load(OWN_ROOFLINE, "own_roofline")
     H, P, N, Q = 80, 64, 64, 256
     for B, T in ((4, 1024), (4, 2048)):
         g = torch.Generator(device=dev).manual_seed(T)
@@ -138,7 +148,9 @@ def ssd_ab(own, dev):
         exact_y, exact_s = own_ref.ssd_scan_ref(*(t.double() for t in args), chunk=Q)
         y, s = ops.ssd_scan(*args, chunk=Q)
         ms = own.device_ms(lambda: ops.ssd_scan(*args, chunk=Q), 20)
-        bound, by, _, _ = own.ssd_bound(B, H, T, P, N, Q, 4)
+        seconds, by = roofline.bound(*costs.ssd_cost(B, H, T, P, 1, N, Q, 4),
+                                     roofline.PEAK_TF32_FLOPS)
+        bound = seconds * 1e3
         print(f"  ssd_ab B={B} H={H} T={T} P={P} N={N} fp32: device {ms:.4f} ms, bound "
               f"{bound:.4f} ms by {by}; distance to fp64 y {own.rel_l2(y, exact_y):.6e} "
               f"state {own.rel_l2(s, exact_s):.6e}", flush=True)
@@ -171,8 +183,38 @@ def prefill_ab(own, seed, dev):
     del model, params
 
 
+def call_ab(dev, calls=2000, reps=5):
+    """Host time a call of the tree's ops.decode_attention and
+    ops.flash_attention at shapes so small that the host paces them (B=1,
+    one head group, 64 rows; the device takes a few microseconds a call):
+    `calls` calls queued back to back, the wall over the count, median of
+    `reps`. The entry point's own cost, whatever route it takes to the
+    kernel (the custom op or the wrapper)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((1, 8, 128), generator=g, device=dev).to(torch.bfloat16)
+    kc = torch.randn((1, 64, 2, 128), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    valid = torch.full((1,), 64, dtype=torch.int32, device=dev)
+    fq = torch.randn((1, 64, 8, 128), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    for name, fn in (("decode_attention", lambda: ops.decode_attention(q, kc, kc, valid)),
+                     ("flash_attention", lambda: ops.flash_attention(fq, kc, kc))):
+        walls = []
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / calls * 1e6)
+        print(f"  call_ab {name}: {np.median(walls):.2f} us a call (host-paced; "
+              + ", ".join(f"{w:.2f}" for w in walls) + ")", flush=True)
+
+
 def run_tree(root: Path, seed: int) -> int:
-    """Phases 2, 3a-3e, 4, 6 and 7 of the chip_smoke.py at `root`,
+    """Phases 2, 3a-3e, 4, 6, 7 and 8b of the chip_smoke.py at `root`,
     decode_ab, flash_precision_ab, ssd_ab and prefill_ab, in this process."""
     own = _load(OWN_SMOKE, "chip_smoke_ab")
     smoke = _load(root / "chip_smoke.py", "chip_smoke")
@@ -197,6 +239,7 @@ def run_tree(root: Path, seed: int) -> int:
         phase(gen, dev)
         torch.cuda.empty_cache()
     decode_ab(own, gen, dev)
+    call_ab(dev)
     flash_precision_ab(own, dev)
     ssd_ab(own, dev)
     torch.cuda.empty_cache()
@@ -213,6 +256,9 @@ def run_tree(root: Path, seed: int) -> int:
     torch.cuda.empty_cache()
     smoke.hybrid_phase(get_config("zamba2-2.7b"), seed + 3, batch=4, prompt_len=1024,
                        new_tokens=32, dev=dev)
+    torch.cuda.empty_cache()
+    smoke.train_phase(get_config("llama3-8b").replace(n_layers=4), seed + 4, batch=4,
+                      seq=1024, n_micro=2, steps=6, dev=dev)
     print(f"== tree {root}: done", flush=True)
     return 0
 
