@@ -6,9 +6,10 @@
 Drives the port's paths on the card and checks them: dense-LM
 continuous-batching serving, MoE serving, the zamba2 hybrid's prefill and
 decode, training of every family, prefill and decode of the xLSTM, whisper
-and VLM families, the paper's RL rollouts, and the multi-rank paths (the
+and VLM families, the paper's RL rollouts, the multi-rank paths (the
 int8 ring all-reduce, data-parallel and ZeRO-2 training, MoE dispatch
-groups, the resharded restore). Every phase exits non-zero
+groups, the resharded restore) and tensor-parallel serving over the
+"model" axis. Every phase exits non-zero
 on failure; nothing is caught and carried on.
 
   1. requires a CUDA device; prints the card's name and power limit;
@@ -203,10 +204,36 @@ on failure; nothing is caught and carried on.
      fits_80gb, the dominant term, roofline_fraction. The kernels' bounds
      everywhere come from the kernel ops' cost formulas
      (`kernels/costs.py`) and `roofline.py`'s peaks;
- 13. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
-     at C=320, ssd_scan's with its plain backward, flash's and decode's
-     with their rows at phase 9's shapes) and, last, the device line
-     `{"ok": true, "device": {...}}`.
+ 13. tensor-parallel serving over the "model" axis of a (1, n) mesh, the
+     ranks spawned on the cards present as in 11 (one card: gloo, every
+     collective's payload through host memory; n cards: NCCL), each rank
+     holding its blocks of the weights (drawn whole from the seed, a layer
+     at a time, the rest freed) and its heads of the cache: a. llama3-8b at
+     published width and depth on 4 ranks, a ServeEngine of 8 slots x 2048
+     serving phase 4's first 8 requests, 16 new tokens each; b. phi3.5-moe
+     at published width, 8 of 32 layers, expert-TP on 2 ranks (d_ff 3200 a
+     rank), 8 requests through the engine; c. qwen1.5-32b at published
+     width, 16 of 64 layers, on 4 ranks (12 padded heads a rank, the QKV
+     bias, the int8 cache) through the model interface: one prefill of 4 x
+     512, 8 decode steps. Each first runs the whole model in this process
+     (the same seed), then the ranks: every rank's blocks' digests equal
+     this process's blocks of the whole draw, its param bytes the sum of
+     its blocks; its launches exact, every flash launch on `flash_wgmma`,
+     every decode launch on `decode_split`, every moe_gmm launch on
+     `gmm_wgmma` at d_ff / n; the greedy outputs (and MoE routing) identical
+     across ranks, 13a's beside phase 4's; the gate's prefill and decode
+     step logits (rank 0's kernel path) held to this process's plain path
+     in bf16 and fp32 by `logits_gate` (13b on the first 4 layers, as phase
+     6, with the routing agreement); prefill and decode times, each rank's
+     all-reduce and all-gather ms a step and device idle share from a
+     profiled window, each rank's peak memory beside the single process's;
+     d. flash, decode and moe_gmm at the ranks' shapes (and a kv-head
+     selection of a replicated k/v) against their plain versions, the
+     route named and gated, timed beside the library call and the bound;
+ 14. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+     at C=320, ssd_scan's with its plain backward, flash's, decode's and
+     moe_gmm's with their rows at phase 9's and phase 13's shapes) and,
+     last, the device line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -1499,6 +1526,7 @@ def serve_phase(cfg, seed, n_requests, batch_slots, max_len, new_tokens,
     if n_gmm:
         launches["moe_gmm_by_path"] = gmm_path_gate(cfg, lens, steps, batch_slots)
     say(f"  peak device memory while serving {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    launches["outputs"] = [r.output for r in reqs]
     profile_window(engine, prompts)
     del engine
     torch.cuda.empty_cache()
@@ -3186,6 +3214,550 @@ def dryrun_phase(seed, dev, smi, runs, procs):
     out["sweep"] = sweep_phase(procs, smi)
     return out
 
+
+# ----------------------------------------------------------------------------
+# phase 13: tensor-parallel serving
+# ----------------------------------------------------------------------------
+
+# the record_function spans of the TP collectives (models/tensor_parallel.py),
+# which a rank's profiled window reads
+TP_SPANS = ("tp_all_reduce", "tp_all_gather")
+# the decode-step gate's batch: the first prompts of a phase
+TP_GATE_PROMPTS = 4
+TP_PROFILE_STEPS = 4
+# the kernels at the ranks' shapes (13d): (label, B, T, Hq, Hkv, D, the kv
+# heads a rank reads of a replicated k/v or None)
+TP_FLASH_SHAPES = (
+    ("llama3-8b TP 4 prefill", 1, 1024, 8, 2, 128, None),
+    ("qwen1.5-32b TP 4 prefill", 4, 512, 12, 12, 128, None),
+    ("kv heads 2-3 of a replicated 8 (llama3-8b's k/v whole)", 1, 1024, 8, 8, 128, slice(2, 4)),
+)
+# (label, B, Hq, Hc, S, D, valid rows each, int8)
+TP_DECODE_SHAPES = (
+    ("llama3-8b TP 4, 8 slots x 2048", 8, 8, 4, 2048, 128, 1024, False),
+    ("qwen1.5-32b TP 4, int8", 4, 12, 12, 520, 128, 516, True),
+)
+# (label, E, C, K, N): phi3.5-moe's products at a rank's d_ff
+TP_GMM_SHAPES = (
+    ("phi3.5-moe TP 2, w1/w3 at prefill capacity", 16, 160, 4096, 3200),
+    ("phi3.5-moe TP 2, w2 (K = 3200)", 16, 160, 3200, 4096),
+    ("phi3.5-moe TP 2, w1/w3 at decode capacity", 16, 4, 4096, 3200),
+    ("phi3.5-moe TP 4, w1/w3", 16, 160, 4096, 1600),
+    ("phi3.5-moe TP 4, w2 (K = 1600)", 16, 160, 1600, 4096),
+)
+
+
+def tp_kernel_phase(gen, dev) -> dict:
+    """13d: flash, decode and moe_gmm at the shapes a rank of 13a-13c gives
+    them (its heads, its cache heads, its d_ff), each against its plain
+    version in bf16 (the int8 cache with a bf16 q), the route it takes
+    named and gated (the tensor-core or split kernel), and timed: device
+    ms, plain ms, the library call's and the bound. Returns the rows by
+    kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import moe_gmm as gk
+    from repro_torch.kernels import costs, ops, ref
+
+    rnd = _rnd(gen, dev)
+    rows = {"flash_attention": [], "decode_attention": [], "moe_gmm": []}
+    for label, B, T, Hq, Hkv, D, heads in TP_FLASH_SHAPES:
+        q = rnd(B, T, Hq, D).transpose(1, 2)
+        k, v = (rnd(B, T, Hkv, D) for _ in range(2))
+        if heads is not None:
+            k, v = k[:, :, heads], v[:, :, heads]
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        path = fk.route_for(q, k, v)
+        shape = f"B={B} T={T} Hq={Hq} Hkv={k.shape[1]} D={D} bf16 causal"
+        err = gate(f"flash {label}, {shape} ({path})", ops.flash_attention(q, k, v),
+                   ref.flash_attention_ref(q, k, v), BF16_TOL)
+        if path != "wgmma":
+            fail(f"13d: flash at {label} did not route to the tensor-core kernel: {path}")
+        ms = device_ms(lambda: ops.flash_attention(q, k, v), 20)
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=Hq != k.shape[1]), 20)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 3)
+        bound, by = bound_ms(costs.flash_cost(B, Hq, k.shape[1], T, T, D))
+        say(f"    kernel {ms:.4f} ms, sdpa {sdpa:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bound:.4f} ms ({by})")
+        rows["flash_attention"].append(dict(path_of=label, shape=shape, kernel=path,
+                                            max_abs_err=err, ms=ms, plain_ms=plain,
+                                            bound_ms=bound, bound_by=by, library_ms=sdpa))
+        del q, k, v
+    for label, B, Hq, Hc, S, D, n_valid, int8 in TP_DECODE_SHAPES:
+        q = rnd(B, Hq, D)
+        valid = torch.full((B,), n_valid, device=dev, dtype=torch.int32)
+        if int8:
+            kf, vf = (rnd(B, S, Hc, D, dtype=torch.float32) for _ in range(2))
+            ks, vs = (x.abs().amax(-1, keepdim=True) / 127.0 for x in (kf, vf))
+            kc, vc = (torch.round(x / s).to(torch.int8).transpose(1, 2)
+                      for x, s in ((kf, ks), (vf, vs)))
+            scales = (ks.transpose(1, 2), vs.transpose(1, 2))
+            del kf, vf
+        else:
+            kc, vc = (rnd(B, S, Hc, D).transpose(1, 2) for _ in range(2))
+            scales = (None, None)
+        path = dk.route_for(kc, vc)
+        shape = f"B={B} Hq={Hq} Hc={Hc} S={S} D={D} {'int8' if int8 else 'bf16'}, " \
+                f"{n_valid} valid rows each"
+        err = gate(f"decode {label}, {shape} ({path})",
+                   ops.decode_attention(q, kc, vc, valid, *scales),
+                   ref.decode_attention_ref(q, kc, vc, valid, *scales), BF16_TOL)
+        if path != "split":
+            fail(f"13d: decode at {label} did not route to the split kernel: {path}")
+        t = decode_times(q, kc, vc, valid, scales)
+        plain = cuda_ms(lambda: ref.decode_attention_ref(q, kc, vc, valid, *scales), 5)
+        bound, _ = bound_ms(costs.decode_cost(B, Hq, Hc, S, D, rows=B * n_valid,
+                                              cache_itemsize=1 if int8 else 2, scales=int8))
+        say(f"    plain {plain:.4f} ms, bound {bound:.4f} ms")
+        rows["decode_attention"].append(dict(
+            path_of=label, shape=shape, kernel=path, max_abs_err=err, ms=t["kernel"],
+            plain_ms=plain, bound_ms=bound, bound_by="bytes", library_ms=t["sdpa"],
+            simt_ms=t["simt"]))
+        del q, kc, vc
+    for label, E, C, K, N in TP_GMM_SHAPES:
+        x = rnd(E, C, K)
+        w = rnd(E, K, N, scale=K ** -0.5)
+        out = ops.moe_gmm(x, w)
+        path = gk.route_for(x, w, out)
+        shape = f"E={E} C={C} {K}->{N} bf16"
+        err = gate(f"moe_gmm {label}, {shape} ({path})", out, ref.moe_gmm_ref(x, w), BF16_TOL)
+        if path != "wgmma":
+            fail(f"13d: moe_gmm at {label} did not route to the tensor-core kernel: {path}")
+        ms = device_ms(lambda: ops.moe_gmm(x, w), 20)
+        lib = device_ms(lambda: torch.bmm(x, w), 20)
+        plain = cuda_ms(lambda: ref.moe_gmm_ref(x, w), 3)
+        bound, by = bound_ms(costs.gmm_cost(E, C, K, N))
+        say(f"    kernel {ms:.4f} ms, torch.bmm {lib:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bound:.4f} ms ({by})")
+        rows["moe_gmm"].append(dict(path_of=label, shape=shape, kernel=path, max_abs_err=err,
+                                    ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                                    library_ms=lib))
+        del x, w, out
+    return rows
+
+
+def tp_prompts(cfg, seed, n, lo, hi):
+    """n prompts of lo..hi tokens, drawn from the seed as serve_phase draws
+    them (so phase 13a's are phase 4's first)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    return [rng.integers(0, cfg.vocab_size, int(k)).tolist() for k in lens]
+
+
+def gate_logits(prefill, decode, init_cache, prompts, rows, tokens, dev, batched):
+    """The logits the phase's gate compares, as fp32 on the host: the
+    prefill's of the first prompt (with `batched`, of all of them, of one
+    length, in one call) and one decode step with `tokens` (one a prompt)
+    over the prompts' caches of `rows` rows."""
+    import torch
+    B = len(prompts)
+    cache = init_cache(B, rows)
+    if batched:
+        lp, pc = prefill({"tokens": torch.tensor(prompts, dtype=torch.int32, device=dev)})
+        for name in cache:
+            cache[name][:, :, :pc[name].shape[2]] = pc[name]
+    else:
+        for i, p in enumerate(prompts):
+            lg, pc = prefill({"tokens": torch.tensor([p], dtype=torch.int32, device=dev)})
+            lp = lg if i == 0 else lp
+            for name in cache:
+                cache[name][:, i, :len(p)] = pc[name][:, 0]
+    step = {"tokens": torch.tensor(tokens, dtype=torch.int32, device=dev)[:, None],
+            "positions": torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                                      device=dev)}
+    ld, _ = decode(cache, step)
+    return lp.float().cpu(), ld.float().cpu()
+
+
+def tp_blocks(cfg, n):
+    """Rank r's block of every leaf of cfg's params on a (1, n) mesh under
+    the serving specs: the shardings, and the whole params on meta."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding.axes import single_pod_rules
+    from repro_torch.sharding.rules import shardings_for
+    meta = build_model(cfg, device="meta").init_params(torch.Generator())
+    return shardings_for(meta, cfg, Mesh((1, n), ("data", "model")), single_pod_rules()), meta
+
+
+def tp_references(cfg, seed, n, prompts, rows, tokens, dev, batched, gate_layers):
+    """Phase 13's single-process side, run in this process before the ranks
+    start: the whole model drawn from `seed` (phase 4's draw for llama3-8b),
+    the digest of each rank's block of every leaf, and on the first
+    `gate_layers` layers the gate's logits (gate_logits) on the plain path
+    in bf16 and in fp32, each with its MoE routing; and the bf16 path's
+    peak memory, the single process's."""
+    import torch
+    from repro_torch.models import build_model, dense
+    from repro_torch.tree import flatten
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = build_model(cfg, device=dev).init_params(
+        torch.Generator(device=dev).manual_seed(seed))
+    sh, _ = tp_blocks(cfg, n)
+    digests = [{"/".join(map(str, p)): digest(t[b]) for (p, t), b in
+                zip(flatten(params), sh.index(params, r))} for r in range(n)]
+    gcfg = cfg.replace(n_layers=gate_layers)
+    params = dict(params, layers=params["layers"][:gate_layers])
+    out = {"digests": digests, "routing": {"plain": [], "exact": []}}
+
+    def run(p, c):
+        return gate_logits(lambda b: dense.lm_prefill(p, b, c),
+                           lambda cache, b: dense.lm_decode_step(p, cache, b, c),
+                           lambda B, S: dense.init_cache(c, B, S, device=dev),
+                           prompts, rows, tokens, dev, batched)
+    with torch.inference_mode(), plain_kernels():
+        with record_routing(out["routing"]["plain"]):
+            out["plain"] = run(params, gcfg)
+        out["single_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        params = _to_f32(params)
+        with record_routing(out["routing"]["exact"]):
+            out["exact"] = run(params, gcfg.replace(param_dtype="float32"))
+        del params
+    out["routing"] = {k: [t.cpu() for t in v] for k, v in out["routing"].items()}
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_profile(step, steps) -> dict:
+    """Profile `steps` calls of step() on this rank: the step's ms (profiler
+    on), the device's busy share (kernels and copies) and, of it, the
+    copies' ms a step, and the ms a step of the TP collectives' spans (host
+    clock, which holds the host-staged copies and the wait for the work
+    queued before them) and of NCCL's kernels on the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    spans = {n: 0.0 for n in TP_SPANS}
+    busy = nccl = copies = 0.0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if e.name() in spans:
+                spans[e.name()] += e.duration_ns() / 1e6
+        elif not e.is_hidden_event():
+            busy += e.duration_ns() / 1e9
+            nccl += e.duration_ns() / 1e6 if "nccl" in e.name().lower() else 0.0
+            copies += e.duration_ns() / 1e6 if "memcpy" in e.name().lower() else 0.0
+    return {"step_ms": window / steps * 1e3, "busy": busy / window,
+            **{f"{n}_ms": v / steps for n, v in spans.items()}, "nccl_ms": nccl / steps,
+            "copy_ms": copies / steps}
+
+
+def tp_rank(rank, world, dev, job):
+    """13a-13c on one rank of a (1, world) mesh: the model built
+    tensor-parallel from the seed (init_params keeps the rank's blocks), the
+    digests of its blocks, its param bytes and the sum of its blocks' bytes
+    from the specs; then the serving run (13a, 13b: a ServeEngine over
+    `job["requests"]`; 13c: one batched prefill and `job["steps"]` decode
+    steps through the model interface) with its kernel launches by kernel,
+    times, a profiled window and its MoE routing's digest; and the gate's
+    logits on the kernel path (13c: the serving run's own)."""
+    import numpy as np
+    import torch
+    from repro_torch import distributed as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import moe_gmm as gk
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.tree import flatten
+    _rank_setup()
+    cfg, dev = job["cfg"], torch.device(dev)
+    mesh = make_mesh((1, world), ("data", "model"), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, mesh=mesh)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(job["seed"]))
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "transport": D.transport(dev, model.tp.group)}
+    sh, meta = tp_blocks(cfg, world)
+    out["digests"] = {"/".join(map(str, p)): digest(t) for p, t in flatten(params)}
+    out["param_bytes"] = sum(t.numel() * t.element_size() for _, t in flatten(params))
+    out["block_bytes"] = sum(t[b].numel() * t.element_size() for (_, t), b in
+                             zip(flatten(meta), sh.index(meta, rank)))
+    out["plan"] = {k: str(v) for k, v in vars(model.tp).items() if k != "group"}
+    if cfg.family == "moe":
+        out["expert_cols"] = int(params["layers"][0]["moe"]["w1"].shape[-1])
+    timings = {"prefill": [], "decode": []}
+    routes = []
+    with torch.inference_mode(), record_routing(routes):
+        reset_counts()
+        t0 = time.perf_counter()
+        if "requests" in job:
+            engine = ServeEngine(timed_model(model, timings), params,
+                                 batch_slots=job["slots"], max_len=job["max_len"], device=dev)
+            reqs = [Request(id=i, prompt=p, max_new_tokens=job["new_tokens"])
+                    for i, p in enumerate(job["requests"])]
+            for r in reqs:
+                engine.add_request(r)
+            engine.tick()
+            engine.tick()
+            k0 = len(timings["decode"])
+            out["profile"] = tp_profile(engine.tick, TP_PROFILE_STEPS)
+            k1 = len(timings["decode"])
+            engine.run_until_drained()
+            out["outputs"] = [r.output for r in reqs]
+            out["prefills"], out["steps"] = engine.stats["prefills"], engine.stats["ticks"]
+        else:
+            tm = timed_model(model, timings)
+            prompts = torch.tensor(job["prompts"], dtype=torch.int32, device=dev)
+            B, T = prompts.shape
+            lp, pc = tm.prefill(params, {"tokens": prompts})
+            cache = model.init_cache(B, T + len(job["tokens"]))
+            for name in cache:
+                cache[name][:, :, :T] = pc[name]
+            del pc
+            logits = []
+
+            def step():
+                i = len(logits)
+                batch = {"tokens": torch.tensor(job["tokens"][i], dtype=torch.int32,
+                                                device=dev)[:, None],
+                         "positions": torch.full((B,), T + i, dtype=torch.int32, device=dev)}
+                logits.append(tm.decode_step(params, cache, batch)[0])
+            step()
+            step()
+            k0 = len(timings["decode"])
+            out["profile"] = tp_profile(step, TP_PROFILE_STEPS)
+            k1 = len(timings["decode"])
+            while len(logits) < len(job["tokens"]):
+                step()
+            out["outputs"] = torch.stack([lg[:, -1].argmax(-1) for lg in logits], 1).tolist()
+            out["gate"] = (lp.float().cpu().numpy(), logits[0].float().cpu().numpy())
+            out["prefills"], out["steps"] = 1, len(logits)
+            del cache, logits
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = kernel_counts()
+    out["by_path"] = {"flash_attention": dict(fk.launches_by_path),
+                      "decode_attention": dict(dk.launches_by_path),
+                      "moe_gmm": dict(gk.launches_by_path)}
+    out["timings"] = {"prefill": timings["prefill"],
+                      "decode": timings["decode"][:k0] + timings["decode"][k1:]}
+    out["routing_digest"] = [digest(t) for t in routes]
+    out["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if "gate" not in out:
+        gl = job["gate_layers"]
+        gcfg = cfg.replace(n_layers=gl)
+        gmodel = build_model(gcfg, device=dev, mesh=mesh)
+        gparams = dict(params, layers=params["layers"][:gl])
+        routes = []
+        with torch.inference_mode(), record_routing(routes):
+            prompts = job["requests"][:TP_GATE_PROMPTS]
+            out["gate"] = tuple(t.numpy() for t in gate_logits(
+                lambda b: gmodel.prefill(gparams, b),
+                lambda cache, b: gmodel.decode_step(gparams, cache, b),
+                gmodel.init_cache, prompts, job["max_len"], job["gate_tokens"], dev, False))
+        out["gate_routing"] = [t.cpu().numpy() for t in routes]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def tp_launch_gate(label, r, cfg):
+    """One rank's serving run: exactly a flash launch a layer a prefill, a
+    decode launch a layer a step and, for an MoE model, 3 moe_gmm launches
+    a layer a prefill and a step, every one on the tensor-core or split
+    kernel; no other kernel."""
+    L, pre, steps = cfg.n_layers, r["prefills"], r["steps"]
+    n_gmm = 3 * L * (pre + steps) if cfg.family == "moe" else 0
+    want = {"flash_attention": L * pre, "decode_attention": L * steps, "moe_gmm": n_gmm,
+            "ssm_scan": 0, "moe_gmm_dx": 0, "moe_gmm_dw": 0}
+    paths = {"flash_attention": {"wgmma": L * pre, "simt": 0},
+             "decode_attention": {"split": L * steps, "simt": 0},
+             "moe_gmm": {"wgmma": n_gmm, "rows": 0, "tiled": 0}}
+    ok = r["launches"] == want and r["by_path"] == paths
+    say(f"  {'ok  ' if ok else 'FAIL'} {label}: launches {r['launches']}, by kernel "
+        f"{r['by_path']} ({pre} prefills, {steps} decode steps of {L} layers)")
+    if not ok:
+        fail(f"{label}: the rank did not launch the kernels as its layers ask: want {want}, "
+             f"all on {paths}")
+
+
+def tp_phase(label, cfg, seed, n, dev, smi, *, requests=None, prompts=None, slots=8,
+             max_len=2048, new_tokens=16, steps=8, gate_layers=None, phase4=None):
+    """13a-13c: `cfg` served on n ranks of a (1, n) mesh (distributed.spawn:
+    NCCL with a card a rank, else gloo through host memory), held to this
+    process's whole model from the same seed. With `requests` (prompts of
+    any length) a ServeEngine of `slots` x `max_len` on every rank serves
+    them, `new_tokens` each; with `prompts` (one length) one batched prefill
+    and `steps` decode steps through the model interface. Gates: each rank's
+    blocks' digests equal this process's blocks of the whole draw; its param
+    bytes equal the sum of its blocks; its launches exact and all on the
+    tensor-core or split kernel; the outputs (and MoE routing) identical
+    across ranks; the logits of the gate's prefill and decode step no
+    further from the fp32 plain path than logits_gate allows (on the first
+    `gate_layers` layers). Prints the times, the collectives' ms a step, the
+    device's idle share and each rank's memory."""
+    import numpy as np
+    import torch
+    from repro_torch import distributed as D
+    gate_layers = gate_layers or cfg.n_layers
+    rng = np.random.default_rng(seed + 1)
+    batched = prompts is not None
+    say(f"  [{smi}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.eff_q_heads}/{cfg.eff_kv_heads} (cache {cfg.cache_kv_heads}, "
+        f"{cfg.kv_cache_dtype}), d_ff {cfg.d_ff}"
+        f"{f', {cfg.moe.n_experts} experts top-{cfg.moe.top_k}' if cfg.moe else ''}, "
+        f"on {n} ranks: backend {D.backend_for(n, dev)}, devices "
+        f"{[str(D.rank_device(r, dev)) for r in range(n)]}")
+    if batched:
+        tokens = rng.integers(0, cfg.vocab_size, (steps, len(prompts))).tolist()
+        gate_prompts, rows, gate_tokens = prompts, len(prompts[0]) + steps, tokens[0]
+        job = {"cfg": cfg, "seed": seed, "prompts": prompts, "tokens": tokens}
+    else:
+        gate_prompts = requests[:TP_GATE_PROMPTS]
+        rows, gate_tokens = max_len, rng.integers(0, cfg.vocab_size, len(gate_prompts)).tolist()
+        job = {"cfg": cfg, "seed": seed, "requests": requests, "slots": slots,
+               "max_len": max_len, "new_tokens": new_tokens, "gate_layers": gate_layers,
+               "gate_tokens": gate_tokens}
+    t0 = time.perf_counter()
+    refs = tp_references(cfg, seed, n, gate_prompts, rows, gate_tokens, dev, batched,
+                         gate_layers)
+    say(f"  single process: whole model and the references on {gate_layers} layers in "
+        f"{time.perf_counter() - t0:.1f} s; bf16 plain path's peak {refs['single_peak_gb']:.2f} GB")
+    t0 = time.perf_counter()
+    ranks = D.spawn(tp_rank, n, job, device=dev.type, timeout=600)
+    inits = ", ".join(f"{r['init_s']:.1f}" for r in ranks)
+    say(f"  {n} ranks over {ranks[0]['transport']}: {time.perf_counter() - t0:.1f} s wall, "
+        f"init {inits} s")
+    for rank, r in enumerate(ranks):
+        same = r["digests"] == refs["digests"][rank]
+        ok = same and r["param_bytes"] == r["block_bytes"]
+        say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: {len(r['digests'])} leaves, their blocks' "
+            f"digests equal this process's blocks of the whole draw: {same}; param bytes "
+            f"{r['param_bytes']} = sum of its blocks {r['block_bytes']}; peak "
+            f"{r['peak_gb']:.2f} GB ({r['serve_peak_gb']:.2f} GB serving), single process "
+            f"{refs['single_peak_gb']:.2f} GB")
+        if not ok:
+            fail(f"{label}: rank {rank}'s weights are not its blocks of the seed's draw")
+        tp_launch_gate(f"{label} rank {rank}", r, cfg)
+        if cfg.family == "moe" and r["expert_cols"] != cfg.d_ff // n:
+            fail(f"{label}: rank {rank} holds {r['expert_cols']} expert columns, not "
+                 f"{cfg.d_ff // n}")
+    r0 = ranks[0]
+    say(f"  plan of rank 0: {r0['plan']}")
+    if not all(r["outputs"] == r0["outputs"] for r in ranks):
+        fail(f"{label}: the ranks' greedy outputs differ")
+    if not all(r["routing_digest"] == r0["routing_digest"] for r in ranks):
+        fail(f"{label}: the ranks routed tokens differently")
+    alike_logits = all(np.array_equal(a, b) for r in ranks for a, b in zip(r["gate"], r0["gate"]))
+    if not alike_logits:
+        fail(f"{label}: the ranks' gate logits differ")
+    routing = f" and routing ({len(r0['routing_digest'])} dispatches)" if cfg.moe else ""
+    say(f"  ok   outputs ({len(r0['outputs'])} sequences), gate logits{routing} bit-identical "
+        "across ranks")
+    if phase4 is not None:
+        got = [o[:new_tokens] for o in r0["outputs"]]
+        want = [o[:new_tokens] for o in phase4[:len(got)]]
+        tok = sum(a == b for x, y in zip(got, want) for a, b in zip(x, y))
+        say(f"  greedy outputs against phase 4's single process (its first {len(got)} "
+            f"requests, first {new_tokens} tokens): {tok} of {sum(map(len, got))} tokens "
+            f"({tok / sum(map(len, got)) * 100:.1f}%), {sum(x == y for x, y in zip(got, want))} "
+            f"of {len(got)} requests whole")
+    pre, dec = r0["timings"]["prefill"], r0["timings"]["decode"]
+    say(f"  rank 0: prefill {spread(pre)} per {'batch' if batched else 'request'}; decode "
+        f"{spread(dec)} per step of {len(gate_prompts) if batched else slots} slots "
+        f"(profiled steps left out); serving run {r0['wall_s']:.2f} s")
+    for rank, r in enumerate(ranks):
+        p = r["profile"]
+        say(f"  rank {rank}, profiled {TP_PROFILE_STEPS} decode steps: {p['step_ms']:.2f} ms a "
+            f"step, all-reduce {p['tp_all_reduce_ms']:.2f} ms and all-gather "
+            f"{p['tp_all_gather_ms']:.2f} ms a step (host spans), NCCL kernels "
+            f"{p['nccl_ms']:.3f} ms; device busy {p['busy'] * 100:.1f}% (idle "
+            f"{100 - p['busy'] * 100:.1f}%), of it copies {p['copy_ms']:.2f} ms a step")
+    say(f"  logits gate on the first {gate_layers} of {cfg.n_layers} layers, rank 0's kernel "
+        f"path against this process's plain path in bf16 and in fp32")
+    alike = None
+    if cfg.family == "moe":
+        kern_routes = [torch.from_numpy(a) for a in r0["gate_routing"]]
+        plain = refs["routing"]["plain"]
+        share = routing_agreement(kern_routes, plain)
+        say(f"  routing of the gate's prefill and decode step: {share * 100:.2f}% of the (token, "
+            f"k) choices alike on the kernel path and the plain path (gate >= "
+            f"{MOE_ROUTING_AGREEMENT * 100:g}%)")
+        if not share >= MOE_ROUTING_AGREEMENT:
+            fail(f"{label}: the kernel path routed tokens unlike the plain path")
+    names = ("prefill logits" + (f" (B={len(gate_prompts)})" if batched else
+                                 f" (T={len(gate_prompts[0])})"),
+             f"decode-step logits (B={len(gate_prompts)})")
+    compared = total = 0
+    for i, name in enumerate(names):
+        kern = torch.from_numpy(r0["gate"][i])
+        if cfg.family == "moe":   # the first prefill's dispatches, or the decode step's
+            part = slice(0, gate_layers) if i == 0 else slice(-gate_layers, None)
+            alike = routed_alike(kern_routes[part], plain[part], kern.shape[0])
+        compared += logits_gate(name, kern, refs["plain"][i], refs["exact"][i],
+                                cfg.vocab_size, alike)
+        total += kern.shape[0]
+    if cfg.family == "moe" and not 2 * compared >= total:
+        fail(f"{label}: fewer than half the sequences were routed alike")
+    counts = {n_: sum(r["launches"][n_] for r in ranks) for n_ in ranks[0]["launches"]}
+    for kname in ("flash_attention", "decode_attention", "moe_gmm"):
+        counts[f"{kname}_by_path"] = {p: sum(r["by_path"][kname][p] for r in ranks)
+                                      for p in ranks[0]["by_path"][kname]}
+    counts["profile"] = [r["profile"] for r in ranks]
+    counts["peak_gb"] = [r["peak_gb"] for r in ranks]
+    counts["single_peak_gb"] = refs["single_peak_gb"]
+    counts["decode_ms"] = float(np.median(dec)) * 1e3
+    counts["prefill_ms"] = float(np.median(pre)) * 1e3
+    return counts
+
+
+def tp_serving_phase(seed, dev, smi, gen, phase4_outputs=None) -> dict:
+    """Phase 13: 13a llama3-8b at full width and depth on a (1, 4) mesh
+    through the engine (phase 4's first 8 requests, 16 new tokens each);
+    13b phi3.5-moe x 8 of 32 layers on (1, 2) through the engine; 13c
+    qwen1.5-32b x 16 of 64 layers on (1, 4) through the model interface
+    (int8 cache, 12 padded heads a rank, QKV bias): one prefill of 4 x 512,
+    8 decode steps; 13d the kernels at the ranks' shapes. Returns the
+    ranks' launches summed, by kernel, and 13d's rows."""
+    from repro_torch.configs import get_config
+    out = {}
+    say("phase 13a: llama3-8b at published width and depth, tensor-parallel on 4 ranks, "
+        "through the engine")
+    cfg = get_config("llama3-8b")
+    out["13a"] = tp_phase("13a", cfg, seed, 4, dev, smi,
+                          requests=tp_prompts(cfg, seed, 16, 16, 1024)[:8],
+                          phase4=phase4_outputs)
+    # 32 layers are 41.9 B params (78 GiB of bf16); 8 are 10.7 B, 5.4 B a rank
+    say("phase 13b: phi3.5-moe at published width, 8 of 32 layers, expert-TP on 2 ranks, "
+        "through the engine")
+    cfg = get_config("phi3.5-moe-42b-a6.6b").replace(n_layers=8)
+    out["13b"] = tp_phase("13b", cfg, seed + 2, 2, dev, smi,
+                          requests=tp_prompts(cfg, seed + 2, 8, 16, 1024), gate_layers=4)
+    # 64 layers are 32.5 B params, 65 GB of bf16 weights: with the fp32 copy
+    # the single process's gate reads, 16 layers (10.3 B) fill the card
+    say("phase 13c: qwen1.5-32b at published width, 16 of 64 layers, tensor-parallel on 4 "
+        "ranks, through the model interface, int8 KV cache")
+    cfg = get_config("qwen1.5-32b").replace(n_layers=16)
+    prompts = tp_prompts(cfg, seed + 3, 4, 512, 512)
+    out["13c"] = tp_phase("13c", cfg, seed + 3, 4, dev, smi, prompts=prompts, steps=8)
+    say("phase 13d: the kernels at the ranks' shapes")
+    out["13d"] = tp_kernel_phase(gen, dev)
+    total = {}
+    for part in ("13a", "13b", "13c"):
+        for k, v in out[part].items():
+            if isinstance(v, int):
+                total[k] = total.get(k, 0) + v
+            elif k.endswith("_by_path"):
+                total[k] = {p: total.get(k, {}).get(p, 0) + c for p, c in v.items()}
+    return dict(total, parts={k: out[k] for k in ("13a", "13b", "13c")}, kernels=out["13d"])
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3356,7 +3928,11 @@ def main() -> int:
     runs["11"] = timed("11 ranks", ranks_phase, args.seed + 15, dev, smi, runs["8"]["step_ms"])
     say("phase 12: the dry-run held to the card")
     timed("12 dry-run", dryrun_phase, args.seed + 16, dev, smi, runs, procs)
-    say("phase 13: the kernel table and the device")
+    say('phase 13: tensor-parallel serving over the "model" axis, ranks on the cards present')
+    runs["13"] = timed("13 TP serving", tp_serving_phase, args.seed, dev, smi, gen,
+                       runs["4"]["outputs"])
+    tp_rows = runs["13"].pop("kernels")
+    say("phase 14: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 
@@ -3388,20 +3964,24 @@ def main() -> int:
                                                  for r in runs.values()
                                                  if "flash_attention_by_path" in r)
                                           for p in ("wgmma", "simt")},
-                      phase9_shapes=new_shapes["flash_attention"])
+                      phase9_shapes=new_shapes["flash_attention"],
+                      tp_shapes=tp_rows["flash_attention"])
     dec = table["decode_attention"]
     kernels[1].update(kernel=dec["path"], simt_ms=dec["simt_ms"], event_ms=dec["event_ms"],
                       launches_by_kernel={p: sum(r["decode_attention_by_path"][p]
                                                  for r in runs.values()
                                                  if "decode_attention_by_path" in r)
                                           for p in ("split", "simt")},
-                      phase9_shapes=new_shapes["decode_attention"])
+                      phase9_shapes=new_shapes["decode_attention"],
+                      tp_shapes=tp_rows["decode_attention"])
     train_gmm = {kind: {p: runs["8e"]["moe_gmm_by_path"][kind][p]
                         + runs["11"]["moe_gmm_by_path"][kind][p] for p in by_path}
                  for kind, by_path in runs["8e"]["moe_gmm_by_path"].items()}
     kernels[2].update(kernel=table["moe_gmm"]["path"],
                       launches_by_kernel={p: runs["6"]["moe_gmm_by_path"][p] + train_gmm["fwd"][p]
-                                          for p in train_gmm["fwd"]})
+                                          + runs["13"]["moe_gmm_by_path"][p]
+                                          for p in train_gmm["fwd"]},
+                      tp_shapes=tp_rows["moe_gmm"])
     for kind in GMM_BACKWARD:   # the backward products, at phi's training capacity
         row = table["moe_gmm_bwd"][kind]
         kernels[2][kind] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",

@@ -25,6 +25,9 @@ is split along that axis only, into `s["layers"]` (one per layer) or
 the state of the others (the per-layer norms and biases, factored over
 the stack) stays stacked in `s["layers_stacked"]` or `s["mamba_stacked"]`.
 
+`shard_params` cuts the port's whole params to a rank's blocks for
+tensor-parallel serving.
+
 The RL rollout's policy weights ({"w1", "w2", "w3"}) and a surrogate
 environment's matrices (W, Pobs, Pact) cross as they are
 (`policy_from_jax`, `surrogate_matrices_from_numpy`).
@@ -40,6 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch.optim.optimizers import per_layer
+from repro_torch.sharding.axes import rules_for
+from repro_torch.sharding.rules import shardings_for
 from repro_torch.tree import flatten, get, leaves, tree_map, unflatten
 
 
@@ -97,6 +102,14 @@ def params_from_jax(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
         tree = tree_map(lambda a: tensor_from_array(a, device), v)
         out[k] = _unstack(tree, _STACKED.get(k, 0))
     return out
+
+
+def shard_params(params: Dict[str, Any], cfg, mesh, rank: int) -> Dict[str, Any]:
+    """Rank `rank`'s block of every leaf of the port's whole `params` under
+    the serving specs of `mesh` (`sharding/rules.py::shardings_for`, the
+    reference's `named_shardings`), as `init_params(..., mesh=, rank=)`
+    draws them: a contiguous copy where the block is not the whole leaf."""
+    return shardings_for(params, cfg, mesh, rules_for(mesh)).take(params, rank)
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:

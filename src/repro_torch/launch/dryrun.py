@@ -14,15 +14,21 @@ A cell's step is the port's own: the train step of `train/steps.py` with the
 reference's microbatch rule, the ZeRO-1 optimizer state and the ZeRO-2
 gradient accumulator from the reference dry-run's ZeRO specs
 (`sharding/rules.py`); `model.prefill`; or one `model.decode_step` on the
-cell's cache (`models/registry.py::cache_specs`). The meshes are abstract
-and data-parallel only (`launch/mesh.py::make_production_mesh`): each rank
-runs its share of the global batch (all of it where the batch does not
-split), and MoE layers dispatch in one group a rank, `dp_degree(mesh)`
-groups in all, as the reference's. The train step's collectives run over
-PyTorch's testing `fake` process group, which moves no data. Serving
-weights stay whole on every rank (the port's serve path shards nothing):
-where the reference's `_serve_cfg` would shard them over the data axes too,
-the record says `"serve_weights": "replicated"`.
+cell's cache (`models/registry.py::cache_specs`). The meshes are abstract:
+the data-parallel (4, 1) and (2, 4, 1) of `launch/mesh.py::make_production_mesh`,
+where each rank runs its share of the global batch (all of it where the
+batch does not split) and MoE layers dispatch in one group a rank,
+`dp_degree(mesh)` groups in all, as the reference's; and for the serving
+shapes the tensor-parallel (1, 4), where rank 0 runs the whole batch on its
+blocks of the weights and its cache heads (`models/tensor_parallel.py`),
+with two all-reduces a layer and the logits' all-gather. The collectives
+run over PyTorch's testing `fake` process group, which moves no data. On a
+data-parallel mesh serving weights stay whole on every rank: where the
+reference's `_serve_cfg` would shard them over the data axes too, the
+record says `"serve_weights": "replicated"`; on (1, 4) it says
+`"tensor-parallel"`. Train cells on (1, 4) are skipped (TP training is not
+ported), and the hybrid, xLSTM and whisper families' serving cells there
+are errors that say their TP is not ported.
 
 Records are JSON under build/dryrun/<tag>/<mesh>/<arch>__<shape>.json, with
 the status `ok`, `skipped` (by `configs.shapes.applicable`) or `error` (the
@@ -33,6 +39,7 @@ under the card's 80 GiB.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --one-card [--force]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --tp [--force]     # 1x4
 """
 from __future__ import annotations
 
@@ -52,10 +59,10 @@ from repro_torch import roofline
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.configs.base import ModelConfig, active_param_count, param_count
 from repro_torch.configs.shapes import ShapeConfig, applicable
-from repro_torch.launch.mesh import Mesh, dp_degree, make_production_mesh
+from repro_torch.launch.mesh import Mesh, dp_degree, make_production_mesh, tp_degree
 from repro_torch.models.registry import build_model, cache_specs, input_specs, shape_window
 from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
-from repro_torch.sharding.axes import multi_pod_rules, single_pod_rules
+from repro_torch.sharding.axes import rules_for
 from repro_torch.sharding.rules import shardings_for
 from repro_torch.train.steps import make_train_step, train_state
 from repro_torch.tree import leaves
@@ -79,15 +86,12 @@ MICROBATCH = {
 
 MESHES = {"1x1": Mesh((1, 1), ("data", "model")),
           "4x1": make_production_mesh(),
-          "2x4x1": make_production_mesh(multi_pod=True)}
+          "2x4x1": make_production_mesh(multi_pod=True),
+          "1x4": Mesh((1, 4), ("data", "model"))}
 
 
 def mesh_name(mesh: Mesh) -> str:
     return "x".join(map(str, mesh.shape))
-
-
-def rules_for(mesh: Mesh):
-    return multi_pod_rules() if "pod" in mesh.axis_names else single_pod_rules()
 
 
 def serve_sharded_by_reference(cfg: ModelConfig) -> bool:
@@ -203,10 +207,12 @@ def train_account(cfg: ModelConfig, batch: Dict[str, torch.Tensor], *, n_micro: 
 
 
 def prefill_account(cfg: ModelConfig, batch: Dict[str, torch.Tensor], *, device,
-                    window: Optional[int] = None, generator: Optional[torch.Generator] = None):
-    """The account of `model.prefill` of `batch` on `device`, whole weights.
-    Returns (Account, (logits, cache))."""
-    model = build_model(cfg, device=device, window=window)
+                    window: Optional[int] = None, generator: Optional[torch.Generator] = None,
+                    mesh: Optional[Mesh] = None):
+    """The account of `model.prefill` of `batch` on `device`, whole weights
+    or, under a tensor-parallel `mesh` (and an initialised process group of
+    its size), this rank's blocks. Returns (Account, (logits, cache))."""
+    model = build_model(cfg, device=device, window=window, mesh=mesh)
     params = model.init_params(generator or _generator(device))
     def prefill():
         with torch.no_grad():
@@ -215,10 +221,11 @@ def prefill_account(cfg: ModelConfig, batch: Dict[str, torch.Tensor], *, device,
 
 
 def decode_account(cfg: ModelConfig, batch: Dict[str, torch.Tensor], cache, *, device,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, mesh: Optional[Mesh] = None):
     """The account of one `model.decode_step` of `batch` on `cache` (updated
-    in place) on `device`, whole weights. Returns (Account, logits)."""
-    model = build_model(cfg, device=device)
+    in place) on `device`, whole weights or, under a tensor-parallel `mesh`,
+    this rank's blocks and a cache of its heads. Returns (Account, logits)."""
+    model = build_model(cfg, device=device, mesh=mesh)
     params = model.init_params(generator or _generator(device))
     def decode():
         with torch.no_grad():
@@ -240,10 +247,9 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh,
     overrides = overrides or {}
     cfg = get_config(arch, smoke=overrides.get("smoke", False))
     shape = dataclasses.replace(SHAPES[shape_name], **overrides.get("shape", {}))
-    n = dp_degree(mesh)
-    if n != mesh.size:
-        raise ValueError(f"mesh {mesh.shape} has non-data-parallel axes: the port runs no "
-                         "tensor parallelism")
+    n, tp = dp_degree(mesh), tp_degree(mesh)
+    if n * tp != mesh.size:
+        raise ValueError(f"mesh {mesh.shape} has axes other than the data and model axes")
     window = shape_window(cfg, shape)
     specs = input_specs(cfg, shape)
     meta: Dict[str, Any] = {"mesh": mesh_name(mesh), "n_devices": mesh.size, "dp": n}
@@ -256,14 +262,23 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh,
             acct, _ = train_account(cfg, specs, n_micro=mb, device="meta", mesh=mesh)
         return acct, meta
     rows = rank_rows(shape.global_batch, n)
-    meta.update(rank_rows=rows, serve_weights="replicated"
-                if n > 1 and serve_sharded_by_reference(cfg) else "whole")
+    meta.update(rank_rows=rows, tp=tp, serve_weights="tensor-parallel" if tp > 1
+                else "replicated" if n > 1 and serve_sharded_by_reference(cfg) else "whole")
     batch = _rank_batch(specs, rows)
-    if shape.kind == "prefill":
-        acct, _ = prefill_account(cfg, batch, device="meta", window=window)
-    else:
-        cache = cache_specs(cfg, shape, window=window, batch=rows)
-        acct, _ = decode_account(cfg, batch, cache, device="meta")
+    if tp == 1:
+        if shape.kind == "prefill":
+            acct, _ = prefill_account(cfg, batch, device="meta", window=window)
+        else:
+            cache = cache_specs(cfg, shape, window=window, batch=rows)
+            acct, _ = decode_account(cfg, batch, cache, device="meta")
+        return acct, meta
+    with fake_group(mesh.size):
+        if shape.kind == "prefill":
+            acct, _ = prefill_account(cfg, batch, device="meta", window=window, mesh=mesh)
+        else:
+            cache = build_model(cfg, device="meta", window=window, mesh=mesh).init_cache(
+                rows, shape.seq_len)
+            acct, _ = decode_account(cfg, batch, cache, device="meta", mesh=mesh)
     return acct, meta
 
 
@@ -307,10 +322,14 @@ def run_cell(arch: str, shape_name: str, mesh: Mesh, force: bool = False,
         "arch": arch, "shape": shape_name, "mesh": name, "tag": tag,
         "params": param_count(cfg), "active_params": active_param_count(cfg),
     }
+    reason = None
     if not applicable(cfg.family, cfg.sub_quadratic, shape_name):
+        reason = f"long_500k requires sub-quadratic attention; {arch} is full-attention"
+    elif shape.kind == "train" and tp_degree(mesh) > 1:
+        reason = "TP training is not yet ported"
+    if reason:
         record["status"] = "skipped"
-        record["reason"] = ("long_500k requires sub-quadratic attention; "
-                            f"{arch} is full-attention")
+        record["reason"] = reason
         out_file.write_text(json.dumps(record, indent=1))
         print(f"SKIP {arch} x {shape_name}: {record['reason']}")
         return record
@@ -344,6 +363,8 @@ def main():
     ap.add_argument("--multi-pod", action="store_true", help="two nodes of four: 2x4x1")
     ap.add_argument("--both-meshes", action="store_true", help="4x1 and 2x4x1")
     ap.add_argument("--one-card", action="store_true", help="1x1 too")
+    ap.add_argument("--tp", action="store_true",
+                    help="the tensor-parallel 1x4 serving mesh (train shapes skipped)")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tag", default="baseline")
     args = ap.parse_args()
@@ -357,8 +378,10 @@ def main():
         meshes += ["4x1", "2x4x1"]
     elif args.multi_pod:
         meshes.append("2x4x1")
-    elif not args.one_card:
+    elif not (args.one_card or args.tp):
         meshes.append("4x1")
+    if args.tp:
+        meshes.append("1x4")
     n_ok = n_fail = 0
     for m in meshes:
         for arch in archs:

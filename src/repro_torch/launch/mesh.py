@@ -9,6 +9,12 @@ names and sizes, as the reference's read `mesh.axis_names` and
 
 `make_production_mesh` gives the dry-run's (`launch/dryrun.py`) abstract
 meshes of H100s.
+
+`dp_group` and `tp_group` are the process groups of the data-parallel axes
+and of the "model" axis (tensor parallelism, `models/tensor_parallel.py`).
+On a mesh whose other axes have size 1 the group is every rank of the
+process group, so an abstract mesh has one too (the dry-run's, over its
+fake process group).
 """
 from __future__ import annotations
 
@@ -42,8 +48,9 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The abstract production mesh: one node's four H100s, (4, 1) over
     ("data", "model"), or with `multi_pod` two such nodes, (2, 4, 1) over
     ("pod", "data", "model"). Not the reference's 16x16 and 2x16x16 TPU
-    meshes: those put 16 ways of tensor parallelism on "model", and the
-    port runs none (`dp_group`), so its meshes are data-parallel only."""
+    meshes, which put 16 ways of tensor parallelism on "model": the port
+    trains data-parallel only (`train/steps.py`), and the dry-run's serving
+    cells add a (1, 4) mesh of their own (`launch/dryrun.py::MESHES`)."""
     if multi_pod:
         return Mesh((2, 4, 1), ("pod", "data", "model"))
     return Mesh((4, 1), ("data", "model"))
@@ -66,12 +73,37 @@ def dp_degree(mesh) -> int:
     return sizes.get("data", 1) * sizes.get("pod", 1)
 
 
+def tp_degree(mesh) -> int:
+    return dict(zip(mesh.axis_names, mesh.shape)).get("model", 1)
+
+
+def _group_over(mesh, axes: Tuple[str, ...]):
+    """The process group of the ranks that differ only along `axes`: every
+    rank when the mesh's other axes have size 1, else the device mesh's
+    group of those axes (flattened where two have size > 1)."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    if all(n == 1 for a, n in sizes.items() if a not in axes):
+        return dist.group.WORLD
+    if mesh.device_mesh is None:
+        raise ValueError(f"an abstract {mesh.shape} mesh has no process group over {axes}")
+    live = tuple(a for a in mesh.axis_names if a in axes and sizes[a] > 1)
+    if len(live) == 1:
+        return mesh.group(live[0])
+    return mesh.device_mesh[live]._flatten().get_group()
+
+
 def dp_group(mesh):
-    """The process group over the mesh's data-parallel axes ("pod", "data").
-    The port runs no tensor parallelism, so every other axis must have size
-    1, and the group is every rank of the mesh: the default group."""
-    extra = {a: n for a, n in zip(mesh.axis_names, mesh.shape) if a not in DP_AXES and n > 1}
-    if extra:
-        raise ValueError(f"axes {extra} are not data-parallel: the port runs no tensor "
-                         "parallelism")
-    return dist.group.WORLD
+    """The process group over the mesh's data-parallel axes ("pod", "data"),
+    or None where they have size 1 under a "model" axis: no rank shares a
+    data-parallel group with another."""
+    if dp_degree(mesh) == 1 and tp_degree(mesh) > 1:
+        return None
+    return _group_over(mesh, DP_AXES)
+
+
+def tp_group(mesh):
+    """The process group over the mesh's "model" axis, or None where it has
+    size 1."""
+    if tp_degree(mesh) == 1:
+        return None
+    return _group_over(mesh, ("model",))

@@ -14,6 +14,11 @@ at a time where JAX threads it through the scan carry. Attention goes through
 CPU; so does the MoE FFN's expert matmul (`models/moe.py`). Under autograd,
 attention goes through the flash backward (`models/flash_vjp.py`) and the
 expert matmul through `moe.GroupedMatmul`.
+
+Serving runs tensor-parallel too (`tp`, `tensor_parallel.py`): each rank
+holds its blocks of the weights (`init_params(..., mesh=, rank=)`) and its
+heads of the cache, and the prefill and decode step sum and gather over the
+"model" axis where the reference's sharding constraints stand.
 """
 from __future__ import annotations
 
@@ -25,8 +30,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import tp_degree
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe_layer, moe_ffn
+from repro_torch.sharding.axes import constrain, rules_for
+from repro_torch.sharding.rules import shardings_for
 
 F32 = torch.float32
 
@@ -62,32 +70,56 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, dtype, device):
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", mesh=None, rank: int = 0) -> Dict[str, Any]:
     """Random weights drawn from `generator`, which must live on `device`:
     normal(0, d_model**-0.5) projections, normal(0, 0.02) embeddings and
-    unit norms, as the JAX init draws them (from another stream)."""
+    unit norms, as the JAX init draws them (from another stream).
+
+    With a `mesh` whose "model" axis is larger than 1 (tensor-parallel
+    serving), rank `rank`'s blocks of them under the serving specs
+    (`sharding/rules.py::shardings_for`): each leaf is drawn whole, in the
+    same order, and all but the rank's block freed a layer at a time, so
+    the blocks are bit for bit those of the whole draw and the peak is one
+    layer, not the model."""
     dev = resolve_device(device)
     dtype = param_dtype(cfg)
+    keep = _block_keeper(cfg, mesh, rank)
     return {
-        "embed": L.init_embedding(generator, cfg.vocab_size, cfg.d_model,
-                                  dtype, cfg.tie_embeddings, cfg.padded_vocab,
-                                  device=dev),
-        "layers": [init_block(generator, cfg, dtype, dev)
-                   for _ in range(cfg.n_layers)],
+        "embed": keep(("embed",), L.init_embedding(
+            generator, cfg.vocab_size, cfg.d_model, dtype, cfg.tie_embeddings,
+            cfg.padded_vocab, device=dev)),
+        "layers": [keep(("layers", i), init_block(generator, cfg, dtype, dev))
+                   for i in range(cfg.n_layers)],
         "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
     }
+
+
+def _block_keeper(cfg: ModelConfig, mesh, rank: int):
+    """keep(prefix, subtree) -> the subtree's leaves cut to rank `rank`'s
+    blocks under the serving specs of `mesh`; the identity without a model
+    axis."""
+    if mesh is None or tp_degree(mesh) == 1:
+        return lambda prefix, tree: tree
+    whole = init_params(torch.Generator(), cfg, device="meta")
+    sh = shardings_for(whole, cfg, mesh, rules_for(mesh))
+    return lambda prefix, tree: sh.take(tree, rank, prefix)
 
 
 # ----------------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------------
 
-def _ffn(p, xn, cfg: ModelConfig, n_groups: int = 1, group=None):
+def _ffn(p, xn, cfg: ModelConfig, n_groups: int = 1, group=None, tp=None):
     """The block's FFN on normed x: (y, the MoE aux loss, or None for a dense
-    FFN, which has none). `n_groups` and `group`: see moe.moe_ffn."""
+    FFN, which has none). `n_groups` and `group`: see moe.moe_ffn. Under
+    tensor parallelism (`tp`) y is summed over the ranks: the counterpart
+    of the reference's constraint on the block's output."""
     if cfg.family == "moe":
-        return moe_ffn(p["moe"], xn, cfg, n_groups, group)
-    return L.swiglu(xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"]), None
+        return moe_ffn(p["moe"], xn, cfg, n_groups, group, tp=tp)
+    y = L.swiglu(xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
+    if tp is not None:
+        y = constrain(tp.psum((y, tp.splits(cfg.d_ff))), "batch", "seq", None)
+    return y, None
 
 
 def block_fwd(p, x, positions, cfg: ModelConfig, *, window: Optional[int] = None,
@@ -161,10 +193,12 @@ def kv_cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Dict[str, torch.Tensor]:
+               device="cuda", tp=None) -> Dict[str, torch.Tensor]:
+    """Zeros of the cache; under tensor parallelism (`tp`) of the rank's
+    cache heads."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.cache_kv_heads,
-             cfg.resolved_head_dim)
+    heads = cfg.cache_kv_heads if tp is None else tp.cache_heads
+    shape = (cfg.n_layers, batch, max_len, heads, cfg.resolved_head_dim)
     kd = kv_cache_dtype(cfg)
     cache = {"k": torch.zeros(shape, dtype=kd, device=dev),
              "v": torch.zeros(shape, dtype=kd, device=dev)}
@@ -184,12 +218,15 @@ def _quantize_kv(x):
     return q, scale
 
 
-def _replicate_kv(cfg: ModelConfig, k, v):
+def _replicate_kv(cfg: ModelConfig, k, v, tp=None):
     """Repeat each kv head kv_replication times in place along the head
-    axis (jnp.repeat), so the cache holds cache_kv_heads heads."""
+    axis (jnp.repeat), so the cache holds cache_kv_heads heads; under
+    tensor parallelism (`tp`) the rank's cache heads of them."""
     if cfg.kv_replication > 1:
         k = torch.repeat_interleave(k, cfg.kv_replication, dim=2)
         v = torch.repeat_interleave(v, cfg.kv_replication, dim=2)
+    if tp is not None and tp.store_heads is not None:
+        k, v = k[:, :, tp.store_heads], v[:, :, tp.store_heads]
     return k, v
 
 
@@ -215,66 +252,71 @@ def _store_kv(cfg: ModelConfig, cache, li: int, k, v, pos):
         buf[bidx, row] = torch.where(keep, val.to(buf.dtype), buf[bidx, row])
 
 
-def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, n_groups: int = 1):
+def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, n_groups: int = 1, tp=None):
     """One decode step through layer li. x: (B, 1, d); pos: (B,) int32, the
     current length of each sequence. Updates the cache in place."""
     B, T, _ = x.shape
-    hd = cfg.resolved_head_dim
     xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     positions = pos[:, None] + torch.arange(T, device=x.device, dtype=pos.dtype)[None, :]
-    q, k, v = L.qkv(p["attn"], xn, positions, cfg)
-    k, v = _replicate_kv(cfg, k, v)
+    q, k, v = L.qkv(p["attn"], xn, positions, cfg, tp)
+    k, v = _replicate_kv(cfg, k, v, tp)
     _store_kv(cfg, cache, li, k, v, pos)
-    out = _decode_attend(q, cache, li, (pos + T).to(torch.int32))
-    x = x + out.reshape(B, T, cfg.eff_q_heads * hd) @ p["attn"]["wo"]
-    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups)
+    heads = None if tp is None else tp.read_heads
+    out = _decode_attend(q, cache, li, (pos + T).to(torch.int32), heads)
+    x = x + L.attn_out(p["attn"], out.reshape(B, T, -1), tp)
+    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups, tp=tp)
     return x + y
 
 
-def _decode_attend(q, cache, li: int, valid):
+def _decode_attend(q, cache, li: int, valid, heads: Optional[slice] = None):
     """Attention of q (B, 1, Hq, hd) over layer li's cache, read in place as
-    the (B, Hc, S, hd) view of its (B, S, Hc, hd) slice."""
+    the (B, Hc, S, hd) view of its (B, S, Hc, hd) slice, or of its `heads`."""
     def view(name):
-        return cache[name][li].transpose(1, 2) if name in cache else None
+        if name not in cache:
+            return None
+        layer = cache[name][li]
+        return (layer if heads is None else layer[:, :, heads]).transpose(1, 2)
     return ops.decode_attention(q[:, 0], view("k"), view("v"), valid,
                                 view("k_scale"), view("v_scale"))
 
 
-def lm_decode_step(params, cache, batch, cfg: ModelConfig, *, n_groups: int = 1):
+def lm_decode_step(params, cache, batch, cfg: ModelConfig, *, n_groups: int = 1, tp=None):
     """One-token decode across the whole stack. batch: {"tokens": (B, 1),
     "positions": (B,)}. Returns (logits (B, 1, V), cache), the cache being
-    the same dictionary, updated in place.
+    the same dictionary, updated in place. Under tensor parallelism (`tp`)
+    the rank's blocks and cache heads, and the logits of every rank.
 
     Like the JAX decode step this attends over the whole valid prefix; the
     JAX step passes `window` without a query offset, so it never masks."""
     tokens, pos = batch["tokens"], batch["positions"]
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, tp)
     for li, lp in enumerate(params["layers"]):
-        x = block_decode(lp, x, cache, li, pos, cfg, n_groups)
+        x = block_decode(lp, x, cache, li, pos, cfg, n_groups, tp)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg.vocab_size), cache
+    return L.unembed(params["embed"], x, cfg.vocab_size, tp), cache
 
 
 def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None,
-               n_groups: int = 1):
+               n_groups: int = 1, tp=None):
     """Full forward of batch {"tokens" (B, T)} [+ the VLM's "patch_embeds"
     (B, n_patches, d)] that also materializes the KV cache.
 
     Returns (last-token logits (B, 1, V), cache) with cache buffers of
-    length T: (L, B, T, Hc, D) [+ int8 scales]."""
+    length T: (L, B, T, Hc, D) [+ int8 scales]; under tensor parallelism
+    (`tp`) of the rank's cache heads."""
     tokens = batch["tokens"]
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
-    x = _inject_frontend(batch, L.embed(params["embed"], tokens), cfg)
+    x = _inject_frontend(batch, L.embed(params["embed"], tokens, tp), cfg)
     kvs: Dict[str, List[torch.Tensor]] = {}
     for lp in params["layers"]:
         xn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         h, (k, v) = L.attention(lp["attn"], xn, positions, cfg, causal=True,
-                                window=window)
+                                window=window, tp=tp)
         x = x + h
-        y, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, n_groups)
+        y, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, n_groups, tp=tp)
         x = x + y
-        k, v = _replicate_kv(cfg, k, v)
+        k, v = _replicate_kv(cfg, k, v, tp)
         if cfg.kv_cache_dtype == "int8":
             (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
             kvs.setdefault("k_scale", []).append(ks)
@@ -282,5 +324,5 @@ def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None,
         kvs.setdefault("k", []).append(k)
         kvs.setdefault("v", []).append(v)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.unembed(params["embed"], x[:, -1:, :], cfg.vocab_size)
+    logits = L.unembed(params["embed"], x[:, -1:, :], cfg.vocab_size, tp)
     return logits, {name: torch.stack(bufs) for name, bufs in kvs.items()}

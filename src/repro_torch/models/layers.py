@@ -7,6 +7,9 @@ bf16. Weights keep the JAX orientation: a projection is `x @ w` with `w` of
 shape (d_in, d_out). Attention goes through `kernels/ops.py`: the CUDA
 kernel on the card, the plain version on the CPU; when autograd is
 recording, through `flash_vjp.py`, whose backward is the flash backward.
+Under tensor parallelism (`tp`, `tensor_parallel.py`) the projections,
+attention and embeddings run on the rank's blocks; the `constrain` calls
+at the reference's sites check each activation's layout under a binding.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from repro_torch import distributed as D
 from repro_torch.kernels import ops
 from repro_torch.models import flash_vjp
+from repro_torch.sharding.axes import constrain
 
 F32 = torch.float32
 
@@ -103,35 +107,61 @@ def init_attention(generator: torch.Generator, d_model, n_heads, n_kv_heads,
     return p
 
 
-def qkv(p, x, positions, cfg):
+def qkv(p, x, positions, cfg, tp=None):
     """Projections, bias and rope of this call's tokens: q (B,T,Hq,hd),
-    k/v (B,T,Hkv,hd)."""
+    k/v (B,T,Hkv,hd). Under tensor parallelism (`tp`, a
+    `tensor_parallel.TensorParallel`) the heads are the rank's: the head
+    counts come from its weights' widths, gathered where its columns split
+    heads."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, cfg.eff_q_heads, hd)
-    k = k.reshape(B, T, cfg.eff_kv_heads, hd)
-    v = v.reshape(B, T, cfg.eff_kv_heads, hd)
+    if tp is not None and tp.gather_q:
+        q = tp.all_gather(q)
+    if tp is not None and tp.gather_kv:
+        k, v = tp.all_gather(k), tp.all_gather(v)
+    q = q.reshape(B, T, -1, hd)
+    k = k.reshape(B, T, -1, hd)
+    v = v.reshape(B, T, -1, hd)
+    q = constrain(q, "batch", None, "model", None, full=(B, T, cfg.eff_q_heads, hd))
+    k = constrain(k, "batch", None, "model", None, full=(B, T, cfg.eff_kv_heads, hd))
+    v = constrain(v, "batch", None, "model", None, full=(B, T, cfg.eff_kv_heads, hd))
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def attn_out(p, out, tp=None):
+    """The output projection of the attention's heads out (B,T,Hq*hd): under
+    `tp` the rank's rows of wo over its heads' columns, all-reduced where
+    that is a partial sum."""
+    if tp is None:
+        return out @ p["wo"]
+    if tp.out_cols is not None:
+        out = out[..., tp.out_cols]
+    y = tp.psum((out @ p["wo"], tp.attn_partial))
+    return constrain(y, "batch", None, None)
 
 
 def attention(p, x, positions, cfg, *, causal: bool = True,
               window: Optional[int] = None,
-              cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+              cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, tp=None):
     """Self-attention over this call's tokens, or with `cross_kv` = (k, v)
     (B,Tk,Hkv,hd) cross-attention over those: q projected and not roped,
     non-causal, Tk free. Returns (out, (k, v)) with this call's k/v
     (B,T,Hkv,hd) for the cache, or (out, None) for cross-attention. Under
     autograd (training) it goes through the flash backward's Function, with
     the reference's blocks of 512; otherwise (serving) straight to the
-    kernel, which writes no lse."""
+    kernel, which writes no lse. Under tensor parallelism (`tp`,
+    self-attention only) over the rank's heads: its q heads read the kv
+    heads of their groups, and k/v are the rank's."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     if cross_kv is None:
-        q, k, v = qkv(p, x, positions, cfg)
+        q, k, v = qkv(p, x, positions, cfg, tp)
         new_kv = (k, v)
+        if tp is not None and tp.kv_heads is not None:
+            k, v = k[:, :, tp.kv_heads], v[:, :, tp.kv_heads]
     else:
         q = x @ p["wq"]
         if "bq" in p:
@@ -146,8 +176,7 @@ def attention(p, x, positions, cfg, *, causal: bool = True,
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
                                   window=window).transpose(1, 2)
-    out = out.reshape(B, T, cfg.eff_q_heads * hd)
-    return out @ p["wo"], new_kv
+    return attn_out(p, out.reshape(B, T, q.shape[2] * hd), tp), new_kv
 
 
 # ----------------------------------------------------------------------------
@@ -163,17 +192,30 @@ def init_embedding(generator, vocab, d_model, dtype, tie, padded_vocab=None,
     return p
 
 
-def embed(p, tokens):
-    return torch.nn.functional.embedding(tokens, p["tok"])
+def embed(p, tokens, tp=None):
+    """The token embeddings; under `tp` of the rank's vocab rows, the
+    others' tokens zero, summed over the ranks."""
+    if tp is None or tp.vocab_rows is None:
+        return torch.nn.functional.embedding(tokens, p["tok"])
+    ids = tokens.long() - tp.vocab_rows.start
+    mine = (ids >= 0) & (ids < p["tok"].shape[0])
+    rows = torch.nn.functional.embedding(torch.where(mine, ids, 0), p["tok"])
+    x = tp.all_reduce(torch.where(mine[..., None], rows, 0))
+    return constrain(x, "batch", None, None)
 
 
-def unembed(p, x, n_valid: Optional[int] = None):
+def unembed(p, x, n_valid: Optional[int] = None, tp=None):
+    """Logits of x over the (padded) vocabulary, the padded ones -1e9; under
+    `tp` the rank's rows' logits, masked by global vocab id, gathered over
+    the ranks."""
     w = p.get("out", p["tok"])
     logits = x @ w.T
-    if n_valid is not None and n_valid < w.shape[0]:
-        vocab_ids = torch.arange(w.shape[0], device=logits.device)
+    split = tp is not None and tp.vocab_rows is not None
+    first = tp.vocab_rows.start if split else 0
+    if n_valid is not None and n_valid < first + w.shape[0]:
+        vocab_ids = first + torch.arange(w.shape[0], device=logits.device)
         logits = logits.masked_fill(vocab_ids >= n_valid, -1e9)
-    return logits
+    return tp.all_gather(logits) if split else logits
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor, mask=None,

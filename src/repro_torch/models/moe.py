@@ -30,6 +30,7 @@ from repro_torch import distributed as D
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding.axes import constrain
 
 F32 = torch.float32
 
@@ -127,11 +128,19 @@ def _dispatch_one_group(x, logits, top_k: int, cap: int, top_e=None):
 
 
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
-            group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            group=None, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (y: (B, T, d), Switch-style aux loss, a scalar). The
     B*T tokens are dispatched in `n_groups` contiguous groups; under a
     data-parallel `group` the aux loss's means are the group's (every rank
-    holding as many tokens)."""
+    holding as many tokens).
+
+    Under tensor parallelism (`tp`, expert-TP: every rank holds every
+    expert, with its columns of d_ff in w1/w3 and its rows in w2, and its
+    block of arctic's dense residual) the router and the dispatch run on
+    the replicated x, alike on every rank; the combine is linear in the
+    expert outputs, so the rank combines its partial sums and y is summed
+    over the ranks once, after the dense residual's (the reference
+    constrains out_e, which lays the same sum on the expert outputs)."""
     m = cfg.moe
     B, T, d = x.shape
     e, k = m.n_experts, m.top_k
@@ -141,18 +150,21 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
     ng = N // n_groups
     cap = capacity(cfg, ng)
 
-    xg = x.reshape(n_groups, ng, d)
+    xg = constrain(x.reshape(n_groups, ng, d), "batch", None, None)
     logits = xg.to(F32) @ p["router"]
     groups = [_dispatch_one_group(xg[g], logits[g], k, cap) for g in range(n_groups)]
     slots, inv, top_g, gates = (torch.stack(t) for t in zip(*groups))
 
     # group-major (G, E, C, d) -> expert-major (E, G, C, d), seen as (E, G*C, d)
-    xe = slots.reshape(n_groups, e, cap, d).transpose(0, 1).reshape(e, n_groups * cap, d)
+    xd = constrain(slots.reshape(n_groups, e, cap, d), "batch", None, None, None)
+    xe = constrain(xd.transpose(0, 1), "expert", "ep_batch", None, None)
+    xe = xe.reshape(e, n_groups * cap, d)
     h1 = grouped_matmul(xe, p["w1"])
     h3 = grouped_matmul(xe, p["w3"])
     h = torch.nn.functional.silu(h1.to(F32)).to(h1.dtype) * h3
     out_e = grouped_matmul(h, p["w2"])                    # (E, G*C, d)
-    out_g = out_e.reshape(e, n_groups, cap, d).transpose(0, 1).reshape(n_groups, e * cap, d)
+    out_e = constrain(out_e.reshape(e, n_groups, cap, d), "expert", "ep_batch", None, None)
+    out_g = constrain(out_e.transpose(0, 1).reshape(n_groups, e * cap, d), "batch", None, None)
 
     # combine: gather each (token, k) slot row, weight by its gate
     pad = torch.cat([out_g, out_g.new_zeros((n_groups, 1, d))], dim=1)
@@ -173,7 +185,13 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
         ce = D.all_reduce_(ce, group=group) / n
     aux = e * torch.sum(me * ce) * m.aux_loss_weight
 
+    dense = None
     if "dense" in p:
         dp = p["dense"]
-        y = y + L.swiglu(x, dp["w1"], dp["w3"], dp["w2"])
-    return y, aux
+        dense = L.swiglu(x, dp["w1"], dp["w3"], dp["w2"])
+    if tp is not None:
+        y = tp.psum((y, tp.splits(cfg.d_ff)),
+                    *([(dense, tp.splits(m.dense_residual_ff))] if dense is not None else []))
+    elif dense is not None:
+        y = y + dense
+    return constrain(y, "batch", None, None), aux

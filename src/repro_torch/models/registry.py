@@ -22,6 +22,13 @@ build it with the rank's share of the groups (usually 1), and its loss
 takes the MoE aux loss's means and a masked token mean over the mesh's
 data-parallel group, so that the mean of the ranks' losses is the global
 loss (`train/steps.py` under the same mesh).
+
+A mesh whose "model" axis is larger than 1 serves tensor-parallel (the
+dense, MoE and VLM families, on a (1, n) mesh; `tensor_parallel.py`): the
+rank's init_params draws its blocks of the weights, init_cache holds its
+cache heads, and prefill and decode_step run under the mesh's axis rules,
+whose `constrain` checks each annotated activation's layout, and return
+every rank's logits. Training under it is not ported yet: its loss raises.
 """
 from __future__ import annotations
 
@@ -30,12 +37,15 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import dp_group
+from repro_torch.launch.mesh import dp_degree, dp_group, tp_degree, tp_group
 from repro_torch.models import dense, hybrid, whisper, xlstm
+from repro_torch.models.tensor_parallel import TensorParallel
+from repro_torch.sharding.axes import axis_rules, rules_for
 from repro_torch.models.whisper import ENC_LEN
 
 
@@ -49,11 +59,14 @@ class Model:
     decode_step: Callable[..., Any]
     init_cache: Callable[..., Any]
     mesh: Any = None
+    tp: Any = None   # the rank's TensorParallel plan under a "model" axis
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", window: Optional[int] = None,
                 n_groups: int = 1, mesh=None) -> Model:
     dev = resolve_device(device)
+    if mesh is not None and tp_degree(mesh) > 1:
+        return _tensor_parallel_model(cfg, dev, window, n_groups, mesh)
     group = dp_group(mesh) if mesh is not None else None
     if cfg.family in ("dense", "moe", "vlm"):
         return Model(
@@ -102,6 +115,49 @@ def build_model(cfg: ModelConfig, *, device="cuda", window: Optional[int] = None
             mesh=mesh,
         )
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _bound(mesh, fn):
+    """fn run under the mesh's axis rules (sharding/axes.py)."""
+    rules = rules_for(mesh)
+
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        with axis_rules(mesh, rules):
+            return fn(*args, **kw)
+    return run
+
+
+def _no_tp_training(*args, **kw):
+    raise NotImplementedError("TP training is not yet ported: the row/column-parallel "
+                              "backward and ZeRO over a 2-D mesh come next (ROADMAP Queue 1, "
+                              "item 6)")
+
+
+def _tensor_parallel_model(cfg: ModelConfig, dev, window, n_groups: int, mesh) -> Model:
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(f"TP not yet ported for {cfg.family} ({cfg.name}): a "
+                                  f"\"model\" axis of {tp_degree(mesh)} needs its heads and "
+                                  "states split (ROADMAP Queue 1, item 6)")
+    if dp_degree(mesh) > 1:
+        raise NotImplementedError(f"tensor-parallel serving runs on a (1, n) mesh, not "
+                                  f"{mesh.shape}: data-parallel replicas of it are not ported")
+    tp = TensorParallel.plan(cfg, tp_group(mesh))
+    rank = dist.get_rank()
+    return Model(
+        cfg=cfg,
+        device=dev,
+        init_params=functools.partial(dense.init_params, cfg=cfg, device=dev, mesh=mesh,
+                                      rank=rank),
+        loss=_no_tp_training,
+        prefill=_bound(mesh, functools.partial(dense.lm_prefill, cfg=cfg, window=window,
+                                               n_groups=n_groups, tp=tp)),
+        decode_step=_bound(mesh, functools.partial(dense.lm_decode_step, cfg=cfg,
+                                                   n_groups=n_groups, tp=tp)),
+        init_cache=functools.partial(dense.init_cache, cfg, device=dev, tp=tp),
+        mesh=mesh,
+        tp=tp,
+    )
 
 
 # ----------------------------------------------------------------------------

@@ -1,0 +1,141 @@
+"""Tensor parallelism over the mesh's "model" axis, for serving: what a rank
+of the dense, MoE and VLM models holds, and the collectives that make its
+blocks compute what the whole model computes.
+
+The reference shards by annotation: the serving specs (`sharding/rules.py`:
+wq/wk/wv/w1/w3 column-parallel, wo/w2 row-parallel, the embeddings'
+vocab rows and the experts' d_ff on "model") and `constrain` on q, k, v
+and on the row-parallel outputs; XLA inserts the collectives. The port
+runs eagerly, so each rank holds its block of every weight under the same
+guarded specs (`init_params(..., mesh=, rank=)`, `bridge.shard_params`)
+and the models call the collectives themselves, through a `TensorParallel`
+that says, from the config alone, what the rank holds:
+
+  * q heads: where n divides the padded q heads, the rank computes its
+    Hq/n heads; else every rank computes all of them, gathering q's
+    columns where n divides wq's columns though not its heads (qwen SMOKE's
+    96 columns of 6 heads at n = 4).
+  * k and v heads likewise. Where the q heads are split and the kv heads
+    are not, the rank's q heads read only the kv heads of their own GQA
+    groups (`kv_heads`; llama SMOKE's 2 kv heads at n = 4, one a rank).
+  * the cache holds Hc/n heads where n divides cache_kv_heads
+    (`cache_heads`, the dry-run's cache specs), else all of them. A rank
+    whose k/v heads are whole stores only its block of them
+    (`store_heads`); one whose cache is whole while its q heads are split
+    reads its groups' heads of it (`read_heads`).
+  * wo's rows are split where n divides them: the rank's product is a
+    partial sum, all-reduced; where the q heads are whole but wo's rows are
+    split the rank multiplies its rows' columns of the attention output
+    (`out_cols`), so what is summed is each part once.
+  * the FFN (w1/w3 columns, w2 rows; the experts' d_ff, arctic's dense
+    residual) likewise: the block's output is a partial sum where n divides
+    the width, all-reduced once at the block.
+  * the embeddings' vocab rows: a masked lookup of the rank's rows,
+    all-reduced; the logits of the rank's rows, masked by global vocab id,
+    all-gathered into the (B, T, V) logits every caller expects.
+
+Partial sums are all-reduced in fp32 and cast back, so gloo (ranks sharing
+a card, through host memory) and NCCL (a card a rank) sum the same values
+in the same precision. Each collective runs under a `record_function`
+("tp_all_reduce", "tp_all_gather"), which a profile of the step reads.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import distributed as D
+from repro_torch.configs.base import ModelConfig
+
+F32 = torch.float32
+
+
+def _group_heads(hq: int, hk: int, n: int, r: int) -> slice:
+    """The kv heads (of hk, all held) that q heads [r hq/n, (r+1) hq/n)
+    read under GQA (q head i reads kv head i // (hq / hk))."""
+    local, ratio = hq // n, hq // hk
+    if local % ratio == 0:
+        count = local // ratio
+    elif ratio % local == 0:
+        count = 1
+    else:
+        raise ValueError(f"the {local} q heads of a rank straddle the GQA groups of "
+                         f"{ratio} heads: {hq} q heads over {hk} kv heads do not split "
+                         f"{n} ways")
+    start = r * local // ratio
+    return slice(start, start + count)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """Rank `rank` of `size` in the "model" axis's process `group`, and what
+    it holds of a config's model (see the module's docstring)."""
+    group: Any
+    rank: int
+    size: int
+    q_split: bool                  # the rank computes Hq/n q heads
+    gather_q: bool                 # q's columns are gathered (all heads, wq split)
+    gather_kv: bool                # k's and v's likewise
+    kv_heads: Optional[slice]      # the kv heads its q heads read, of all of them
+    cache_heads: int               # heads of its cache
+    store_heads: Optional[slice]   # its block of the replicated k/v heads
+    read_heads: Optional[slice]    # the cache heads its q heads read, of all of them
+    out_cols: Optional[slice]      # its wo rows' columns of a whole attention output
+    attn_partial: bool             # out @ wo is a partial sum
+    vocab_rows: Optional[slice]    # its rows of the (padded) embeddings, or None: all
+
+    @classmethod
+    def plan(cls, cfg: ModelConfig, group) -> "TensorParallel":
+        """This process's plan in `group`, for `cfg`."""
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        hq, hkv, hc = cfg.eff_q_heads, cfg.eff_kv_heads, cfg.cache_kv_heads
+        hd = cfg.resolved_head_dim
+        q_split, kv_split, cache_split = hq % n == 0, hkv % n == 0, hc % n == 0
+        rows = hq * hd
+        vocab = cfg.padded_vocab
+        return cls(
+            group=group, rank=r, size=n,
+            q_split=q_split, gather_q=not q_split and rows % n == 0,
+            gather_kv=not kv_split and hkv * hd % n == 0,
+            kv_heads=_group_heads(hq, hkv, n, r) if q_split and not kv_split else None,
+            cache_heads=hc // n if cache_split else hc,
+            store_heads=(slice(r * hc // n, (r + 1) * hc // n)
+                         if cache_split and not kv_split else None),
+            read_heads=_group_heads(hq, hc, n, r) if q_split and not cache_split else None,
+            out_cols=(slice(r * rows // n, (r + 1) * rows // n)
+                      if rows % n == 0 and not q_split else None),
+            attn_partial=rows % n == 0,
+            vocab_rows=(slice(r * vocab // n, (r + 1) * vocab // n)
+                        if vocab % n == 0 else None))
+
+    def splits(self, dim: int) -> bool:
+        """Whether the guard splits a dim of this size over the ranks."""
+        return dim % self.size == 0
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of x, computed in fp32 and returned in
+        x's dtype."""
+        with torch.profiler.record_function("tp_all_reduce"):
+            return D.all_reduce_(x.to(F32, copy=True), group=self.group).to(x.dtype)
+
+    def psum(self, *parts) -> torch.Tensor:
+        """The sum of `parts`, each (tensor, partial): the partial ones
+        summed over the ranks in one all-reduce, the whole ones added."""
+        partial = [t for t, p in parts if p]
+        whole = [t for t, p in parts if not p]
+        out = self.all_reduce(sum(partial[1:], partial[0])) if partial else None
+        for t in whole:
+            out = t if out is None else out + t
+        return out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's x, concatenated in rank order along the last dim."""
+        with torch.profiler.record_function("tp_all_gather"):
+            x = x.contiguous()
+            out = x.new_empty((self.size * x.shape[0], *x.shape[1:]))
+            D.all_gather_(out, x, group=self.group)
+            out = out.view(self.size, *x.shape).movedim(0, -2)
+            return out.reshape(*x.shape[:-1], self.size * x.shape[-1])

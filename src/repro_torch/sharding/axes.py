@@ -7,15 +7,20 @@ mesh axis name, or a tuple of names. That is the shape of a
 `jax.sharding.PartitionSpec`, which the port does not import. A mesh is
 anything with `axis_names` and `shape` (`launch/mesh.py::Mesh`).
 
-The reference's `constrain` and `named_sharding` (activation constraints
-inside the model) come with the dry-run slice: only XLA's lowering reads
-them, and the port's models do not annotate their activations yet.
+`constrain` and `named_sharding` are the reference's activation
+annotations. There XLA reads a constraint and inserts the collectives it
+needs; the port's models run eagerly and call their collectives
+themselves (`models/tensor_parallel.py`), so `constrain` checks instead: it
+raises unless the tensor is the rank's block of the tensor the spec
+describes. Outside a binding both are no-ops, as the reference's are.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
+
+from torch.distributed.tensor import Replicate, Shard
 
 Logical = Union[str, None, Tuple[str, ...]]
 Entry = Union[str, None, Tuple[str, ...]]
@@ -92,6 +97,55 @@ def guard_divisibility(mesh, shape, spec: Spec) -> Spec:
     return tuple(out)
 
 
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DeviceMesh placements of a tensor under `spec`: per mesh axis,
+    `Shard(dim)` where the spec names the axis on dim, else `Replicate()`
+    (the counterpart of the reference's `NamedSharding`)."""
+    dims = {a: d for d, e in enumerate(spec) for a in _axes(e)}
+    return tuple(Shard(dims[a]) if a in dims else Replicate() for a in mesh.axis_names)
+
+
+def constrain(x, *spec: Logical, full: Optional[Sequence[int]] = None):
+    """The reference's sharding constraint, as a check: under a binding, `x`
+    must be a rank's block of a tensor of shape `full` (default: x's own
+    shape, a tensor no rank splits) laid out by the logical `spec`,
+    resolved and guarded as the reference guards it. Raises if it is not;
+    returns x. A no-op when unbound."""
+    bound = _current()
+    if bound is None:
+        return x
+    mesh, _ = bound
+    full = tuple(x.shape) if full is None else tuple(full)
+    sizes = axis_sizes(mesh)
+    phys = guard_divisibility(mesh, full, resolve(spec))
+    want = []
+    for dim, entry in zip(full, phys + (None,) * (len(full) - len(phys))):
+        n = 1
+        for a in _axes(entry):
+            n *= sizes[a]
+        want.append(dim // n)
+    if tuple(x.shape) != tuple(want):
+        raise ValueError(f"a tensor of shape {tuple(x.shape)} is not a rank's block of "
+                         f"{full} under {spec} -> {phys}: want {tuple(want)}")
+    return x
+
+
+def named_sharding(*spec: Logical) -> Optional[tuple]:
+    """The DeviceMesh placements of the logical `spec` under the binding
+    (unguarded, as the reference's), or None when unbound."""
+    bound = _current()
+    if bound is None:
+        return None
+    mesh, _ = bound
+    return placements(resolve(spec), mesh)
+
+
 # Default bindings ------------------------------------------------------------
 
 def single_pod_rules() -> Dict[str, Tuple[str, ...]]:
@@ -116,3 +170,9 @@ def multi_pod_rules() -> Dict[str, Tuple[str, ...]]:
         "pod_fsdp": ("pod",),  # expert weights gather across pods per layer
         "seq": (),
     }
+
+
+def rules_for(mesh) -> Dict[str, Tuple[str, ...]]:
+    """The default bindings of a mesh: the multi-pod rules on a mesh with a
+    "pod" axis, else the single-pod rules."""
+    return multi_pod_rules() if "pod" in mesh.axis_names else single_pod_rules()

@@ -32,11 +32,10 @@ import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
-from torch.distributed.tensor import Replicate, Shard
-
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.axes import Spec, axis_sizes, guard_divisibility
-from repro_torch.tree import flatten
+from repro_torch.sharding.axes import Spec, _axes, axis_sizes, guard_divisibility
+from repro_torch.sharding.axes import placements  # noqa: F401  (re-exported)
+from repro_torch.tree import flatten, map_with_path
 
 Path = Tuple[str, ...]
 
@@ -196,20 +195,6 @@ def leaf_spec(path: Path, leaf: Stacked, cfg: ModelConfig, mesh, rules,
 # Where a leaf lives
 # ----------------------------------------------------------------------------
 
-def _axes(entry) -> Tuple[str, ...]:
-    if entry is None:
-        return ()
-    return entry if isinstance(entry, tuple) else (entry,)
-
-
-def placements(spec: Spec, mesh) -> tuple:
-    """DeviceMesh placements of a tensor under `spec`: per mesh axis,
-    `Shard(dim)` where the spec names the axis on dim, else `Replicate()`
-    (the counterpart of the reference's `NamedSharding`)."""
-    dims = {a: d for d, e in enumerate(spec) for a in _axes(e)}
-    return tuple(Shard(dims[a]) if a in dims else Replicate() for a in mesh.axis_names)
-
-
 def coordinate(mesh, rank: int) -> Tuple[int, ...]:
     """Rank -> its coordinates on the mesh (row-major, as
     `init_device_mesh` lays the ranks out)."""
@@ -249,19 +234,34 @@ class Shardings:
         spath, idx = split_path(path)
         return self.shapes[spath][len(idx):]
 
+    def block_of(self, path, rank: int) -> Optional[Tuple[slice, ...]]:
+        """The block of the whole port leaf at `path` that `rank` holds, or
+        None where another rank owns its item of the stack."""
+        spath, idx = split_path(path)
+        b = block(self.shapes[spath], self.specs[spath], self.mesh,
+                  coordinate(self.mesh, rank))
+        owned = all(s.start <= i < s.stop for s, i in zip(b, idx))
+        return b[len(idx):] if owned else None
+
+    def take(self, tree, rank: int, prefix: Path = ()):
+        """`tree` (whole leaves, at `prefix` in the tree these shardings
+        describe) with each leaf cut to `rank`'s block: a contiguous copy
+        where the block is not the whole leaf. Raises where another rank
+        owns a leaf's item of the stack."""
+        def cut(path, t):
+            b = self.block_of(prefix + path, rank)
+            if b is None:
+                raise ValueError(f"rank {rank} holds no block of {prefix + path}")
+            if all(s.start == 0 and s.stop == n for s, n in zip(b, t.shape)):
+                return t
+            return t[b].clone()
+        return map_with_path(cut, tree)
+
     def index(self, tree, rank: int) -> List[Optional[Tuple[slice, ...]]]:
-        """For each leaf of `tree` (in `tree.leaves` order), the block of the
-        whole port leaf that `rank` holds, or None where another rank owns
-        its item of the stack. Only the paths of `tree` are read, so it may
-        hold whole leaves or the rank's blocks."""
-        coord = coordinate(self.mesh, rank)
-        out = []
-        for path, _ in flatten(tree):
-            spath, idx = split_path(path)
-            b = block(self.shapes[spath], self.specs[spath], self.mesh, coord)
-            owned = all(s.start <= i < s.stop for s, i in zip(b, idx))
-            out.append(b[len(idx):] if owned else None)
-        return out
+        """For each leaf of `tree` (in `tree.leaves` order), `block_of` its
+        path. Only the paths of `tree` are read, so it may hold whole leaves
+        or the rank's blocks."""
+        return [self.block_of(path, rank) for path, _ in flatten(tree)]
 
 
 def shardings_for(tree, cfg: ModelConfig, mesh, rules, *, zero1: bool = False,
@@ -288,3 +288,31 @@ def state_shardings(state, cfg: ModelConfig, mesh, rules, *,
     return Shardings(mesh, {p: s.shape for p, s in view.items()},
                      {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, p[0] == "opt", zero1_stack)
                       for p, s in view.items()})
+
+
+def cache_shardings(cache, cfg: ModelConfig, mesh, rules, global_batch: int) -> Shardings:
+    """Shardings of a decode cache (a flat dict of stacked leaves, whole;
+    meta tensors will do), the reference dry-run's `cache_shardings`: the
+    batch dim (the first of `global_batch` rows past a leading layer dim)
+    over the rules' batch axes, and after it a dim of the cache's or the
+    config's kv-head count among the last two over "model", guarded. So a
+    KV cache (L, B, S, Hc, D) splits its heads where they divide, and a
+    recurrent state its batch only."""
+    batch_axes, model_axes = rules.get("batch", ()), rules.get("model", ())
+    head_dims = {cfg.cache_kv_heads, cfg.eff_kv_heads}
+    shapes, specs = {}, {}
+    for path, leaf in flatten(cache):
+        shape = tuple(leaf.shape)
+        spec: List[Any] = [None] * len(shape)
+        used_batch = used_model = False
+        for i, dim in enumerate(shape):
+            if i == 0 and len(shape) >= 4:
+                continue   # the stacked layer dim stays whole
+            if not used_batch and dim == global_batch:
+                spec[i], used_batch = batch_axes, True
+            elif (not used_model and used_batch and dim in head_dims
+                  and i >= len(shape) - 2):
+                spec[i], used_model = model_axes, True
+        shapes[path] = shape
+        specs[path] = guard_divisibility(mesh, shape, tuple(e if e else None for e in spec))
+    return Shardings(mesh, shapes, specs)

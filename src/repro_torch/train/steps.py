@@ -7,9 +7,9 @@ global norm, the optimizer update. The loss and its gradients come from
 `hybrid.backbone_fwd`). The step updates the state's tensors in place and
 returns the same containers.
 
-Under a data-parallel `mesh` (`launch/mesh.py`; the port runs no tensor
-parallelism, so its other axes have size 1) every rank runs the step on the
-global batch, of which it takes its rows: the reference cuts the global
+Under a data-parallel `mesh` (`launch/mesh.py`; tensor-parallel training
+is not ported, so its "model" axis must have size 1) every rank runs the
+step on the global batch, of which it takes its rows: the reference cuts the global
 batch into microbatches first and splits each over the data axis, so rank r
 of n takes rows [r B/(M n), (r+1) B/(M n)) of each microbatch of B/M rows.
 The model must be built under the same mesh (its loss takes the MoE aux
@@ -39,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import distributed as D
-from repro_torch.launch.mesh import dp_group
+from repro_torch.launch.mesh import dp_group, tp_degree
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.tree import leaves, tree_map, unflatten_like
@@ -156,6 +156,10 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
         if opt.name != "adamw":
             raise ValueError(f"ZeRO-1 state sharding needs an elementwise update (AdamW); "
                              f"{opt.name}'s factored statistics read whole rows and columns")
+    if mesh is not None and tp_degree(mesh) > 1:
+        raise NotImplementedError(f"TP training is not yet ported: a \"model\" axis of "
+                                  f"{tp_degree(mesh)} needs the row/column-parallel backward "
+                                  "(ROADMAP Queue 1, item 6)")
     if mesh is not None and model.mesh is not mesh:
         raise ValueError("build the model under the step's mesh: its loss takes the "
                          "group's means")

@@ -23,6 +23,15 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def map_with_path(fn: Callable, tree, prefix: Path = ()):
+    """fn(path, leaf) applied to each leaf of `tree`, in its structure."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, tree[k], prefix + (k,)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, prefix + (i,)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def flatten(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
     """(path, leaf) of every leaf; a path holds dict keys and list indices."""
     if isinstance(tree, dict):

@@ -1215,3 +1215,115 @@ def test_meta_account_equals_the_card_account_at_smoke(cuda, arch, kind):
     assert launched == [k.get("flash_attention", 0) + k.get("flash_attention_lse", 0),
                         k.get("decode_attention", 0), k.get("moe_gmm", 0),
                         k.get("moe_gmm_dx", 0), k.get("moe_gmm_dw", 0), k.get("ssd_scan", 0)]
+
+
+# ------------------------------------------------ tensor-parallel serving's shapes
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,T,D,heads", [
+    (1, 8, 2, 1024, 128, None),        # llama3-8b's 32/8 heads on a rank of 4
+    (4, 12, 12, 512, 128, None),       # qwen1.5-32b's 48 padded heads on a rank of 4
+    (1, 8, 8, 1024, 128, (2, 4)),      # a rank's kv heads of a k/v every rank holds whole
+    (2, 1, 2, 64, 16, (1, 2)),         # llama3-8b SMOKE's at 4 ranks: one q head, one kv head
+])
+def test_flash_at_the_tensor_parallel_ranks_shapes(cuda, B, Hq, Hkv, T, D, heads):
+    """Phase 13's flash calls: a rank's q heads over its kv heads, or over
+    its groups' heads selected from a replicated k/v (a view offset by
+    whole heads, which TMA still reads): `flash_wgmma`, held to the plain
+    version in bf16."""
+    g = torch.Generator(device=cuda).manual_seed(T + Hq)
+    q = torch.randn((B, T, Hq, D), generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((B, T, Hkv, D), generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    if heads is not None:
+        k, v = k[:, :, heads[0]:heads[1]], v[:, :, heads[0]:heads[1]]
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    assert fk.route_for(q, k, v) == "wgmma"
+    before = fk.launches_by_path["wgmma"]
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fk.launches_by_path["wgmma"] == before + 1
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v).float(),
+                               **_tol("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,Hq,Hc,S,D,heads", [
+    ("bfloat16", 8, 8, 4, 2048, 128, None),       # llama3-8b's 16 cache heads over 4 ranks
+    ("int8-bf16q", 4, 12, 12, 520, 128, None),    # qwen1.5-32b's int8 cache over 4
+    ("bfloat16", 2, 1, 2, 64, 16, (1, 2)),        # a rank's head of a replicated cache
+    ("int8-bf16q", 2, 3, 6, 64, 16, (3, 6)),
+])
+def test_decode_at_the_tensor_parallel_ranks_shapes(cuda, dtype, B, Hq, Hc, S, D, heads):
+    """Phase 13's decode calls over a rank's cache heads, or its groups'
+    heads of a replicated cache: `decode_split`, held to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(S + Hq)
+    q, kc, vc, scales, tol = _decode_inputs(g, B, Hq, Hc, S, D, dtype, cuda)
+    if heads is not None:
+        sel = slice(*heads)
+        kc, vc = kc[:, sel], vc[:, sel]
+        scales = tuple(s if s is None else s[:, sel] for s in scales)
+    valid = torch.randint(1, S + 1, (B,), generator=g, device=cuda, dtype=torch.int32)
+    assert dk.route_for(kc, vc) == "split"
+    before = dk.launches_by_path["split"]
+    got = ops.decode_attention(q, kc, vc, valid, *scales)
+    torch.cuda.synchronize()
+    assert dk.launches_by_path["split"] == before + 1
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(q, kc, vc, valid,
+                                                                      *scales).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,K,N", [
+    (16, 160, 4096, 3200),   # phi3.5-moe's w1/w3 at d_ff 6400 / 2, prefill capacity
+    (16, 4, 4096, 3200),     # and decode capacity
+    (16, 160, 3200, 4096),   # its w2 product, K = 3200
+    (16, 160, 4096, 1600),   # at 4 ranks
+    (16, 160, 1600, 4096),
+])
+def test_moe_gmm_at_the_tensor_parallel_ranks_shapes(cuda, E, C, K, N):
+    """Phase 13b's expert products at a rank's d_ff: `gmm_wgmma`, held to
+    the plain version in bf16."""
+    g = torch.Generator(device=cuda).manual_seed(C + K)
+    x = torch.randn((E, C, K), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((E, K, N), generator=g, device=cuda) * K ** -0.5).to(torch.bfloat16)
+    before = gk.launches_by_path["wgmma"]
+    got = ops.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert gk.launches_by_path["wgmma"] == before + 1
+    torch.testing.assert_close(got.float(), ref.moe_gmm_ref(x, w).float(), atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,world", [("llama3-8b", 2), ("llama3-8b", 4),
+                                        ("qwen1.5-32b", 4), ("phi3.5-moe-42b-a6.6b", 2)])
+def test_tensor_parallel_serving_on_the_card_matches_the_cpu(cuda, arch, world):
+    """A SMOKE model in fp32 served tensor-parallel on `world` ranks on the
+    cards present (one card: gloo, through host memory) against the same
+    ranks on the CPU: the prefill and 3 decode steps' logits and every
+    rank's cache within 1e-4 (the kernels against their plain versions in
+    fp32, as the single-card engine test holds them)."""
+    import numpy as np
+    from repro_torch import bridge, distributed as D
+    import _torch_tp_ranks as R
+
+    cfg = R.smoke_cfg(arch)
+    params = bridge.params_to_numpy(build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(3)
+    case = {"arch": arch, "params": params, "S": 16,
+            "batch": {"tokens": rng.integers(0, cfg.vocab_size, (2, 10)).astype(np.int32)},
+            "steps": [rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+                      for _ in range(3)]}
+    card, cpu = (D.spawn(R.parity_rank, world, {"c": case}, device=dev, timeout=120)
+                 for dev in ("cuda", "cpu"))
+    for got, want in zip(card, cpu):
+        got, want = got["c"], want["c"]
+        np.testing.assert_allclose(got["prefill"], want["prefill"], atol=1e-4, rtol=1e-4)
+        for a, b in zip(got["decode"], want["decode"]):
+            np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+        for name in want["cache"]:
+            a, b = got["cache"][name], want["cache"][name]
+            tol = 1 if a.dtype == np.int8 else 1e-4
+            np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32),
+                                       atol=tol, rtol=1e-4)

@@ -543,3 +543,64 @@ def test_run_cell_at_smoke(arch, mesh, tmp_path):
                 assert m["fits_80gb"] and m["peak_per_device_gb"] > 0
                 if SHAPES[name].kind != "train" and mesh.size > 1:
                     assert rec["serve_weights"] in ("whole", "replicated")
+
+
+# ----------------------------------------------------------------------------
+# the tensor-parallel serving mesh, 1x4
+# ----------------------------------------------------------------------------
+
+TP_CELL_SHAPE = {"seq_len": 320, "global_batch": 2}   # internvl2: 256 patches
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-32b", "internvl2-76b",
+                                  "phi3.5-moe-42b-a6.6b", "arctic-480b"])
+def test_tp_cell_holds_the_rank_s_blocks_and_a_quarter_of_the_flops(arch, shape):
+    """Rank 0's account of a serving cell on the (1, 4) mesh at full width
+    (the shape cut to 2 x 320): its param bytes are the sum of its blocks
+    under the serving specs; its FLOPs are the (1, 1) cell's over 4 but for
+    what every rank computes whole, the MoE router (2 N d E a layer); the
+    collectives are the two all-reduces a layer, the embedding's and the
+    logits' all-gather."""
+    cfg = get_config(arch)
+    mesh = D.MESHES["1x4"]
+    over = {"shape": TP_CELL_SHAPE}
+    one, _ = D.account_cell(arch, shape, D.MESHES["1x1"], over)
+    four, meta = D.account_cell(arch, shape, mesh, over)
+    assert meta["serve_weights"] == "tensor-parallel" and meta["tp"] == 4
+    whole = M.build_model(cfg, device="meta").init_params(torch.Generator())
+    sh = RU.shardings_for(whole, cfg, mesh, A.single_pod_rules())
+    blocks = sum(t[b].numel() * t.element_size()
+                 for t, b in zip(leaves(whole), sh.index(whole, 0)))
+    assert four.params_bytes == blocks < one.params_bytes
+    tokens = TP_CELL_SHAPE["global_batch"] * (TP_CELL_SHAPE["seq_len"]
+                                              if shape == "prefill_32k" else 1)
+    router = 2 * tokens * cfg.d_model * cfg.moe.n_experts * cfg.n_layers if cfg.moe else 0
+    assert four.cost.totals.flops == pytest.approx(one.cost.totals.flops / 4 + 0.75 * router,
+                                                   rel=1e-12)
+    coll = four.cost.totals.collectives
+    assert coll["all-reduce"][0] == 2 * cfg.n_layers + 1
+    assert coll["all-gather"][0] == 1
+    assert one.cost.totals.collectives == {}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_run_cell_on_the_tp_mesh_at_smoke(arch, tmp_path):
+    """run_cell on (1, 4): the train shape skipped (TP training is not
+    ported), the serving shapes ok for the dense, MoE and VLM families and
+    errors that say so for the others, long_500k as on (1, 1)."""
+    cfg = get_config(arch, smoke=True)
+    mesh = D.MESHES["1x4"]
+    for name in SHAPES:
+        rec = D.run_cell(arch, name, mesh, overrides={"smoke": True, "shape": SMOKE_SHAPE},
+                         out_dir=tmp_path)
+        if not applicable(cfg.family, cfg.sub_quadratic, name):
+            assert rec["status"] == "skipped" and "long_500k" in rec["reason"], rec
+        elif SHAPES[name].kind == "train":
+            assert rec["status"] == "skipped" and "TP training" in rec["reason"], rec
+        elif cfg.family in ("hybrid", "ssm", "audio"):
+            assert rec["status"] == "error" and "TP not yet ported" in rec["error"], rec
+        else:
+            assert rec["status"] == "ok", rec.get("traceback", rec)
+            assert rec["serve_weights"] == "tensor-parallel"
+            assert rec["roofline"]["collectives"]["all-reduce"][0] >= 2 * cfg.n_layers + 1
