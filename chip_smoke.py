@@ -8,8 +8,8 @@ continuous-batching serving, MoE serving, the zamba2 hybrid's prefill and
 decode, training of every family, prefill and decode of the xLSTM, whisper
 and VLM families, the paper's RL rollouts, the multi-rank paths (the
 int8 ring all-reduce, data-parallel and ZeRO-2 training, MoE dispatch
-groups, the resharded restore) and tensor-parallel serving over the
-"model" axis. Every phase exits non-zero
+groups, the resharded restore), tensor-parallel serving and tensor-parallel
+training over the "model" axis. Every phase exits non-zero
 on failure; nothing is caught and carried on.
 
   1. requires a CUDA device; prints the card's name and power limit;
@@ -230,9 +230,27 @@ on failure; nothing is caught and carried on.
      d. flash, decode and moe_gmm at the ranks' shapes (and a kv-head
      selection of a replicated k/v) against their plain versions, the
      route named and gated, timed beside the library call and the bound;
- 14. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+ 14. tensor-parallel training over the "model" axis, ranks as in 13, each
+     holding its blocks of the weights and of the AdamW state: a. llama3-8b
+     at published width, 4 of 32 layers, on (1, 4); b. phi3.5-moe at
+     published width, 2 of 32 layers, expert-TP on (1, 2); c. llama3-8b x 2
+     on (2, 2), ZeRO-2 over the data axis; each 3 steps (c: 2) of phase 8b's
+     batch shape (4 x 1024 TokenPipeline tokens, 2 microbatches) at DP_LR, first
+     in this process, then on the ranks from the same seed (phi's ranks
+     replaying its routing): losses and grad norms within DP_METRIC_TOL,
+     each rank's blocks within
+     DP_UPDATE_TOL of their update from the single process's, the leaves no
+     rank splits bit-identical on every rank, the launches exact (forward
+     and remat) and every flash launch on `flash_wgmma` with the lse, every
+     moe_gmm, dx and dw launch on `gmm_wgmma`; each rank's step time and
+     peak memory beside the single process's, and a profiled step's TP
+     spans (a, b: all-reduce, all-gather, reduce-scatter, count and ms);
+     d. flash with the lse at a TP 4 rank's training heads and moe_gmm's dx
+     and dw at a TP 2 rank's d_ff, against their plain versions, timed
+     beside SDPA or torch.bmm and the bound;
+ 15. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
      at C=320, ssd_scan's with its plain backward, flash's, decode's and
-     moe_gmm's with their rows at phase 9's and phase 13's shapes) and,
+     moe_gmm's with their rows at phase 9's, 13's and 14's shapes) and,
      last, the device line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -3221,7 +3239,7 @@ def dryrun_phase(seed, dev, smi, runs, procs):
 
 # the record_function spans of the TP collectives (models/tensor_parallel.py),
 # which a rank's profiled window reads
-TP_SPANS = ("tp_all_reduce", "tp_all_gather")
+TP_SPANS = ("tp_all_reduce", "tp_all_gather", "tp_reduce_scatter")
 # the decode-step gate's batch: the first prompts of a phase
 TP_GATE_PROMPTS = 4
 TP_PROFILE_STEPS = 4
@@ -3428,9 +3446,9 @@ def tp_references(cfg, seed, n, prompts, rows, tokens, dev, batched, gate_layers
 def tp_profile(step, steps) -> dict:
     """Profile `steps` calls of step() on this rank: the step's ms (profiler
     on), the device's busy share (kernels and copies) and, of it, the
-    copies' ms a step, and the ms a step of the TP collectives' spans (host
-    clock, which holds the host-staged copies and the wait for the work
-    queued before them) and of NCCL's kernels on the card."""
+    copies' ms a step, and the ms and count a step of the TP collectives'
+    spans (host clock, which holds the host-staged copies and the wait for
+    the work queued before them) and the ms of NCCL's kernels on the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3442,17 +3460,20 @@ def tp_profile(step, steps) -> dict:
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
     spans = {n: 0.0 for n in TP_SPANS}
+    counts = {n: 0 for n in TP_SPANS}
     busy = nccl = copies = 0.0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CPU:
             if e.name() in spans:
                 spans[e.name()] += e.duration_ns() / 1e6
+                counts[e.name()] += 1
         elif not e.is_hidden_event():
             busy += e.duration_ns() / 1e9
             nccl += e.duration_ns() / 1e6 if "nccl" in e.name().lower() else 0.0
             copies += e.duration_ns() / 1e6 if "memcpy" in e.name().lower() else 0.0
     return {"step_ms": window / steps * 1e3, "busy": busy / window,
-            **{f"{n}_ms": v / steps for n, v in spans.items()}, "nccl_ms": nccl / steps,
+            **{f"{n}_ms": v / steps for n, v in spans.items()},
+            **{f"{n}_count": v / steps for n, v in counts.items()}, "nccl_ms": nccl / steps,
             "copy_ms": copies / steps}
 
 
@@ -3758,6 +3779,236 @@ def tp_serving_phase(seed, dev, smi, gen, phase4_outputs=None) -> dict:
     return dict(total, parts={k: out[k] for k in ("13a", "13b", "13c")}, kernels=out["13d"])
 
 
+# ----------------------------------------------------------------------------
+# phase 14: tensor-parallel training over the "model" axis
+# ----------------------------------------------------------------------------
+
+# (label, B, T, Hq, Hkv, D): flash with the lse at a TP rank's training shape
+TP_TRAIN_FLASH_SHAPES = (("llama3-8b TP 4 train", 2, 1024, 8, 2, 128),)
+# moe_gmm's dx and dw at phi3.5-moe's training capacity (2 x 1024 tokens a
+# microbatch) and a TP 2 rank's d_ff
+TP_TRAIN_GMM_DIMS = ((4096, 3200), (3200, 4096))
+
+
+def tp_train_kernel_phase(gen, dev) -> dict:
+    """14d: flash with the lse at a TP 4 rank's training heads (held to the
+    plain version's out and lse, timed beside the plain version, SDPA and
+    the bound) and moe_gmm's dx and dw at a TP 2 rank's d_ff (gmm_bwd_phase
+    at C=320). Returns the rows by kernel."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import costs, ops, ref
+    rnd = _rnd(gen, dev)
+    rows = {"flash_attention": []}
+    for label, B, T, Hq, Hkv, D in TP_TRAIN_FLASH_SHAPES:
+        q, k, v = (rnd(B, T, h, D).transpose(1, 2) for h in (Hq, Hkv, Hkv))
+        path = fk.route_for(q, k, v)
+        want_out, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True)
+        out, lse = ops.flash_attention(q, k, v, return_lse=True)
+        shape = f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 causal, with the lse"
+        err = gate(f"flash {label}, {shape} ({path})", out, want_out, BF16_TOL)
+        gate(f"lse {label} ({path})", lse, want_lse, LSE_TOL)
+        if path != "wgmma":
+            fail(f"14d: flash at {label} did not route to the tensor-core kernel: {path}")
+        ms = device_ms(lambda: ops.flash_attention(q, k, v, return_lse=True), 20)
+        plain = device_ms(lambda: ref.flash_attention_ref(q, k, v, return_lse=True), 3)
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=Hq != Hkv), 20)
+        bound, by = bound_ms(costs.flash_cost(B, Hq, Hkv, T, T, D))
+        say(f"  time {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {sdpa:.4f} ms, "
+            f"bound {bound:.4f} ms by {by} (device time)")
+        rows["flash_attention"].append(dict(label=label, shape=shape, path=path, max_abs_err=err,
+                                            ms=ms, plain_ms=plain, library_ms=sdpa,
+                                            bound_ms=bound, bound_by=by))
+        del q, k, v, out, lse, want_out, want_lse
+    rows["moe_gmm"] = gmm_bwd_phase(gen, dev, caps=(320,), dims=TP_TRAIN_GMM_DIMS)
+    return rows
+
+
+def tp_train_rank(rank, world, dev, job):
+    """14a-14c on one rank: `job["steps"]` AdamW steps of `job["cfg"]` on a
+    `job["shape"]` mesh (ZeRO-2 over its data axis with `job["zero"]`),
+    from the seed's weights (the rank's blocks of the whole draw) on the
+    same batches as the single process (dp_run); then the distance of its
+    blocks to the single process's (saved at `job["single"]`) and of their
+    update, the digests of the leaves no rank splits, its peak memory and a
+    profiled step's TP spans."""
+    import torch
+    from repro_torch import distributed as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.sharding.axes import single_pod_rules
+    from repro_torch.sharding.rules import model_shardings, shardings_for
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import flatten, leaves
+    _rank_setup()
+    cfg, dev = job["cfg"], torch.device(dev)
+    mesh = make_mesh(job["shape"], ("data", "model"), device=dev)
+    meta = build_model(cfg, device="meta").init_params(torch.Generator())
+    shard = shardings_for(meta, cfg, mesh, single_pod_rules(), zero1=True) if job["zero"] \
+        else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    routes = [torch.from_numpy(c).to(dev) for c in job["routing"]]
+    with routed_as(routes, replay=True):
+        state, run = dp_run(cfg, job["seed"], dev, job["steps"], job["n_micro"], job["rows"],
+                            job["seq"], mesh, shard)
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    run["transport"] = D.transport(dev)
+    model = build_model(cfg, device=dev, mesh=mesh)
+    # the rank's blocks' distance to the single process's, and their update
+    single = torch.load(job["single"], mmap=True)
+    sh = model_shardings(meta, cfg, mesh, single_pod_rules())
+    p0 = model.init_params(torch.Generator(device=dev).manual_seed(job["seed"]))
+    sq = upd = 0.0
+    for got, want, first, blk in zip(leaves(state["params"]), leaves(single), leaves(p0),
+                                     sh.index(meta, torch.distributed.get_rank())):
+        w = want[blk].to(dev).float()
+        sq += float(torch.sum(torch.square(got.float() - w)))
+        upd += float(torch.sum(torch.square(w - first.float())))
+    del single, p0
+    run.update(sq=sq, upd=upd, whole={"/".join(map(str, p)): digest(t) for (p, t), m in
+                                      zip(flatten(state["params"]), leaves(meta))
+                                      if tuple(t.shape) == tuple(m.shape)})
+    run["profile"] = None
+    if job["profile"]:
+        step = make_train_step(model, make_optimizer("adamw"), lambda s: DP_LR,
+                               n_microbatches=job["n_micro"], grad_shardings=shard, mesh=mesh)
+        b = dp_batch(cfg, job["seed"], job["steps"], dev, job["rows"], job["seq"])
+        D.all_reduce_(torch.zeros(1, device=dev))   # start together
+        run["profile"] = tp_profile(lambda: step(state, b), 1)
+    D.all_reduce_(torch.zeros(1, device=dev))   # every rank done before any frees the group
+    return run
+
+
+def tp_train_job_rank(rank, world, dev, jobs):
+    """Each of `jobs` on this rank, in order (one spawn for the runs of one
+    world size)."""
+    import torch
+    out = {}
+    for name, job in jobs.items():
+        out[name] = tp_train_rank(rank, world, dev, job)
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_configs():
+    """14a-14c's configs at published width, cut in depth: name -> (config,
+    mesh shape, ZeRO-2, steps, a profiled step). 14c takes 2 steps and no
+    profile: on one card each of its ZeRO-2 steps moves the fp32 gradients
+    through the host, 17.4 s a step (NVIDIA H100 80GB HBM3, 700 W)."""
+    from repro_torch.configs import get_config
+    llama, phi = get_config("llama3-8b"), get_config("phi3.5-moe-42b-a6.6b")
+    return {"14a": (llama.replace(n_layers=4), (1, 4), False, 3, True),
+            "14b": (phi.replace(n_layers=2), (1, 2), False, 3, True),
+            "14c": (llama.replace(n_layers=2), (2, 2), True, 2, False)}
+
+
+def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
+    """Phase 14: tensor-parallel training on the cards present (ranks as in
+    phase 13): 14a llama3-8b at published width, 4 of 32 layers, on (1, 4);
+    14b phi3.5-moe x 2 of 32 on (1, 2); 14c llama3-8b x 2 on (2, 2) with
+    ZeRO-2 over the data axis; AdamW steps (tp_train_configs) at DP_LR of rows x seq
+    TokenPipeline tokens in `n_micro` microbatches (phase 8b's batch). Each
+    against one process's steps from the same seed on the same batches, run
+    first in this process (an MoE run's ranks replaying its routing,
+    `routed_as`: bf16 rounding flips near-tie router choices, and a flip
+    moves an expert's update outright): losses and grad norms within
+    DP_METRIC_TOL, the
+    params within DP_UPDATE_TOL of their update, the leaves no rank splits
+    bit-identical on every rank, the launches exact (forward and remat) and
+    all on `flash_wgmma` with the lse and `gmm_wgmma`. Prints each rank's
+    step time and peak memory beside the single process's and the TP spans
+    of a profiled step. 14d: the kernels at a rank's training shapes."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import distributed as D
+    from repro_torch.tree import tree_map
+
+    runs = {name: (cfg, shape, zero, seed + i, steps, prof)
+            for i, (name, (cfg, shape, zero, steps, prof)) in enumerate(tp_train_configs().items())}
+    out, by_world, singles = {}, {}, {}
+    tokens = rows * seq
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (cfg, shape, zero, s, steps, prof) in runs.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            routing = []
+            with routed_as(routing, replay=False):
+                state, single = dp_run(cfg, s, dev, steps, n_micro, rows, seq)
+            single["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            path = f"{tmp}/{name}.pt"
+            torch.save(tree_map(lambda t: t.cpu(), state["params"]), path)
+            del state
+            dp_launch_gate(f"{name} single process", single, cfg, n_micro, steps)
+            singles[name] = single
+            by_world.setdefault(shape[0] * shape[1], {})[name] = dict(
+                cfg=cfg, shape=shape, zero=zero, seed=s, steps=steps, n_micro=n_micro,
+                rows=rows, seq=seq, single=path, routing=[c.cpu().numpy() for c in routing],
+                profile=prof)
+        torch.cuda.empty_cache()
+        ranks = {}
+        for world, jobs in by_world.items():
+            say(f"  ranks: W={world}, backend {D.backend_for(world, dev)}, devices "
+                f"{[str(D.rank_device(r, dev)) for r in range(world)]}, card {smi}")
+            t0 = time.perf_counter()
+            res = D.spawn(tp_train_job_rank, world, jobs, device=dev.type, timeout=900)
+            say(f"  {world} ranks ({', '.join(jobs)}): {time.perf_counter() - t0:.1f} s wall")
+            for name in jobs:
+                ranks[name] = [r[name] for r in res]
+    for name, (cfg, shape, zero, _, steps, _) in runs.items():
+        single, rs = singles[name], ranks[name]
+        say(f"phase {name}: {cfg.name} x {cfg.n_layers} layers at published width on a {shape} "
+            f"mesh{', ZeRO-2 over the data axis' if zero else ''}, {steps} steps of {rows} x {seq} "
+            f"tokens in {n_micro} microbatches, over {rs[0]['transport']}")
+        t_single = float(np.median(single["walls"][1:]))
+        say(f"  single process: median step {t_single * 1e3:.1f} ms, {tokens / t_single:.0f} "
+            f"tokens/s, peak {single['peak_gb']:.2f} GB [{smi}]")
+        for rank, r in enumerate(rs):
+            t = float(np.median(r["walls"][1:]))
+            p = r["profile"]
+            say(f"  rank {rank}: median step {t * 1e3:.1f} ms ({t / t_single:.2f}x the single "
+                f"process), peak {r['peak_gb']:.2f} GB ({r['peak_gb'] / single['peak_gb']:.2f}x)"
+                + ("" if p is None else f"; profiled step {p['step_ms']:.1f} ms: " + ", ".join(
+                    f"{n} {p[n + '_count']:.0f} spans {p[n + '_ms']:.1f} ms" for n in TP_SPANS)
+                    + f", NCCL kernels {p['nccl_ms']:.2f} ms, copies {p['copy_ms']:.1f} ms, "
+                    f"device busy {p['busy'] * 100:.1f}% (kernels and copies summed)"))
+            for i in range(steps):
+                rel_gate(f"{name} rank {rank} step {i + 1} loss", r["losses"][i],
+                         single["losses"][i], DP_METRIC_TOL)
+                rel_gate(f"{name} rank {rank} step {i + 1} grad norm", r["norms"][i],
+                         single["norms"][i], DP_METRIC_TOL)
+            d = (r["sq"] / r["upd"]) ** 0.5
+            ok = d <= DP_UPDATE_TOL
+            say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: its blocks' distance to the single "
+                f"process's, over their update, {d:.3e} (gate <= {DP_UPDATE_TOL:g}; update "
+                f"{r['upd'] ** 0.5:.3f})")
+            if not ok:
+                fail(f"{name}: rank {rank}'s params part from the single process's")
+            dp_launch_gate(f"{name} rank {rank}", r, cfg, n_micro, steps)
+        same = all(r["whole"] == rs[0]["whole"] for r in rs)
+        say(f"  {'ok  ' if same else 'FAIL'} the {len(rs[0]['whole'])} leaves no rank splits are "
+            "bit-identical on every rank")
+        if not same:
+            fail(f"{name}: a replicated leaf differs across the ranks")
+        out[name] = dict(single_step_ms=t_single * 1e3, single_peak_gb=single["peak_gb"],
+                         step_ms=[float(np.median(r["walls"][1:])) * 1e3 for r in rs],
+                         peak_gb=[r["peak_gb"] for r in rs], profile=[r["profile"] for r in rs])
+    all_runs = [r for rs in ranks.values() for r in rs]
+    out.update({n: sum(r["launches"][n] for r in all_runs) for n in kernel_counts()})
+    out["lse"] = sum(r["lse"] for r in all_runs)
+    out["flash_attention_by_path"] = {p: sum(r["flash_by_path"][p] for r in all_runs)
+                                      for p in ("wgmma", "simt")}
+    out["moe_gmm_by_path"] = {kind: {p: sum(r["gmm_by_path"][kind][p] for r in all_runs)
+                                     for p in ("wgmma", "rows", "tiled")}
+                              for kind in ("fwd", "dx", "dw")}
+    say("phase 14d: the kernels at a rank's training shapes")
+    out["kernels"] = tp_train_kernel_phase(gen, dev)
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3932,7 +4183,10 @@ def main() -> int:
     runs["13"] = timed("13 TP serving", tp_serving_phase, args.seed, dev, smi, gen,
                        runs["4"]["outputs"])
     tp_rows = runs["13"].pop("kernels")
-    say("phase 14: the kernel table and the device")
+    say('phase 14: tensor-parallel training over the "model" axis, ranks on the cards present')
+    runs["14"] = timed("14 TP training", tp_train_phase, args.seed + 17, dev, smi, gen)
+    tp_train_rows = runs["14"].pop("kernels")
+    say("phase 15: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 
@@ -3957,7 +4211,7 @@ def main() -> int:
     kernels[0].update(kernel=flash["path"], simt_ms=flash["simt_ms"],
                       event_ms=flash["event_ms"], lse=True,
                       lse_launches=sum(runs[k]["flash_attention"]
-                                       for k in ("8", "8e", "8f", "8g", "8i", "11")),
+                                       for k in ("8", "8e", "8f", "8g", "8i", "11", "14")),
                       **{k: flash[k] for k in ("nolse_ms", "lse_ms", "bwd_ms", "bwd_sdpa_ms",
                                                "bwd_bound_ms", "bwd_shape")},
                       launches_by_kernel={p: sum(r["flash_attention_by_path"][p]
@@ -3965,7 +4219,8 @@ def main() -> int:
                                                  if "flash_attention_by_path" in r)
                                           for p in ("wgmma", "simt")},
                       phase9_shapes=new_shapes["flash_attention"],
-                      tp_shapes=tp_rows["flash_attention"])
+                      tp_shapes=tp_rows["flash_attention"],
+                      tp_train_shapes=tp_train_rows["flash_attention"])
     dec = table["decode_attention"]
     kernels[1].update(kernel=dec["path"], simt_ms=dec["simt_ms"], event_ms=dec["event_ms"],
                       launches_by_kernel={p: sum(r["decode_attention_by_path"][p]
@@ -3974,8 +4229,8 @@ def main() -> int:
                                           for p in ("split", "simt")},
                       phase9_shapes=new_shapes["decode_attention"],
                       tp_shapes=tp_rows["decode_attention"])
-    train_gmm = {kind: {p: runs["8e"]["moe_gmm_by_path"][kind][p]
-                        + runs["11"]["moe_gmm_by_path"][kind][p] for p in by_path}
+    train_gmm = {kind: {p: sum(runs[k]["moe_gmm_by_path"][kind][p] for k in ("8e", "11", "14"))
+                        for p in by_path}
                  for kind, by_path in runs["8e"]["moe_gmm_by_path"].items()}
     kernels[2].update(kernel=table["moe_gmm"]["path"],
                       launches_by_kernel={p: runs["6"]["moe_gmm_by_path"][p] + train_gmm["fwd"][p]
@@ -3987,9 +4242,10 @@ def main() -> int:
         kernels[2][kind] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms", "max_abs_err",
                                                 "path", "shape")}
-        kernels[2][kind].update(launches=runs["8e"][f"moe_gmm_{kind}"]
-                                + runs["11"][f"moe_gmm_{kind}"],
-                                launches_by_kernel=train_gmm[kind])
+        kernels[2][kind].update(launches=sum(runs[k][f"moe_gmm_{kind}"]
+                                             for k in ("8e", "11", "14")),
+                                launches_by_kernel=train_gmm[kind],
+                                tp_train_shape=tp_train_rows["moe_gmm"][kind])
     ssd = table["ssd_scan"]
     kernels[3].update(kernel=ssd["path"], simt_ms=ssd["simt_ms"], event_ms=ssd["event_ms"],
                       dist_fp64=ssd["dist_fp64"],

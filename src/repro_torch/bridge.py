@@ -25,8 +25,12 @@ is split along that axis only, into `s["layers"]` (one per layer) or
 the state of the others (the per-layer norms and biases, factored over
 the stack) stays stacked in `s["layers_stacked"]` or `s["mamba_stacked"]`.
 
-`shard_params` cuts the port's whole params to a rank's blocks for
-tensor-parallel serving.
+`shard_params` cuts the port's whole params to a rank's blocks under
+tensor parallelism, and `shard_train_state` a whole train state: the
+params' blocks, each AdamW moment's (with ZeRO, the rank's ZeRO block of
+it, inside its "model" block), and each Adafactor statistic's block of the
+whole leaf's (`vr` cut where the leaf's rows are, `vc` where its columns
+are), so both packages can start from the same step-k state.
 
 The RL rollout's policy weights ({"w1", "w2", "w3"}) and a surrogate
 environment's matrices (W, Pobs, Pact) cross as they are
@@ -44,8 +48,8 @@ import torch
 
 from repro_torch.optim.optimizers import per_layer
 from repro_torch.sharding.axes import rules_for
-from repro_torch.sharding.rules import shardings_for
-from repro_torch.tree import flatten, get, leaves, tree_map, unflatten
+from repro_torch.sharding.rules import coordinate, model_dims, model_shardings
+from repro_torch.tree import flatten, get, leaves, tree_map, unflatten, unflatten_like
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -106,10 +110,84 @@ def params_from_jax(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
 
 def shard_params(params: Dict[str, Any], cfg, mesh, rank: int) -> Dict[str, Any]:
     """Rank `rank`'s block of every leaf of the port's whole `params` under
-    the serving specs of `mesh` (`sharding/rules.py::shardings_for`, the
-    reference's `named_shardings`), as `init_params(..., mesh=, rank=)`
-    draws them: a contiguous copy where the block is not the whole leaf."""
-    return shardings_for(params, cfg, mesh, rules_for(mesh)).take(params, rank)
+    the serving specs of `mesh` on its "model" axis
+    (`sharding/rules.py::model_shardings`; on a (1, n) mesh the reference's
+    `named_shardings`), as `init_params(..., mesh=, rank=)` draws them: a
+    contiguous copy where the block is not the whole leaf."""
+    return model_shardings(params, cfg, mesh, rules_for(mesh)).take(params, rank)
+
+
+def _cut(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
+    size = t.shape[dim] // n
+    return t.narrow(dim, r * size, size).clone()
+
+
+def _cut_stats(st: Dict[str, torch.Tensor], dim: int, nd: int, n: int, r: int):
+    """Adafactor's state of a leaf of `nd` dims, cut along `dim` n ways:
+    the rank `r`'s block of the whole leaf's statistics."""
+    if "v" in st:
+        return {"v": _cut(st["v"], dim, n, r)}
+    return {"vr": _cut(st["vr"], dim, n, r) if dim < nd - 1 else st["vr"].clone(),
+            "vc": _cut(st["vc"], min(dim, nd - 2), n, r) if dim != nd - 2 else st["vc"].clone()}
+
+
+def shard_train_state(state: Dict[str, Any], cfg, mesh, rank: int,
+                      shardings=None) -> Dict[str, Any]:
+    """Rank `rank`'s blocks of the port's whole train state on `mesh` (see
+    the module's docstring); `shardings`, the step's ZeRO-2
+    `grad_shardings`, cut AdamW's moments to the rank's ZeRO block (an empty
+    tensor where another rank owns the leaf's item), as `train_state`
+    makes them."""
+    rules = rules_for(mesh)
+    sh = model_shardings(state["params"], cfg, mesh, rules)
+    params = sh.take(state["params"], rank)
+    opt = {"step": state["opt"]["step"].clone()}
+    if "m" in state["opt"]:
+        idx = shardings.local_index(params, rank) if shardings is not None else None
+        for name in ("m", "v"):
+            blocks = sh.take(state["opt"][name], rank)
+            if idx is not None:
+                blocks = unflatten_like(blocks, [t[b].clone() if b is not None else
+                                                 t.new_empty((0,))
+                                                 for t, b in zip(leaves(blocks), idx)])
+            opt[name] = blocks
+        return {"params": params, "opt": opt, "step": state["step"].clone()}
+    if shardings is not None:
+        raise NotImplementedError("ZeRO-1 state sharding needs AdamW (ROADMAP Queue 1, item 7)")
+    dims = model_dims(state["params"], cfg, mesh, rules)
+    n = dict(zip(mesh.axis_names, mesh.shape))["model"]
+    r = coordinate(mesh, rank)[mesh.axis_names.index("model")]
+
+    def cut(path, st, nd, lead):
+        d = dims.get(tuple(k for k in path if isinstance(k, str)))
+        return {k: v.clone() for k, v in st.items()} if d is None else \
+            _cut_stats(st, d + lead, nd + lead, n, r)
+
+    s = {}
+    for k, sub in state["params"].items():
+        src = state["opt"]["s"]
+        if isinstance(sub, torch.Tensor):
+            s[k] = cut((k,), src[k], sub.ndim, 0)
+            continue
+        if not isinstance(sub, list):
+            s[k] = unflatten((path, cut((k,) + path, get(src[k], path), get(sub, path).ndim, 0))
+                             for path in _stat_paths(src[k]))
+            continue
+        item = sub[0]
+        s[k] = [unflatten((path, cut((k,) + path, get(si, path), get(item, path).ndim, 0))
+                          for path in _stat_paths(si)) for si in src[k]]
+        s[k + "_stacked"] = unflatten(
+            (path, cut((k,) + path, get(src[k + "_stacked"], path), get(item, path).ndim, 1))
+            for path in _stat_paths(src[k + "_stacked"]))
+    opt["s"] = s
+    return {"params": params, "opt": opt, "step": state["step"].clone()}
+
+
+def _stat_paths(tree):
+    """The paths of the leaves of a params-like tree whose leaves are
+    Adafactor's per-leaf state dicts ({"vr", "vc"} or {"v"})."""
+    paths = {path[:-1] for path, _ in flatten(tree)}
+    return sorted(paths)
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:

@@ -201,7 +201,12 @@ def shift(send_buf, recv_buf, group=None):
 
 class _AllReduceSum(torch.autograd.Function):
     """The sum over the group, whose gradient is the sum over the group of
-    the gradients (each rank's copy of the result feeds its own loss)."""
+    the gradients (each rank's copy of the result feeds its own loss): the
+    data-parallel MoE aux loss's collective (`moe.moe_ffn`'s mean router
+    probabilities over the data group). Not tensor parallelism's: there
+    every rank of the "model" group computes the same loss, so this
+    backward would give n times the gradient; TP's collectives are their
+    own Functions (`models/tensor_parallel.py`)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -214,5 +219,6 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Differentiable all-reduce (sum)."""
+    """Differentiable all-reduce (sum) over a data-parallel group: see
+    `_AllReduceSum`."""
     return _AllReduceSum.apply(x, group)

@@ -21,14 +21,18 @@ batch does not split) and MoE layers dispatch in one group a rank,
 `dp_degree(mesh)` groups in all, as the reference's; and for the serving
 shapes the tensor-parallel (1, 4), where rank 0 runs the whole batch on its
 blocks of the weights and its cache heads (`models/tensor_parallel.py`),
-with two all-reduces a layer and the logits' all-gather. The collectives
-run over PyTorch's testing `fake` process group, which moves no data. On a
-data-parallel mesh serving weights stay whole on every rank: where the
-reference's `_serve_cfg` would shard them over the data axes too, the
-record says `"serve_weights": "replicated"`; on (1, 4) it says
-`"tensor-parallel"`. Train cells on (1, 4) are skipped (TP training is not
-ported), and the hybrid, xLSTM and whisper families' serving cells there
-are errors that say their TP is not ported.
+with two all-reduces a layer and the logits' all-gather. Train cells on
+(1, 4) run rank 0's tensor-parallel train step on the whole batch: its
+blocks of the params, of the optimizer state and of the fp32 accumulator
+(no ZeRO: the data axis has size 1), the forward's all-reduces, their
+replay under remat, the backward's (one a split product's input) and the
+vocab-parallel loss's. The collectives run over PyTorch's testing `fake`
+process group, which moves no data. On a data-parallel mesh serving weights
+stay whole on every rank: where the reference's `_serve_cfg` would shard
+them over the data axes too, the record says `"serve_weights":
+"replicated"`; on (1, 4) it says `"tensor-parallel"`. The hybrid, xLSTM and
+whisper families' cells on (1, 4) are errors that say their TP is not
+ported (ROADMAP Queue 1, item 6c).
 
 Records are JSON under build/dryrun/<tag>/<mesh>/<arch>__<shape>.json, with
 the status `ok`, `skipped` (by `configs.shapes.applicable`) or `error` (the
@@ -186,19 +190,22 @@ def train_account(cfg: ModelConfig, batch: Dict[str, torch.Tensor], *, n_micro: 
     """The account of one train step of `cfg` on `batch` (the global batch)
     in `n_micro` microbatches, with the config's optimizer, on `device`.
     Without `mesh`: the single-process step. With `mesh` (and an initialised
-    process group of its size): rank 0's ZeRO-2 step, the accumulator and
-    the optimizer state sharded by the ZeRO specs of the mesh's rules
-    (`rules_for`). Returns (Account, the step's metrics)."""
+    process group of its size): rank 0's step, with ZeRO-2 where the mesh
+    has a data axis (the accumulator and the optimizer state sharded by the
+    ZeRO specs of the mesh's rules, `rules_for`) and rank 0's blocks under
+    a "model" axis. Returns (Account, the step's metrics)."""
     opt = make_optimizer(cfg.optimizer)
     model = build_model(cfg, device=device, mesh=mesh)
     params = model.init_params(generator or _generator(device))
-    g_sh = None if mesh is None else shardings_for(params, cfg, mesh, rules_for(mesh),
-                                                   zero1=True)
-    state = train_state(params, opt, g_sh)
+    g_sh = None   # ZeRO over the data axes; a (1, n) TP mesh has none
+    if mesh is not None and (tp_degree(mesh) == 1 or dp_degree(mesh) > 1):
+        whole = build_model(cfg, device="meta").init_params(torch.Generator())
+        g_sh = shardings_for(whole, cfg, mesh, rules_for(mesh), zero1=True)
+    state = train_state(params, opt, g_sh, model.split)
     step = make_train_step(model, opt, warmup_cosine(3e-4, 2000, 100000),
-                           n_microbatches=n_micro, grad_shardings=g_sh)
+                           n_microbatches=n_micro, grad_shardings=g_sh, mesh=mesh)
     accum = 4 * sum(p.numel() for p in leaves(params)) if g_sh is None else \
-        4 * sum(p[b].numel() for p, b in zip(leaves(params), g_sh.index(params, 0))
+        4 * sum(p[b].numel() for p, b in zip(leaves(params), g_sh.local_index(params, 0))
                 if b is not None)
     (_, metrics), acct = _run(lambda: step(state, batch), device, state, batch,
                               params_bytes=_nbytes(state["params"]),
@@ -325,8 +332,6 @@ def run_cell(arch: str, shape_name: str, mesh: Mesh, force: bool = False,
     reason = None
     if not applicable(cfg.family, cfg.sub_quadratic, shape_name):
         reason = f"long_500k requires sub-quadratic attention; {arch} is full-attention"
-    elif shape.kind == "train" and tp_degree(mesh) > 1:
-        reason = "TP training is not yet ported"
     if reason:
         record["status"] = "skipped"
         record["reason"] = reason
@@ -363,8 +368,7 @@ def main():
     ap.add_argument("--multi-pod", action="store_true", help="two nodes of four: 2x4x1")
     ap.add_argument("--both-meshes", action="store_true", help="4x1 and 2x4x1")
     ap.add_argument("--one-card", action="store_true", help="1x1 too")
-    ap.add_argument("--tp", action="store_true",
-                    help="the tensor-parallel 1x4 serving mesh (train shapes skipped)")
+    ap.add_argument("--tp", action="store_true", help="the tensor-parallel 1x4 mesh")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tag", default="baseline")
     args = ap.parse_args()

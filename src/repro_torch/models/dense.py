@@ -34,7 +34,7 @@ from repro_torch.launch.mesh import tp_degree
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe_layer, moe_ffn
 from repro_torch.sharding.axes import constrain, rules_for
-from repro_torch.sharding.rules import shardings_for
+from repro_torch.sharding.rules import model_shardings
 
 F32 = torch.float32
 
@@ -75,9 +75,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     normal(0, d_model**-0.5) projections, normal(0, 0.02) embeddings and
     unit norms, as the JAX init draws them (from another stream).
 
-    With a `mesh` whose "model" axis is larger than 1 (tensor-parallel
-    serving), rank `rank`'s blocks of them under the serving specs
-    (`sharding/rules.py::shardings_for`): each leaf is drawn whole, in the
+    With a `mesh` whose "model" axis is larger than 1 (tensor parallelism),
+    rank `rank`'s blocks of them under the serving specs on that axis
+    (`sharding/rules.py::model_shardings`): each leaf is drawn whole, in the
     same order, and all but the rank's block freed a layer at a time, so
     the blocks are bit for bit those of the whole draw and the peak is one
     layer, not the model."""
@@ -101,7 +101,7 @@ def _block_keeper(cfg: ModelConfig, mesh, rank: int):
     if mesh is None or tp_degree(mesh) == 1:
         return lambda prefix, tree: tree
     whole = init_params(torch.Generator(), cfg, device="meta")
-    sh = shardings_for(whole, cfg, mesh, rules_for(mesh))
+    sh = model_shardings(whole, cfg, mesh, rules_for(mesh))
     return lambda prefix, tree: sh.take(tree, rank, prefix)
 
 
@@ -116,60 +116,67 @@ def _ffn(p, xn, cfg: ModelConfig, n_groups: int = 1, group=None, tp=None):
     of the reference's constraint on the block's output."""
     if cfg.family == "moe":
         return moe_ffn(p["moe"], xn, cfg, n_groups, group, tp=tp)
-    y = L.swiglu(xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
+    split = tp is not None and tp.splits(cfg.d_ff)
+    y = L.swiglu(tp.enter(xn) if split else xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
     if tp is not None:
-        y = constrain(tp.psum((y, tp.splits(cfg.d_ff))), "batch", "seq", None)
+        y = constrain(tp.psum((y, split)), "batch", "seq", None)
     return y, None
 
 
 def block_fwd(p, x, positions, cfg: ModelConfig, *, window: Optional[int] = None,
-              n_groups: int = 1, group=None):
+              n_groups: int = 1, group=None, tp=None):
     """Full-sequence block: causal attention + FFN. Returns (x, aux), aux
-    None for a dense block."""
+    None for a dense block. Under tensor parallelism (`tp`) on the rank's
+    blocks, its collectives differentiable (tensor_parallel.py)."""
     h, _ = L.attention(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
-                       positions, cfg, causal=True, window=window)
+                       positions, cfg, causal=True, window=window, tp=tp)
     x = x + h
-    y, aux = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups, group)
+    y, aux = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups, group, tp=tp)
     return x + y, aux
 
 
 def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
                  window: Optional[int] = None, remat: bool = True,
-                 n_groups: int = 1, group=None):
+                 n_groups: int = 1, group=None, tp=None):
     """The block stack over x (B, T, d) without a cache, then the final norm.
     Returns (x, summed aux). With `remat` (the JAX default) and autograd
     recording, each block keeps only its input for the backward and runs
     again there (`jax.checkpoint` of the JAX scan body); without autograd
-    there is nothing to keep, and the blocks run plainly."""
+    there is nothing to keep, and the blocks run plainly. Under `tp` the
+    replay runs the block's forward collectives again, in the same order on
+    every rank (the ranks run in lockstep); it stops at the last tensor the
+    backward needs, so a block's last all-reduce is not replayed."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     for lp in params["layers"]:
         if remat and torch.is_grad_enabled():
             x, a = checkpoint(block_fwd, lp, x, positions, cfg, window=window,
-                              n_groups=n_groups, group=group, use_reentrant=False)
+                              n_groups=n_groups, group=group, tp=tp, use_reentrant=False)
         else:
             x, a = block_fwd(lp, x, positions, cfg, window=window, n_groups=n_groups,
-                             group=group)
+                             group=group, tp=tp)
         if a is not None:
             aux = aux + a
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True, n_groups: int = 1,
-            group=None):
+            group=None, tp=None):
     """Next-token loss of batch {"tokens", "targets"} (B, T) [+ "loss_mask",
     the VLM's "patch_embeds"]: embed, the VLM's patches, the block stack,
     unembed with the padded vocab masked, the fp32 cross entropy. Returns (xent + aux, {"xent", "aux"}), as the JAX
     `lm_loss`. Under a data-parallel `group` (each rank's batch a share of
     the global one) the MoE aux loss and a masked mean are global: see
-    moe.moe_ffn and layers.softmax_xent."""
+    moe.moe_ffn and layers.softmax_xent. Under tensor parallelism (`tp`)
+    the rank's blocks compute the whole model's loss, alike on every rank of
+    the "model" group, its vocab-parallel part without gathering the logits."""
     tokens, targets = batch["tokens"], batch["targets"]
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
-    x = _inject_frontend(batch, L.embed(params["embed"], tokens), cfg)
+    x = _inject_frontend(batch, L.embed(params["embed"], tokens, tp), cfg)
     x, aux = backbone_fwd(params, x, positions, cfg, remat=remat, n_groups=n_groups,
-                          group=group)
-    logits = L.unembed(params["embed"], x, cfg.vocab_size)
-    loss = L.softmax_xent(logits, targets, batch.get("loss_mask"), group)
+                          group=group, tp=tp)
+    logits = L.unembed(params["embed"], x, cfg.vocab_size, tp, gather=False)
+    loss = L.softmax_xent(logits, targets, batch.get("loss_mask"), group, tp)
     return loss + aux, {"xent": loss, "aux": aux}
 
 

@@ -115,9 +115,16 @@ def qkv(p, x, positions, cfg, tp=None):
     heads."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    xq = xkv = x
+    if tp is not None:   # a split product's input enters it (its gradient is partial)
+        split_q, split_kv = tp.q_split or tp.gather_q, tp.kv_split or tp.gather_kv
+        xs = tp.enter(x) if split_q or split_kv else x
+        xq, xkv = (xs if split_q else x), (xs if split_kv else x)
+    q, k, v = xq @ p["wq"], xkv @ p["wk"], xkv @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if tp is not None and tp.kv_read_partially:
+        k, v = tp.enter(k), tp.enter(v)
     if tp is not None and tp.gather_q:
         q = tp.all_gather(q)
     if tp is not None and tp.gather_kv:
@@ -204,33 +211,53 @@ def embed(p, tokens, tp=None):
     return constrain(x, "batch", None, None)
 
 
-def unembed(p, x, n_valid: Optional[int] = None, tp=None):
+def unembed(p, x, n_valid: Optional[int] = None, tp=None, gather: bool = True):
     """Logits of x over the (padded) vocabulary, the padded ones -1e9; under
     `tp` the rank's rows' logits, masked by global vocab id, gathered over
-    the ranks."""
+    the ranks, or with `gather=False` the rank's own (the vocab-parallel
+    loss's input, `softmax_xent(..., tp=)`)."""
     w = p.get("out", p["tok"])
-    logits = x @ w.T
     split = tp is not None and tp.vocab_rows is not None
+    logits = (tp.enter(x) if split else x) @ w.T
     first = tp.vocab_rows.start if split else 0
     if n_valid is not None and n_valid < first + w.shape[0]:
         vocab_ids = first + torch.arange(w.shape[0], device=logits.device)
         logits = logits.masked_fill(vocab_ids >= n_valid, -1e9)
-    return tp.all_gather(logits) if split else logits
+    return tp.all_gather(logits) if split and gather else logits
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor, mask=None,
-                 group=None) -> torch.Tensor:
+                 group=None, tp=None) -> torch.Tensor:
     """Token-mean cross entropy: the fp32 logsumexp minus the gold logit,
     averaged over the tokens, or over the mask's weight (at least 1).
 
-    Under a data-parallel `group` the mean over the ranks of what this
-    returns is the global mean: with a mask the divisor is the group's
-    summed weight (and the sum is scaled by the group's size); without one
-    the rank's own mean, which is the global mean's share when every rank
-    holds as many tokens (the train step splits the batch so)."""
+    Under a data-parallel `group` (never the "model" group) the mean over
+    the ranks of what this returns is the global mean: with a mask the
+    divisor is the group's summed weight (and the sum is scaled by the
+    group's size); without one the rank's own mean, which is the global
+    mean's share when every rank holds as many tokens (the train step splits
+    the batch so).
+
+    Vocab-parallel (`tp` whose ranks split the vocabulary): `logits` are the
+    rank's (B, T, V/n) columns (`unembed(..., gather=False)`). The logsumexp
+    comes from the ranks' max (no gradient: the logsumexp does not depend
+    on the shift) and the sum of the ranks' exponentials, the gold logit
+    from the rank whose columns hold it, the two sums in one all-reduce
+    whose backward is the identity: the block's gradient is the softmax
+    minus the one-hot on the rank's columns, with no collective."""
     logits = logits.to(F32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if tp is None or tp.vocab_rows is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    else:
+        m = tp.all_reduce_max(logits.detach().amax(dim=-1))
+        ids = targets.long() - tp.vocab_rows.start
+        mine = (ids >= 0) & (ids < logits.shape[-1])
+        gold = torch.gather(logits, -1, torch.where(mine, ids, 0)[..., None])[..., 0]
+        sums = torch.stack([torch.exp(logits - m[..., None]).sum(dim=-1),
+                            torch.where(mine, gold, 0.0)])
+        total, gold = tp.all_reduce(sums).unbind(0)
+        lse = m + torch.log(total)
     nll = lse - gold
     if mask is not None:
         weight = torch.sum(mask).detach()

@@ -140,7 +140,10 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
     the replicated x, alike on every rank; the combine is linear in the
     expert outputs, so the rank combines its partial sums and y is summed
     over the ranks once, after the dense residual's (the reference
-    constrains out_e, which lays the same sum on the expert outputs)."""
+    constrains out_e, which lays the same sum on the expert outputs). Under
+    autograd the expert products' input and the gates the combine reads
+    enter through `tp.enter`, whose backward sums the ranks' partial
+    gradients; the router's own input, and the aux loss, are whole."""
     m = cfg.moe
     B, T, d = x.shape
     e, k = m.n_experts, m.top_k
@@ -152,7 +155,13 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
 
     xg = constrain(x.reshape(n_groups, ng, d), "batch", None, None)
     logits = xg.to(F32) @ p["router"]
-    groups = [_dispatch_one_group(xg[g], logits[g], k, cap) for g in range(n_groups)]
+    # the experts' columns and the dense residual's give partial gradients of
+    # x: it enters them once
+    split = tp is not None and tp.splits(cfg.d_ff)
+    dsplit = tp is not None and "dense" in p and tp.splits(m.dense_residual_ff)
+    xin = tp.enter(x) if split or dsplit else x
+    xs = xin.reshape(n_groups, ng, d) if split else xg
+    groups = [_dispatch_one_group(xs[g], logits[g], k, cap) for g in range(n_groups)]
     slots, inv, top_g, gates = (torch.stack(t) for t in zip(*groups))
 
     # group-major (G, E, C, d) -> expert-major (E, G, C, d), seen as (E, G*C, d)
@@ -170,7 +179,11 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
     pad = torch.cat([out_g, out_g.new_zeros((n_groups, 1, d))], dim=1)
     picked = torch.gather(pad, 1, inv[..., None].expand(-1, -1, d))
     picked = picked.reshape(n_groups, ng, k, d)
-    y = torch.sum(picked * top_g[..., None].to(picked.dtype), dim=2).reshape(B, T, d)
+    # under expert-TP `picked` is the rank's partial sum, so the combine's
+    # gradient of the gates is too: summed over the ranks here (B T k
+    # entries), not in the router's gradient, whose aux-loss part is whole
+    gate = tp.enter(top_g) if split else top_g
+    y = torch.sum(picked * gate[..., None].to(picked.dtype), dim=2).reshape(B, T, d)
 
     # load-balancing aux loss (Switch-style)
     me = gates.mean(dim=(0, 1))                           # mean router prob per expert
@@ -188,7 +201,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
     dense = None
     if "dense" in p:
         dp = p["dense"]
-        dense = L.swiglu(x, dp["w1"], dp["w3"], dp["w2"])
+        dense = L.swiglu(xin if dsplit else x, dp["w1"], dp["w3"], dp["w2"])
     if tp is not None:
         y = tp.psum((y, tp.splits(cfg.d_ff)),
                     *([(dense, tp.splits(m.dense_residual_ff))] if dense is not None else []))

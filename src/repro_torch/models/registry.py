@@ -28,7 +28,13 @@ dense, MoE and VLM families, on a (1, n) mesh; `tensor_parallel.py`): the
 rank's init_params draws its blocks of the weights, init_cache holds its
 cache heads, and prefill and decode_step run under the mesh's axis rules,
 whose `constrain` checks each annotated activation's layout, and return
-every rank's logits. Training under it is not ported yet: its loss raises.
+every rank's logits. Its loss trains tensor-parallel, on a (1, n) mesh or a
+(dp, tp) one (`train/steps.py`): the rank's blocks compute the whole
+model's loss on the rank's rows, through the differentiable collectives of
+`tensor_parallel.py`, with the MoE aux loss's means over the data group.
+On a (dp, tp) mesh a rank holds its "model" block of every weight, alike at
+every data coordinate (`sharding/rules.py::model_shardings`); serving there
+is refused.
 """
 from __future__ import annotations
 
@@ -45,6 +51,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import dp_degree, dp_group, tp_degree, tp_group
 from repro_torch.models import dense, hybrid, whisper, xlstm
 from repro_torch.models.tensor_parallel import TensorParallel
+from repro_torch.optim.optimizers import Split
+from repro_torch.sharding.rules import model_dims
 from repro_torch.sharding.axes import axis_rules, rules_for
 from repro_torch.models.whisper import ENC_LEN
 
@@ -59,7 +67,8 @@ class Model:
     decode_step: Callable[..., Any]
     init_cache: Callable[..., Any]
     mesh: Any = None
-    tp: Any = None   # the rank's TensorParallel plan under a "model" axis
+    tp: Any = None      # the rank's TensorParallel plan under a "model" axis
+    split: Any = None   # and the leaves it holds a block of (optimizers.Split)
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", window: Optional[int] = None,
@@ -118,8 +127,11 @@ def build_model(cfg: ModelConfig, *, device="cuda", window: Optional[int] = None
 
 
 def _bound(mesh, fn):
-    """fn run under the mesh's axis rules (sharding/axes.py)."""
-    rules = rules_for(mesh)
+    """fn run under the mesh's axis rules (sharding/axes.py), kept to the
+    "model" axis: the rank's activations are its share of the batch, cut
+    before the model runs, so no constraint names a data axis."""
+    rules = {name: tuple(a for a in axes if a == "model")
+             for name, axes in rules_for(mesh).items()}
 
     @functools.wraps(fn)
     def run(*args, **kw):
@@ -128,35 +140,45 @@ def _bound(mesh, fn):
     return run
 
 
-def _no_tp_training(*args, **kw):
-    raise NotImplementedError("TP training is not yet ported: the row/column-parallel "
-                              "backward and ZeRO over a 2-D mesh come next (ROADMAP Queue 1, "
-                              "item 6)")
+def _serving_on_a_data_axis(mesh):
+    def refuse(*args, **kw):
+        raise NotImplementedError(f"tensor-parallel serving runs on a (1, n) mesh, not "
+                                  f"{mesh.shape}: data-parallel replicas of it are not ported "
+                                  "(ROADMAP Queue 1, item 6d)")
+    return refuse
 
 
 def _tensor_parallel_model(cfg: ModelConfig, dev, window, n_groups: int, mesh) -> Model:
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"TP not yet ported for {cfg.family} ({cfg.name}): a "
                                   f"\"model\" axis of {tp_degree(mesh)} needs its heads and "
-                                  "states split (ROADMAP Queue 1, item 6)")
-    if dp_degree(mesh) > 1:
-        raise NotImplementedError(f"tensor-parallel serving runs on a (1, n) mesh, not "
-                                  f"{mesh.shape}: data-parallel replicas of it are not ported")
+                                  "states split (ROADMAP Queue 1, item 6c)")
+    if dp_degree(mesh) > 1 and cfg.fsdp:
+        raise NotImplementedError(f"{cfg.name} shards its weights over the data axes (FSDP): "
+                                  f"on a {mesh.shape} mesh that is not ported (ROADMAP Queue 1, "
+                                  "item 6d)")
     tp = TensorParallel.plan(cfg, tp_group(mesh))
     rank = dist.get_rank()
+    serving = dp_degree(mesh) == 1
+    whole = dense.init_params(torch.Generator(), cfg, device="meta")
+    split = Split(tp.group, tp.size, model_dims(whole, cfg, mesh, rules_for(mesh)))
     return Model(
         cfg=cfg,
         device=dev,
         init_params=functools.partial(dense.init_params, cfg=cfg, device=dev, mesh=mesh,
                                       rank=rank),
-        loss=_no_tp_training,
+        loss=_bound(mesh, functools.partial(dense.lm_loss, cfg=cfg, n_groups=n_groups,
+                                            group=dp_group(mesh), tp=tp)),
         prefill=_bound(mesh, functools.partial(dense.lm_prefill, cfg=cfg, window=window,
-                                               n_groups=n_groups, tp=tp)),
+                                               n_groups=n_groups, tp=tp))
+        if serving else _serving_on_a_data_axis(mesh),
         decode_step=_bound(mesh, functools.partial(dense.lm_decode_step, cfg=cfg,
-                                                   n_groups=n_groups, tp=tp)),
+                                                   n_groups=n_groups, tp=tp))
+        if serving else _serving_on_a_data_axis(mesh),
         init_cache=functools.partial(dense.init_cache, cfg, device=dev, tp=tp),
         mesh=mesh,
         tp=tp,
+        split=split,
     )
 
 

@@ -37,7 +37,26 @@ that says, from the config alone, what the rank holds:
 Partial sums are all-reduced in fp32 and cast back, so gloo (ranks sharing
 a card, through host memory) and NCCL (a card a rank) sum the same values
 in the same precision. Each collective runs under a `record_function`
-("tp_all_reduce", "tp_all_gather"), which a profile of the step reads.
+("tp_all_reduce", "tp_all_gather", "tp_reduce_scatter"), which a profile of
+the step reads.
+
+Training (Megatron's f and g, each a `torch.autograd.Function` over the
+"model" group; every rank computes the same replicated loss, so a
+replicated tensor's gradient must come out whole on every rank, and a
+block's gradient exact for the block):
+  * `all_reduce` (g): the sum of partial sums forward; backward the identity,
+    since the gradient of a replicated output is already whole on every
+    rank. At the row-parallel outputs and the masked embedding lookup.
+  * `enter` (f): the identity forward; backward the sum over the ranks,
+    since each rank's column-parallel products give a partial gradient of
+    their replicated input. On the normed activation entering each split
+    product (q/k/v, the FFN, the experts' dispatch) and on the unembed's
+    input; a replicated product reads the activation as it is.
+  * `all_gather` (the guard's column gathers, `gather_q`/`gather_kv`): every
+    rank's columns forward; backward the sum over the ranks of the whole
+    gradient, of which the rank keeps its columns (a reduce-scatter): the
+    gathered heads feed a partial product (`out_cols`, or q heads that read
+    only their groups' kv heads), so each rank's gradient of them is partial.
 """
 from __future__ import annotations
 
@@ -79,6 +98,7 @@ class TensorParallel:
     q_split: bool                  # the rank computes Hq/n q heads
     gather_q: bool                 # q's columns are gathered (all heads, wq split)
     gather_kv: bool                # k's and v's likewise
+    kv_split: bool                 # the rank computes Hkv/n k/v heads
     kv_heads: Optional[slice]      # the kv heads its q heads read, of all of them
     cache_heads: int               # heads of its cache
     store_heads: Optional[slice]   # its block of the replicated k/v heads
@@ -99,7 +119,7 @@ class TensorParallel:
         return cls(
             group=group, rank=r, size=n,
             q_split=q_split, gather_q=not q_split and rows % n == 0,
-            gather_kv=not kv_split and hkv * hd % n == 0,
+            gather_kv=not kv_split and hkv * hd % n == 0, kv_split=kv_split,
             kv_heads=_group_heads(hq, hkv, n, r) if q_split and not kv_split else None,
             cache_heads=hc // n if cache_split else hc,
             store_heads=(slice(r * hc // n, (r + 1) * hc // n)
@@ -111,15 +131,31 @@ class TensorParallel:
             vocab_rows=(slice(r * vocab // n, (r + 1) * vocab // n)
                         if vocab % n == 0 else None))
 
+    @property
+    def kv_read_partially(self) -> bool:
+        """k and v are whole on every rank, from whole weights, and read
+        by a partial product (the rank's q heads' groups, or the rank's
+        columns of the output): their gradient is partial, so they enter
+        the product through `enter`."""
+        return (not self.kv_split and not self.gather_kv
+                and (self.kv_heads is not None or self.out_cols is not None))
+
     def splits(self, dim: int) -> bool:
         """Whether the guard splits a dim of this size over the ranks."""
         return dim % self.size == 0
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks of x, computed in fp32 and returned in
-        x's dtype."""
-        with torch.profiler.record_function("tp_all_reduce"):
-            return D.all_reduce_(x.to(F32, copy=True), group=self.group).to(x.dtype)
+        x's dtype; under autograd its backward is the identity (g)."""
+        return _Reduce.apply(x, self.group)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """x, replicated, as the input of column-parallel products: the
+        identity, whose backward sums the ranks' partial gradients. Outside
+        autograd, x itself."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Enter.apply(x, self.group)
+        return x
 
     def psum(self, *parts) -> torch.Tensor:
         """The sum of `parts`, each (tensor, partial): the partial ones
@@ -132,10 +168,76 @@ class TensorParallel:
         return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's x, concatenated in rank order along the last dim."""
-        with torch.profiler.record_function("tp_all_gather"):
-            x = x.contiguous()
-            out = x.new_empty((self.size * x.shape[0], *x.shape[1:]))
-            D.all_gather_(out, x, group=self.group)
-            out = out.view(self.size, *x.shape).movedim(0, -2)
-            return out.reshape(*x.shape[:-1], self.size * x.shape[-1])
+        """Every rank's x, concatenated in rank order along the last dim;
+        under autograd its backward is the reduce-scatter of the gradient
+        (see the module's docstring)."""
+        return _Gather.apply(x, self.group)
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the ranks of x (no gradient)."""
+        with torch.profiler.record_function("tp_all_reduce"):
+            return D.all_reduce_(x.detach().clone(), op=dist.ReduceOp.MAX, group=self.group)
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    with torch.profiler.record_function("tp_all_reduce"):
+        return D.all_reduce_(x.to(F32, copy=True), group=group).to(x.dtype)
+
+
+def _gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    with torch.profiler.record_function("tp_all_gather"):
+        n = dist.get_world_size(group)
+        x = x.contiguous()
+        out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+        D.all_gather_(out, x, group=group)
+        out = out.view(n, *x.shape).movedim(0, -2)
+        return out.reshape(*x.shape[:-1], n * x.shape[-1])
+
+
+def _reduce_scatter_last(dy: torch.Tensor, group) -> torch.Tensor:
+    """The rank's columns of the sum over the ranks of dy (..., n c), in fp32
+    and returned in dy's dtype."""
+    with torch.profiler.record_function("tp_reduce_scatter"):
+        n = dist.get_world_size(group)
+        parts = dy.reshape(*dy.shape[:-1], n, dy.shape[-1] // n).movedim(-2, 0)
+        inp = parts.to(F32).contiguous()
+        out = inp.new_empty((1, *inp.shape[1:]))
+        return D.reduce_scatter_(out, inp, group)[0].to(dy.dtype)
+
+
+class _Reduce(torch.autograd.Function):
+    """g: the sum over the "model" group forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _Enter(torch.autograd.Function):
+    """f: the identity forward, the sum over the "model" group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _sum(dy, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """The all-gather of the last dim forward, its reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _reduce_scatter_last(dy, ctx.group), None

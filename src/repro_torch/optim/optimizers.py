@@ -27,16 +27,25 @@ one factored update, one RMS clip), with its state in `s[key][i]`; any
 other (a per-layer 1-D norm or bias: factored over the stack, one RMS clip
 over the stack) is stacked whole for its update, with its state stacked in
 `s[key + "_stacked"]`.
+
+Under tensor parallelism a rank holds a block of some leaves (`Split`: the
+dim each such leaf is cut along over the "model" group). AdamW is
+elementwise and reads nothing else. Adafactor's statistics read the whole
+leaf: whether it factors, its row and column means, the update's RMS and
+the parameter scale are the whole leaf's, through sums over the group;
+its state is the rank's block of the whole leaf's (`vr` cut where the
+rows are, `vc` where the columns are).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.tree import flatten, get, leaves, tree_map, unflatten
+from repro_torch import distributed as D
+from repro_torch.tree import flatten, get, leaves, map_with_path, tree_map, unflatten
 
 F32 = torch.float32
 
@@ -44,8 +53,35 @@ F32 = torch.float32
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     name: str
-    init: Callable[[Any], Any]
-    update: Callable[..., Any]
+    init: Callable[..., Any]      # init(params, split=None)
+    update: Callable[..., Any]    # update(params, grads, state, lr, split=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """The leaves of a params tree of which a tensor-parallel rank holds a
+    block: the path of each (its dict keys, the stacked view's path) -> the
+    dim, of the port's leaf, cut evenly over the `size` ranks of `group`."""
+    group: Any
+    size: int
+    dims: Dict[Tuple[str, ...], int]
+
+    def dim(self, path) -> Optional[int]:
+        return self.dims.get(tuple(k for k in path if isinstance(k, str)))
+
+    def whole(self, shape, dim: Optional[int]) -> Tuple[int, ...]:
+        """The whole leaf's shape of a block of `shape` cut along `dim`."""
+        shape = tuple(shape)
+        if dim is None:
+            return shape
+        return shape[:dim] + (shape[dim] * self.size,) + shape[dim + 1:]
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the ranks, in place."""
+        return D.all_reduce_(x, group=self.group)
+
+
+WHOLE = Split(group=None, size=1, dims={})   # every leaf whole: no rank splits one
 
 
 def _device(params):
@@ -62,14 +98,14 @@ def _step0(params):
 
 def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1) -> Optimizer:
-    def init(params):
+    def init(params, split=None):
         def zeros(p):
             return torch.zeros(p.shape, dtype=F32, device=p.device)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "step": _step0(params)}
 
     @torch.no_grad()
-    def update(params, grads, state, lr):
+    def update(params, grads, state, lr, split=None):
         step = state["step"] + 1
         t = step.to(F32)
         bc1 = 1.0 - b1 ** t
@@ -117,13 +153,20 @@ def _stack_depth(tree) -> int:
     return depth
 
 
-def _stacked_paths(stack, depth: int):
-    """(path, stacked shape) of each leaf of a stack of `depth` list axes."""
+def _stacked_paths(stack, depth: int, key: str, split: Split):
+    """(path, stacked shape, the whole leaf's stacked shape, the cut dim of
+    the stacked leaf or None) of each leaf of params[key], a stack of
+    `depth` list axes."""
     lead = []
     for _ in range(depth):
         lead.append(len(stack))
         stack = stack[0]
-    return [(path, tuple(lead) + tuple(p.shape)) for path, p in flatten(stack)]
+    out = []
+    for path, p in flatten(stack):
+        dim = split.dim((key,) + path)
+        out.append((path, tuple(lead) + tuple(p.shape), tuple(lead) + split.whole(p.shape, dim),
+                    None if dim is None else dim + depth))
+    return out
 
 
 def _stacked_leaf(stack, path, depth: int):
@@ -144,51 +187,75 @@ def _write_leaf(stack, path, depth: int, new) -> None:
 
 def adafactor(eps1: float = 1e-30, eps2: float = 1e-3, clip: float = 1.0,
               decay_pow: float = 0.8, weight_decay: float = 0.0) -> Optimizer:
-    def per(shape, device):
-        if _factored(shape):
+    def per(shape, device, whole=None):
+        """The state of a leaf of `shape`, a block of one of shape `whole`."""
+        if _factored(whole or shape):
             return {"vr": torch.zeros(shape[:-1], dtype=F32, device=device),
                     "vc": torch.zeros(shape[:-2] + shape[-1:], dtype=F32, device=device)}
         return {"v": torch.zeros(shape, dtype=F32, device=device)}
 
-    def init(params):
+    def init(params, split=None):
+        split = split or WHOLE
         dev = _device(params)
         s = {}
         for k, v in params.items():
             depth = _stack_depth(v)
             if not depth:
-                s[k] = tree_map(lambda p: per(tuple(p.shape), dev), v)
+                s[k] = map_with_path(lambda path, p: per(
+                    tuple(p.shape), dev, split.whole(p.shape, split.dim((k,) + path))), v)
                 continue
-            paths = _stacked_paths(v, depth)
-            s[k] = [unflatten((path, per(shape[1:], dev))
-                              for path, shape in paths if per_layer(shape)) for _ in v]
-            s[k + "_stacked"] = unflatten((path, per(shape, dev)) for path, shape in paths
-                                          if not per_layer(shape))
+            paths = _stacked_paths(v, depth, k, split)
+            s[k] = [unflatten((path, per(shape[1:], dev, whole[1:]))
+                              for path, shape, whole, _ in paths if per_layer(whole)) for _ in v]
+            s[k + "_stacked"] = unflatten((path, per(shape, dev, whole))
+                                          for path, shape, whole, _ in paths
+                                          if not per_layer(whole))
         return {"s": s, "step": _step0(params)}
 
     @torch.no_grad()
-    def update(params, grads, state, lr):
+    def update(params, grads, state, lr, split=None):
+        split = split or WHOLE
         step = state["step"] + 1
         t = step.to(F32)
         beta = 1.0 - t ** (-decay_pow)
 
-        def upd_core(p, g, s):
-            """The new value of p; s is updated in place."""
+        def mean(x, dim, cut, n, keepdim=False):
+            """The mean over `dim` of x, a block cut along `dim` (`cut`) of a
+            whole leaf whose dim has n entries: summed over the ranks."""
+            if not cut:
+                return torch.mean(x, dim=dim, keepdim=keepdim)
+            return split.sum(torch.sum(x, dim=dim, keepdim=keepdim)) / n
+
+        def upd_core(p, g, s, dim=None):
+            """The new value of p (a block cut along `dim` under `split`, or
+            whole); s is updated in place."""
+            nd = p.ndim
+            whole = split.whole(p.shape, dim)
             g = g.to(F32)
             g2 = torch.square(g) + eps1
-            if _factored(p.shape):
-                s["vr"].copy_(beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1))
-                s["vc"].copy_(beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2))
+            if _factored(whole):
+                rows_cut, cols_cut = dim == nd - 2, dim == nd - 1
+                s["vr"].copy_(beta * s["vr"] + (1 - beta) * mean(g2, -1, cols_cut, whole[-1]))
+                s["vc"].copy_(beta * s["vc"] + (1 - beta) * mean(g2, -2, rows_cut, whole[-2]))
                 vr, vc = s["vr"], s["vc"]
-                denom = torch.mean(vr, dim=-1, keepdim=True)
+                denom = mean(vr, -1, rows_cut, whole[-2], keepdim=True)
                 u = g * torch.rsqrt(vr / torch.clamp_min(denom, eps1))[..., None] \
                     * torch.rsqrt(vc)[..., None, :]
             else:
                 s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
                 u = g * torch.rsqrt(s["v"])
-            # RMS clipping
-            rms_u = torch.sqrt(torch.mean(torch.square(u)) + eps1)
+            # RMS clipping, and the parameter's scale: the whole leaf's
+            if dim is None:
+                ms_u = torch.mean(torch.square(u))
+                ms_p = torch.mean(torch.square(p.to(F32)))
+            else:
+                numel = math.prod(whole)
+                ms_u, ms_p = (split.sum(torch.stack([torch.sum(torch.square(u)),
+                                                      torch.sum(torch.square(p.to(F32)))]))
+                              / numel).unbind(0)
+            rms_u = torch.sqrt(ms_u + eps1)
             u = u / torch.clamp_min(rms_u / clip, 1.0)
-            scale = torch.clamp_min(torch.sqrt(torch.mean(torch.square(p.to(F32)))), eps2)
+            scale = torch.clamp_min(torch.sqrt(ms_p), eps2)
             delta = lr * scale * u
             if weight_decay:
                 delta = delta + lr * weight_decay * p.to(F32)
@@ -199,18 +266,20 @@ def adafactor(eps1: float = 1e-30, eps2: float = 1e-3, clip: float = 1.0,
             depth = _stack_depth(sub)
             if not depth:
                 for path, p in flatten(sub):
-                    p.copy_(upd_core(p, get(grads[k], path), get(s[k], path)))
+                    p.copy_(upd_core(p, get(grads[k], path), get(s[k], path),
+                                     split.dim((k,) + path)))
                 continue
-            for path, shape in _stacked_paths(sub, depth):
+            for path, _, shape, dim in _stacked_paths(sub, depth, k, split):
                 if per_layer(shape):   # item by item along the stack's first axis
                     for item, g, si in zip(sub, grads[k], s[k]):
                         _write_leaf(item, path, depth - 1, upd_core(
                             _stacked_leaf(item, path, depth - 1),
-                            _stacked_leaf(g, path, depth - 1), get(si, path)))
+                            _stacked_leaf(g, path, depth - 1), get(si, path),
+                            None if dim is None else dim - 1))
                 else:
                     _write_leaf(sub, path, depth, upd_core(
                         _stacked_leaf(sub, path, depth), _stacked_leaf(grads[k], path, depth),
-                        get(s[k + "_stacked"], path)))
+                        get(s[k + "_stacked"], path), dim))
         state["step"] = step
         return params, state, {"grad_norm": global_norm(grads)}
 

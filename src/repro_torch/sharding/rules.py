@@ -33,6 +33,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import DP_AXES
 from repro_torch.sharding.axes import Spec, _axes, axis_sizes, guard_divisibility
 from repro_torch.sharding.axes import placements  # noqa: F401  (re-exported)
 from repro_torch.tree import flatten, map_with_path
@@ -263,6 +264,39 @@ class Shardings:
         or the rank's blocks."""
         return [self.block_of(path, rank) for path, _ in flatten(tree)]
 
+    def without(self, axes: Tuple[str, ...]) -> "Shardings":
+        """These shardings with the mesh axes `axes` dropped from every spec:
+        what a rank holds alike at every coordinate of those axes."""
+        def keep(entry):
+            kept = tuple(a for a in _axes(entry) if a not in axes)
+            if not kept:
+                return None
+            return kept if isinstance(entry, tuple) else kept[0]
+        return dataclasses.replace(self, specs={p: tuple(keep(e) for e in spec)
+                                                for p, spec in self.specs.items()})
+
+    def local_block_of(self, path, rank: int,
+                       held: Optional["Shardings"] = None) -> Optional[Tuple[slice, ...]]:
+        """`block_of(path, rank)` in the coordinates of the block that `rank`
+        holds with the data-parallel axes dropped (`held`, by default
+        `without(DP_AXES)`): on a (dp, tp) mesh, a rank's ZeRO block of a
+        leaf inside its "model" block of it. Raises where the block does not
+        lie inside that one."""
+        b = self.block_of(path, rank)
+        if b is None:
+            return None
+        h = (held or self.without(DP_AXES)).block_of(path, rank)
+        if any(s.start < o.start or s.stop > o.stop for s, o in zip(b, h)):
+            raise ValueError(f"{path}: rank {rank}'s block {b} is not inside its block {h} "
+                             "of the mesh's other axes")
+        return tuple(slice(s.start - o.start, s.stop - o.start) for s, o in zip(b, h))
+
+    def local_index(self, tree, rank: int) -> List[Optional[Tuple[slice, ...]]]:
+        """For each leaf of `tree`, `local_block_of` its path (on a mesh
+        without a "model" axis, `index` itself)."""
+        held = self.without(DP_AXES)
+        return [self.local_block_of(path, rank, held) for path, _ in flatten(tree)]
+
 
 def shardings_for(tree, cfg: ModelConfig, mesh, rules, *, zero1: bool = False,
                   zero1_stack: bool = True) -> Shardings:
@@ -276,6 +310,30 @@ def shardings_for(tree, cfg: ModelConfig, mesh, rules, *, zero1: bool = False,
     return Shardings(mesh, {p: s.shape for p, s in view.items()},
                      {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, zero1, zero1_stack)
                       for p, s in view.items()})
+
+
+def model_shardings(tree, cfg: ModelConfig, mesh, rules) -> Shardings:
+    """What a tensor-parallel rank holds of a params-like tree on `mesh`:
+    the guarded param specs with the data-parallel axes dropped, so a rank
+    holds its "model" block of every leaf, alike at every data coordinate
+    (on a (1, n) mesh, the serving specs' blocks). The reference also puts
+    the experts (EP) and the FSDP archs' weights on the data axes; the port
+    does not (ROADMAP Queue 1, item 6d)."""
+    return shardings_for(tree, cfg, mesh, rules).without(DP_AXES)
+
+
+def model_dims(tree, cfg: ModelConfig, mesh, rules) -> Dict[Path, int]:
+    """Stacked path -> the dim of the port's leaf (its list axes not
+    counted) that `model_shardings` cuts over the "model" axis, for each
+    leaf it cuts (the optimizers' `Split`)."""
+    sh, view = model_shardings(tree, cfg, mesh, rules), stacked_view(tree)
+    sizes = axis_sizes(mesh)
+    out = {}
+    for p, spec in sh.specs.items():
+        for i, entry in enumerate(spec):
+            if "model" in _axes(entry) and sizes["model"] > 1:
+                out[p] = i - view[p].depth
+    return out
 
 
 def state_shardings(state, cfg: ModelConfig, mesh, rules, *,

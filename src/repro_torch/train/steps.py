@@ -7,8 +7,7 @@ global norm, the optimizer update. The loss and its gradients come from
 `hybrid.backbone_fwd`). The step updates the state's tensors in place and
 returns the same containers.
 
-Under a data-parallel `mesh` (`launch/mesh.py`; tensor-parallel training
-is not ported, so its "model" axis must have size 1) every rank runs the
+Under a data-parallel `mesh` (`launch/mesh.py`) every rank runs the
 step on the global batch, of which it takes its rows: the reference cuts the global
 batch into microbatches first and splits each over the data axis, so rank r
 of n takes rows [r B/(M n), (r+1) B/(M n)) of each microbatch of B/M rows.
@@ -30,6 +29,20 @@ global batch, to rounding, as the reference's SPMD step is.
     stay whole on every rank.
 The clip's global norm sums the squares of each block once (on its first
 holder) and all-reduces the sum.
+
+Under a "model" axis (tensor parallelism: a (1, n) or a (dp, tp) mesh, the
+model built under it, `registry.build_model(cfg, mesh=)`) each rank holds
+its "model" block of every weight (`sharding/rules.py::model_shardings`)
+and its state's blocks. The ranks of one data coordinate take the same
+rows, so n and the rank above are those of the data group, and a TP rank's
+gradient of its blocks is exact (`models/tensor_parallel.py`). The global
+norm counts a split leaf's blocks once each, summed over "model", and a
+replicated leaf once. ZeRO-2 (`grad_shardings`, on a mesh with a data
+axis) cuts each rank's blocks further over its data group: its ZeRO block
+of a leaf is stated inside its "model" block (`Shardings.local_index`), and
+the collectives above run over the data group. Adafactor reads whole
+leaves through the model's `Split` (`optim/optimizers.py`); with ZeRO-1 it
+is refused (ROADMAP Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -42,7 +55,7 @@ from repro_torch import distributed as D
 from repro_torch.launch.mesh import dp_group, tp_degree
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
-from repro_torch.tree import leaves, tree_map, unflatten_like
+from repro_torch.tree import flatten, leaves, tree_map, unflatten_like
 
 F32 = torch.float32
 ACC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -56,9 +69,12 @@ class _Layout:
     """How each leaf of the params is spread over the ranks under the
     shardings, and the collectives that reduce into it and gather from it."""
 
-    def __init__(self, params, shardings, n: int, rank: int):
+    def __init__(self, params, shardings, n: int, rank: int, group=None):
         self.rank = rank
-        self.blocks = [shardings.index(params, q) for q in range(n)]
+        # the group's global ranks, by group rank: each one's blocks in the
+        # coordinates of what it holds (the whole leaf, or its "model" block)
+        self.ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
+        self.blocks = [shardings.local_index(params, g) for g in self.ranks]
         self.mine = self.blocks[rank]
         self.modes = []
         for j, p in enumerate(leaves(params)):
@@ -97,7 +113,7 @@ class _Layout:
             if mode[0] == "all":
                 a.add_(D.all_reduce_(g, group=group))
             elif mode[0] == "owner":
-                D.reduce_(g, mode[1], group=group)
+                D.reduce_(g, self.ranks[mode[1]], group=group)
                 if mode[1] == self.rank:
                     a.add_(g)
             else:
@@ -105,16 +121,18 @@ class _Layout:
                 if b is not None:
                     a.add_(g[b])
 
-    def sq_norm(self, acc) -> torch.Tensor:
-        """This rank's share of the sum of squares (each block once)."""
-        return sum((torch.sum(torch.square(a.to(F32))) for (_, counted), a in
-                    zip(self.modes, acc) if counted), torch.zeros((), dtype=F32))
+    def sq_norm(self, acc, which=None) -> torch.Tensor:
+        """This rank's share of the sum of squares (each block once), of
+        every leaf or of those `which` (by leaf) marks."""
+        return sum((torch.sum(torch.square(a.to(F32))) for j, ((_, counted), a) in
+                    enumerate(zip(self.modes, acc)) if counted and (which is None or which[j])),
+                   torch.zeros((), dtype=F32))
 
     def gather(self, params, group):
         """Every rank's updated blocks of the params, onto every rank."""
         for j, ((mode, _), p) in enumerate(zip(self.modes, leaves(params))):
             if mode[0] == "owner":
-                D.broadcast_(p, mode[1], group=group)
+                D.broadcast_(p, self.ranks[mode[1]], group=group)
             elif mode[0] == "split":
                 d, own = mode[1], p[self.mine[j]].movedim(mode[1], 0).contiguous()
                 out = p.new_empty(p.movedim(d, 0).shape)
@@ -127,7 +145,7 @@ class _Layout:
                         continue
                     done.append(b)
                     part = p[b].contiguous()
-                    p[b].copy_(D.broadcast_(part, q, group=group))
+                    p[b].copy_(D.broadcast_(part, self.ranks[q], group=group))
 
 
 def _local(tree, index):
@@ -145,27 +163,26 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
     state = {"params", "opt", "step"}; batch leaves lead with the global
     batch. metrics = {"loss", "grad_norm", "lr"}, 0-d tensors on the
     device (reading one waits for the step), the loss the global batch's.
-    Gradients are accumulated in `accum_dtype`. Under `mesh` or
-    `grad_shardings` (whose mesh is then the step's), see the module's
-    docstring."""
+    Gradients are accumulated in `accum_dtype`. The step runs on the mesh
+    the model was built under (`mesh`, where given, must be that one; so
+    must `grad_shardings`'), see the module's docstring."""
     acc_dtype = ACC_DTYPES[accum_dtype]
-    if grad_shardings is not None:
-        if mesh is not None and mesh is not grad_shardings.mesh:
-            raise ValueError("grad_shardings were made for another mesh")
-        mesh = grad_shardings.mesh
-        if opt.name != "adamw":
-            raise ValueError(f"ZeRO-1 state sharding needs an elementwise update (AdamW); "
-                             f"{opt.name}'s factored statistics read whole rows and columns")
-    if mesh is not None and tp_degree(mesh) > 1:
-        raise NotImplementedError(f"TP training is not yet ported: a \"model\" axis of "
-                                  f"{tp_degree(mesh)} needs the row/column-parallel backward "
-                                  "(ROADMAP Queue 1, item 6)")
-    if mesh is not None and model.mesh is not mesh:
+    if grad_shardings is not None and opt.name != "adamw":
+        raise NotImplementedError(
+            f"ZeRO-1 state sharding needs an elementwise update (AdamW); {opt.name}'s "
+            "factored statistics read whole rows and columns (ROADMAP Queue 1, item 7)")
+    if mesh is not None and mesh is not model.mesh:
         raise ValueError("build the model under the step's mesh: its loss takes the "
                          "group's means")
+    mesh = model.mesh
+    if grad_shardings is not None and grad_shardings.mesh is not mesh:
+        raise ValueError("grad_shardings were made for another mesh than the model's")
+    tp = model.tp if mesh is not None and tp_degree(mesh) > 1 else None
     group = dp_group(mesh) if mesh is not None else None
-    n = dist.get_world_size(group) if mesh is not None else 1
-    rank = dist.get_rank(group) if mesh is not None else 0
+    if grad_shardings is not None and group is None:
+        raise ValueError(f"ZeRO shards over the data axes: a {mesh.shape} mesh has none")
+    n = dist.get_world_size(group) if group is not None else 1
+    rank = dist.get_rank(group) if group is not None else 0
     layouts: Dict[int, _Layout] = {}
 
     def grads_of(params, mb):
@@ -198,7 +215,7 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
         else:
             layout = layouts.get(id(params))
             if layout is None:
-                layout = layouts[id(params)] = _Layout(params, grad_shardings, n, rank)
+                layout = layouts[id(params)] = _Layout(params, grad_shardings, n, rank, group)
             acc = [torch.zeros(p[b].shape if b is not None else (0,), dtype=acc_dtype,
                                device=p.device) for p, b in zip(plist, layout.mine)]
         loss_sum = torch.zeros((), dtype=F32, device=state["step"].device)
@@ -212,24 +229,29 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
                 layout.reduce_into(acc, grads, acc_dtype, group)
             del grads
             loss_sum = loss_sum + loss
-        if grad_shardings is None and mesh is not None:
+        if grad_shardings is None and group is not None:
             D.all_reduce_(flat, group=group)
         for a in acc:
             a.div_(M * n)
         loss = loss_sum / M
-        if mesh is not None:
+        if group is not None:
             loss = D.all_reduce_(loss, group=group) / n
 
-        if grad_shardings is None:
+        if grad_shardings is None and tp is None:
             grads, gnorm = clip_by_global_norm(unflatten_like(params, acc), clip_norm)
         else:
-            gnorm = torch.sqrt(D.all_reduce_(layout.sq_norm(acc).to(loss.device), group=group))
+            # under TP, which leaves are the rank's blocks of a leaf split over "model"
+            split = None if tp is None else [model.split.dim(path) is not None
+                                             for path, _ in flatten(params)]
+            gnorm = _global_norm(acc, layout if grad_shardings is not None else None,
+                                 group, tp, split, loss.device)
             scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
             for a in acc:
                 a.copy_((a.to(F32) * scale).to(a.dtype))
+            grads = unflatten_like(params, acc)
         lr = lr_fn(state["step"])
         if grad_shardings is None:
-            opt.update(params, grads, state["opt"], lr)
+            opt.update(params, grads, state["opt"], lr, model.split)
         else:
             held = [j for j, b in enumerate(layout.mine) if b is not None]
             m, v = leaves(state["opt"]["m"]), leaves(state["opt"]["v"])
@@ -245,18 +267,38 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
     return train_step
 
 
-def train_state(params, opt: Optimizer, shardings=None) -> Dict[str, Any]:
-    """{"params", "opt", "step"} at step 0 for whole `params`. With
-    `shardings` (the step's `grad_shardings`), the optimizer state is this
-    rank's ZeRO-1 share: its block of each moment, an empty tensor where
-    another rank owns the leaf."""
+def _global_norm(acc, layout, group, tp, split, device) -> torch.Tensor:
+    """The global norm of the accumulated gradients under a "model" axis
+    (`tp`) or ZeRO-2 (`layout`): each ZeRO block summed once over the data
+    `group`, each leaf split over "model" summed over its ranks' blocks, a
+    replicated leaf counted once."""
+    if tp is None:
+        return torch.sqrt(D.all_reduce_(layout.sq_norm(acc).to(device), group=group))
+    if layout is None:
+        parts = [sum((torch.sum(torch.square(a.to(F32))) for a, c in zip(acc, split) if c == cut),
+                     torch.zeros((), dtype=F32, device=device)) for cut in (True, False)]
+        sq = torch.stack(parts)
+    else:
+        sq = torch.stack([layout.sq_norm(acc, [c == cut for c in split]).to(device)
+                          for cut in (True, False)])
+        D.all_reduce_(sq, group=group)
+    cut, whole = sq.unbind(0)
+    return torch.sqrt(tp.all_reduce(cut) + whole)
+
+
+def train_state(params, opt: Optimizer, shardings=None, split=None) -> Dict[str, Any]:
+    """{"params", "opt", "step"} at step 0 for `params`: whole, or under a
+    "model" axis the rank's blocks, of which `split` (the model's) says
+    which. With `shardings` (the step's `grad_shardings`), the optimizer
+    state is this rank's ZeRO-1 share: its block of each moment (inside its
+    "model" block), an empty tensor where another rank owns the leaf."""
     if shardings is None:
-        opt_state = opt.init(params)
+        opt_state = opt.init(params, split)
     else:
         if opt.name != "adamw":
-            raise ValueError(f"ZeRO-1 state sharding needs AdamW, not {opt.name}")
-        rank = dist.get_rank(dp_group(shardings.mesh))
-        opt_state = opt.init(_local(params, shardings.index(params, rank)))
+            raise NotImplementedError(f"ZeRO-1 state sharding needs AdamW, not {opt.name} "
+                                      "(ROADMAP Queue 1, item 7)")
+        opt_state = opt.init(_local(params, shardings.local_index(params, dist.get_rank())))
     step = torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
     return {"params": params, "opt": opt_state, "step": step}
 
@@ -264,7 +306,8 @@ def train_state(params, opt: Optimizer, shardings=None) -> Dict[str, Any]:
 def make_init_state(model: Model, opt: Optimizer, shardings=None):
     """init_state(generator) -> `train_state` of the model's params drawn
     from `generator` (under `shardings`, the same seed gives every rank the
-    same draw, so the params are whole and alike on every rank)."""
+    same draw, so the params are whole and alike on every rank; under a
+    "model" axis each rank's blocks of that draw)."""
     def init_state(generator: torch.Generator) -> Dict[str, Any]:
-        return train_state(model.init_params(generator), opt, shardings)
+        return train_state(model.init_params(generator), opt, shardings, model.split)
     return init_state

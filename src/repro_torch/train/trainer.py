@@ -7,6 +7,15 @@ Batches come from `pipeline.batch_at(step)`, a pure function of the step,
 and checkpoints commit atomically, so a restart replays exactly. Metrics
 are read on the host only at log steps, so the loop does not wait for the
 card in between; the final save blocks.
+
+Across ranks every rank runs the loop on the mesh its model was built
+under (`train/steps.py`), and `shardings`, the train state's
+(`sharding/rules.py::state_shardings`), go to the checkpointer, which
+gathers the blocks to rank 0. A tensor-parallel model's state is blocks on
+every rank, so its Trainer needs `shardings`; it trains AdamW on a (1, n)
+mesh, where those shardings cut the state as the step does. Adafactor's
+and a (dp, tp) mesh's TP state wait for sharded checkpoints (ROADMAP
+Queue 1, item 6e).
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch.mesh import dp_degree
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer, warmup_cosine
 from repro_torch.train.steps import make_init_state, make_train_step
@@ -45,7 +55,18 @@ class Trainer:
     def __init__(self, model: Model, opt: Optimizer, pipeline: TokenPipeline,
                  checkpointer: Checkpointer, cfg: TrainerConfig,
                  lr_fn: Optional[Callable] = None,
-                 failure_hook: Optional[Callable[[int], None]] = None):
+                 failure_hook: Optional[Callable[[int], None]] = None,
+                 shardings=None):
+        if model.tp is not None:
+            if dp_degree(model.mesh) > 1 or opt.name != "adamw":
+                raise NotImplementedError(
+                    f"checkpoints of a tensor-parallel {opt.name} state on a "
+                    f"{tuple(model.mesh.shape)} mesh are not ported: the Trainer checkpoints "
+                    "AdamW on a (1, n) mesh (ROADMAP Queue 1, item 6e)")
+            if shardings is None:
+                raise ValueError("a tensor-parallel model's state is blocks on every rank: "
+                                 "pass the train state's shardings, which its checkpoints "
+                                 "gather by")
         self.model = model
         self.opt = opt
         self.pipe = pipeline
@@ -55,6 +76,7 @@ class Trainer:
         self.failure_hook = failure_hook or (lambda step: None)
         self._preempt = threading.Event()
         self.history: List[Dict[str, float]] = []
+        self.shardings = shardings
         self._step_fn = make_train_step(model, opt, self.lr_fn,
                                         n_microbatches=cfg.n_microbatches,
                                         clip_norm=cfg.clip_norm)
@@ -76,7 +98,7 @@ class Trainer:
         state = make_init_state(self.model, self.opt)(gen)
         if self.ckpt.latest_step() is None:
             return state
-        return self.ckpt.restore(state)
+        return self.ckpt.restore(state, shardings=self.shardings)
 
     def _batch(self, step: int) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.model.device)
@@ -90,7 +112,7 @@ class Trainer:
         t0 = time.time()
         for step in range(start, self.cfg.num_steps):
             if self._preempt.is_set():
-                self.ckpt.save(step, state, blocking=True)
+                self.ckpt.save(step, state, blocking=True, shardings=self.shardings)
                 raise Preempted(f"preempted at step {step} (checkpoint saved)")
             self.failure_hook(step)   # tests inject crashes here
             state, metrics = self._step_fn(state, self._batch(step))
@@ -100,6 +122,6 @@ class Trainer:
                 rec["wall_s"] = time.time() - t0
                 self.history.append(rec)
             if (step + 1) % self.cfg.ckpt_every == 0:
-                self.ckpt.save(step + 1, state)
-        self.ckpt.save(self.cfg.num_steps, state, blocking=True)
+                self.ckpt.save(step + 1, state, shardings=self.shardings)
+        self.ckpt.save(self.cfg.num_steps, state, blocking=True, shardings=self.shardings)
         return state

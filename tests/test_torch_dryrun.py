@@ -36,6 +36,7 @@ from repro.optim import optimizers as JO
 from repro.sharding import axes as JA
 from repro.sharding import rules as JRU
 from repro.train import steps as JS
+from repro_torch import bridge
 from repro_torch import roofline as R
 from repro_torch.configs import (ARCH_IDS, SHAPES, active_param_count, applicable, get_config,
                                  param_count)
@@ -586,9 +587,10 @@ def test_tp_cell_holds_the_rank_s_blocks_and_a_quarter_of_the_flops(arch, shape)
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_run_cell_on_the_tp_mesh_at_smoke(arch, tmp_path):
-    """run_cell on (1, 4): the train shape skipped (TP training is not
-    ported), the serving shapes ok for the dense, MoE and VLM families and
-    errors that say so for the others, long_500k as on (1, 1)."""
+    """run_cell on (1, 4): every shape ok for the dense, MoE and VLM
+    families (the train shape through the tensor-parallel train step, no
+    skip), errors that name ROADMAP item 6c for the others, long_500k as on
+    (1, 1)."""
     cfg = get_config(arch, smoke=True)
     mesh = D.MESHES["1x4"]
     for name in SHAPES:
@@ -596,11 +598,89 @@ def test_run_cell_on_the_tp_mesh_at_smoke(arch, tmp_path):
                          out_dir=tmp_path)
         if not applicable(cfg.family, cfg.sub_quadratic, name):
             assert rec["status"] == "skipped" and "long_500k" in rec["reason"], rec
-        elif SHAPES[name].kind == "train":
-            assert rec["status"] == "skipped" and "TP training" in rec["reason"], rec
         elif cfg.family in ("hybrid", "ssm", "audio"):
-            assert rec["status"] == "error" and "TP not yet ported" in rec["error"], rec
+            assert rec["status"] == "error" and "TP not yet ported" in rec["error"] \
+                and "item 6c" in rec["error"], rec
         else:
             assert rec["status"] == "ok", rec.get("traceback", rec)
-            assert rec["serve_weights"] == "tensor-parallel"
-            assert rec["roofline"]["collectives"]["all-reduce"][0] >= 2 * cfg.n_layers + 1
+            coll = rec["roofline"]["collectives"]
+            if SHAPES[name].kind == "train":
+                # per microbatch the forward's 2 a layer, the replay's 1 and
+                # the backward's 2, the embedding's, the loss's 2 and the
+                # unembed input's backward; one for the global norm
+                assert coll["all-reduce"][0] >= rec["microbatches"] * (5 * cfg.n_layers + 4) + 1
+            else:
+                assert rec["serve_weights"] == "tensor-parallel"
+                assert coll["all-reduce"][0] >= 2 * cfg.n_layers + 1
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b", "arctic-480b"])
+def test_tp_train_cell_holds_the_rank_s_blocks_and_a_quarter_of_the_flops(arch):
+    """Rank 0's account of train_4k on the (1, 4) mesh at full width (the
+    shape cut as TP_CELL_SHAPE cuts it): its param and optimizer bytes are
+    the sums of its blocks (AdamW's moments two fp32 copies of its params'
+    blocks; arctic's Adafactor statistics those of its blocks), its FLOPs a
+    quarter of the single process's on the same batch but for what every
+    rank computes whole (the MoE router; the elementwise rest is within
+    1e-4 of the total), and its collectives the
+    TP step's in both directions: per microbatch 2 all-reduces a layer
+    forward, 1 in the remat replay and 2 backward, the embedding's, the
+    loss's 2 and the unembed input's, and the global norm's (an MoE layer
+    adds the gates' backward one); Adafactor adds its whole-leaf
+    statistics' sums."""
+    cfg = get_config(arch)
+    mesh = D.MESHES["1x4"]
+    shape = dataclasses.replace(SHAPES["train_4k"], **TP_CELL_SHAPE)
+    four, meta = D.account_cell(arch, "train_4k", mesh, {"shape": TP_CELL_SHAPE})
+    mb = meta["microbatches"]
+    one, _ = D.train_account(cfg, M.input_specs(cfg, shape), n_micro=mb, device="meta")
+    whole = M.build_model(cfg, device="meta").init_params(torch.Generator())
+    sh = RU.model_shardings(whole, cfg, mesh, A.single_pod_rules())
+    blocks = sum(t[b].numel() * t.element_size()
+                 for t, b in zip(leaves(whole), sh.index(whole, 0)))
+    assert four.params_bytes == blocks < one.params_bytes
+    opt = make_optimizer(cfg.optimizer)
+    mine = bridge.shard_train_state(train_state(whole, opt), cfg, mesh, 0)
+    assert four.opt_bytes == sum(t.numel() * t.element_size() for t in leaves(mine["opt"]))
+    assert four.accum_bytes == 4 * sum(t[b].numel() for t, b in zip(leaves(whole),
+                                                                    sh.index(whole, 0)))
+    tokens = TP_CELL_SHAPE["global_batch"] * TP_CELL_SHAPE["seq_len"]
+    # the router: forward, replay, and its input's and weight's gradients
+    router = 4 * 2 * tokens * cfg.d_model * cfg.moe.n_experts * cfg.n_layers if cfg.moe else 0
+    assert four.cost.totals.flops == pytest.approx(one.cost.totals.flops / 4 + 0.75 * router,
+                                                   rel=1e-4)
+    coll = four.cost.totals.collectives
+    L = cfg.n_layers
+    per_mb = 5 * L + 4 + (L if cfg.family == "moe" else 0)   # the gates' backward
+    if cfg.optimizer == "adamw":
+        assert coll["all-reduce"][0] == mb * per_mb + 1
+    else:
+        assert coll["all-reduce"][0] > mb * per_mb + 1
+    assert set(coll) == {"all-reduce"}   # full width splits every head: no gather
+    assert one.cost.totals.collectives == {}
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "phi3.5-moe-42b-a6.6b"])
+def test_tp_train_meta_account_equals_the_cpu_account(arch, cpu_kernel_ops, monkeypatch):
+    """Rank 0's SMOKE train step on the (1, 4) mesh over the fake process
+    group, on meta tensors and on the CPU (its collectives move no data, so
+    the CPU's values are not the model's; the account reads shapes): every
+    op, kernel op, collective and the high-water mark equal."""
+    cpu_kernel_ops(monkeypatch)
+    cfg = get_config(arch, smoke=True)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=32, global_batch=4)
+    accts = []
+    for device in ("meta", "cpu"):
+        gen = torch.Generator().manual_seed(0)
+        batch = M.make_batch(cfg, shape, device=device, generator=gen)
+        with D.fake_group(4):
+            acct, _ = D.train_account(cfg, batch, n_micro=2, device=device,
+                                      mesh=D.MESHES["1x4"], generator=gen)
+        accts.append(acct)
+    meta, cpu = accts
+    assert meta.cost.by_op == cpu.cost.by_op
+    assert meta.cost.kernels == cpu.cost.kernels and meta.cost.kernels
+    assert dataclasses.astuple(meta.cost.totals) == dataclasses.astuple(cpu.cost.totals)
+    moe = cfg.n_layers if cfg.family == "moe" else 0
+    assert meta.cost.totals.collectives["all-reduce"][0] == 2 * (5 * cfg.n_layers + 4 + moe) + 1
+    assert meta.cost.peak_bytes == cpu.cost.peak_bytes

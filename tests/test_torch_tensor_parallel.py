@@ -421,18 +421,65 @@ def test_build_model_refuses_tp_for_the_other_families(arch):
 
 
 def test_train_step_refuses_a_model_axis(monkeypatch):
-    """The train step refuses a "model" axis > 1 (TP training is the next
-    slice); so does a TP model's loss."""
-    cfg = get_config("llama3-8b", smoke=True)
-    mesh = Mesh((1, 2), ("data", "model"))
-    model = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="TP training is not yet ported"):
-        make_train_step(model, make_optimizer("adamw"), lambda s: 1e-3, mesh=mesh)
+    """What a "model" axis still cannot train is refused, naming the ROADMAP
+    item that lifts it: the hybrid, xLSTM and whisper (6c), an FSDP arch on
+    a mesh with a data axis (6d), Adafactor under ZeRO-1 (7); and the step
+    refuses ZeRO on a (1, n) mesh (no data axis to shard over) and a model
+    built without the step's mesh. The TP model's loss trains
+    (tests/test_torch_tp_train.py)."""
     monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 0)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    mesh = Mesh((1, 2), ("data", "model"))
+    for arch in ("zamba2-2.7b", "xlstm-350m", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="item 6c"):
+            build_model(get_config(arch, smoke=True), device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 6d"):
+        build_model(get_config("arctic-480b"), device="meta", mesh=Mesh((2, 2), ("data", "model")))
+    cfg = get_config("llama3-8b", smoke=True)
+    with pytest.raises(ValueError, match="build the model under the step's mesh"):
+        make_train_step(build_model(cfg, device="cpu"), make_optimizer("adamw"),
+                        lambda s: 1e-3, mesh=mesh)
     tp_model = build_model(cfg, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="TP training is not yet ported"):
-        tp_model.loss(None, None)
+    whole = build_model(cfg, device="meta").init_params(torch.Generator())
+    with pytest.raises(ValueError, match="has none"):
+        make_train_step(tp_model, make_optimizer("adamw"), lambda s: 1e-3,
+                        grad_shardings=shardings_for(whole, cfg, mesh, A.single_pod_rules(),
+                                                     zero1=True))
+    arctic = get_config("arctic-480b", smoke=True)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        make_train_step(build_model(arctic, device="cpu", mesh=mesh), make_optimizer("adafactor"),
+                        lambda s: 1e-3, grad_shardings=shardings_for(
+                            whole, cfg, mesh, A.single_pod_rules(), zero1=True))
+    assert tp_model.loss is not None and tp_model.split.dims
+
+
+@pytest.mark.parametrize("arch, shape, opt_name", [
+    ("llama3-8b", (2, 2), "adamw"), ("phi3.5-moe-42b-a6.6b", (2, 2), "adamw"),
+    ("arctic-480b", (1, 2), "adafactor")])
+def test_trainer_refuses_tp_states_it_cannot_checkpoint(tmp_path, arch, shape, opt_name):
+    """The Trainer checkpoints a tensor-parallel AdamW state on a (1, n)
+    mesh only: a TP state on a (dp, tp) mesh and Adafactor's under TP wait
+    for sharded checkpoints (ROADMAP item 6e), refused when the Trainer is
+    made, not at its final save. On (1, n) it asks for the state's
+    shardings."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(arch, smoke=True)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4))
+    with fake_group(shape[0] * shape[1]):
+        model = build_model(cfg, device="meta",
+                            mesh=make_mesh(shape, ("data", "model"), device="cpu"))
+        with pytest.raises(NotImplementedError, match="item 6e"):
+            Trainer(model, make_optimizer(opt_name), pipe, Checkpointer(str(tmp_path)),
+                    TrainerConfig())
+    with fake_group(2):
+        model = build_model(cfg, device="meta", mesh=Mesh((1, 2), ("data", "model")))
+        with pytest.raises(ValueError, match="shardings"):
+            Trainer(model, make_optimizer("adamw"), pipe, Checkpointer(str(tmp_path)),
+                    TrainerConfig())
 
 
 def test_groups_of_abstract_meshes():
