@@ -9,8 +9,9 @@ decode, training of every family, prefill and decode of the xLSTM, whisper
 and VLM families, the paper's RL rollouts, the multi-rank paths (the
 int8 ring all-reduce, data-parallel and ZeRO-2 training, MoE dispatch
 groups, the resharded restore), tensor-parallel serving and tensor-parallel
-training over the "model" axis. Every phase exits non-zero
-on failure; nothing is caught and carried on.
+training over the "model" axis, and FSDP and expert parallelism over the
+"data" axis. Every phase exits non-zero on failure; nothing is caught and
+carried on.
 
   1. requires a CUDA device; prints the card's name and power limit;
   2. builds the four kernels from `src/repro_torch/kernels/csrc/`;
@@ -169,7 +170,7 @@ on failure; nothing is caught and carried on.
      and wq against the same ring on the CPU (RING_CPU_TOL), its median time
      beside `dist.all_reduce`'s on the same tensors and its bytes a hop
      beside a bf16 ring's; b. llama3-8b at its published width and 2 of its
-     32 layers trained on 2 ranks, 3 AdamW steps of 4 x 1024 tokens in 2
+     32 layers trained on 2 ranks, 2 AdamW steps of 4 x 1024 tokens in 2
      microbatches, plain data parallelism and ZeRO-2 (the accumulator and
      AdamW's moments sharded by the reference dry-run's ZeRO specs), each
      held to the single process's steps on the global batch, run first in
@@ -178,10 +179,12 @@ on failure; nothing is caught and carried on.
      the flash launches of each rank exact, all `flash_wgmma` with the lse;
      each rank's median step, tokens/s, peak memory and accumulator bytes;
      c. phi3.5-moe at its published width and 1 of its 32 layers, one step
-     on 2 ranks with one dispatch group each against one process with 2
-     groups: every (token, k) routing choice alike, the loss and the aux
-     loss (its means over the ranks) within DP_METRIC_TOL, `gmm_wgmma`'s
-     forward, dx and dw launches exact per rank; d. b's ZeRO-2 state saved
+     on 2 ranks with one dispatch group each, its experts split over the
+     ranks (EP: 8 a rank, the slots through the all-to-all), against one
+     process with 2 groups: every (token, k) routing choice alike, the loss
+     and the aux loss (its means over the ranks) within DP_METRIC_TOL,
+     `gmm_wgmma`'s forward, dx and dw launches exact per rank; d. b's
+     ZeRO-2 state saved
      from the 2 ranks (rank 0 writes), restored into this process and, with
      the DP axes moved off the layer axis, into 2 ranks: every block
      bit-identical to the saving ranks' (`digest`);
@@ -201,8 +204,13 @@ on failure; nothing is caught and carried on.
      llama3-8b, phi3.5-moe and zamba2 on the (1, 1) and (4, 1) meshes (the
      dry-run's CLI, in low-priority processes started after the build that
      run beside phases 3-11), one line a cell: status, peak_per_device_gb,
-     fits_80gb, the dominant term, roofline_fraction. The kernels' bounds
-     everywhere come from the kernel ops' cost formulas
+     fits_80gb, the dominant term, roofline_fraction; d. (run after phase
+     15) the account of 15b's step on rank 0 of an abstract (2, 2) mesh on
+     meta (computed beside phases 3-11) against rank 0's account of 15b's
+     last step on the card, its host-staged collectives counted as the card's:
+     FLOPs, bytes, collectives, kernel ops, the high-water mark and the
+     accumulator equal, the allocator's peak within ACCOUNT_PEAK_RATIO. The
+     kernels' bounds everywhere come from the kernel ops' cost formulas
      (`kernels/costs.py`) and `roofline.py`'s peaks;
  13. tensor-parallel serving over the "model" axis of a (1, n) mesh, the
      ranks spawned on the cards present as in 11 (one card: gloo, every
@@ -248,16 +256,41 @@ on failure; nothing is caught and carried on.
      d. flash with the lse at a TP 4 rank's training heads and moe_gmm's dx
      and dw at a TP 2 rank's d_ff, against their plain versions, timed
      beside SDPA or torch.bmm and the bound;
- 15. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+ 15. FSDP and expert parallelism over the "data" axis, on four ranks of a
+     (2, 2) mesh, ranks as in 13, each holding the reference's blocks (its
+     "model" block, and over "data" the FSDP leaves' d_model and the
+     experts): a. phi3.5-moe at published width, 2 of 32 layers, EP (8
+     experts a rank, the all-to-all), expert-TP and ZeRO-2; b. qwen1.5-32b
+     at published width, 2 of 64 layers, FSDP (every projection and the
+     embeddings gathered before use), TP and ZeRO-2; each trained and gated
+     as 14 (3 steps of 4 x 1024 in 2 microbatches, the single process with
+     the data ranks' 2 dispatch groups, phi's ranks replaying its routing),
+     and the all-gathers, reduce-scatters and all-to-alls of a step
+     (`data_parallel.calls`, by span name) equal to the count worked out
+     from the code (dp_spans); b's last step under the dry-run's account
+     (12d); c.
+     decode on (2, 2): phi3.5-moe x 2 (FSDP and EP, as the reference serves
+     it) and qwen1.5-32b x 2 (FSDP, the int8 cache), 4 prompts of 512
+     tokens, two a data rank, then 8 decode steps: each rank's blocks'
+     digests and bytes, its launches exact, the collectives of a decode
+     step the code's, the ranks of a data coordinate alike, and the data ranks'
+     prefill and decode-step logits put together held by 13's logits gate
+     to one process's plain path on the same dispatch groups; d. moe_gmm
+     at an EP x TP rank's shapes (E=8, C=320, d_ff 3200: forward, dx and dw)
+     and flash with the lse at qwen's TP 2 training heads, against their
+     plain versions, timed beside torch.bmm or SDPA and the bound. Prints
+     each rank's step time and peak memory beside the single process's;
+ 16. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
      at C=320, ssd_scan's with its plain backward, flash's, decode's and
-     moe_gmm's with their rows at phase 9's, 13's and 14's shapes) and,
-     last, the device line `{"ok": true, "device": {...}}`.
+     moe_gmm's with their rows at phase 9's, 13's, 14's and 15's shapes)
+     and, last, the device line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import argparse
 import atexit
 import json
+import os
 import subprocess
 import sys
 import contextlib
@@ -2661,10 +2694,13 @@ def dp_batch(cfg, seed, step, dev, rows, seq):
             for k, v in pipe.batch_at(step).items()}
 
 
-def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_groups=1):
+def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_groups=1,
+           account_last=False):
     """`steps` AdamW steps of `cfg` at DP_LR from weights drawn from `seed`,
     on global batches of rows x seq: (state, the per-step losses, grad norms
-    and walls, and the kernels' launches counted from the first step)."""
+    and walls, and the kernels' launches counted from the first step). With
+    `account_last` the last step runs under the dry-run's account
+    (`launch/dryrun.py::accounted`), returned as "account" (phase 12d)."""
     import torch
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import moe_gmm as gk
@@ -2678,21 +2714,49 @@ def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_g
     step = make_train_step(model, opt, lambda s: DP_LR, n_microbatches=n_micro,
                            grad_shardings=shard, mesh=mesh)
     losses, norms, walls = [], [], []
+    account, peak = None, 0
     reset_counts()
     for s in range(steps):
         b = dp_batch(cfg, seed, s, dev, rows, seq)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step(state, b)
+        if account_last and s == steps - 1:
+            peak = torch.cuda.max_memory_allocated()   # the account resets it
+            (state, m), account = accounted_step(lambda: step(state, b), dev, state, b,
+                                                 shard)
+        else:
+            state, m = step(state, b)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    peak = max(peak, torch.cuda.max_memory_allocated())
     return state, dict(losses=losses, norms=norms, walls=walls, launches=kernel_counts(),
+                       account=account, peak_bytes=peak,
                        lse=fk.lse_launches, flash_by_path=dict(fk.launches_by_path),
                        gmm_by_path={"fwd": dict(gk.launches_by_path),
                                     "dx": dict(gk.dx_launches_by_path),
                                     "dw": dict(gk.dw_launches_by_path)})
+
+
+def accounted_step(fn, dev, state, batch, shard):
+    """fn(), one train step on `state` and `batch`, under the dry-run's
+    account (as `launch/dryrun.py::train_account` takes it, without its
+    init): (fn's result, the account's numbers that 12d holds to the meta
+    account)."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.tree import leaves
+    out, acct = dryrun.accounted(fn, dev, state, batch, params_bytes=sum(
+        t.numel() * t.element_size() for t in leaves(state["params"])))
+    c = acct.cost
+    index = shard.local_index(state["params"], torch.distributed.get_rank())
+    accum = 4 * sum(p[b].numel() for p, b in zip(leaves(state["params"]), index)
+                    if b is not None)
+    return out, dict(flops=c.totals.flops, bytes=c.totals.bytes,
+                     collectives=c.totals.collectives, kernels=dict(c.kernels),
+                     peak_bytes=c.peak_bytes, accum_bytes=accum,
+                     allocator_peak_bytes=acct.allocator_peak_bytes)
 
 
 def sq_dist(params, other) -> float:
@@ -3129,19 +3193,25 @@ def account_gate(label, kind, cfg, seed, dev, smi, rows, seq):
 
 def start_sweep():
     """12c's production sweep on the meta device, one process an arch and
-    mesh, started at low priority so that they run beside the card's
-    phases. Returns the processes."""
+    mesh, and 12d's meta account (meta_account_main), started at low
+    priority so that they run beside the card's phases. Returns the
+    processes."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     log_dir = ROOT / "build" / "dryrun" / SWEEP_TAG
     log_dir.mkdir(parents=True, exist_ok=True)
-    procs = []
+    DP_ACCOUNT_FILE.unlink(missing_ok=True)
+    log = open(log_dir / "qwen-2x2-account.log", "w")
+    procs = [(subprocess.Popen(["nice", "-n", "19", sys.executable, "-W", "ignore",
+                                str(ROOT / "chip_smoke.py"), "--meta-account",
+                                str(DP_ACCOUNT_FILE)], cwd=ROOT, env=env, stdout=log,
+                               stderr=subprocess.STDOUT), log)]
     for arch in SWEEP_ARCHS:
-        for mesh_flag in ("--one-card", None):
+        for mesh in ("1x1", "4x1"):
             cmd = ["nice", "-n", "19", sys.executable, "-W", "ignore", "-m",
-                   "repro_torch.launch.dryrun", "--arch", arch, "--force", "--tag", SWEEP_TAG]
-            cmd += [mesh_flag] if mesh_flag else []
-            log = open(log_dir / f"{arch}{mesh_flag or ''}.log", "w")
+                   "repro_torch.launch.dryrun", "--arch", arch, "--force", "--tag", SWEEP_TAG,
+                   "--mesh", mesh]
+            log = open(log_dir / f"{arch}-{mesh}.log", "w")
             procs.append((subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
                                            stderr=subprocess.STDOUT), log))
     return procs
@@ -3237,9 +3307,11 @@ def dryrun_phase(seed, dev, smi, runs, procs):
 # phase 13: tensor-parallel serving
 # ----------------------------------------------------------------------------
 
-# the record_function spans of the TP collectives (models/tensor_parallel.py),
-# which a rank's profiled window reads
+# the record_function spans of the TP collectives (models/tensor_parallel.py)
+# and of FSDP's and the experts' (models/data_parallel.py), which a rank's
+# profiled window reads
 TP_SPANS = ("tp_all_reduce", "tp_all_gather", "tp_reduce_scatter")
+DP_SPANS = ("dp_all_gather", "dp_reduce_scatter", "ep_all_to_all")
 # the decode-step gate's batch: the first prompts of a phase
 TP_GATE_PROMPTS = 4
 TP_PROFILE_STEPS = 4
@@ -3276,11 +3348,10 @@ def tp_kernel_phase(gen, dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import moe_gmm as gk
     from repro_torch.kernels import costs, ops, ref
 
     rnd = _rnd(gen, dev)
-    rows = {"flash_attention": [], "decode_attention": [], "moe_gmm": []}
+    rows = {"flash_attention": [], "decode_attention": []}
     for label, B, T, Hq, Hkv, D, heads in TP_FLASH_SHAPES:
         q = rnd(B, T, Hq, D).transpose(1, 2)
         k, v = (rnd(B, T, Hkv, D) for _ in range(2))
@@ -3335,7 +3406,19 @@ def tp_kernel_phase(gen, dev) -> dict:
             plain_ms=plain, bound_ms=bound, bound_by="bytes", library_ms=t["sdpa"],
             simt_ms=t["simt"]))
         del q, kc, vc
-    for label, E, C, K, N in TP_GMM_SHAPES:
+    rows["moe_gmm"] = gmm_rows(rnd, dev, TP_GMM_SHAPES)
+    return rows
+
+
+def gmm_rows(rnd, dev, shapes):
+    """moe_gmm's forward at each of `shapes` ((label, E, C, K, N)) against its
+    plain version in bf16, its route gated (the tensor-core kernel), timed
+    beside torch.bmm, the plain version and the bound: the rows."""
+    import torch
+    from repro_torch.kernels import moe_gmm as gk
+    from repro_torch.kernels import costs, ops, ref
+    out_rows = []
+    for label, E, C, K, N in shapes:
         x = rnd(E, C, K)
         w = rnd(E, K, N, scale=K ** -0.5)
         out = ops.moe_gmm(x, w)
@@ -3343,18 +3426,18 @@ def tp_kernel_phase(gen, dev) -> dict:
         shape = f"E={E} C={C} {K}->{N} bf16"
         err = gate(f"moe_gmm {label}, {shape} ({path})", out, ref.moe_gmm_ref(x, w), BF16_TOL)
         if path != "wgmma":
-            fail(f"13d: moe_gmm at {label} did not route to the tensor-core kernel: {path}")
+            fail(f"moe_gmm at {label} did not route to the tensor-core kernel: {path}")
         ms = device_ms(lambda: ops.moe_gmm(x, w), 20)
         lib = device_ms(lambda: torch.bmm(x, w), 20)
         plain = cuda_ms(lambda: ref.moe_gmm_ref(x, w), 3)
         bound, by = bound_ms(costs.gmm_cost(E, C, K, N))
         say(f"    kernel {ms:.4f} ms, torch.bmm {lib:.4f} ms, plain {plain:.4f} ms, bound "
             f"{bound:.4f} ms ({by})")
-        rows["moe_gmm"].append(dict(path_of=label, shape=shape, kernel=path, max_abs_err=err,
-                                    ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                                    library_ms=lib))
+        out_rows.append(dict(path_of=label, shape=shape, kernel=path, max_abs_err=err,
+                             ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                             library_ms=lib))
         del x, w, out
-    return rows
+    return out_rows
 
 
 def tp_prompts(cfg, seed, n, lo, hi):
@@ -3446,9 +3529,10 @@ def tp_references(cfg, seed, n, prompts, rows, tokens, dev, batched, gate_layers
 def tp_profile(step, steps) -> dict:
     """Profile `steps` calls of step() on this rank: the step's ms (profiler
     on), the device's busy share (kernels and copies) and, of it, the
-    copies' ms a step, and the ms and count a step of the TP collectives'
-    spans (host clock, which holds the host-staged copies and the wait for
-    the work queued before them) and the ms of NCCL's kernels on the card."""
+    copies' ms a step, and the ms and count a step of the TP, FSDP and EP
+    collectives' spans (host clock, which holds the host-staged copies and
+    the wait for the work queued before them) and the ms of NCCL's kernels
+    on the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3459,8 +3543,8 @@ def tp_profile(step, steps) -> dict:
             step()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    spans = {n: 0.0 for n in TP_SPANS}
-    counts = {n: 0 for n in TP_SPANS}
+    spans = {n: 0.0 for n in TP_SPANS + DP_SPANS}
+    counts = {n: 0 for n in TP_SPANS + DP_SPANS}
     busy = nccl = copies = 0.0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CPU:
@@ -3790,17 +3874,19 @@ TP_TRAIN_FLASH_SHAPES = (("llama3-8b TP 4 train", 2, 1024, 8, 2, 128),)
 TP_TRAIN_GMM_DIMS = ((4096, 3200), (3200, 4096))
 
 
-def tp_train_kernel_phase(gen, dev) -> dict:
+def tp_train_kernel_phase(gen, dev, flash_shapes=TP_TRAIN_FLASH_SHAPES, gmm_experts=16,
+                          gmm_dims=TP_TRAIN_GMM_DIMS) -> dict:
     """14d: flash with the lse at a TP 4 rank's training heads (held to the
     plain version's out and lse, timed beside the plain version, SDPA and
     the bound) and moe_gmm's dx and dw at a TP 2 rank's d_ff (gmm_bwd_phase
-    at C=320). Returns the rows by kernel."""
+    at C=320); 15d the same at the shapes `flash_shapes`, `gmm_experts` and
+    `gmm_dims` give. Returns the rows by kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import costs, ops, ref
     rnd = _rnd(gen, dev)
     rows = {"flash_attention": []}
-    for label, B, T, Hq, Hkv, D in TP_TRAIN_FLASH_SHAPES:
+    for label, B, T, Hq, Hkv, D in flash_shapes:
         q, k, v = (rnd(B, T, h, D).transpose(1, 2) for h in (Hq, Hkv, Hkv))
         path = fk.route_for(q, k, v)
         want_out, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True)
@@ -3809,7 +3895,7 @@ def tp_train_kernel_phase(gen, dev) -> dict:
         err = gate(f"flash {label}, {shape} ({path})", out, want_out, BF16_TOL)
         gate(f"lse {label} ({path})", lse, want_lse, LSE_TOL)
         if path != "wgmma":
-            fail(f"14d: flash at {label} did not route to the tensor-core kernel: {path}")
+            fail(f"flash at {label} did not route to the tensor-core kernel: {path}")
         ms = device_ms(lambda: ops.flash_attention(q, k, v, return_lse=True), 20)
         plain = device_ms(lambda: ref.flash_attention_ref(q, k, v, return_lse=True), 3)
         sdpa = device_ms(lambda: F.scaled_dot_product_attention(
@@ -3821,7 +3907,7 @@ def tp_train_kernel_phase(gen, dev) -> dict:
                                             ms=ms, plain_ms=plain, library_ms=sdpa,
                                             bound_ms=bound, bound_by=by))
         del q, k, v, out, lse, want_out, want_lse
-    rows["moe_gmm"] = gmm_bwd_phase(gen, dev, caps=(320,), dims=TP_TRAIN_GMM_DIMS)
+    rows["moe_gmm"] = gmm_bwd_phase(gen, dev, E=gmm_experts, caps=(320,), dims=gmm_dims)
     return rows
 
 
@@ -3850,11 +3936,20 @@ def tp_train_rank(rank, world, dev, job):
         else None
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    routes = [torch.from_numpy(c).to(dev) for c in job["routing"]]
+    # the single process dispatched the data ranks' groups in turn: this
+    # rank's are every n-th of its dispatches, from its data coordinate
+    n_data, d = job["shape"][0], rank // job["shape"][1]
+    routes = [torch.from_numpy(c).to(dev) for c in job["routing"][d::n_data]]
+    reset_dp_calls()
     with routed_as(routes, replay=True):
         state, run = dp_run(cfg, job["seed"], dev, job["steps"], job["n_micro"], job["rows"],
-                            job["seq"], mesh, shard)
-    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                            job["seq"], mesh, shard, account_last=job.get("account", False))
+    run["dp_calls"] = dp_calls(job["steps"])
+    run["peak_gb"] = run["peak_bytes"] / 1e9
+    if rank == 0:
+        say(f"  [rank 0] {cfg.name} on {job['shape']}: steps "
+            f"{', '.join(f'{w:.2f}' for w in run['walls'])} s, peak {run['peak_gb']:.2f} GB"
+            + (" (the last step under the account)" if run["account"] else ""))
     run["transport"] = D.transport(dev)
     model = build_model(cfg, device=dev, mesh=mesh)
     # the rank's blocks' distance to the single process's, and their update
@@ -3871,6 +3966,7 @@ def tp_train_rank(rank, world, dev, job):
     run.update(sq=sq, upd=upd, whole={"/".join(map(str, p)): digest(t) for (p, t), m in
                                       zip(flatten(state["params"]), leaves(meta))
                                       if tuple(t.shape) == tuple(m.shape)})
+    run["held"] = sum(t.numel() for t in leaves(state["params"]))
     run["profile"] = None
     if job["profile"]:
         step = make_train_step(model, make_optimizer("adamw"), lambda s: DP_LR,
@@ -3878,17 +3974,30 @@ def tp_train_rank(rank, world, dev, job):
         b = dp_batch(cfg, job["seed"], job["steps"], dev, job["rows"], job["seq"])
         D.all_reduce_(torch.zeros(1, device=dev))   # start together
         run["profile"] = tp_profile(lambda: step(state, b), 1)
+    del state
     D.all_reduce_(torch.zeros(1, device=dev))   # every rank done before any frees the group
     return run
 
 
+def reset_dp_calls():
+    from repro_torch.models import data_parallel
+    for name in data_parallel.calls:
+        data_parallel.calls[name] = 0
+
+
+def dp_calls(steps) -> dict:
+    """The FSDP and EP collectives run since reset_dp_calls, a step."""
+    from repro_torch.models import data_parallel
+    return {name: n / steps for name, n in data_parallel.calls.items()}
+
+
 def tp_train_job_rank(rank, world, dev, jobs):
     """Each of `jobs` on this rank, in order (one spawn for the runs of one
-    world size)."""
+    world size): a training run, or with "serve" phase 15c's serving run."""
     import torch
     out = {}
     for name, job in jobs.items():
-        out[name] = tp_train_rank(rank, world, dev, job)
+        out[name] = (dp_serve_rank if job.get("serve") else tp_train_rank)(rank, world, dev, job)
         torch.cuda.empty_cache()
     return out
 
@@ -3909,18 +4018,35 @@ def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
     """Phase 14: tensor-parallel training on the cards present (ranks as in
     phase 13): 14a llama3-8b at published width, 4 of 32 layers, on (1, 4);
     14b phi3.5-moe x 2 of 32 on (1, 2); 14c llama3-8b x 2 on (2, 2) with
-    ZeRO-2 over the data axis; AdamW steps (tp_train_configs) at DP_LR of rows x seq
-    TokenPipeline tokens in `n_micro` microbatches (phase 8b's batch). Each
-    against one process's steps from the same seed on the same batches, run
-    first in this process (an MoE run's ranks replaying its routing,
-    `routed_as`: bf16 rounding flips near-tie router choices, and a flip
-    moves an expert's update outright): losses and grad norms within
-    DP_METRIC_TOL, the
-    params within DP_UPDATE_TOL of their update, the leaves no rank splits
-    bit-identical on every rank, the launches exact (forward and remat) and
-    all on `flash_wgmma` with the lse and `gmm_wgmma`. Prints each rank's
-    step time and peak memory beside the single process's and the TP spans
-    of a profiled step. 14d: the kernels at a rank's training shapes."""
+    ZeRO-2 over the data axis (train_ranks); 14d: the kernels at a rank's
+    training shapes."""
+    out = train_ranks(tp_train_configs(), seed, dev, smi, n_micro, rows, seq)
+    say("phase 14d: the kernels at a rank's training shapes")
+    out["kernels"] = tp_train_kernel_phase(gen, dev)
+    return out
+
+
+def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_want=None,
+                account=()) -> dict:
+    """Each of `configs` (name -> (config, mesh shape, ZeRO-2, steps, a
+    profiled step)) trained by AdamW steps at DP_LR of rows x seq
+    TokenPipeline tokens in `n_micro` microbatches (phase 8b's batch), first
+    in this process, then on the ranks from the same seed (one spawn a
+    world size; an MoE run's ranks replaying its routing, `routed_as`:
+    bf16 rounding flips near-tie router choices, and a flip moves an
+    expert's update outright; the single process dispatches the data
+    ranks' groups, as many as the mesh's data axis). Gates: losses and grad
+    norms within DP_METRIC_TOL, each rank's blocks within DP_UPDATE_TOL of
+    their update, the leaves no rank splits bit-identical on every rank,
+    the launches exact (forward and remat), all on `flash_wgmma` with the
+    lse and `gmm_wgmma`; with `span_want` (name -> {span: count a step}) the
+    FSDP and EP collectives a step (`data_parallel.calls`, the spans'
+    names). Prints each rank's step time and peak memory beside the single
+    process's and a profiled step's spans.
+    `extra` (name -> job) runs in the same spawn (phase 15c's serving);
+    the runs named in `account` also measure the dry-run's account of their
+    step on the card (phase 12d). Returns the ranks' launches summed, each
+    run's times and memory, and the extra jobs' results."""
     import tempfile
     import numpy as np
     import torch
@@ -3928,7 +4054,7 @@ def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
     from repro_torch.tree import tree_map
 
     runs = {name: (cfg, shape, zero, seed + i, steps, prof)
-            for i, (name, (cfg, shape, zero, steps, prof)) in enumerate(tp_train_configs().items())}
+            for i, (name, (cfg, shape, zero, steps, prof)) in enumerate(configs.items())}
     out, by_world, singles = {}, {}, {}
     tokens = rows * seq
     with tempfile.TemporaryDirectory() as tmp:
@@ -3937,7 +4063,8 @@ def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
             torch.cuda.reset_peak_memory_stats()
             routing = []
             with routed_as(routing, replay=False):
-                state, single = dp_run(cfg, s, dev, steps, n_micro, rows, seq)
+                state, single = dp_run(cfg, s, dev, steps, n_micro, rows, seq,
+                                       n_groups=shape[0] if cfg.family == "moe" else 1)
             single["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             path = f"{tmp}/{name}.pt"
             torch.save(tree_map(lambda t: t.cpu(), state["params"]), path)
@@ -3947,7 +4074,10 @@ def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
             by_world.setdefault(shape[0] * shape[1], {})[name] = dict(
                 cfg=cfg, shape=shape, zero=zero, seed=s, steps=steps, n_micro=n_micro,
                 rows=rows, seq=seq, single=path, routing=[c.cpu().numpy() for c in routing],
-                profile=prof)
+                profile=prof, account=name in account)
+        for name, job in (extra or {}).items():
+            world = job["shape"][0] * job["shape"][1]
+            by_world.setdefault(world, {})[name] = job
         torch.cuda.empty_cache()
         ranks = {}
         for world, jobs in by_world.items():
@@ -3970,9 +4100,11 @@ def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
             t = float(np.median(r["walls"][1:]))
             p = r["profile"]
             say(f"  rank {rank}: median step {t * 1e3:.1f} ms ({t / t_single:.2f}x the single "
-                f"process), peak {r['peak_gb']:.2f} GB ({r['peak_gb'] / single['peak_gb']:.2f}x)"
+                f"process), peak {r['peak_gb']:.2f} GB ({r['peak_gb'] / single['peak_gb']:.2f}x),"
+                f" {r['held'] / 1e9:.3f} B params held"
                 + ("" if p is None else f"; profiled step {p['step_ms']:.1f} ms: " + ", ".join(
-                    f"{n} {p[n + '_count']:.0f} spans {p[n + '_ms']:.1f} ms" for n in TP_SPANS)
+                    f"{n} {p[n + '_count']:.0f} spans {p[n + '_ms']:.1f} ms"
+                    for n in TP_SPANS + DP_SPANS if p[n + "_count"])
                     + f", NCCL kernels {p['nccl_ms']:.2f} ms, copies {p['copy_ms']:.1f} ms, "
                     f"device busy {p['busy'] * 100:.1f}% (kernels and copies summed)"))
             for i in range(steps):
@@ -3988,6 +4120,13 @@ def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
             if not ok:
                 fail(f"{name}: rank {rank}'s params part from the single process's")
             dp_launch_gate(f"{name} rank {rank}", r, cfg, n_micro, steps)
+            if span_want and name in span_want:
+                got = r["dp_calls"]
+                ok = got == span_want[name]
+                say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: FSDP and EP spans a step {got}, "
+                    f"from the code {span_want[name]}")
+                if not ok:
+                    fail(f"{name}: rank {rank}'s collectives a step are not the code's")
         same = all(r["whole"] == rs[0]["whole"] for r in rs)
         say(f"  {'ok  ' if same else 'FAIL'} the {len(rs[0]['whole'])} leaves no rank splits are "
             "bit-identical on every rank")
@@ -3995,17 +4134,382 @@ def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
             fail(f"{name}: a replicated leaf differs across the ranks")
         out[name] = dict(single_step_ms=t_single * 1e3, single_peak_gb=single["peak_gb"],
                          step_ms=[float(np.median(r["walls"][1:])) * 1e3 for r in rs],
-                         peak_gb=[r["peak_gb"] for r in rs], profile=[r["profile"] for r in rs])
-    all_runs = [r for rs in ranks.values() for r in rs]
-    out.update({n: sum(r["launches"][n] for r in all_runs) for n in kernel_counts()})
-    out["lse"] = sum(r["lse"] for r in all_runs)
-    out["flash_attention_by_path"] = {p: sum(r["flash_by_path"][p] for r in all_runs)
+                         peak_gb=[r["peak_gb"] for r in rs], profile=[r["profile"] for r in rs],
+                         account=rs[0]["account"], walls=[r["walls"] for r in rs])
+    train_runs = [r for name in runs for r in ranks[name]]
+    out.update({n: sum(r["launches"][n] for r in train_runs) for n in kernel_counts()})
+    out["lse"] = sum(r["lse"] for r in train_runs)
+    out["flash_attention_by_path"] = {p: sum(r["flash_by_path"][p] for r in train_runs)
                                       for p in ("wgmma", "simt")}
-    out["moe_gmm_by_path"] = {kind: {p: sum(r["gmm_by_path"][kind][p] for r in all_runs)
+    out["moe_gmm_by_path"] = {kind: {p: sum(r["gmm_by_path"][kind][p] for r in train_runs)
                                      for p in ("wgmma", "rows", "tiled")}
                               for kind in ("fwd", "dx", "dw")}
-    say("phase 14d: the kernels at a rank's training shapes")
-    out["kernels"] = tp_train_kernel_phase(gen, dev)
+    out["extra"] = {name: ranks[name] for name in (extra or {})}
+    return out
+
+
+# ----------------------------------------------------------------------------
+# phase 15: FSDP and expert parallelism over the data axis
+# ----------------------------------------------------------------------------
+
+# the mesh of phase 15: FSDP and the experts over "data", TP over "model"
+DP_TP_SHAPE = (2, 2)
+# 15d: moe_gmm at an EP x TP rank's training shapes, (label, E, C, K, N):
+# phi3.5-moe's 16 experts over 2 data ranks, d_ff 6400 over 2 model ranks,
+# each expert's slots of both data ranks' groups (2 x 160 at 1024 tokens)
+DP_GMM_SHAPES = (("phi3.5-moe EP 2 x TP 2, w1/w3 at training capacity", 8, 320, 4096, 3200),
+                 ("phi3.5-moe EP 2 x TP 2, w2 (K = 3200)", 8, 320, 3200, 4096))
+DP_GMM_DIMS = ((4096, 3200), (3200, 4096))
+# 15d: flash with the lse at qwen1.5-32b's TP 2 training heads (48 padded
+# heads over 2; one row of 1024 a microbatch and data rank)
+DP_FLASH_SHAPES = (("qwen1.5-32b TP 2 train", 1, 1024, 24, 24, 128),)
+# 12d: the dry-run's meta account of 15b's rank, computed beside phases 3-11
+DP_ACCOUNT_FILE = ROOT / "build" / "dryrun" / "chip_smoke" / "qwen-2x2-account.json"
+
+
+def dp_train_configs():
+    """15a's and 15b's configs at published width, cut in depth, each on
+    (2, 2) with ZeRO-2, 3 steps and no profiled step (the collectives are
+    counted, `data_parallel.calls`): 15a phi3.5-moe x 2 of
+    32 layers (EP over "data", expert-TP over "model"); 15b qwen1.5-32b x 2
+    of 64 (FSDP over "data", TP over "model"): 1.05 B params in the two
+    layers and 1.56 B in the untied embeddings, 42 GB at 16 bytes a param
+    in the single process."""
+    from repro_torch.configs import get_config
+    phi, qwen = get_config("phi3.5-moe-42b-a6.6b"), get_config("qwen1.5-32b")
+    return {"15a": (phi.replace(n_layers=2), DP_TP_SHAPE, True, 3, False),
+            "15b": (qwen.replace(n_layers=2), DP_TP_SHAPE, True, 3, False)}
+
+
+def fsdp_leaves(cfg) -> int:
+    """The leaves of a layer that `cfg` cuts over "data" and gathers before
+    use (models/data_parallel.py): with cfg.fsdp, the attention's four
+    projections and the dense FFN's (or arctic's dense residual's) three;
+    none otherwise. The experts are cut and not gathered (EP)."""
+    if not cfg.fsdp:
+        return 0
+    return 4 + (3 if cfg.family != "moe" or cfg.moe.dense_residual_ff else 0)
+
+
+def dp_spans(cfg, layers, micro=None, ep=False) -> dict:
+    """The FSDP and EP collectives a step runs, from the code: a train step
+    of `micro` microbatches, or (micro None) one decode step. A pass
+    gathers the embeddings twice (the lookup's table, the logits'), and
+    each layer's FSDP leaves once; the remat replay gathers a layer's again
+    and runs its experts' all-to-all both ways again (its gathers come
+    first, and the combine reads the way back's output); the backward
+    reduce-scatters each gather's gradient once and runs each all-to-all's
+    reverse once. The embeddings gather only with cfg.fsdp."""
+    g = fsdp_leaves(cfg)
+    emb = 2 if cfg.fsdp else 0
+    a2a = 2 * layers if ep else 0
+    if micro is None:
+        return {"dp_all_gather": emb + layers * g, "dp_reduce_scatter": 0,
+                "ep_all_to_all": a2a}
+    return {"dp_all_gather": micro * (emb + 2 * layers * g),
+            "dp_reduce_scatter": micro * (emb + layers * g), "ep_all_to_all": micro * 3 * a2a}
+
+
+def dp_serve_rank(rank, world, dev, job):
+    """15c on one rank of the (2, 2) mesh: the model drawn from the seed with
+    FSDP and EP (init_params keeps the rank's blocks), the digests of its
+    blocks and its param bytes; then its data rank's share of the prompts
+    prefilled and `job["tokens"]` decode steps through the model interface,
+    timed, with its kernel launches by kernel, the FSDP and EP collectives
+    a decode step (`data_parallel.calls`), its routing on the prefill and
+    the first step, and the logits of those two (the gate's)."""
+    import torch
+    from repro_torch import distributed as D
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import moe_gmm as gk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.tree import flatten
+    _rank_setup()
+    cfg, dev = job["cfg"], torch.device(dev)
+    mesh = make_mesh(job["shape"], ("data", "model"), device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, mesh=mesh)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(job["seed"]))
+    out = {"transport": D.transport(dev),
+           "digests": {"/".join(map(str, p)): digest(t) for p, t in flatten(params)},
+           "param_bytes": sum(t.numel() * t.element_size() for _, t in flatten(params))}
+    d = rank // job["shape"][1]
+    B = len(job["prompts"]) // job["shape"][0]
+    prompts = torch.tensor(job["prompts"][d * B:(d + 1) * B], dtype=torch.int32, device=dev)
+    T, steps = prompts.shape[1], job["tokens"]
+    timings = {"prefill": [], "decode": []}
+    tm = timed_model(model, timings)
+    routes, logits = [], []
+
+    def step():
+        i = len(logits)
+        batch = {"tokens": torch.tensor(steps[i][d * B:(d + 1) * B], dtype=torch.int32,
+                                        device=dev)[:, None],
+                 "positions": torch.full((B,), T + i, dtype=torch.int32, device=dev)}
+        logits.append(tm.decode_step(params, cache, batch)[0])
+    with torch.inference_mode():
+        reset_counts()
+        with record_routing(routes):
+            lp, pc = tm.prefill(params, {"tokens": prompts})
+            cache = model.init_cache(B, T + len(steps))
+            for name in cache:
+                cache[name][:, :, :T] = pc[name]
+            del pc
+            reset_dp_calls()
+            step()
+        while len(logits) < len(steps):
+            step()
+        torch.cuda.synchronize()
+    out["dp_calls"] = dp_calls(len(steps))
+    out.update(gate=(lp.float().cpu().numpy(), logits[0].float().cpu().numpy()),
+               outputs=torch.stack([lg[:, -1].argmax(-1) for lg in logits], 1).tolist(),
+               prefills=1, steps=len(logits), launches=kernel_counts(),
+               by_path={"flash_attention": dict(fk.launches_by_path),
+                        "decode_attention": dict(dk.launches_by_path),
+                        "moe_gmm": dict(gk.launches_by_path)},
+               timings=timings,
+               routing=[t.cpu().numpy() for t in routes],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del cache, logits, params
+    if rank == 0:
+        say(f"  [rank 0] {cfg.name} served on {job['shape']}: prefill {spread(timings['prefill'])}"
+            f", decode {spread(timings['decode'])}, peak {out['peak_gb']:.2f} GB")
+    D.all_reduce_(torch.zeros(1, device=dev))   # every rank done before any frees the group
+    return out
+
+
+def dp_serve_references(cfg, seed, prompts, tokens, dev, groups):
+    """15c's single-process side, run in this process before the ranks: the
+    whole model drawn from `seed`, the digests and bytes of each rank's
+    block of every leaf on the (2, 2) mesh, and the gate's logits (the
+    batched prefill of `prompts`, one decode step with `tokens`) on the
+    plain path in bf16 and in fp32, dispatching the data ranks' `groups`,
+    each with its MoE routing."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model, dense
+    from repro_torch.sharding.axes import single_pod_rules
+    from repro_torch.sharding.rules import model_shardings
+    from repro_torch.tree import flatten
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = build_model(cfg, device=dev).init_params(
+        torch.Generator(device=dev).manual_seed(seed))
+    mesh = Mesh(DP_TP_SHAPE, ("data", "model"))
+    sh = model_shardings(params, cfg, mesh, single_pod_rules())
+    out = {"digests": [], "bytes": [], "routing": {"plain": [], "exact": []}}
+    for r in range(mesh.size):
+        blocks = [(p, t[b]) for (p, t), b in zip(flatten(params), sh.index(params, r))]
+        out["digests"].append({"/".join(map(str, p)): digest(t) for p, t in blocks})
+        out["bytes"].append(sum(t.numel() * t.element_size() for _, t in blocks))
+
+    def run(p, c):
+        return gate_logits(lambda b: dense.lm_prefill(p, b, c, n_groups=groups),
+                           lambda cache, b: dense.lm_decode_step(p, cache, b, c,
+                                                                 n_groups=groups),
+                           lambda B, S: dense.init_cache(c, B, S, device=dev),
+                           prompts, len(prompts[0]) + 1, tokens, dev, True)
+    with torch.inference_mode(), plain_kernels():
+        with record_routing(out["routing"]["plain"]):
+            out["plain"] = run(params, cfg)
+        out["single_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        params = _to_f32(params)
+        with record_routing(out["routing"]["exact"]):
+            out["exact"] = run(params, cfg.replace(param_dtype="float32"))
+        del params
+    out["routing"] = {k: [t.cpu() for t in v] for k, v in out["routing"].items()}
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_serve_gate(label, cfg, refs, ranks, smi):
+    """15c's gates on one model's ranks: each rank's blocks' digests equal
+    this process's blocks of the whole draw, its param bytes their sum; its
+    launches exact and all on the tensor-core or split kernel; the FSDP and
+    EP spans of a decode step the code's (dp_spans); the ranks of a data
+    coordinate alike (outputs, gate logits); the data ranks' gate logits,
+    put together, held to this process's plain path in bf16 and fp32 by
+    logits_gate (an MoE model on the sequences routed alike, with the
+    routing agreement)."""
+    import numpy as np
+    import torch
+    tp = DP_TP_SHAPE[1]
+    want_spans = dp_spans(cfg, cfg.n_layers, ep=cfg.family == "moe")
+    for rank, r in enumerate(ranks):
+        same = r["digests"] == refs["digests"][rank]
+        ok = same and r["param_bytes"] == refs["bytes"][rank]
+        say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: {len(r['digests'])} leaves, their blocks' "
+            f"digests equal this process's blocks of the whole draw: {same}; param bytes "
+            f"{r['param_bytes']} = sum of its blocks {refs['bytes'][rank]}; peak "
+            f"{r['peak_gb']:.2f} GB, single process {refs['single_peak_gb']:.2f} GB")
+        if not ok:
+            fail(f"{label}: rank {rank}'s weights are not its blocks of the seed's draw")
+        tp_launch_gate(f"{label} rank {rank}", r, cfg)
+        got = r["dp_calls"]
+        ok = got == want_spans
+        say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: FSDP and EP collectives a decode step "
+            f"{got}, from the code {want_spans}")
+        if not ok:
+            fail(f"{label}: rank {rank}'s collectives a step are not the code's")
+        twin = ranks[rank - rank % tp]
+        if r["outputs"] != twin["outputs"] or not all(
+                np.array_equal(a, b) for a, b in zip(r["gate"], twin["gate"])):
+            fail(f"{label}: the ranks of data coordinate {rank // tp} differ")
+    r0 = ranks[0]
+    pre, dec = r0["timings"]["prefill"], r0["timings"]["decode"]
+    say(f"  ok   the ranks of each data coordinate alike; rank 0: prefill {spread(pre)} per "
+        f"batch of {len(r0['outputs'])}, decode {spread(dec)} per step [{smi}]")
+    heads = [ranks[d * tp] for d in range(DP_TP_SHAPE[0])]
+    alike = [None, None]
+    if cfg.family == "moe":
+        n_data, L = DP_TP_SHAPE[0], cfg.n_layers
+        plain = refs["routing"]["plain"]
+        kern = [[torch.from_numpy(a) for a in r["routing"]] for r in heads]
+        share = sum(routing_agreement(k, plain[d::n_data]) * sum(a.numel() for a in k)
+                    for d, k in enumerate(kern)) / sum(a.numel() for k in kern for a in k)
+        say(f"  routing of the gate's prefill and decode step: {share * 100:.2f}% of the (token, "
+            f"k) choices alike on the kernel path and the plain path (gate >= "
+            f"{MOE_ROUTING_AGREEMENT * 100:g}%)")
+        if not share >= MOE_ROUTING_AGREEMENT:
+            fail(f"{label}: the kernel path routed tokens unlike the plain path")
+        for i, part in enumerate((slice(0, L), slice(L, 2 * L))):
+            alike[i] = torch.cat([routed_alike(k[part], plain[d::n_data][part],
+                                               len(heads[d]["outputs"]))
+                                  for d, k in enumerate(kern)])
+    compared = total = 0
+    for i, name in enumerate((f"prefill logits (B={sum(len(h['outputs']) for h in heads)})",
+                              "decode-step logits")):
+        kern = torch.cat([torch.from_numpy(h["gate"][i]) for h in heads])
+        compared += logits_gate(name, kern, refs["plain"][i], refs["exact"][i],
+                                cfg.vocab_size, alike[i])
+        total += kern.shape[0]
+    if cfg.family == "moe" and not 2 * compared >= total:
+        fail(f"{label}: fewer than half the sequences were routed alike")
+
+
+def dp_account_gate(card, smi):
+    """12d: the dry-run's meta account of 15b's rank 0 (qwen1.5-32b x 2 on an
+    abstract (2, 2) mesh over the fake process group, computed beside
+    phases 3-11 into DP_ACCOUNT_FILE) against the account of 15b's last step
+    on the card, rank 0's (the host-staged collectives counted as the
+    card's own): FLOPs, bytes, collectives (count, operand and wire bytes
+    by kind), kernel ops and the high-water mark equal, the ZeRO-2
+    accumulator's bytes equal, the allocator's peak within
+    ACCOUNT_PEAK_RATIO of the account's."""
+    if not DP_ACCOUNT_FILE.exists():
+        fail(f"12d: no meta account at {DP_ACCOUNT_FILE}")
+    meta = json.loads(DP_ACCOUNT_FILE.read_text())
+    coll = {k: [float(x) for x in v] for k, v in card["collectives"].items()}
+    same = {"flops": meta["flops"] == card["flops"], "bytes": meta["bytes"] == card["bytes"],
+            "collectives": meta["collectives"] == coll,
+            "kernel ops": meta["kernels"] == card["kernels"],
+            "high-water": meta["peak_bytes"] == card["peak_bytes"],
+            "accumulator": meta["accum_bytes"] == card["accum_bytes"]}
+    ratio = card["allocator_peak_bytes"] / card["peak_bytes"]
+    ok = all(same.values()) and ACCOUNT_PEAK_RATIO[0] <= ratio <= ACCOUNT_PEAK_RATIO[1]
+    say(f"  {'ok  ' if ok else 'FAIL'} [{smi}] meta {meta['flops'] / 1e12:.4f} TFLOP "
+        f"{meta['bytes'] / 1e9:.4f} GB, card {card['flops'] / 1e12:.4f} TFLOP "
+        f"{card['bytes'] / 1e9:.4f} GB; collectives meta {meta['collectives']}, card {coll}; "
+        f"kernel ops {card['kernels']}; high-water meta {meta['peak_bytes'] / 1e9:.3f} GB, "
+        f"card {card['peak_bytes'] / 1e9:.3f} GB, allocator "
+        f"{card['allocator_peak_bytes'] / 1e9:.3f} GB (ratio {ratio:.3f}, gate "
+        f"{ACCOUNT_PEAK_RATIO}); accumulator {card['accum_bytes']} bytes; equal: {same}")
+    if not ok:
+        fail("12d: the dry-run's (2, 2) account and 15b's rank on the card disagree")
+    return dict(meta=meta, card=card, ratio=ratio)
+
+
+def meta_account_main(path, rows=4, seq=1024):
+    """Write the dry-run's meta account of 15b's rank 0 to `path` (JSON): the
+    train step of qwen1.5-32b x 2 on rank 0 of an abstract (2, 2) mesh, rows
+    x seq tokens in 2 microbatches, ZeRO-2 over "data", at 15b's learning
+    rate (DP_LR, held constant: the account of 15b's last step)."""
+    import torch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import make_batch
+    cfg = dp_train_configs()["15b"][0]
+    batch = make_batch(cfg, ShapeConfig("train", "train", seq, rows), device="meta",
+                       generator=torch.Generator().manual_seed(0))
+    with dryrun.fake_mesh(dryrun.Mesh(DP_TP_SHAPE, ("data", "model"))) as mesh:
+        acct, _ = dryrun.train_account(cfg, batch, n_micro=2, device="meta", mesh=mesh,
+                                       lr_fn=lambda s: DP_LR)
+    c = acct.cost
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(dict(
+        flops=c.totals.flops, bytes=c.totals.bytes, collectives=c.totals.collectives,
+        kernels=dict(c.kernels), peak_bytes=c.peak_bytes, accum_bytes=acct.accum_bytes)))
+
+
+def dp_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
+    """Phase 15: FSDP and expert parallelism over the data axis on four
+    ranks of a (2, 2) mesh on the cards present (ranks as in phase 13), at
+    published width: 15a phi3.5-moe x 2 (EP, expert-TP, ZeRO-2) and 15b
+    qwen1.5-32b x 2 (FSDP, TP, ZeRO-2) trained as phase 14 trains
+    (train_ranks), the all-gathers, reduce-scatters and all-to-alls of a
+    step held to the code's count (dp_spans); 15c decode on
+    (2, 2), phi3.5-moe x 2 (FSDP and EP, as the reference serves it) and
+    qwen1.5-32b x 2 (FSDP, its int8 cache): 4 prompts of 512 tokens, each
+    data rank two, then 8 decode steps (dp_serve_gate); 12d the dry-run's
+    (2, 2) account of 15b's rank held to the card's (its last step); 15d
+    the kernels at a rank's shapes. Its ranks run with expandable
+    segments: four share the card. Returns the ranks' launches summed and
+    15d's rows."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import serve_config
+    configs = dp_train_configs()
+    span_want = {name: dp_spans(cfg, cfg.n_layers, n_micro, ep=cfg.family == "moe")
+                 for name, (cfg, *_rest) in configs.items()}
+    serve, refs = {}, {}
+    rng = np.random.default_rng(seed + 5)
+    for i, arch in enumerate(("phi3.5-moe-42b-a6.6b", "qwen1.5-32b")):
+        cfg = serve_config(get_config(arch)).replace(n_layers=2)
+        prompts = tp_prompts(cfg, seed + 6 + i, 4, 512, 512)
+        tokens = rng.integers(0, cfg.vocab_size, (8, len(prompts))).tolist()
+        name = f"15c {arch}"
+        t0 = time.perf_counter()
+        refs[name] = dp_serve_references(cfg, seed + 6 + i, prompts, tokens[0], dev,
+                                         DP_TP_SHAPE[0] if cfg.family == "moe" else 1)
+        say(f"  15c single process, {arch} x 2: whole model and the gate's references in "
+            f"{time.perf_counter() - t0:.1f} s")
+        serve[name] = dict(serve=True, cfg=cfg, shape=DP_TP_SHAPE, seed=seed + 6 + i,
+                           prompts=prompts, tokens=tokens)
+    say("phase 15a-c: the single processes first, then one spawn of 4 ranks")
+    # four ranks share the card: their allocators return what they free
+    with mock.patch.dict(os.environ, {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}):
+        out = train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=serve,
+                          span_want=span_want, account=("15b",))
+    for name, job in serve.items():
+        cfg = job["cfg"]
+        say(f"phase {name}: x {cfg.n_layers} layers at published width on a {DP_TP_SHAPE} mesh, "
+            f"FSDP{' and EP' if cfg.family == 'moe' else ''} over the data axis, "
+            f"{cfg.kv_cache_dtype} cache, 4 x 512-token prompts, 8 decode steps")
+        dp_serve_gate(name, cfg, refs[name], out["extra"][name], smi)
+    served = [r for name in serve for r in out["extra"][name]]
+    for n in kernel_counts():
+        out[n] += sum(r["launches"][n] for r in served)
+    for p in ("wgmma", "simt"):
+        out["flash_attention_by_path"][p] += sum(r["by_path"]["flash_attention"][p]
+                                                 for r in served)
+    for p in ("wgmma", "rows", "tiled"):
+        out["moe_gmm_by_path"]["fwd"][p] += sum(r["by_path"]["moe_gmm"][p] for r in served)
+    out["decode_attention_by_path"] = {p: sum(r["by_path"]["decode_attention"][p]
+                                              for r in served) for p in ("split", "simt")}
+    out["serve"] = {name: dict(decode_ms=float(np.median(rs[0]["timings"]["decode"])) * 1e3,
+                               prefill_ms=float(np.median(rs[0]["timings"]["prefill"])) * 1e3,
+                               peak_gb=[r["peak_gb"] for r in rs],
+                               single_peak_gb=refs[name]["single_peak_gb"])
+                    for name, rs in out.pop("extra").items()}
+    say("phase 12d: the dry-run's (2, 2) account of 15b's rank 0, on meta, against the card")
+    out["12d"] = dp_account_gate(out["15b"]["account"], smi)
+    say("phase 15d: the kernels at a rank's shapes")
+    rnd = _rnd(gen, dev)
+    out["kernels"] = tp_train_kernel_phase(gen, dev, DP_FLASH_SHAPES, 8, DP_GMM_DIMS)
+    out["kernels"]["moe_gmm_fwd"] = gmm_rows(rnd, dev, DP_GMM_SHAPES)
     return out
 
 
@@ -4023,7 +4527,12 @@ def _tensors(tree):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--meta-account", default=None,
+                    help="write 12d's meta account to this file and exit (no card needed)")
     args = ap.parse_args()
+    if args.meta_account:
+        meta_account_main(args.meta_account)
+        return 0
 
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 reference in full fp32
@@ -4176,7 +4685,9 @@ def main() -> int:
         "on the card and on the CPU")
     runs["10"] = timed("10 RL rollouts", rl_phase, args.seed + 14, dev)
     say("phase 11: the multi-rank paths, ranks on the cards present")
-    runs["11"] = timed("11 ranks", ranks_phase, args.seed + 15, dev, smi, runs["8"]["step_ms"])
+    # 11b takes 2 steps: phase 15's time comes out of it
+    runs["11"] = timed("11 ranks", ranks_phase, args.seed + 15, dev, smi, runs["8"]["step_ms"],
+                       steps=2)
     say("phase 12: the dry-run held to the card")
     timed("12 dry-run", dryrun_phase, args.seed + 16, dev, smi, runs, procs)
     say('phase 13: tensor-parallel serving over the "model" axis, ranks on the cards present')
@@ -4186,7 +4697,10 @@ def main() -> int:
     say('phase 14: tensor-parallel training over the "model" axis, ranks on the cards present')
     runs["14"] = timed("14 TP training", tp_train_phase, args.seed + 17, dev, smi, gen)
     tp_train_rows = runs["14"].pop("kernels")
-    say("phase 15: the kernel table and the device")
+    say('phase 15: FSDP and EP over the "data" axis, ranks on the cards present')
+    runs["15"] = timed("15 FSDP and EP", dp_phase, args.seed + 18, dev, smi, gen)
+    dp_rows = runs["15"].pop("kernels")
+    say("phase 16: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 
@@ -4211,7 +4725,8 @@ def main() -> int:
     kernels[0].update(kernel=flash["path"], simt_ms=flash["simt_ms"],
                       event_ms=flash["event_ms"], lse=True,
                       lse_launches=sum(runs[k]["flash_attention"]
-                                       for k in ("8", "8e", "8f", "8g", "8i", "11", "14")),
+                                       for k in ("8", "8e", "8f", "8g", "8i", "11", "14"))
+                      + runs["15"]["lse"],
                       **{k: flash[k] for k in ("nolse_ms", "lse_ms", "bwd_ms", "bwd_sdpa_ms",
                                                "bwd_bound_ms", "bwd_shape")},
                       launches_by_kernel={p: sum(r["flash_attention_by_path"][p]
@@ -4220,7 +4735,8 @@ def main() -> int:
                                           for p in ("wgmma", "simt")},
                       phase9_shapes=new_shapes["flash_attention"],
                       tp_shapes=tp_rows["flash_attention"],
-                      tp_train_shapes=tp_train_rows["flash_attention"])
+                      tp_train_shapes=tp_train_rows["flash_attention"],
+                      dp_train_shapes=dp_rows["flash_attention"])
     dec = table["decode_attention"]
     kernels[1].update(kernel=dec["path"], simt_ms=dec["simt_ms"], event_ms=dec["event_ms"],
                       launches_by_kernel={p: sum(r["decode_attention_by_path"][p]
@@ -4229,23 +4745,25 @@ def main() -> int:
                                           for p in ("split", "simt")},
                       phase9_shapes=new_shapes["decode_attention"],
                       tp_shapes=tp_rows["decode_attention"])
-    train_gmm = {kind: {p: sum(runs[k]["moe_gmm_by_path"][kind][p] for k in ("8e", "11", "14"))
+    train_gmm = {kind: {p: sum(runs[k]["moe_gmm_by_path"][kind][p]
+                               for k in ("8e", "11", "14", "15"))
                         for p in by_path}
                  for kind, by_path in runs["8e"]["moe_gmm_by_path"].items()}
     kernels[2].update(kernel=table["moe_gmm"]["path"],
                       launches_by_kernel={p: runs["6"]["moe_gmm_by_path"][p] + train_gmm["fwd"][p]
                                           + runs["13"]["moe_gmm_by_path"][p]
                                           for p in train_gmm["fwd"]},
-                      tp_shapes=tp_rows["moe_gmm"])
+                      tp_shapes=tp_rows["moe_gmm"], ep_shapes=dp_rows["moe_gmm_fwd"])
     for kind in GMM_BACKWARD:   # the backward products, at phi's training capacity
         row = table["moe_gmm_bwd"][kind]
         kernels[2][kind] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms", "max_abs_err",
                                                 "path", "shape")}
         kernels[2][kind].update(launches=sum(runs[k][f"moe_gmm_{kind}"]
-                                             for k in ("8e", "11", "14")),
+                                             for k in ("8e", "11", "14", "15")),
                                 launches_by_kernel=train_gmm[kind],
-                                tp_train_shape=tp_train_rows["moe_gmm"][kind])
+                                tp_train_shape=tp_train_rows["moe_gmm"][kind],
+                                ep_train_shape=dp_rows["moe_gmm"][kind])
     ssd = table["ssd_scan"]
     kernels[3].update(kernel=ssd["path"], simt_ms=ssd["simt_ms"], event_ms=ssd["event_ms"],
                       dist_fp64=ssd["dist_fp64"],

@@ -25,12 +25,14 @@ is split along that axis only, into `s["layers"]` (one per layer) or
 the state of the others (the per-layer norms and biases, factored over
 the stack) stays stacked in `s["layers_stacked"]` or `s["mamba_stacked"]`.
 
-`shard_params` cuts the port's whole params to a rank's blocks under
-tensor parallelism, and `shard_train_state` a whole train state: the
-params' blocks, each AdamW moment's (with ZeRO, the rank's ZeRO block of
-it, inside its "model" block), and each Adafactor statistic's block of the
-whole leaf's (`vr` cut where the leaf's rows are, `vc` where its columns
-are), so both packages can start from the same step-k state.
+`shard_params` cuts the port's whole params to a rank's blocks (over
+"model", and over the data axes where FSDP and the experts cut them), and
+`shard_train_state` a whole train state: the params' blocks, each AdamW
+moment's (with ZeRO, the rank's ZeRO block of it, inside its block of the
+params), and each Adafactor statistic's block of the whole leaf's (`vr` cut
+where the leaf's rows are, `vc` where its columns are), so both packages
+can start from the same step-k state. `assemble` puts every rank's blocks
+of a tree back together into the whole tree, for the comparison.
 
 The RL rollout's policy weights ({"w1", "w2", "w3"}) and a surrogate
 environment's matrices (W, Pobs, Pact) cross as they are
@@ -109,12 +111,32 @@ def params_from_jax(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
 
 
 def shard_params(params: Dict[str, Any], cfg, mesh, rank: int) -> Dict[str, Any]:
-    """Rank `rank`'s block of every leaf of the port's whole `params` under
-    the serving specs of `mesh` on its "model" axis
-    (`sharding/rules.py::model_shardings`; on a (1, n) mesh the reference's
+    """Rank `rank`'s block of every leaf of the port's whole `params` on
+    `mesh` (`sharding/rules.py::model_shardings`, the reference's
     `named_shardings`), as `init_params(..., mesh=, rank=)` draws them: a
     contiguous copy where the block is not the whole leaf."""
     return model_shardings(params, cfg, mesh, rules_for(mesh)).take(params, rank)
+
+
+def assemble(parts, shardings) -> Dict[str, Any]:
+    """The whole tree of which `parts[r]` holds rank r's blocks under
+    `shardings` (every rank's, in rank order; tensors or numpy arrays; a
+    block several ranks hold is taken from the first): numpy arrays."""
+    first = parts[0]
+    out = []
+    for j, (path, _) in enumerate(flatten(first)):
+        whole = np.zeros(shardings.full_shape(path),
+                         dtype=np.asarray(_np_leaf(leaves(first)[j])).dtype)
+        for r, part in enumerate(parts):
+            b = shardings.block_of(path, r)
+            if b is not None:
+                whole[b] = _np_leaf(leaves(part)[j])
+        out.append(whole)
+    return unflatten_like(first, out)
+
+
+def _np_leaf(x) -> np.ndarray:
+    return array_from_tensor(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _cut(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
@@ -155,11 +177,15 @@ def shard_train_state(state: Dict[str, Any], cfg, mesh, rank: int,
     if shardings is not None:
         raise NotImplementedError("ZeRO-1 state sharding needs AdamW (ROADMAP Queue 1, item 7)")
     dims = model_dims(state["params"], cfg, mesh, rules)
+    if any(c.data for c in dims.values()):
+        raise NotImplementedError("Adafactor's statistics of a leaf cut over the data axes "
+                                  "belong with ZeRO-1 for Adafactor (ROADMAP Queue 1, item 7)")
     n = dict(zip(mesh.axis_names, mesh.shape))["model"]
     r = coordinate(mesh, rank)[mesh.axis_names.index("model")]
 
     def cut(path, st, nd, lead):
-        d = dims.get(tuple(k for k in path if isinstance(k, str)))
+        c = dims.get(tuple(k for k in path if isinstance(k, str)))
+        d = None if c is None else c.model
         return {k: v.clone() for k, v in st.items()} if d is None else \
             _cut_stats(st, d + lead, nd + lead, n, r)
 

@@ -19,8 +19,15 @@ The collectives below take tensors on the rank's device. gloo's
 point-to-point takes CPU tensors only (handed a card's tensor, `send`
 fails and `batch_isend_irecv` aborts the rank: tools/gloo_cuda_probe.py),
 so under gloo every payload of a card goes through host memory, as
-explicit copies, for the collectives too (`transport` names the route);
-the arithmetic stays on the card.
+explicit copies, for the collectives too (`transport` names the route;
+gloo's `all_to_all_single` takes CPU tensors); the arithmetic stays on the
+card. The copies go through two pinned host buffers a process, one for
+what a collective reads and one for what it writes, grown to the largest
+payload (a pinned copy runs at the link's rate, a pageable one through a
+bounce buffer). Under NCCL every payload stays on the card. The cost account
+(`roofline.CostModel`) counts a collective on such a host copy as the
+card's own collective and leaves the staging copies out, so a rank's
+account on the card is the account of the same step under NCCL.
 """
 from __future__ import annotations
 
@@ -30,10 +37,12 @@ import os
 import queue
 import tempfile
 import traceback
+import weakref
 from typing import Any, Callable, List
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 SUM = dist.ReduceOp.SUM
 
@@ -130,13 +139,49 @@ def transport(device, group=None) -> str:
     return f"{backend}, through host memory" if staged else backend
 
 
-def _host(t, group):
-    return t.cpu() if host_staged(t, group) else t
+# id -> a weak reference to each host copy that stands for a card's tensor
+# in a collective
+_STAGED = {}
+# "in" / "out" -> this process's pinned host buffer (bytes) for the payloads
+# a collective reads and writes; the collectives are synchronous, so one of
+# each serves them all
+_PINNED = {}
+
+
+def _pinned(t: torch.Tensor, slot: str) -> torch.Tensor:
+    """A contiguous host tensor of t's shape and dtype in the pinned buffer
+    `slot`, grown (reallocated) where t does not fit."""
+    n = t.numel() * t.element_size()
+    buf = _PINNED.get(slot)
+    if buf is None or buf.numel() < n:
+        _PINNED.pop(slot, None)
+        buf = _PINNED[slot] = torch.empty(max(n, 1), dtype=torch.uint8, pin_memory=True)
+    return buf[:n].view(t.dtype).view(t.shape)
+
+
+def is_staged(t: torch.Tensor) -> bool:
+    """Whether `t` is a host copy of a card's tensor made for a collective."""
+    ref = _STAGED.get(id(t))
+    return ref is not None and ref() is t
+
+
+def _host(t, group, read: bool = True):
+    """The tensor a collective takes for `t`: `t` itself, or under gloo its
+    host copy (with `read` False an empty host buffer: `t` is only written)."""
+    if not host_staged(t, group):
+        return t
+    with _disable_current_modes():   # transport, not the step's own traffic
+        h = _pinned(t, "in" if read else "out")
+        if read:
+            h.copy_(t)
+    _STAGED[id(h)] = weakref.ref(h, lambda _, key=id(h): _STAGED.pop(key, None))
+    return h
 
 
 def _back(t, h):
     if h is not t:
-        t.copy_(h)
+        with _disable_current_modes():
+            t.copy_(h)
     return t
 
 
@@ -164,15 +209,23 @@ def broadcast_(t, src: int, group=None):
 def reduce_scatter_(out, inp, group=None):
     """`out` (the rank's part, dim 0) <- the sum over ranks of `inp`, which
     stacks every rank's part on dim 0."""
-    ho, hi = _host(out, group), _host(inp, group)
+    ho, hi = _host(out, group, read=False), _host(inp, group)
     dist.reduce_scatter_tensor(ho, hi, SUM, group)
     return _back(out, ho)
 
 
 def all_gather_(out, inp, group=None):
     """`out` <- every rank's `inp`, stacked on dim 0 in rank order."""
-    ho, hi = _host(out, group), _host(inp, group)
+    ho, hi = _host(out, group, read=False), _host(inp, group)
     dist.all_gather_into_tensor(ho, hi, group)
+    return _back(out, ho)
+
+
+def all_to_all_(out, inp, group=None):
+    """`out` <- part r of every rank's `inp`: both stack n equal parts on
+    dim 0, rank q's part j of `inp` landing in part q of rank j's `out`."""
+    ho, hi = _host(out, group, read=False), _host(inp, group)
+    dist.all_to_all_single(ho, hi.contiguous(), group=group)
     return _back(out, ho)
 
 
@@ -181,7 +234,7 @@ def send(t, dst: int, group=None):
 
 
 def recv(t, src: int, group=None):
-    h = _host(t, group)
+    h = _host(t, group, read=False)
     dist.recv(h, src, group)
     return _back(t, h)
 
@@ -192,7 +245,7 @@ def shift(send_buf, recv_buf, group=None):
     n, r = dist.get_world_size(group), dist.get_rank(group)
     nxt = dist.get_global_rank(group, (r + 1) % n) if group is not None else (r + 1) % n
     prv = dist.get_global_rank(group, (r - 1) % n) if group is not None else (r - 1) % n
-    hs, hr = _host(send_buf, group), _host(recv_buf, group)
+    hs, hr = _host(send_buf, group), _host(recv_buf, group, read=False)
     for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, hs.contiguous(), nxt, group),
                                      dist.P2POp(dist.irecv, hr, prv, group)]):
         w.wait()

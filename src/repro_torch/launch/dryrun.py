@@ -14,25 +14,27 @@ A cell's step is the port's own: the train step of `train/steps.py` with the
 reference's microbatch rule, the ZeRO-1 optimizer state and the ZeRO-2
 gradient accumulator from the reference dry-run's ZeRO specs
 (`sharding/rules.py`); `model.prefill`; or one `model.decode_step` on the
-cell's cache (`models/registry.py::cache_specs`). The meshes are abstract:
-the data-parallel (4, 1) and (2, 4, 1) of `launch/mesh.py::make_production_mesh`,
-where each rank runs its share of the global batch (all of it where the
-batch does not split) and MoE layers dispatch in one group a rank,
-`dp_degree(mesh)` groups in all, as the reference's; and for the serving
-shapes the tensor-parallel (1, 4), where rank 0 runs the whole batch on its
-blocks of the weights and its cache heads (`models/tensor_parallel.py`),
-with two all-reduces a layer and the logits' all-gather. Train cells on
-(1, 4) run rank 0's tensor-parallel train step on the whole batch: its
-blocks of the params, of the optimizer state and of the fp32 accumulator
-(no ZeRO: the data axis has size 1), the forward's all-reduces, their
-replay under remat, the backward's (one a split product's input) and the
-vocab-parallel loss's. The collectives run over PyTorch's testing `fake`
-process group, which moves no data. On a data-parallel mesh serving weights
-stay whole on every rank: where the reference's `_serve_cfg` would shard
-them over the data axes too, the record says `"serve_weights":
-"replicated"`; on (1, 4) it says `"tensor-parallel"`. The hybrid, xLSTM and
-whisper families' cells on (1, 4) are errors that say their TP is not
-ported (ROADMAP Queue 1, item 6c).
+cell's cache (`models/registry.py::cache_specs`). The meshes are abstract,
+each given a device mesh over PyTorch's testing `fake` process group,
+whose collectives move no data: the data-parallel (4, 1) and (2, 4, 1) of
+`launch/mesh.py::make_production_mesh`, the tensor-parallel (1, 4), and
+(2, 4), one node of eight cards. On each, rank 0 holds the reference's
+block of every leaf (`sharding/rules.py::model_shardings`): its "model"
+block (`models/tensor_parallel.py`) and, where the specs put the data axes
+on a dim, its block over them (FSDP and the experts,
+`models/data_parallel.py`), gathered a layer at a time and reached by
+the all-to-all. Each rank runs its share of the global batch (all of it
+where the batch does not split) and MoE layers dispatch in one group a
+rank, `dp_degree(mesh)` groups in all, as the reference's. Train cells run
+rank 0's train step: its blocks of the params, the ZeRO-1 optimizer state
+and the ZeRO-2 accumulator (over the data axes, where the mesh has one),
+the forward's collectives, their replay under remat, the backward's and
+the vocab-parallel loss's. Serving cells on a mesh with a data axis shard
+the weights over it where the reference's `_serve_cfg` does
+(`registry.serve_config`), and the record says `"serve_weights": "fsdp"`;
+otherwise "tensor-parallel" on a "model" axis, "whole" without. The
+hybrid, xLSTM and whisper families' cells with a "model" axis are errors
+that say their TP is not ported (ROADMAP Queue 1, item 6c).
 
 Records are JSON under build/dryrun/<tag>/<mesh>/<arch>__<shape>.json, with
 the status `ok`, `skipped` (by `configs.shapes.applicable`) or `error` (the
@@ -42,8 +44,10 @@ under the card's 80 GiB.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--force]    # 4x1 and 2x4
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --one-card [--force]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --tp [--force]     # 1x4
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 2x4 [--force]
 """
 from __future__ import annotations
 
@@ -63,8 +67,10 @@ from repro_torch import roofline
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.configs.base import ModelConfig, active_param_count, param_count
 from repro_torch.configs.shapes import ShapeConfig, applicable
-from repro_torch.launch.mesh import Mesh, dp_degree, make_production_mesh, tp_degree
-from repro_torch.models.registry import build_model, cache_specs, input_specs, shape_window
+from repro_torch.launch.mesh import (Mesh, dp_degree, make_mesh, make_production_mesh,
+                                     tp_degree)
+from repro_torch.models.registry import (build_model, cache_specs, input_specs, serve_config,
+                                         shape_window)
 from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
 from repro_torch.sharding.axes import rules_for
 from repro_torch.sharding.rules import shardings_for
@@ -91,18 +97,12 @@ MICROBATCH = {
 MESHES = {"1x1": Mesh((1, 1), ("data", "model")),
           "4x1": make_production_mesh(),
           "2x4x1": make_production_mesh(multi_pod=True),
-          "1x4": Mesh((1, 4), ("data", "model"))}
+          "1x4": Mesh((1, 4), ("data", "model")),
+          "2x4": Mesh((2, 4), ("data", "model"))}
 
 
 def mesh_name(mesh: Mesh) -> str:
     return "x".join(map(str, mesh.shape))
-
-
-def serve_sharded_by_reference(cfg: ModelConfig) -> bool:
-    """The reference's `_serve_cfg` rule: it shards serving weights over the
-    data axes too when the 16-way model-parallel shard alone would pass 2
-    GiB a chip."""
-    return param_count(cfg) * 2 / 16 > 2 * GIB
 
 
 def rank_rows(global_batch: int, n: int) -> int:
@@ -125,6 +125,14 @@ def fake_group(world_size: int):
         yield
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh: Mesh):
+    """`mesh` with a device mesh over a fake process group of its size, so
+    every axis and pair of axes has its group (`launch/mesh.py::group_over`)."""
+    with fake_group(mesh.size):
+        yield make_mesh(mesh.shape, mesh.axis_names, device="cpu")
 
 
 @dataclasses.dataclass
@@ -162,7 +170,7 @@ def _nbytes(tree) -> int:
     return n
 
 
-def _run(fn, device, *held, **parts):
+def accounted(fn, device, *held, **parts):
     """Run fn() under a CostModel of `device` that holds `held`; returns
     (its result, the Account)."""
     cuda = torch.device(device).type == "cuda"
@@ -173,7 +181,8 @@ def _run(fn, device, *held, **parts):
             torch.cuda.reset_peak_memory_stats()
         out = fn()
     held_ids = {id(t.untyped_storage()) for t in leaves(held)}
-    fresh = [t for t in leaves(out) if id(t.untyped_storage()) not in held_ids]
+    fresh = [t for t in leaves(out) if isinstance(t, torch.Tensor)
+             and id(t.untyped_storage()) not in held_ids]
     peak = torch.cuda.max_memory_allocated() if cuda else None
     return out, Account(cm, argument, _nbytes(fresh), allocator_peak_bytes=peak, again=fn,
                         **parts)
@@ -186,14 +195,16 @@ def _generator(device) -> torch.Generator:
 
 def train_account(cfg: ModelConfig, batch: Dict[str, torch.Tensor], *, n_micro: int,
                   device, mesh: Optional[Mesh] = None,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None, lr_fn=None):
     """The account of one train step of `cfg` on `batch` (the global batch)
     in `n_micro` microbatches, with the config's optimizer, on `device`.
     Without `mesh`: the single-process step. With `mesh` (and an initialised
     process group of its size): rank 0's step, with ZeRO-2 where the mesh
     has a data axis (the accumulator and the optimizer state sharded by the
     ZeRO specs of the mesh's rules, `rules_for`) and rank 0's blocks under
-    a "model" axis. Returns (Account, the step's metrics)."""
+    a "model" axis. `lr_fn` replaces the reference dry-run's schedule
+    (warmup_cosine(3e-4, 2000, 100000)). Returns (Account, the step's
+    metrics)."""
     opt = make_optimizer(cfg.optimizer)
     model = build_model(cfg, device=device, mesh=mesh)
     params = model.init_params(generator or _generator(device))
@@ -202,12 +213,12 @@ def train_account(cfg: ModelConfig, batch: Dict[str, torch.Tensor], *, n_micro: 
         whole = build_model(cfg, device="meta").init_params(torch.Generator())
         g_sh = shardings_for(whole, cfg, mesh, rules_for(mesh), zero1=True)
     state = train_state(params, opt, g_sh, model.split)
-    step = make_train_step(model, opt, warmup_cosine(3e-4, 2000, 100000),
+    step = make_train_step(model, opt, lr_fn or warmup_cosine(3e-4, 2000, 100000),
                            n_microbatches=n_micro, grad_shardings=g_sh, mesh=mesh)
     accum = 4 * sum(p.numel() for p in leaves(params)) if g_sh is None else \
         4 * sum(p[b].numel() for p, b in zip(leaves(params), g_sh.local_index(params, 0))
                 if b is not None)
-    (_, metrics), acct = _run(lambda: step(state, batch), device, state, batch,
+    (_, metrics), acct = accounted(lambda: step(state, batch), device, state, batch,
                               params_bytes=_nbytes(state["params"]),
                               opt_bytes=_nbytes(state["opt"]), accum_bytes=accum)
     return acct, metrics
@@ -224,7 +235,7 @@ def prefill_account(cfg: ModelConfig, batch: Dict[str, torch.Tensor], *, device,
     def prefill():
         with torch.no_grad():
             return model.prefill(params, batch)
-    return _run(prefill, device, params, batch, params_bytes=_nbytes(params))[::-1]
+    return accounted(prefill, device, params, batch, params_bytes=_nbytes(params))[::-1]
 
 
 def decode_account(cfg: ModelConfig, batch: Dict[str, torch.Tensor], cache, *, device,
@@ -237,7 +248,7 @@ def decode_account(cfg: ModelConfig, batch: Dict[str, torch.Tensor], cache, *, d
     def decode():
         with torch.no_grad():
             return model.decode_step(params, cache, batch)[0]
-    return _run(decode, device, params, cache, batch, params_bytes=_nbytes(params))[::-1]
+    return accounted(decode, device, params, cache, batch, params_bytes=_nbytes(params))[::-1]
 
 
 def _rank_batch(specs: Dict[str, torch.Tensor], rows: int) -> Dict[str, torch.Tensor]:
@@ -249,10 +260,11 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh,
                  overrides: Optional[Dict[str, Any]] = None):
     """Rank 0's account of one cell on `mesh`, on the meta device (the
     counterpart of the reference's `lower_cell`). `overrides`: "smoke"
-    (the SMOKE config) and "shape" (ShapeConfig fields), the tests' cut
-    of a cell. Returns (Account, meta)."""
+    (the SMOKE config), "config" (ModelConfig fields) and "shape"
+    (ShapeConfig fields), the tests' cut of a cell. Returns (Account, meta)."""
     overrides = overrides or {}
-    cfg = get_config(arch, smoke=overrides.get("smoke", False))
+    cfg = get_config(arch, smoke=overrides.get("smoke", False)).replace(
+        **overrides.get("config", {}))
     shape = dataclasses.replace(SHAPES[shape_name], **overrides.get("shape", {}))
     n, tp = dp_degree(mesh), tp_degree(mesh)
     if n * tp != mesh.size:
@@ -265,27 +277,28 @@ def account_cell(arch: str, shape_name: str, mesh: Mesh,
         # each microbatch must still cover every DP shard (>=1 seq/shard)
         mb = max(1, min(mb, shape.global_batch // n))
         meta["microbatches"] = mb
-        with fake_group(mesh.size):
-            acct, _ = train_account(cfg, specs, n_micro=mb, device="meta", mesh=mesh)
+        with fake_mesh(mesh) as m:
+            acct, _ = train_account(cfg, specs, n_micro=mb, device="meta", mesh=m)
         return acct, meta
     rows = rank_rows(shape.global_batch, n)
-    meta.update(rank_rows=rows, tp=tp, serve_weights="tensor-parallel" if tp > 1
-                else "replicated" if n > 1 and serve_sharded_by_reference(cfg) else "whole")
+    cfg = serve_config(cfg) if n > 1 else cfg
+    meta.update(rank_rows=rows, tp=tp, serve_weights="fsdp" if n > 1 and cfg.fsdp
+                else "tensor-parallel" if tp > 1 else "whole")
     batch = _rank_batch(specs, rows)
-    if tp == 1:
+    if mesh.size == 1:
         if shape.kind == "prefill":
             acct, _ = prefill_account(cfg, batch, device="meta", window=window)
         else:
             cache = cache_specs(cfg, shape, window=window, batch=rows)
             acct, _ = decode_account(cfg, batch, cache, device="meta")
         return acct, meta
-    with fake_group(mesh.size):
+    with fake_mesh(mesh) as m:
         if shape.kind == "prefill":
-            acct, _ = prefill_account(cfg, batch, device="meta", window=window, mesh=mesh)
+            acct, _ = prefill_account(cfg, batch, device="meta", window=window, mesh=m)
         else:
-            cache = build_model(cfg, device="meta", window=window, mesh=mesh).init_cache(
+            cache = build_model(cfg, device="meta", window=window, mesh=m).init_cache(
                 rows, shape.seq_len)
-            acct, _ = decode_account(cfg, batch, cache, device="meta", mesh=mesh)
+            acct, _ = decode_account(cfg, batch, cache, device="meta", mesh=m)
     return acct, meta
 
 
@@ -323,7 +336,8 @@ def run_cell(arch: str, shape_name: str, mesh: Mesh, force: bool = False,
     if out_file.exists() and not force:
         return json.loads(out_file.read_text())
 
-    cfg = get_config(arch, smoke=(overrides or {}).get("smoke", False))
+    cfg = get_config(arch, smoke=(overrides or {}).get("smoke", False)).replace(
+        **(overrides or {}).get("config", {}))
     shape = dataclasses.replace(SHAPES[shape_name], **(overrides or {}).get("shape", {}))
     record: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": name, "tag": tag,
@@ -369,6 +383,8 @@ def main():
     ap.add_argument("--both-meshes", action="store_true", help="4x1 and 2x4x1")
     ap.add_argument("--one-card", action="store_true", help="1x1 too")
     ap.add_argument("--tp", action="store_true", help="the tensor-parallel 1x4 mesh")
+    ap.add_argument("--mesh", action="append", choices=list(MESHES),
+                    help="these meshes only (repeatable)")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tag", default="baseline")
     args = ap.parse_args()
@@ -383,9 +399,11 @@ def main():
     elif args.multi_pod:
         meshes.append("2x4x1")
     elif not (args.one_card or args.tp):
-        meshes.append("4x1")
+        meshes += ["4x1", "2x4"]
     if args.tp:
         meshes.append("1x4")
+    if args.mesh:
+        meshes = list(args.mesh)
     n_ok = n_fail = 0
     for m in meshes:
         for arch in archs:

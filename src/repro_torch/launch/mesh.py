@@ -11,7 +11,9 @@ names and sizes, as the reference's read `mesh.axis_names` and
 meshes of H100s.
 
 `dp_group` and `tp_group` are the process groups of the data-parallel axes
-and of the "model" axis (tensor parallelism, `models/tensor_parallel.py`).
+and of the "model" axis (tensor parallelism, `models/tensor_parallel.py`);
+`group_over` that of any of its axes (FSDP's gathers and the experts'
+all-to-all, `models/data_parallel.py`).
 On a mesh whose other axes have size 1 the group is every rank of the
 process group, so an abstract mesh has one too (the dry-run's, over its
 fake process group).
@@ -48,9 +50,10 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The abstract production mesh: one node's four H100s, (4, 1) over
     ("data", "model"), or with `multi_pod` two such nodes, (2, 4, 1) over
     ("pod", "data", "model"). Not the reference's 16x16 and 2x16x16 TPU
-    meshes, which put 16 ways of tensor parallelism on "model": the port
-    trains data-parallel only (`train/steps.py`), and the dry-run's serving
-    cells add a (1, 4) mesh of their own (`launch/dryrun.py::MESHES`)."""
+    meshes, which put 16 ways of tensor parallelism on "model": the dry-run
+    adds the tensor-parallel (1, 4) and the (2, 4) of one 8-card node
+    (`launch/dryrun.py::MESHES`), on which the port trains and serves over
+    both axes (`models/tensor_parallel.py`, `models/data_parallel.py`)."""
     if multi_pod:
         return Mesh((2, 4, 1), ("pod", "data", "model"))
     return Mesh((4, 1), ("data", "model"))
@@ -58,7 +61,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device="cuda") -> Mesh:
     """A mesh over every rank of the initialised process group (the tests'
-    small meshes, e.g. (2, 1) over ("data", "model"))."""
+    small meshes, e.g. (2, 1) over ("data", "model"); under the dry-run's
+    fake process group, an abstract mesh's groups, with device "cpu")."""
     from torch.distributed.device_mesh import init_device_mesh
     dev = resolve_device(device)
     if math.prod(shape) != dist.get_world_size():
@@ -77,7 +81,7 @@ def tp_degree(mesh) -> int:
     return dict(zip(mesh.axis_names, mesh.shape)).get("model", 1)
 
 
-def _group_over(mesh, axes: Tuple[str, ...]):
+def group_over(mesh, axes: Tuple[str, ...]):
     """The process group of the ranks that differ only along `axes`: every
     rank when the mesh's other axes have size 1, else the device mesh's
     group of those axes (flattened where two have size > 1)."""
@@ -98,7 +102,7 @@ def dp_group(mesh):
     data-parallel group with another."""
     if dp_degree(mesh) == 1 and tp_degree(mesh) > 1:
         return None
-    return _group_over(mesh, DP_AXES)
+    return group_over(mesh, DP_AXES)
 
 
 def tp_group(mesh):
@@ -106,4 +110,4 @@ def tp_group(mesh):
     size 1."""
     if tp_degree(mesh) == 1:
         return None
-    return _group_over(mesh, ("model",))
+    return group_over(mesh, ("model",))

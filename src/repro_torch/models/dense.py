@@ -18,7 +18,11 @@ expert matmul through `moe.GroupedMatmul`.
 Serving runs tensor-parallel too (`tp`, `tensor_parallel.py`): each rank
 holds its blocks of the weights (`init_params(..., mesh=, rank=)`) and its
 heads of the cache, and the prefill and decode step sum and gather over the
-"model" axis where the reference's sharding constraints stand.
+"model" axis where the reference's sharding constraints stand. Under FSDP
+and expert parallelism (`dp`, `data_parallel.py`) the blocks are cut over
+the data axes too: each layer gathers its FSDP leaves before use, the
+embeddings gather theirs before the lookup and the logits, and the MoE FFN
+sends its slots to the rank's experts and back.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import tp_degree
 from repro_torch.models import layers as L
+from repro_torch.models.data_parallel import gather
 from repro_torch.models.moe import init_moe_layer, moe_ffn
 from repro_torch.sharding.axes import constrain, rules_for
 from repro_torch.sharding.rules import model_shardings
@@ -75,12 +79,12 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     normal(0, d_model**-0.5) projections, normal(0, 0.02) embeddings and
     unit norms, as the JAX init draws them (from another stream).
 
-    With a `mesh` whose "model" axis is larger than 1 (tensor parallelism),
-    rank `rank`'s blocks of them under the serving specs on that axis
-    (`sharding/rules.py::model_shardings`): each leaf is drawn whole, in the
-    same order, and all but the rank's block freed a layer at a time, so
-    the blocks are bit for bit those of the whole draw and the peak is one
-    layer, not the model."""
+    With a `mesh`, rank `rank`'s blocks of them: its block of every leaf
+    under the guarded param specs (`sharding/rules.py::model_shardings`;
+    over "model", and over the data axes for FSDP and the experts). Each
+    leaf is drawn whole, in the same order, and all but the rank's block
+    freed a layer at a time, so the blocks are bit for bit those of the
+    whole draw and the peak is one layer, not the model."""
     dev = resolve_device(device)
     dtype = param_dtype(cfg)
     keep = _block_keeper(cfg, mesh, rank)
@@ -96,9 +100,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
 
 def _block_keeper(cfg: ModelConfig, mesh, rank: int):
     """keep(prefix, subtree) -> the subtree's leaves cut to rank `rank`'s
-    blocks under the serving specs of `mesh`; the identity without a model
-    axis."""
-    if mesh is None or tp_degree(mesh) == 1:
+    blocks under the param specs of `mesh`; the identity without a mesh."""
+    if mesh is None:
         return lambda prefix, tree: tree
     whole = init_params(torch.Generator(), cfg, device="meta")
     sh = model_shardings(whole, cfg, mesh, rules_for(mesh))
@@ -109,13 +112,13 @@ def _block_keeper(cfg: ModelConfig, mesh, rank: int):
 # Forward
 # ----------------------------------------------------------------------------
 
-def _ffn(p, xn, cfg: ModelConfig, n_groups: int = 1, group=None, tp=None):
+def _ffn(p, xn, cfg: ModelConfig, n_groups: int = 1, group=None, tp=None, dp=None):
     """The block's FFN on normed x: (y, the MoE aux loss, or None for a dense
-    FFN, which has none). `n_groups` and `group`: see moe.moe_ffn. Under
-    tensor parallelism (`tp`) y is summed over the ranks: the counterpart
-    of the reference's constraint on the block's output."""
+    FFN, which has none). `n_groups`, `group` and `dp`: see moe.moe_ffn.
+    Under tensor parallelism (`tp`) y is summed over the ranks: the
+    counterpart of the reference's constraint on the block's output."""
     if cfg.family == "moe":
-        return moe_ffn(p["moe"], xn, cfg, n_groups, group, tp=tp)
+        return moe_ffn(p["moe"], xn, cfg, n_groups, group, tp=tp, dp=dp)
     split = tp is not None and tp.splits(cfg.d_ff)
     y = L.swiglu(tp.enter(xn) if split else xn, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
     if tp is not None:
@@ -124,20 +127,22 @@ def _ffn(p, xn, cfg: ModelConfig, n_groups: int = 1, group=None, tp=None):
 
 
 def block_fwd(p, x, positions, cfg: ModelConfig, *, window: Optional[int] = None,
-              n_groups: int = 1, group=None, tp=None):
+              n_groups: int = 1, group=None, tp=None, dp=None):
     """Full-sequence block: causal attention + FFN. Returns (x, aux), aux
     None for a dense block. Under tensor parallelism (`tp`) on the rank's
-    blocks, its collectives differentiable (tensor_parallel.py)."""
+    blocks, its collectives differentiable (tensor_parallel.py); under `dp`
+    its FSDP leaves gathered first (data_parallel.py)."""
+    p = gather(dp, p, ("layers",))
     h, _ = L.attention(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                        positions, cfg, causal=True, window=window, tp=tp)
     x = x + h
-    y, aux = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups, group, tp=tp)
+    y, aux = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups, group, tp=tp, dp=dp)
     return x + y, aux
 
 
 def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
                  window: Optional[int] = None, remat: bool = True,
-                 n_groups: int = 1, group=None, tp=None):
+                 n_groups: int = 1, group=None, tp=None, dp=None):
     """The block stack over x (B, T, d) without a cache, then the final norm.
     Returns (x, summed aux). With `remat` (the JAX default) and autograd
     recording, each block keeps only its input for the backward and runs
@@ -145,22 +150,25 @@ def backbone_fwd(params, x, positions, cfg: ModelConfig, *,
     there is nothing to keep, and the blocks run plainly. Under `tp` the
     replay runs the block's forward collectives again, in the same order on
     every rank (the ranks run in lockstep); it stops at the last tensor the
-    backward needs, so a block's last all-reduce is not replayed."""
+    backward needs, so a block's last all-reduce is not replayed. Under
+    `dp` the replay gathers the block's FSDP leaves again, and runs the
+    experts' all-to-all both ways again."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     for lp in params["layers"]:
         if remat and torch.is_grad_enabled():
             x, a = checkpoint(block_fwd, lp, x, positions, cfg, window=window,
-                              n_groups=n_groups, group=group, tp=tp, use_reentrant=False)
+                              n_groups=n_groups, group=group, tp=tp, dp=dp,
+                              use_reentrant=False)
         else:
             x, a = block_fwd(lp, x, positions, cfg, window=window, n_groups=n_groups,
-                             group=group, tp=tp)
+                             group=group, tp=tp, dp=dp)
         if a is not None:
             aux = aux + a
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True, n_groups: int = 1,
-            group=None, tp=None):
+            group=None, tp=None, dp=None):
     """Next-token loss of batch {"tokens", "targets"} (B, T) [+ "loss_mask",
     the VLM's "patch_embeds"]: embed, the VLM's patches, the block stack,
     unembed with the padded vocab masked, the fp32 cross entropy. Returns (xent + aux, {"xent", "aux"}), as the JAX
@@ -168,16 +176,29 @@ def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True, n_groups: in
     the global one) the MoE aux loss and a masked mean are global: see
     moe.moe_ffn and layers.softmax_xent. Under tensor parallelism (`tp`)
     the rank's blocks compute the whole model's loss, alike on every rank of
-    the "model" group, its vocab-parallel part without gathering the logits."""
+    the "model" group, its vocab-parallel part without gathering the logits.
+    Under FSDP and expert parallelism (`dp`) the rank's blocks over the
+    data axes are gathered where they are used (data_parallel.py)."""
     tokens, targets = batch["tokens"], batch["targets"]
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
-    x = _inject_frontend(batch, L.embed(params["embed"], tokens, tp), cfg)
+    x = _inject_frontend(batch, L.embed(_embedding(params, "tok", dp), tokens, tp), cfg)
     x, aux = backbone_fwd(params, x, positions, cfg, remat=remat, n_groups=n_groups,
-                          group=group, tp=tp)
-    logits = L.unembed(params["embed"], x, cfg.vocab_size, tp, gather=False)
+                          group=group, tp=tp, dp=dp)
+    logits = L.unembed(_embedding(params, "out", dp), x, cfg.vocab_size, tp, gather=False)
     loss = L.softmax_xent(logits, targets, batch.get("loss_mask"), group, tp)
     return loss + aux, {"xent": loss, "aux": aux}
+
+
+def _embedding(params, use: str, dp=None):
+    """The embeddings with the table that `use` ("tok", the lookup; "out",
+    the logits: the untied output table, else the tied one) gathered over
+    the data axes that cut its d_model (FSDP)."""
+    emb = params["embed"]
+    name = "out" if use == "out" and "out" in emb else "tok"
+    if dp is None:
+        return emb
+    return {**emb, name: dp.gather_leaf(emb[name], ("embed", name))}
 
 
 def _inject_frontend(batch, x, cfg: ModelConfig):
@@ -259,9 +280,11 @@ def _store_kv(cfg: ModelConfig, cache, li: int, k, v, pos):
         buf[bidx, row] = torch.where(keep, val.to(buf.dtype), buf[bidx, row])
 
 
-def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, n_groups: int = 1, tp=None):
+def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, n_groups: int = 1, tp=None,
+                 dp=None):
     """One decode step through layer li. x: (B, 1, d); pos: (B,) int32, the
     current length of each sequence. Updates the cache in place."""
+    p = gather(dp, p, ("layers",))
     B, T, _ = x.shape
     xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     positions = pos[:, None] + torch.arange(T, device=x.device, dtype=pos.dtype)[None, :]
@@ -271,7 +294,7 @@ def block_decode(p, x, cache, li: int, pos, cfg: ModelConfig, n_groups: int = 1,
     heads = None if tp is None else tp.read_heads
     out = _decode_attend(q, cache, li, (pos + T).to(torch.int32), heads)
     x = x + L.attn_out(p["attn"], out.reshape(B, T, -1), tp)
-    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups, tp=tp)
+    y, _ = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg, n_groups, tp=tp, dp=dp)
     return x + y
 
 
@@ -287,24 +310,26 @@ def _decode_attend(q, cache, li: int, valid, heads: Optional[slice] = None):
                                 view("k_scale"), view("v_scale"))
 
 
-def lm_decode_step(params, cache, batch, cfg: ModelConfig, *, n_groups: int = 1, tp=None):
+def lm_decode_step(params, cache, batch, cfg: ModelConfig, *, n_groups: int = 1, tp=None,
+                   dp=None):
     """One-token decode across the whole stack. batch: {"tokens": (B, 1),
     "positions": (B,)}. Returns (logits (B, 1, V), cache), the cache being
     the same dictionary, updated in place. Under tensor parallelism (`tp`)
-    the rank's blocks and cache heads, and the logits of every rank.
+    the rank's blocks and cache heads, and the logits of every rank; under
+    `dp` the rank's rows, its FSDP leaves gathered where they are used.
 
     Like the JAX decode step this attends over the whole valid prefix; the
     JAX step passes `window` without a query offset, so it never masks."""
     tokens, pos = batch["tokens"], batch["positions"]
-    x = L.embed(params["embed"], tokens, tp)
+    x = L.embed(_embedding(params, "tok", dp), tokens, tp)
     for li, lp in enumerate(params["layers"]):
-        x = block_decode(lp, x, cache, li, pos, cfg, n_groups, tp)
+        x = block_decode(lp, x, cache, li, pos, cfg, n_groups, tp, dp)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg.vocab_size, tp), cache
+    return L.unembed(_embedding(params, "out", dp), x, cfg.vocab_size, tp), cache
 
 
 def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None,
-               n_groups: int = 1, tp=None):
+               n_groups: int = 1, tp=None, dp=None):
     """Full forward of batch {"tokens" (B, T)} [+ the VLM's "patch_embeds"
     (B, n_patches, d)] that also materializes the KV cache.
 
@@ -314,14 +339,15 @@ def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None,
     tokens = batch["tokens"]
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
-    x = _inject_frontend(batch, L.embed(params["embed"], tokens, tp), cfg)
+    x = _inject_frontend(batch, L.embed(_embedding(params, "tok", dp), tokens, tp), cfg)
     kvs: Dict[str, List[torch.Tensor]] = {}
     for lp in params["layers"]:
+        lp = gather(dp, lp, ("layers",))
         xn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         h, (k, v) = L.attention(lp["attn"], xn, positions, cfg, causal=True,
                                 window=window, tp=tp)
         x = x + h
-        y, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, n_groups, tp=tp)
+        y, _ = _ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, n_groups, tp=tp, dp=dp)
         x = x + y
         k, v = _replicate_kv(cfg, k, v, tp)
         if cfg.kv_cache_dtype == "int8":
@@ -331,5 +357,5 @@ def lm_prefill(params, batch, cfg: ModelConfig, *, window: Optional[int] = None,
         kvs.setdefault("k", []).append(k)
         kvs.setdefault("v", []).append(v)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.unembed(params["embed"], x[:, -1:, :], cfg.vocab_size, tp)
+    logits = L.unembed(_embedding(params, "out", dp), x[:, -1:, :], cfg.vocab_size, tp)
     return logits, {name: torch.stack(bufs) for name, bufs in kvs.items()}

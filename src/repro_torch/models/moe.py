@@ -19,6 +19,13 @@ contiguous share of the global tokens, as the reference's groups line up
 with its data shards) the Switch aux loss is the global one: its mean
 router probabilities and mean assignments are averaged over the group
 before their product, the probabilities through a differentiable all-reduce.
+
+Under expert parallelism (`dp`, a `data_parallel.DataParallel` whose
+`ep_group` splits the experts over the "data" axis) the rank holds E/n
+experts: the group-major slots of its groups go to the experts' ranks and
+come back through the all-to-all of the reference's transposes
+(`DataParallel.to_experts`, `.to_groups`), and the expert products run on
+the rank's experts over every rank's groups.
 """
 from __future__ import annotations
 
@@ -128,7 +135,7 @@ def _dispatch_one_group(x, logits, top_k: int, cap: int, top_e=None):
 
 
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
-            group=None, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            group=None, tp=None, dp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (y: (B, T, d), Switch-style aux loss, a scalar). The
     B*T tokens are dispatched in `n_groups` contiguous groups; under a
     data-parallel `group` the aux loss's means are the group's (every rank
@@ -143,7 +150,13 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
     constrains out_e, which lays the same sum on the expert outputs). Under
     autograd the expert products' input and the gates the combine reads
     enter through `tp.enter`, whose backward sums the ranks' partial
-    gradients; the router's own input, and the aux loss, are whole."""
+    gradients; the router's own input, and the aux loss, are whole.
+
+    Under expert parallelism (`dp` with an `ep_group`) the rank's E/n
+    experts (`p["w1"]` etc. are its blocks) take their slots of every
+    rank's groups through the all-to-all and give them back after the
+    expert products; the combine, the psum over "model" and the aux loss
+    are as above."""
     m = cfg.moe
     B, T, d = x.shape
     e, k = m.n_experts, m.top_k
@@ -164,16 +177,26 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
     groups = [_dispatch_one_group(xs[g], logits[g], k, cap) for g in range(n_groups)]
     slots, inv, top_g, gates = (torch.stack(t) for t in zip(*groups))
 
-    # group-major (G, E, C, d) -> expert-major (E, G, C, d), seen as (E, G*C, d)
+    # group-major (G, E, C, d) -> expert-major (E, G, C, d), seen as (E, G*C, d);
+    # under EP the rank's experts over every rank's groups, (E/n, n G, C, d)
     xd = constrain(slots.reshape(n_groups, e, cap, d), "batch", None, None, None)
-    xe = constrain(xd.transpose(0, 1), "expert", "ep_batch", None, None)
-    xe = xe.reshape(e, n_groups * cap, d)
+    ep = dp is not None and dp.ep_group is not None
+    if ep:
+        xe = dp.to_experts(xd)
+    else:
+        xe = constrain(xd.transpose(0, 1), "expert", "ep_batch", None, None)
+    el, ge = xe.shape[:2]
+    xe = xe.reshape(el, ge * cap, d)
     h1 = grouped_matmul(xe, p["w1"])
     h3 = grouped_matmul(xe, p["w3"])
     h = torch.nn.functional.silu(h1.to(F32)).to(h1.dtype) * h3
-    out_e = grouped_matmul(h, p["w2"])                    # (E, G*C, d)
-    out_e = constrain(out_e.reshape(e, n_groups, cap, d), "expert", "ep_batch", None, None)
-    out_g = constrain(out_e.transpose(0, 1).reshape(n_groups, e * cap, d), "batch", None, None)
+    out_e = grouped_matmul(h, p["w2"]).reshape(el, ge, cap, d)
+    if ep:
+        out_g = dp.to_groups(out_e).reshape(n_groups, e * cap, d)
+    else:
+        out_e = constrain(out_e, "expert", "ep_batch", None, None)
+        out_g = constrain(out_e.transpose(0, 1).reshape(n_groups, e * cap, d),
+                          "batch", None, None)
 
     # combine: gather each (token, k) slot row, weight by its gate
     pad = torch.cat([out_g, out_g.new_zeros((n_groups, 1, d))], dim=1)
@@ -200,8 +223,8 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, n_groups: int = 1,
 
     dense = None
     if "dense" in p:
-        dp = p["dense"]
-        dense = L.swiglu(xin if dsplit else x, dp["w1"], dp["w3"], dp["w2"])
+        pd = p["dense"]
+        dense = L.swiglu(xin if dsplit else x, pd["w1"], pd["w3"], pd["w2"])
     if tp is not None:
         y = tp.psum((y, tp.splits(cfg.d_ff)),
                     *([(dense, tp.splits(m.dense_residual_ff))] if dense is not None else []))

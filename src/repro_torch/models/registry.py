@@ -23,18 +23,22 @@ takes the MoE aux loss's means and a masked token mean over the mesh's
 data-parallel group, so that the mean of the ranks' losses is the global
 loss (`train/steps.py` under the same mesh).
 
-A mesh whose "model" axis is larger than 1 serves tensor-parallel (the
-dense, MoE and VLM families, on a (1, n) mesh; `tensor_parallel.py`): the
-rank's init_params draws its blocks of the weights, init_cache holds its
-cache heads, and prefill and decode_step run under the mesh's axis rules,
-whose `constrain` checks each annotated activation's layout, and return
-every rank's logits. Its loss trains tensor-parallel, on a (1, n) mesh or a
-(dp, tp) one (`train/steps.py`): the rank's blocks compute the whole
-model's loss on the rank's rows, through the differentiable collectives of
-`tensor_parallel.py`, with the MoE aux loss's means over the data group.
-On a (dp, tp) mesh a rank holds its "model" block of every weight, alike at
-every data coordinate (`sharding/rules.py::model_shardings`); serving there
-is refused.
+The dense, MoE and VLM families hold the reference's block of every leaf
+on any mesh (`sharding/rules.py::model_shardings`): over a "model" axis
+larger than 1 (tensor parallelism, `tensor_parallel.py`), and over the data
+axes where the guarded specs put them there: the FSDP archs' weights
+(cfg.fsdp) and the MoE experts (expert parallelism; `data_parallel.py`).
+The rank's init_params draws its blocks of the weights, init_cache holds
+its rows' cache heads, and prefill and decode_step run under the mesh's
+axis rules, whose `constrain` checks each annotated activation's layout,
+and return the logits of the rank's rows. On a (dp, tp) mesh every data
+rank prefills and decodes its share of the batch, in lockstep, since the
+FSDP gathers and the experts' all-to-all span the data group. The loss
+trains on any such mesh (`train/steps.py`): the rank's blocks compute the
+whole model's loss on the rank's rows, through the differentiable
+collectives of both modules, with the MoE aux loss's means over the data
+group. Serving turns FSDP on where the reference's dry-run does
+(`serve_config`).
 """
 from __future__ import annotations
 
@@ -45,11 +49,12 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, param_count
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import dp_degree, dp_group, tp_degree, tp_group
 from repro_torch.models import dense, hybrid, whisper, xlstm
+from repro_torch.models.data_parallel import DataParallel
 from repro_torch.models.tensor_parallel import TensorParallel
 from repro_torch.optim.optimizers import Split
 from repro_torch.sharding.rules import model_dims
@@ -68,14 +73,24 @@ class Model:
     init_cache: Callable[..., Any]
     mesh: Any = None
     tp: Any = None      # the rank's TensorParallel plan under a "model" axis
-    split: Any = None   # and the leaves it holds a block of (optimizers.Split)
+    split: Any = None   # the leaves it holds a block of (optimizers.Split)
+    dp: Any = None      # its DataParallel plan where the data axes cut a leaf
+
+
+def serve_config(cfg: ModelConfig) -> ModelConfig:
+    """The reference dry-run's `_serve_cfg`: serving shards the weights over
+    the data axes too (FSDP) where the 16-way model-parallel shard alone
+    would pass 2 GiB a chip."""
+    if param_count(cfg) * 2 / 16 > 2 * 2**30:
+        return cfg.replace(fsdp=True)
+    return cfg
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", window: Optional[int] = None,
                 n_groups: int = 1, mesh=None) -> Model:
     dev = resolve_device(device)
-    if mesh is not None and tp_degree(mesh) > 1:
-        return _tensor_parallel_model(cfg, dev, window, n_groups, mesh)
+    if mesh is not None and (tp_degree(mesh) > 1 or _cuts_data(cfg, mesh)):
+        return _sharded_model(cfg, dev, window, n_groups, mesh)
     group = dp_group(mesh) if mesh is not None else None
     if cfg.family in ("dense", "moe", "vlm"):
         return Model(
@@ -140,45 +155,46 @@ def _bound(mesh, fn):
     return run
 
 
-def _serving_on_a_data_axis(mesh):
-    def refuse(*args, **kw):
-        raise NotImplementedError(f"tensor-parallel serving runs on a (1, n) mesh, not "
-                                  f"{mesh.shape}: data-parallel replicas of it are not ported "
-                                  "(ROADMAP Queue 1, item 6d)")
-    return refuse
+def _cuts_data(cfg: ModelConfig, mesh) -> bool:
+    """Whether the guarded param specs of `cfg` put a data axis of size > 1
+    on a leaf: FSDP (cfg.fsdp) or the MoE experts (EP), dense, MoE and VLM
+    families only (no other family's rules name them)."""
+    if dp_degree(mesh) == 1 or cfg.family not in ("dense", "moe", "vlm"):
+        return False
+    return any(c.data for c in model_dims(_whole(cfg), cfg, mesh, rules_for(mesh)).values())
 
 
-def _tensor_parallel_model(cfg: ModelConfig, dev, window, n_groups: int, mesh) -> Model:
+def _whole(cfg: ModelConfig):
+    return dense.init_params(torch.Generator(), cfg, device="meta")
+
+
+def _sharded_model(cfg: ModelConfig, dev, window, n_groups: int, mesh) -> Model:
+    """The dense, MoE and VLM model of which this rank holds the reference's
+    blocks on `mesh`: tensor-parallel over "model", FSDP and EP over the
+    data axes."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"TP not yet ported for {cfg.family} ({cfg.name}): a "
                                   f"\"model\" axis of {tp_degree(mesh)} needs its heads and "
                                   "states split (ROADMAP Queue 1, item 6c)")
-    if dp_degree(mesh) > 1 and cfg.fsdp:
-        raise NotImplementedError(f"{cfg.name} shards its weights over the data axes (FSDP): "
-                                  f"on a {mesh.shape} mesh that is not ported (ROADMAP Queue 1, "
-                                  "item 6d)")
-    tp = TensorParallel.plan(cfg, tp_group(mesh))
-    rank = dist.get_rank()
-    serving = dp_degree(mesh) == 1
-    whole = dense.init_params(torch.Generator(), cfg, device="meta")
-    split = Split(tp.group, tp.size, model_dims(whole, cfg, mesh, rules_for(mesh)))
+    group = tp_group(mesh)
+    tp = TensorParallel.plan(cfg, group) if tp_degree(mesh) > 1 else None
+    whole, rules = _whole(cfg), rules_for(mesh)
+    dp = DataParallel.plan(cfg, whole, mesh, rules)
+    split = Split(group, 1 if tp is None else tp.size, model_dims(whole, cfg, mesh, rules))
+    kw = dict(cfg=cfg, n_groups=n_groups, tp=tp, dp=dp)
     return Model(
         cfg=cfg,
         device=dev,
         init_params=functools.partial(dense.init_params, cfg=cfg, device=dev, mesh=mesh,
-                                      rank=rank),
-        loss=_bound(mesh, functools.partial(dense.lm_loss, cfg=cfg, n_groups=n_groups,
-                                            group=dp_group(mesh), tp=tp)),
-        prefill=_bound(mesh, functools.partial(dense.lm_prefill, cfg=cfg, window=window,
-                                               n_groups=n_groups, tp=tp))
-        if serving else _serving_on_a_data_axis(mesh),
-        decode_step=_bound(mesh, functools.partial(dense.lm_decode_step, cfg=cfg,
-                                                   n_groups=n_groups, tp=tp))
-        if serving else _serving_on_a_data_axis(mesh),
+                                      rank=dist.get_rank()),
+        loss=_bound(mesh, functools.partial(dense.lm_loss, group=dp_group(mesh), **kw)),
+        prefill=_bound(mesh, functools.partial(dense.lm_prefill, window=window, **kw)),
+        decode_step=_bound(mesh, functools.partial(dense.lm_decode_step, **kw)),
         init_cache=functools.partial(dense.init_cache, cfg, device=dev, tp=tp),
         mesh=mesh,
         tp=tp,
         split=split,
+        dp=dp,
     )
 
 

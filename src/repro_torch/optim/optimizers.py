@@ -29,12 +29,15 @@ over the stack) is stacked whole for its update, with its state stacked in
 `s[key + "_stacked"]`.
 
 Under tensor parallelism a rank holds a block of some leaves (`Split`: the
-dim each such leaf is cut along over the "model" group). AdamW is
-elementwise and reads nothing else. Adafactor's statistics read the whole
+dim each such leaf is cut along over the "model" group), and under FSDP
+and expert parallelism a block over the data axes too. AdamW is
+elementwise and reads nothing else; the train step's global norm counts
+each block once over the (data, model) group (`train/steps.py`). Adafactor's statistics read the whole
 leaf: whether it factors, its row and column means, the update's RMS and
 the parameter scale are the whole leaf's, through sums over the group;
 its state is the rank's block of the whole leaf's (`vr` cut where the
-rows are, `vc` where the columns are).
+rows are, `vc` where the columns are). A leaf cut over the data axes is
+refused (ROADMAP Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -59,15 +62,41 @@ class Optimizer:
 
 @dataclasses.dataclass(frozen=True)
 class Split:
-    """The leaves of a params tree of which a tensor-parallel rank holds a
-    block: the path of each (its dict keys, the stacked view's path) -> the
-    dim, of the port's leaf, cut evenly over the `size` ranks of `group`."""
+    """The leaves of a params tree of which a rank holds a block: the path
+    of each (its dict keys, the stacked view's path) -> its
+    `sharding.rules.Cut`: the dim, of the port's leaf, cut evenly over the
+    `size` ranks of the "model" axis's `group`, and the dims cut over the
+    data-parallel axes (FSDP, the experts)."""
     group: Any
     size: int
-    dims: Dict[Tuple[str, ...], int]
+    dims: Dict[Tuple[str, ...], Any]
+
+    def _cut(self, path):
+        return self.dims.get(tuple(k for k in path if isinstance(k, str)))
 
     def dim(self, path) -> Optional[int]:
-        return self.dims.get(tuple(k for k in path if isinstance(k, str)))
+        """The dim of the leaf at `path` cut over "model", or None."""
+        cut = self._cut(path)
+        return None if cut is None else cut.model
+
+    def data_cut(self, path) -> bool:
+        """Whether the rank holds a block of the leaf at `path` over the
+        data-parallel axes: its gradient comes out of the model's backward
+        already summed over them (`models/data_parallel.py`), and its blocks
+        are distinct across them."""
+        cut = self._cut(path)
+        return cut is not None and bool(cut.data)
+
+    def refuse_data_cuts(self, what: str) -> None:
+        """Raise where a leaf is cut over the data axes: `what` reads whole
+        rows and columns of each leaf."""
+        cut = sorted(p for p, c in self.dims.items() if c.data)
+        if cut:
+            raise NotImplementedError(
+                f"{what} reads whole rows and columns of each leaf, and "
+                f"{'/'.join(cut[0])} (and {len(cut) - 1} more) are cut over the data axes: its "
+                "statistics of such a leaf belong with ZeRO-1 for Adafactor (ROADMAP Queue 1, "
+                "item 7)")
 
     def whole(self, shape, dim: Optional[int]) -> Tuple[int, ...]:
         """The whole leaf's shape of a block of `shape` cut along `dim`."""
@@ -196,6 +225,7 @@ def adafactor(eps1: float = 1e-30, eps2: float = 1e-3, clip: float = 1.0,
 
     def init(params, split=None):
         split = split or WHOLE
+        split.refuse_data_cuts("Adafactor")
         dev = _device(params)
         s = {}
         for k, v in params.items():
@@ -215,6 +245,7 @@ def adafactor(eps1: float = 1e-30, eps2: float = 1e-3, clip: float = 1.0,
     @torch.no_grad()
     def update(params, grads, state, lr, split=None):
         split = split or WHOLE
+        split.refuse_data_cuts("Adafactor")
         step = state["step"] + 1
         t = step.to(F32)
         beta = 1.0 - t ** (-decay_pow)

@@ -16,7 +16,8 @@ on the card, alike:
                 update and not the whole buffer; a kernel op's bytes are
                 its cost formula's, its scratch stays inside it;
   collectives : each `c10d` collective, its operand bytes and the ring
-                algorithm's wire bytes per device (the reference's factors);
+                algorithm's wire bytes per device (the reference's factors)
+                over the devices of its process group;
   kernel ops  : calls by name, to be held to the wrappers' launch counts;
   live bytes  : the high-water mark of the tensors' storages, those held
                 at the start (`hold`) and those the ops create, freed when
@@ -79,6 +80,7 @@ _COLLECTIVES = {
     "c10d::_reduce_scatter_base_": ("reduce-scatter", 1),
     "c10d::broadcast_": ("broadcast", 0),
     "c10d::reduce_": ("reduce", 0),
+    "c10d::alltoall_base_": ("all-to-all", 1),
 }
 
 
@@ -112,7 +114,7 @@ def wire_bytes(kind: str, operand: float, parts: int) -> float:
         return 2.0 * operand * (parts - 1) / parts
     if kind == "all-gather":
         return operand * (parts - 1)
-    if kind == "reduce-scatter":
+    if kind in ("reduce-scatter", "all-to-all"):
         return operand * (parts - 1) / parts
     return operand
 
@@ -177,7 +179,8 @@ class CostModel(TorchDispatchMode):
         out = func(*args, **kwargs)
         ins = _tensors(args) + (_tensors(kwargs.values()) if kwargs else [])
         outs = _tensors(out if isinstance(out, (list, tuple)) else (out,))
-        if self.device is None or any(t.device.type == self.device for t in ins + outs):
+        if self.device is None or any(t.device.type == self.device for t in ins + outs) \
+                or _staged_collective(func, ins):
             self._count(func, args, kwargs, out, ins, outs)
         for t in outs:
             self._track(t)
@@ -228,7 +231,7 @@ class CostModel(TorchDispatchMode):
             if kind == "collective":
                 ckind, at = _COLLECTIVES[name]
                 operand = sum(tensor_bytes(t) for t in _tensors((args[at],)))
-                parts = dist.get_world_size() if dist.is_initialized() else 1
+                parts = _group_size(args)
                 cur = self.totals.collectives.setdefault(ckind, [0.0, 0.0, 0.0])
                 cur[0] += 1
                 cur[1] += operand
@@ -241,6 +244,27 @@ class CostModel(TorchDispatchMode):
         row[0] += 1
         row[1] += flops
         row[2] += nbytes
+
+
+def _staged_collective(func, ins) -> bool:
+    """Whether `func` is a collective on host copies that stand for a card's
+    tensors (`distributed.py`'s staging under gloo): counted as the card's."""
+    if func._schema.name not in _COLLECTIVES:
+        return False
+    from repro_torch.distributed import is_staged
+    return any(is_staged(t) for t in ins)
+
+
+def _group_size(args) -> int:
+    """The size of the process group a c10d op's arguments name (the world's
+    where none unboxes to one)."""
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(a).size()
+            except RuntimeError:
+                continue
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _index_bytes(ts) -> int:

@@ -25,6 +25,12 @@ data axis of size n on the layer axis, rank r holds layers [r L/n, (r+1)
 L/n). An entry on an inner dim is a `Shard(dim)` placement of each item.
 `Shardings.index` gives, for each leaf of a port tree, the rank's block of
 it: a tuple of slices, or None where another rank owns the item.
+
+What a rank holds of the params is the reference's block of every leaf
+(`model_shardings`): its "model" block, and where the guarded specs put
+"fsdp", "expert" or "pod_fsdp" on a dim, its block of that dim over the
+data-parallel axes too. `model_dims` says, per leaf, which dim of the port's
+leaf each axis cuts (`Cut`).
 """
 from __future__ import annotations
 
@@ -225,10 +231,13 @@ def block(shape, spec: Spec, mesh, coord) -> Tuple[slice, ...]:
 @dataclasses.dataclass(frozen=True)
 class Shardings:
     """The port's counterpart of a tree of `NamedSharding`: a mesh and, per
-    stacked path of a tree, the reference's leaf shape and its spec."""
+    stacked path of a tree, the reference's leaf shape and its spec; and
+    `held`, the specs of the blocks a rank holds of a params-like tree (the
+    guarded param specs, of which ZeRO-1's specs are the extension)."""
     mesh: Any
     shapes: Dict[Path, Tuple[int, ...]]
     specs: Dict[Path, Spec]
+    held: Optional[Dict[Path, Spec]] = None
 
     def full_shape(self, path) -> Tuple[int, ...]:
         """The whole shape of the port leaf at `path`."""
@@ -275,26 +284,33 @@ class Shardings:
         return dataclasses.replace(self, specs={p: tuple(keep(e) for e in spec)
                                                 for p, spec in self.specs.items()})
 
+    def holding(self) -> "Shardings":
+        """What a rank holds: the shardings of `held`, or without `held`
+        these with the data-parallel axes dropped."""
+        if self.held is None:
+            return self.without(DP_AXES)
+        return dataclasses.replace(self, specs=self.held)
+
     def local_block_of(self, path, rank: int,
                        held: Optional["Shardings"] = None) -> Optional[Tuple[slice, ...]]:
         """`block_of(path, rank)` in the coordinates of the block that `rank`
-        holds with the data-parallel axes dropped (`held`, by default
-        `without(DP_AXES)`): on a (dp, tp) mesh, a rank's ZeRO block of a
-        leaf inside its "model" block of it. Raises where the block does not
-        lie inside that one."""
+        holds (`held`, by default `holding()`): on a (dp, tp) mesh, a rank's
+        ZeRO block of a leaf inside its "model" block of it, and the whole
+        of a block cut over the data axes too (an FSDP or expert leaf, which
+        ZeRO-1 cuts no further). Raises where the block does not lie inside
+        the held one."""
         b = self.block_of(path, rank)
         if b is None:
             return None
-        h = (held or self.without(DP_AXES)).block_of(path, rank)
+        h = (held or self.holding()).block_of(path, rank)
         if any(s.start < o.start or s.stop > o.stop for s, o in zip(b, h)):
             raise ValueError(f"{path}: rank {rank}'s block {b} is not inside its block {h} "
                              "of the mesh's other axes")
         return tuple(slice(s.start - o.start, s.stop - o.start) for s, o in zip(b, h))
 
     def local_index(self, tree, rank: int) -> List[Optional[Tuple[slice, ...]]]:
-        """For each leaf of `tree`, `local_block_of` its path (on a mesh
-        without a "model" axis, `index` itself)."""
-        held = self.without(DP_AXES)
+        """For each leaf of `tree`, `local_block_of` its path."""
+        held = self.holding()
         return [self.local_block_of(path, rank, held) for path, _ in flatten(tree)]
 
 
@@ -307,32 +323,49 @@ def shardings_for(tree, cfg: ModelConfig, mesh, rules, *, zero1: bool = False,
     leaves; meta tensors will do."""
     view = stacked_view(tree)
     dp_axes = tuple(rules.get("batch", ()))
+    held = {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, False) for p, s in view.items()}
     return Shardings(mesh, {p: s.shape for p, s in view.items()},
                      {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, zero1, zero1_stack)
-                      for p, s in view.items()})
+                      for p, s in view.items()} if zero1 else held, held)
 
 
 def model_shardings(tree, cfg: ModelConfig, mesh, rules) -> Shardings:
-    """What a tensor-parallel rank holds of a params-like tree on `mesh`:
-    the guarded param specs with the data-parallel axes dropped, so a rank
-    holds its "model" block of every leaf, alike at every data coordinate
-    (on a (1, n) mesh, the serving specs' blocks). The reference also puts
-    the experts (EP) and the FSDP archs' weights on the data axes; the port
-    does not (ROADMAP Queue 1, item 6d)."""
-    return shardings_for(tree, cfg, mesh, rules).without(DP_AXES)
+    """What a rank holds of a params-like tree on `mesh`: the reference's
+    block of every leaf under its guarded param specs (`named_shardings`):
+    the "model" block, and where a spec puts the data-parallel axes on a dim
+    ("fsdp" for the FSDP archs, cfg.fsdp; "expert" and "pod_fsdp" for the
+    MoE experts), the block of that dim over them too. A leaf whose spec
+    names no data axis is held alike at every data coordinate."""
+    return shardings_for(tree, cfg, mesh, rules)
 
 
-def model_dims(tree, cfg: ModelConfig, mesh, rules) -> Dict[Path, int]:
-    """Stacked path -> the dim of the port's leaf (its list axes not
-    counted) that `model_shardings` cuts over the "model" axis, for each
-    leaf it cuts (the optimizers' `Split`)."""
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """How a rank's block of a leaf is cut, in the dims of the port's leaf
+    (its list axes not counted): the dim cut over the "model" axis, or
+    None; and each dim cut over data-parallel axes, with those axes."""
+    model: Optional[int] = None
+    data: Tuple[Tuple[int, Tuple[str, ...]], ...] = ()
+
+
+def model_dims(tree, cfg: ModelConfig, mesh, rules) -> Dict[Path, Cut]:
+    """Stacked path -> the `Cut` of each leaf that `model_shardings` cuts
+    over an axis of size > 1 (the optimizers' `Split`, the train step, the
+    FSDP gathers and the experts' all-to-all)."""
     sh, view = model_shardings(tree, cfg, mesh, rules), stacked_view(tree)
     sizes = axis_sizes(mesh)
     out = {}
     for p, spec in sh.specs.items():
+        model, data = None, []
         for i, entry in enumerate(spec):
-            if "model" in _axes(entry) and sizes["model"] > 1:
-                out[p] = i - view[p].depth
+            live = tuple(a for a in _axes(entry) if sizes[a] > 1)
+            if "model" in live:
+                model = i - view[p].depth
+            dp = tuple(a for a in live if a in DP_AXES)
+            if dp:
+                data.append((i - view[p].depth, dp))
+        if model is not None or data:
+            out[p] = Cut(model, tuple(data))
     return out
 
 
@@ -345,6 +378,8 @@ def state_shardings(state, cfg: ModelConfig, mesh, rules, *,
     dp_axes = tuple(rules.get("batch", ()))
     return Shardings(mesh, {p: s.shape for p, s in view.items()},
                      {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, p[0] == "opt", zero1_stack)
+                      for p, s in view.items()},
+                     {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, False)
                       for p, s in view.items()})
 
 

@@ -43,6 +43,17 @@ of a leaf is stated inside its "model" block (`Shardings.local_index`), and
 the collectives above run over the data group. Adafactor reads whole
 leaves through the model's `Split` (`optim/optimizers.py`); with ZeRO-1 it
 is refused (ROADMAP Queue 1, item 7).
+
+Under FSDP and expert parallelism (a leaf the model's `Split` marks as cut
+over the data axes: `models/data_parallel.py`) the rank holds its block of
+the leaf over the data axes too, and the model's backward hands back that
+block's gradient already summed over the data group (the FSDP gather's
+reduce-scatter, the experts' all-to-all). So neither the all-reduce nor
+ZeRO-2 reduces it again: it is accumulated as it comes, divided by M n
+with the rest, updated in place and never gathered; ZeRO-1 cuts its
+optimizer state no further (`zero1_extend` leaves a spec that names the
+data axes as it is). The global norm counts each of its blocks once over
+the (data, model) group.
 """
 from __future__ import annotations
 
@@ -52,7 +63,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import distributed as D
-from repro_torch.launch.mesh import dp_group, tp_degree
+from repro_torch.launch.mesh import DP_AXES, dp_group, tp_degree
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.tree import flatten, leaves, tree_map, unflatten_like
@@ -69,7 +80,9 @@ class _Layout:
     """How each leaf of the params is spread over the ranks under the
     shardings, and the collectives that reduce into it and gather from it."""
 
-    def __init__(self, params, shardings, n: int, rank: int, group=None):
+    def __init__(self, params, shardings, n: int, rank: int, group=None, own=None):
+        """`own` marks (by leaf) the blocks cut over the data axes, whose
+        gradients come summed over the group already."""
         self.rank = rank
         # the group's global ranks, by group rank: each one's blocks in the
         # coordinates of what it holds (the whole leaf, or its "model" block)
@@ -80,6 +93,9 @@ class _Layout:
         for j, p in enumerate(leaves(params)):
             bs = [b[j] for b in self.blocks]
             holders = [q for q, b in enumerate(bs) if b is not None]
+            if own is not None and own[j]:   # every rank its own block, counted by each
+                self.modes.append((("own",), True))
+                continue
             if all(_full(b, p.shape) for b in bs):
                 mode = ("all",)
             elif len(holders) == 1 and _full(bs[holders[0]], p.shape):
@@ -110,7 +126,9 @@ class _Layout:
                 a.add_(D.reduce_scatter_(out, inp, group).movedim(0, d))
                 continue
             g = g.to(acc_dtype)
-            if mode[0] == "all":
+            if mode[0] == "own":
+                a.add_(g)
+            elif mode[0] == "all":
                 a.add_(D.all_reduce_(g, group=group))
             elif mode[0] == "owner":
                 D.reduce_(g, self.ranks[mode[1]], group=group)
@@ -121,13 +139,6 @@ class _Layout:
                 if b is not None:
                     a.add_(g[b])
 
-    def sq_norm(self, acc, which=None) -> torch.Tensor:
-        """This rank's share of the sum of squares (each block once), of
-        every leaf or of those `which` (by leaf) marks."""
-        return sum((torch.sum(torch.square(a.to(F32))) for j, ((_, counted), a) in
-                    enumerate(zip(self.modes, acc)) if counted and (which is None or which[j])),
-                   torch.zeros((), dtype=F32))
-
     def gather(self, params, group):
         """Every rank's updated blocks of the params, onto every rank."""
         for j, ((mode, _), p) in enumerate(zip(self.modes, leaves(params))):
@@ -137,7 +148,7 @@ class _Layout:
                 d, own = mode[1], p[self.mine[j]].movedim(mode[1], 0).contiguous()
                 out = p.new_empty(p.movedim(d, 0).shape)
                 p.copy_(D.all_gather_(out, own, group).movedim(0, d))
-            elif mode[0] == "general":
+            elif mode[0] == "general":   # "all" and "own" leave each rank's as it is
                 done = []
                 for q, blocks in enumerate(self.blocks):
                     b = blocks[j]
@@ -183,6 +194,17 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
         raise ValueError(f"ZeRO shards over the data axes: a {mesh.shape} mesh has none")
     n = dist.get_world_size(group) if group is not None else 1
     rank = dist.get_rank(group) if group is not None else 0
+    split = model.split
+    if split is not None and opt.name != "adamw":
+        split.refuse_data_cuts(opt.name)
+    if split is not None and group is not None:
+        live = {a for a, k in zip(mesh.axis_names, mesh.shape) if a in DP_AXES and k > 1}
+        for path, cut in split.dims.items():
+            axes = {a for _, ax in cut.data for a in ax}
+            if axes and axes != live:
+                raise NotImplementedError(
+                    f"{'/'.join(path)} is cut over {sorted(axes)} of the data axes "
+                    f"{sorted(live)}: its gradient would need a sum over the others")
     layouts: Dict[int, _Layout] = {}
 
     def grads_of(params, mb):
@@ -196,6 +218,9 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
     def train_step(state, batch):
         params = state["params"]
         plist = leaves(params)
+        paths = [path for path, _ in flatten(params)]
+        # the blocks cut over the data axes: their gradients come summed
+        own = [split is not None and split.data_cut(path) for path in paths]
         M = n_microbatches
         rows = next(iter(batch.values())).shape[0]
         if rows % (M * n):
@@ -205,17 +230,21 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
         def share(x, i):   # microbatch i's rows of this rank
             return x.reshape(M, n, rows // (M * n), *x.shape[1:])[i, rank]
 
-        if grad_shardings is None:
-            flat = torch.zeros(sum(p.numel() for p in plist), dtype=acc_dtype,
-                               device=plist[0].device)
+        if grad_shardings is None:   # one flat buffer of what the all-reduce sums
+            flat = torch.zeros(sum(p.numel() for p, o in zip(plist, own) if not o),
+                               dtype=acc_dtype, device=plist[0].device)
             acc, at = [], 0
-            for p in plist:
+            for p, o in zip(plist, own):
+                if o:
+                    acc.append(torch.zeros(p.shape, dtype=acc_dtype, device=p.device))
+                    continue
                 acc.append(flat[at:at + p.numel()].view(p.shape))
                 at += p.numel()
         else:
             layout = layouts.get(id(params))
             if layout is None:
-                layout = layouts[id(params)] = _Layout(params, grad_shardings, n, rank, group)
+                layout = layouts[id(params)] = _Layout(params, grad_shardings, n, rank, group,
+                                                       own)
             acc = [torch.zeros(p[b].shape if b is not None else (0,), dtype=acc_dtype,
                                device=p.device) for p, b in zip(plist, layout.mine)]
         loss_sum = torch.zeros((), dtype=F32, device=state["step"].device)
@@ -229,7 +258,7 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
                 layout.reduce_into(acc, grads, acc_dtype, group)
             del grads
             loss_sum = loss_sum + loss
-        if grad_shardings is None and group is not None:
+        if grad_shardings is None and group is not None and flat.numel():
             D.all_reduce_(flat, group=group)
         for a in acc:
             a.div_(M * n)
@@ -237,14 +266,16 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
         if group is not None:
             loss = D.all_reduce_(loss, group=group) / n
 
-        if grad_shardings is None and tp is None:
+        if grad_shardings is None and tp is None and not any(own):
             grads, gnorm = clip_by_global_norm(unflatten_like(params, acc), clip_norm)
         else:
-            # under TP, which leaves are the rank's blocks of a leaf split over "model"
-            split = None if tp is None else [model.split.dim(path) is not None
-                                             for path, _ in flatten(params)]
-            gnorm = _global_norm(acc, layout if grad_shardings is not None else None,
-                                 group, tp, split, loss.device)
+            # which leaves are the rank's blocks of a leaf split over "model"
+            cut = [tp is not None and split.dim(path) is not None for path in paths]
+            if grad_shardings is None:   # the all-reduced leaves are whole on every rank
+                counted, summed = [True] * len(acc), own
+            else:
+                counted, summed = [c for _, c in layout.modes], [True] * len(acc)
+            gnorm = _global_norm(acc, counted, summed, cut, group, tp, loss.device)
             scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
             for a in acc:
                 a.copy_((a.to(F32) * scale).to(a.dtype))
@@ -267,23 +298,28 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
     return train_step
 
 
-def _global_norm(acc, layout, group, tp, split, device) -> torch.Tensor:
-    """The global norm of the accumulated gradients under a "model" axis
-    (`tp`) or ZeRO-2 (`layout`): each ZeRO block summed once over the data
-    `group`, each leaf split over "model" summed over its ranks' blocks, a
-    replicated leaf counted once."""
-    if tp is None:
-        return torch.sqrt(D.all_reduce_(layout.sq_norm(acc).to(device), group=group))
-    if layout is None:
-        parts = [sum((torch.sum(torch.square(a.to(F32))) for a, c in zip(acc, split) if c == cut),
-                     torch.zeros((), dtype=F32, device=device)) for cut in (True, False)]
-        sq = torch.stack(parts)
-    else:
-        sq = torch.stack([layout.sq_norm(acc, [c == cut for c in split]).to(device)
-                          for cut in (True, False)])
-        D.all_reduce_(sq, group=group)
-    cut, whole = sq.unbind(0)
-    return torch.sqrt(tp.all_reduce(cut) + whole)
+def _global_norm(acc, counted, summed, cut, group, tp, device) -> torch.Tensor:
+    """The global norm of the accumulated gradients, by leaf: the sum of
+    squares of each `counted` block (a ZeRO block on its first holder),
+    summed over the data `group` where the ranks' blocks differ (`summed`:
+    ZeRO-2's blocks, FSDP's and the experts'), and over the "model" group
+    where the leaf is split over it (`cut`, under `tp`); a leaf whole on
+    every rank counted once."""
+    def part(s, c):
+        return sum((torch.sum(torch.square(a.to(F32))) for a, k, ss, cc in
+                    zip(acc, counted, summed, cut) if k and ss == s and cc == c),
+                   torch.zeros((), dtype=F32, device=device))
+    reduce = group is not None and any(summed)
+    if tp is None:   # no leaf is split over "model"
+        over_data = part(True, False)
+        if reduce:
+            D.all_reduce_(over_data, group=group)
+        return torch.sqrt(over_data + part(False, False))
+    over_data = torch.stack([part(True, True), part(True, False)])
+    if reduce:
+        D.all_reduce_(over_data, group=group)
+    split, whole = (over_data + torch.stack([part(False, True), part(False, False)])).unbind(0)
+    return torch.sqrt(tp.all_reduce(split) + whole)
 
 
 def train_state(params, opt: Optimizer, shardings=None, split=None) -> Dict[str, Any]:

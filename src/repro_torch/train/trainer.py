@@ -15,7 +15,9 @@ gathers the blocks to rank 0. A tensor-parallel model's state is blocks on
 every rank, so its Trainer needs `shardings`; it trains AdamW on a (1, n)
 mesh, where those shardings cut the state as the step does. Adafactor's
 and a (dp, tp) mesh's TP state wait for sharded checkpoints (ROADMAP
-Queue 1, item 6e).
+Queue 1, item 6e), and so does a state whose blocks the data axes cut
+(FSDP, the experts: `models/data_parallel.py`), which the checkpointer's
+gather does not cut.
 """
 from __future__ import annotations
 
@@ -57,6 +59,11 @@ class Trainer:
                  lr_fn: Optional[Callable] = None,
                  failure_hook: Optional[Callable[[int], None]] = None,
                  shardings=None):
+        if model.dp is not None and dp_degree(model.mesh) > 1:
+            raise NotImplementedError(
+                f"checkpoints of a state cut over the data axes (FSDP or the experts) on a "
+                f"{tuple(model.mesh.shape)} mesh are not ported: the checkpointer's gather "
+                "does not cut these blocks (ROADMAP Queue 1, item 6e)")
         if model.tp is not None:
             if dp_degree(model.mesh) > 1 or opt.name != "adamw":
                 raise NotImplementedError(

@@ -15,7 +15,8 @@ from repro_torch.models import build_model
 from repro_torch.optim.compression import compressed_psum_mean
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.sharding.axes import multi_pod_rules, single_pod_rules
-from repro_torch.sharding.rules import Shardings, placements, shardings_for, state_shardings
+from repro_torch.sharding.rules import (Shardings, model_shardings, placements, shardings_for,
+                                       state_shardings)
 from repro_torch.train.steps import make_train_step, train_state
 from repro_torch.tree import flatten, leaves
 
@@ -79,11 +80,19 @@ def dp_train_rank(rank, world, dev, arch, params_np, batches, n_micro, zero):
 def moe_loss_rank(rank, world, dev, arch, params_np, batch, global_aux):
     """The rank's loss, aux loss and gradients on its contiguous share of
     `batch` with n_groups=1, the aux loss's means over the group (or, with
-    `global_aux` False, the rank's own)."""
+    `global_aux` False, the rank's own). With the group the experts split
+    over the ranks (EP): a rank's gradient of its experts comes summed over
+    the ranks, and is handed back as the whole leaf's shape with its block
+    in place and zeros elsewhere, so that the mean over the ranks is the
+    mean of their gradients, as for the other leaves."""
     cfg = smoke_cfg(arch)
     mesh = make_mesh((world, 1), ("data", "model"), device=dev)
     model = build_model(cfg, device=dev, mesh=mesh if global_aux else None)
     params = bridge.params_from_jax(params_np, dev)
+    sh = None
+    if global_aux:
+        sh = model_shardings(params, cfg, mesh, single_pod_rules())
+        params = sh.take(params, rank)
     rows = batch["tokens"].shape[0] // world
     mine = {k: torch.from_numpy(v[rank * rows:(rank + 1) * rows]).to(dev)
             for k, v in batch.items()}
@@ -91,9 +100,15 @@ def moe_loss_rank(rank, world, dev, arch, params_np, batch, global_aux):
     for t in leaves(live):
         t.requires_grad_()
     loss, metrics = model.loss(live, mine)
-    grads = torch.autograd.grad(loss, leaves(live))
-    return {"loss": float(loss), "aux": float(metrics["aux"]),
-            "grads": [_np(g) for g in grads]}
+    grads = [_np(g) for g in torch.autograd.grad(loss, leaves(live))]
+    if sh is not None:
+        for j, (path, g) in enumerate(zip([p for p, _ in flatten(live)], grads)):
+            b = sh.block_of(path, rank)
+            if g.shape != sh.full_shape(path):
+                whole = np.zeros(sh.full_shape(path), dtype=g.dtype)
+                whole[b] = g
+                grads[j] = whole
+    return {"loss": float(loss), "aux": float(metrics["aux"]), "grads": grads}
 
 
 def masked_loss_rank(rank, world, dev, arch, params_np, batch):
@@ -127,22 +142,26 @@ def parity_rank(rank, world, dev, llama_np, batches, n_micro, phi_np, moe_batch,
 def multi_pod_rank(rank, world, dev, params_np, batches, n_micro):
     """ZeRO-2 steps of phi3.5-moe SMOKE on a (2, 2, 1) mesh over ("pod",
     "data", "model") with the multi-pod rules, where the experts' blocks
-    split two dims (experts over data, d_model over pod): the final params
-    (stacked, numpy) and the ways the step moves each leaf."""
+    split two dims (experts over data, EP; d_model over pod, gathered before
+    use): the rank's final blocks of the params (numpy, the port's
+    structure) and the ways the step moves each leaf."""
     from repro_torch.train.steps import _Layout
     cfg = smoke_cfg("phi3.5-moe-42b-a6.6b")
     mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device=dev)
     model = build_model(cfg, device=dev, mesh=mesh)
     opt = make_optimizer("adamw")
-    params = bridge.params_from_jax(params_np, dev)
-    shard = shardings_for(params, cfg, mesh, multi_pod_rules(), zero1=True)
-    state = train_state(params, opt, shard)
+    whole = bridge.params_from_jax(params_np, dev)
+    shard = shardings_for(whole, cfg, mesh, multi_pod_rules(), zero1=True)
+    params = bridge.shard_params(whole, cfg, mesh, rank)
+    state = train_state(params, opt, shard, model.split)
     step = make_train_step(model, opt, lambda s: LR, n_microbatches=n_micro,
                            grad_shardings=shard, mesh=mesh)
     for b in batches:
         state, _ = step(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
-    modes = sorted({m[0] for m, _ in _Layout(state["params"], shard, world, rank).modes})
-    return {"params": bridge.params_to_numpy(state["params"]), "modes": modes}
+    own = [model.split.data_cut(p) for p, _ in flatten(state["params"])]
+    modes = sorted({m[0] for m, _ in _Layout(state["params"], shard, world, rank,
+                                             own=own).modes})
+    return {"blocks": [_np(t) for t in leaves(state["params"])], "modes": modes}
 
 
 def restore_arange_rank(rank, world, dev, directory):

@@ -120,9 +120,10 @@ def world_rank(rank, world, dev, jobs):
 
 def train_rank(rank, world, dev, cases):
     """Each case {"arch", "shape" (the mesh), "zero", "state" (JAX's train
-    state at step 0, numpy), "batch", "lr", "steps", "micro"} trained by
-    this rank: its loss and its gradient blocks at the step-0 params on the
-    whole batch (its data group's share, summed over the group), then
+    state at step 0, numpy), "batch", "lr", "steps", "micro"[, "fsdp"]}
+    trained by this rank: its loss and its gradient blocks at the step-0
+    params on the whole batch (its data group's share, averaged over the
+    group; a block cut over the data axes comes summed over it), then
     `steps` steps of `make_train_step` with `micro` microbatches: each
     step's loss and grad norm, and its blocks of the final params and
     optimizer state, by path."""
@@ -134,7 +135,7 @@ def train_rank(rank, world, dev, cases):
     from repro_torch.tree import leaves, tree_map
     out = {}
     for name, c in cases.items():
-        cfg = smoke_cfg(c["arch"])
+        cfg = smoke_cfg(c["arch"]).replace(fsdp=c.get("fsdp", False))
         mesh = make_mesh(c["shape"], ("data", "model"), device=dev)
         model = build_model(cfg, device=dev, mesh=mesh)
         whole = bridge.train_state_from_jax(c["state"], dev)
@@ -152,8 +153,13 @@ def train_rank(rank, world, dev, cases):
         grads = [g.detach() for g in torch.autograd.grad(loss, leaves(live))]
         loss = loss.detach()
         if group is not None:
-            for g in grads + [loss]:
-                D.all_reduce_(g, group=group).div_(n)
+            split = model.split
+            for (path, _), g in zip(flatten(state["params"]), grads):
+                if split is not None and split.data_cut(path):
+                    g.div_(n)
+                else:
+                    D.all_reduce_(g, group=group).div_(n)
+            D.all_reduce_(loss, group=group).div_(n)
         res = {"loss": float(loss),
                "grads": {"/".join(map(str, p)): _np(g)
                          for (p, _), g in zip(flatten(state["params"]), grads)}}

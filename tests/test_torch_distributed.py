@@ -33,9 +33,9 @@ JSON; the tests hold them to their tolerances:
     halves weigh differently: the mean of the ranks' losses is the whole
     batch's, to 1e-6 relative;
   * phi3.5-moe SMOKE's ZeRO-2 step on a (2, 2, 1) ("pod", "data", "model")
-    mesh with the multi-pod rules (experts split over data and d_model over
-    pod): every rank's params within 1e-6 of one process with 4 dispatch
-    groups.
+    mesh with the multi-pod rules (experts split over data, EP, and d_model
+    over pod, gathered before use): the ranks' blocks put together within
+    1e-6 of one process with 4 dispatch groups.
 """
 import json
 import os
@@ -297,8 +297,11 @@ def multi_pod():
         from repro_torch import bridge, distributed as D
         from repro_torch.models import build_model
         from repro_torch.optim.optimizers import make_optimizer
+        from repro_torch.launch.mesh import Mesh
+        from repro_torch.sharding.axes import multi_pod_rules
+        from repro_torch.sharding.rules import model_shardings
         from repro_torch.train import steps as S
-        from repro_torch.tree import flatten
+        from repro_torch.tree import leaves, unflatten_like
         import _torch_dist_ranks as R
 
         cfg = R.smoke_cfg("phi3.5-moe-42b-a6.6b")
@@ -317,21 +320,28 @@ def multi_pod():
                                  lambda s: R.LR, n_microbatches=2)
         for b in batches:
             state, _ = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
-        want = np.concatenate([np.ravel(a) for _, a in
-                               flatten(bridge.params_to_numpy(state["params"]))])
-        got = [np.concatenate([np.ravel(a) for _, a in flatten(r["params"])]) for r in ranks]
-        print(json.dumps({"rel": [float(np.linalg.norm(g - want) / np.linalg.norm(want))
-                                  for g in got], "modes": ranks[0]["modes"]}))
+        want = np.concatenate([np.ravel(a.float().numpy()) for a in leaves(state["params"])])
+        mesh = Mesh((2, 2, 1), ("pod", "data", "model"))
+        sh = model_shardings(state["params"], cfg, mesh, multi_pod_rules())
+        parts = [unflatten_like(state["params"], r["blocks"]) for r in ranks]
+        got = np.concatenate([np.ravel(a) for a in leaves(bridge.assemble(parts, sh))])
+        print(json.dumps({"rel": float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+                          "held": [sum(np.size(a) for a in r["blocks"]) for r in ranks],
+                          "whole": int(want.size), "modes": ranks[0]["modes"]}))
     """, devices=1)
 
 
 def test_zero2_step_on_a_multi_pod_mesh(multi_pod):
     """phi3.5-moe SMOKE's ZeRO-2 step on 4 ranks as (2, 2, 1) over ("pod",
     "data", "model") with the multi-pod rules, whose expert blocks split two
-    dims, is the single-process step with 4 dispatch groups (1e-6 relative
-    L2 over every param, on every rank)."""
-    assert "general" in multi_pod["modes"], multi_pod
-    assert max(multi_pod["rel"]) <= 1e-6, multi_pod
+    dims (the experts over "data", reached by the all-to-all; d_model over
+    "pod", gathered), is the single-process step with 4 dispatch groups:
+    the ranks' blocks put together within 1e-6 relative L2 over every
+    param. The experts' blocks are each rank's own ("own": no ZeRO
+    collective moves them), so each rank holds less than the whole."""
+    assert "own" in multi_pod["modes"], multi_pod
+    assert multi_pod["rel"] <= 1e-6, multi_pod
+    assert max(multi_pod["held"]) < multi_pod["whole"], multi_pod
 
 
 def test_build_model_n_groups_matches_jax():

@@ -348,13 +348,14 @@ def test_train_argument_bytes_and_totals_against_jax():
           f"{jcost.bytes:.4g} B; ratio {c.flops / jcost.flops:.4f}, {c.bytes / jcost.bytes:.4f}")
 
 
-def _ref_zero_bytes(arch, shape, axes):
+def _ref_zero_bytes(arch, shape, axes, jcfg=None):
     """Rank 0's bytes of the reference's ZeRO-1 extended blocks (fp32) and
-    of its guarded param blocks (param dtype), summed over the leaves."""
-    jcfg = jax_get_config(arch)
+    of its guarded param blocks (param dtype), summed over the leaves, with
+    the rules of the mesh (the multi-pod rules where it has a "pod" axis)."""
+    jcfg = jcfg or jax_get_config(arch)
     jshapes = jax.eval_shape(jax_build_model(jcfg).init_params, jax.random.PRNGKey(0))
     jmesh = _jax_mesh(shape, axes)
-    rules = JA.single_pod_rules()
+    rules = JA.multi_pod_rules() if "pod" in axes else JA.single_pod_rules()
     sizes = dict(zip(axes, shape))
     pspecs = _jax_leaves(JRU.param_pspecs(jshapes, jcfg, rules))
     zero = param = 0
@@ -374,30 +375,71 @@ def _ref_zero_bytes(arch, shape, axes):
     return zero, param
 
 
+@pytest.mark.parametrize("mesh", ["4x1", "2x4x1", "1x4", "2x4"])
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_zero_state_bytes_per_rank_match_jax(arch):
-    """On the (4, 1) mesh at full width: rank 0's AdamW moments (ZeRO-1)
-    and ZeRO-2 accumulator equal the reference's blocks of that rank. The
-    params are whole on every rank: that is the reference's block where its
-    param specs put nothing on the data axis, and more where they do (the
-    FSDP configs, cfg.fsdp, and the MoE experts over "expert"), since the
-    port runs neither FSDP nor expert parallelism (ROADMAP.md, Queue 1)."""
+def test_zero_state_bytes_per_rank_match_jax(arch, mesh):
+    """At full width on the meta device, on the (4, 1), (2, 4, 1), (1, 4)
+    and (2, 4) meshes: the param bytes rank 0 holds (its model's
+    `init_params` under the mesh) equal the reference's guarded param block
+    of that rank (`named_shardings`: "model", and the data axes where FSDP
+    and the experts put them), and its AdamW moments (ZeRO-1) and ZeRO-2
+    accumulator the reference's ZeRO-1 blocks. The hybrid, xLSTM and
+    whisper families hold their whole params on a "model" axis no wider
+    than 1 only (their TP is ROADMAP item 6c)."""
     cfg = get_config(arch)
-    mesh = make_production_mesh()
-    params = M.build_model(cfg, device="meta").init_params(torch.Generator())
-    g_sh = RU.shardings_for(params, cfg, mesh, A.single_pod_rules(), zero1=True)
-    with D.fake_group(mesh.size):
+    mesh = D.MESHES[mesh]
+    whole = M.build_model(cfg, device="meta").init_params(torch.Generator())
+    rules = A.rules_for(mesh)
+    zero, param = _ref_zero_bytes(arch, mesh.shape, mesh.axis_names)
+    with D.fake_mesh(mesh) as m:
+        g_sh = RU.shardings_for(whole, cfg, m, rules, zero1=True)
+        if cfg.family in ("hybrid", "ssm", "audio") and mesh.shape[-1] > 1:
+            with pytest.raises(NotImplementedError, match="item 6c"):
+                M.build_model(cfg, device="meta", mesh=m)
+            params = RU.model_shardings(whole, cfg, m, rules).take(whole, 0)
+        else:
+            model = M.build_model(cfg, device="meta", mesh=m)
+            params = model.init_params(torch.Generator())
         state = train_state(params, make_optimizer("adamw"), g_sh)
-    accum = 4 * sum(p[b].numel() for p, b in zip(leaves(params), g_sh.index(params, 0))
+    held = sum(t.numel() * t.element_size() for t in leaves(params))
+    accum = 4 * sum(p[b].numel() for p, b in zip(leaves(params), g_sh.local_index(params, 0))
                     if b is not None)
     moments = 4 * sum(t.numel() for t in leaves(state["opt"]["m"]))
-    zero, param = _ref_zero_bytes(arch, mesh.shape, mesh.axis_names)
+    assert held == param
     assert accum == moments == zero
-    whole = sum(t.numel() * t.element_size() for t in leaves(params))
-    if cfg.fsdp or cfg.family == "moe":
-        assert whole > param
-    else:
-        assert whole == param
+    if (cfg.fsdp or cfg.family == "moe") and D.dp_degree(mesh) > 1:   # the data axes cut some
+        assert held < sum(t.numel() * t.element_size() for t in leaves(whole)) / mesh.shape[-1]
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen1.5-32b", "phi3.5-moe-42b-a6.6b"])
+def test_2x2_train_cell_state_bytes_match_the_reference_shardings(arch):
+    """A SMOKE train cell on (2, 2) (qwen1.5-32b with its published FSDP
+    put back): rank 0's param, AdamW and ZeRO-2 accumulator bytes equal
+    its shards of the reference's `repro.sharding.rules` specs (guarded;
+    ZeRO-1 extended for the moments and the accumulator), each shard's
+    shape from `NamedSharding.shard_shape` on a JAX mesh with Auto axes."""
+    from jax.sharding import AbstractMesh, AxisType, NamedSharding
+    fsdp = jax_get_config(arch).fsdp
+    over = {"smoke": True, "shape": SMOKE_SHAPE, "config": {"fsdp": fsdp}}
+    acct, meta = D.account_cell(arch, "train_4k", D.Mesh((2, 2), ("data", "model")), over)
+    jcfg = jax_get_config(arch, smoke=True).replace(fsdp=fsdp)
+    jshapes = jax.eval_shape(jax_build_model(jcfg).init_params, jax.random.PRNGKey(0))
+    stand_in = _jax_mesh((2, 2), ("data", "model"))
+    amesh = AbstractMesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    rules = JA.single_pod_rules()
+    pspecs = _jax_leaves(JRU.param_pspecs(jshapes, jcfg, rules))
+    param = zero = 0
+    for p, leaf in _jax_leaves(jshapes).items():
+        spec = JA._guard_divisibility(stand_in, leaf.shape, pspecs[p])
+        z = JA._guard_divisibility(stand_in, leaf.shape,
+                                   JRU.zero1_extend(spec, leaf.shape, stand_in, rules["batch"]))
+        param += math.prod(NamedSharding(amesh, spec).shard_shape(leaf.shape)) \
+            * leaf.dtype.itemsize
+        zero += 4 * math.prod(NamedSharding(amesh, z).shard_shape(leaf.shape))
+    assert acct.params_bytes == param
+    assert acct.opt_bytes == 2 * zero + 4   # AdamW's m and v, and its int32 step
+    assert acct.accum_bytes == zero
+    assert meta["dp"] == 2
 
 
 def test_dryrun_microbatch_table_is_the_reference_s():
@@ -517,12 +559,59 @@ def test_train_wire_bytes_follow_the_shardings():
     assert shape.global_batch % (meta["microbatches"] * mesh.size) == 0
 
 
-@pytest.mark.parametrize("mesh", ["1x1", "4x1"])
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "phi3.5-moe-42b-a6.6b"])
+def test_fsdp_and_ep_collectives_of_a_2x2_train_cell(arch):
+    """A SMOKE train cell on (2, 2), qwen1.5-32b with its FSDP put back:
+    per microbatch the FSDP leaves of every layer are gathered in the
+    forward and again in the remat replay, the embeddings' tables once
+    each (lookup, logits), and each gather's gradient reduce-scattered
+    once; phi3.5-moe's experts take the all-to-all both ways in the
+    forward, the replay and the backward. Counted by
+    `data_parallel.calls` over rank 0's step on the meta device."""
+    from repro_torch.models import data_parallel
+    fsdp = jax_get_config(arch).fsdp
+    for name in data_parallel.calls:
+        data_parallel.calls[name] = 0
+    _, meta = D.account_cell(arch, "train_4k", D.Mesh((2, 2), ("data", "model")),
+                             {"smoke": True, "shape": SMOKE_SHAPE, "config": {"fsdp": fsdp}})
+    cfg, M_ = get_config(arch, smoke=True), meta["microbatches"]
+    L = cfg.n_layers
+    layer = 7 if fsdp else 0   # wq, wk, wv, wo, w1, w3, w2
+    emb = 2 if fsdp else 0
+    assert data_parallel.calls == {"dp_all_gather": M_ * (emb + 2 * L * layer),
+                                   "dp_reduce_scatter": M_ * (emb + L * layer),
+                                   "ep_all_to_all": M_ * 6 * L if cfg.moe else 0}
+
+
+def test_all_to_all_and_group_collectives_wire_bytes():
+    """Over the fake group of a (2, 4) mesh: the experts' all-to-all over
+    the "data" group counts as "all-to-all" with the reference's wire
+    bytes, b (n - 1) / n; an all-reduce over the "model" group and the FSDP
+    gather over "data" count their own group's size, not the world's."""
+    from repro_torch import distributed as DI
+    from repro_torch.launch.mesh import group_over
+    from repro_torch.models.data_parallel import FSDPGather
+    with D.fake_mesh(D.MESHES["2x4"]) as m:
+        data, model = group_over(m, ("data",)), group_over(m, ("model",))
+        x = torch.zeros(64, dtype=torch.float32)
+        with R.CostModel("cpu") as cm:
+            DI.all_to_all_(torch.empty_like(x), x, data)
+            DI.all_reduce_(x, group=model)
+            FSDPGather.apply(torch.zeros(8, 16), 1, data)
+    coll = cm.totals.collectives
+    assert coll["all-to-all"] == [1, 256, 256 * (2 - 1) / 2]
+    assert coll["all-reduce"] == [1, 256, 2 * 256 * (4 - 1) / 4]
+    assert coll["all-gather"] == [1, 512, 512 * (2 - 1)]
+
+
+@pytest.mark.parametrize("mesh", ["1x1", "4x1", "2x4"])
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_run_cell_at_smoke(arch, mesh, tmp_path):
-    """run_cell on (1, 1) and (4, 1) for every shape: ok where applicable
-    says, skipped where it does not; arctic's train cells are errors that
-    name Adafactor's ZeRO-1. Each record has the reference's fields."""
+    """run_cell on (1, 1), (4, 1) and (2, 4) for every shape: ok where
+    applicable says, skipped where it does not; arctic's train cells are
+    errors that name Adafactor's ZeRO-1, and on (2, 4) the hybrid's, the
+    xLSTM's and whisper's cells errors that name their TP (item 6c). Each
+    record has the reference's fields."""
     cfg = get_config(arch, smoke=True)
     mesh = D.MESHES[mesh]
     if True:
@@ -532,6 +621,8 @@ def test_run_cell_at_smoke(arch, mesh, tmp_path):
             assert (tmp_path / "baseline" / D.mesh_name(mesh) / f"{arch}__{name}.json").exists()
             if not applicable(cfg.family, cfg.sub_quadratic, name):
                 assert rec["status"] == "skipped", rec
+            elif mesh.shape[-1] > 1 and cfg.family in ("hybrid", "ssm", "audio"):
+                assert rec["status"] == "error" and "item 6c" in rec["error"], rec
             elif cfg.optimizer == "adafactor" and SHAPES[name].kind == "train":
                 assert rec["status"] == "error" and "ZeRO-1" in rec["error"] \
                     and "adafactor" in rec["error"], rec
@@ -543,7 +634,9 @@ def test_run_cell_at_smoke(arch, mesh, tmp_path):
                 assert r["flops_global"] == r["hlo_flops_per_device"] * mesh.size
                 assert m["fits_80gb"] and m["peak_per_device_gb"] > 0
                 if SHAPES[name].kind != "train" and mesh.size > 1:
-                    assert rec["serve_weights"] in ("whole", "replicated")
+                    # SMOKE's params are far under the reference's 2 GiB a chip
+                    assert rec["serve_weights"] == ("tensor-parallel" if mesh.shape[-1] > 1
+                                                    else "whole"), rec
 
 
 # ----------------------------------------------------------------------------

@@ -422,19 +422,24 @@ def test_build_model_refuses_tp_for_the_other_families(arch):
 
 def test_train_step_refuses_a_model_axis(monkeypatch):
     """What a "model" axis still cannot train is refused, naming the ROADMAP
-    item that lifts it: the hybrid, xLSTM and whisper (6c), an FSDP arch on
-    a mesh with a data axis (6d), Adafactor under ZeRO-1 (7); and the step
-    refuses ZeRO on a (1, n) mesh (no data axis to shard over) and a model
-    built without the step's mesh. The TP model's loss trains
-    (tests/test_torch_tp_train.py)."""
+    item that lifts it: the hybrid, xLSTM and whisper (6c), Adafactor under
+    ZeRO-1 (7), and so Adafactor on leaves an FSDP arch cuts over a data
+    axis (arctic-480b on (2, 2), which builds, its FSDP and expert leaves
+    the rank's blocks: item 7); and the step refuses ZeRO on a (1, n) mesh
+    (no data axis to shard over) and a model built without the step's mesh.
+    The TP model's loss trains (tests/test_torch_tp_train.py)."""
+    from repro_torch.launch.dryrun import fake_mesh
+    with fake_mesh(Mesh((2, 2), ("data", "model"))) as m:
+        arctic = build_model(get_config("arctic-480b"), device="meta", mesh=m)
+        assert arctic.dp.gathers and torch.distributed.get_world_size(arctic.dp.ep_group) == 2
+        with pytest.raises(NotImplementedError, match="item 7"):
+            make_train_step(arctic, make_optimizer("adafactor"), lambda s: 1e-3)
     monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 0)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
     mesh = Mesh((1, 2), ("data", "model"))
     for arch in ("zamba2-2.7b", "xlstm-350m", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="item 6c"):
             build_model(get_config(arch, smoke=True), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 6d"):
-        build_model(get_config("arctic-480b"), device="meta", mesh=Mesh((2, 2), ("data", "model")))
     cfg = get_config("llama3-8b", smoke=True)
     with pytest.raises(ValueError, match="build the model under the step's mesh"):
         make_train_step(build_model(cfg, device="cpu"), make_optimizer("adamw"),

@@ -445,14 +445,31 @@ def test_tp_training_refuses_the_other_families(arch):
 @pytest.mark.parametrize("arch", ["arctic-480b", "internvl2-76b", "qwen1.5-32b"])
 def test_tp_training_refuses_fsdp_archs_with_a_data_axis(arch, monkeypatch):
     """The FSDP archs (at their published configs; SMOKE turns FSDP off)
-    shard weights over the data axes (ROADMAP item 6d); on (1, n) they
-    build, with a loss."""
-    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 0)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    build on (2, 2), each rank holding the reference's blocks: every
+    projection and the embeddings cut over "data" too, gathered before use,
+    the arch's training step made; arctic-480b's Adafactor on those leaves
+    is refused (ROADMAP item 7). On (1, n) they build, with a loss."""
+    from repro_torch.launch.dryrun import fake_mesh
+    from repro_torch.sharding.rules import model_shardings
+    from repro_torch.tree import leaves
     cfg = get_config(arch)
     assert cfg.fsdp
-    with pytest.raises(NotImplementedError, match="6d"):
-        build_model(cfg, device="cpu", mesh=Mesh((2, 2), ("data", "model")))
+    whole = build_model(cfg, device="meta").init_params(torch.Generator())
+    with fake_mesh(Mesh((2, 2), ("data", "model"))) as m:
+        model = build_model(cfg, device="meta", mesh=m)
+        mine = model.init_params(torch.Generator())
+        sh = model_shardings(whole, cfg, m, single_pod_rules())
+        assert [tuple(t.shape) for t in leaves(mine)] == \
+            [tuple(t[b].shape) for t, b in zip(leaves(whole), sh.index(whole, 0))]
+        assert ("layers", "attn", "wq") in model.dp.gathers and ("embed", "tok") in model.dp.gathers
+        opt = make_optimizer(cfg.optimizer)
+        if cfg.optimizer == "adafactor":
+            with pytest.raises(NotImplementedError, match="item 7"):
+                make_train_step(model, opt, lambda s: 1e-3)
+        else:
+            assert make_train_step(model, opt, lambda s: 1e-3) is not None
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 0)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
     model = build_model(cfg, device="meta", mesh=Mesh((1, 2), ("data", "model")))
     assert model.tp is not None and model.split.dims
 
