@@ -9,9 +9,9 @@ decode, training of every family, prefill and decode of the xLSTM, whisper
 and VLM families, the paper's RL rollouts, the multi-rank paths (the
 int8 ring all-reduce, data-parallel and ZeRO-2 training, MoE dispatch
 groups, the resharded restore), tensor-parallel serving and tensor-parallel
-training over the "model" axis, and FSDP and expert parallelism over the
-"data" axis. Every phase exits non-zero on failure; nothing is caught and
-carried on.
+training over the "model" axis, FSDP and expert parallelism over the
+"data" axis, and tensor parallelism of the hybrid and whisper. Every phase
+exits non-zero on failure; nothing is caught and carried on.
 
   1. requires a CUDA device; prints the card's name and power limit;
   2. builds the four kernels from `src/repro_torch/kernels/csrc/`;
@@ -242,7 +242,7 @@ carried on.
      holding its blocks of the weights and of the AdamW state: a. llama3-8b
      at published width, 4 of 32 layers, on (1, 4); b. phi3.5-moe at
      published width, 2 of 32 layers, expert-TP on (1, 2); c. llama3-8b x 2
-     on (2, 2), ZeRO-2 over the data axis; each 3 steps (c: 2) of phase 8b's
+     on (2, 2), ZeRO-2 over the data axis; each 2 steps of phase 8b's
      batch shape (4 x 1024 TokenPipeline tokens, 2 microbatches) at DP_LR, first
      in this process, then on the ranks from the same seed (phi's ranks
      replaying its routing): losses and grad norms within DP_METRIC_TOL,
@@ -263,7 +263,7 @@ carried on.
      experts a rank, the all-to-all), expert-TP and ZeRO-2; b. qwen1.5-32b
      at published width, 2 of 64 layers, FSDP (every projection and the
      embeddings gathered before use), TP and ZeRO-2; each trained and gated
-     as 14 (3 steps of 4 x 1024 in 2 microbatches, the single process with
+     as 14 (2 steps of 4 x 1024 in 2 microbatches, the single process with
      the data ranks' 2 dispatch groups, phi's ranks replaying its routing),
      and the all-gathers, reduce-scatters and all-to-alls of a step
      (`data_parallel.calls`, by span name) equal to the count worked out
@@ -280,10 +280,38 @@ carried on.
      and flash with the lse at qwen's TP 2 training heads, against their
      plain versions, timed beside torch.bmm or SDPA and the bound. Prints
      each rank's step time and peak memory beside the single process's;
- 16. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
-     at C=320, ssd_scan's with its plain backward, flash's, decode's and
-     moe_gmm's with their rows at phase 9's, 13's, 14's and 15's shapes)
-     and, last, the device line `{"ok": true, "device": {...}}`.
+ 16. tensor parallelism of the hybrid and whisper over the "model" axis, on
+     four ranks of a (1, 4) mesh, ranks as in 13 (each rank's mamba2 blocks
+     on 20 of zamba2's 80 SSM heads, w_zx's product gathered, the gated
+     norm's statistic summed; whisper's 6 heads gathered by column): a.
+     zamba2-2.7b at published width, 12 of 54 layers (two super-blocks, the
+     shared block twice), phase 7's prefill of 4 x 1024 and 8 decode steps
+     through the model interface; b. zamba2-2.7b x 6 (one super-block)
+     trained as 14 (2 steps of 4 x 1024 in 2 microbatches); c. whisper-tiny
+     at published width and depth, 9a's prefill (8 x 64 tokens over 8 x 1536
+     frames) and 8 decode steps, and 8g's training (4 x 448 tokens and 4 x
+     1536 frames, 2 steps). Serving gates: each rank's blocks' digests and
+     bytes, its launches exact and on `flash_wgmma`, `decode_split` and the
+     SSD scan's tensor-core path, outputs and gate logits identical across
+     ranks, the gate's logits held by `logits_gate` to this process's plain
+     path in bf16 and fp32, each rank's SSM state after the prefill held
+     the same way to this process's on its heads (`state_gate`). Training
+     gates: 14's, except that the blocks' distance over the update is held
+     at NOISE_FACTOR times the config's rounding floor where that exceeds
+     DP_UPDATE_TOL (the single process trained again on the plain kernels:
+     zamba2's two steps move 0.091 of their update on the order of sums
+     alone, llama3-8b x 4's 0.025). The TP collectives of every prefill,
+     decode step and train step equal the code's count (tp_spans); d. the
+     SSD scan at a rank's 20 heads (B=4 T=1024 fp32), flash without and
+     with the lse at the shared block's 8 heads (B=4 T=1024 D=80) and
+     decode on a rank's cache (B=4, 8 heads, 1032 rows), against their
+     plain versions, timed beside SDPA where it computes the same and the
+     bound;
+ 17. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+     at C=320, ssd_scan's with its plain backward, flash's, decode's,
+     moe_gmm's and ssd_scan's with their rows at phase 9's, 13's, 14's,
+     15's and 16's shapes) and, last, the device line `{"ok": true,
+     "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -2685,13 +2713,23 @@ def dp_cfgs():
 
 
 def dp_batch(cfg, seed, step, dev, rows, seq):
+    """Step `step`'s global batch of rows x seq TokenPipeline tokens, and
+    for whisper rows x ENC_LEN bf16 stub frames drawn from a generator on
+    the card seeded by (seed, step), as phase 8g draws them: every process
+    draws the same."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.whisper import ENC_LEN
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=rows,
                                     seed=seed))
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in pipe.batch_at(step).items()}
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+           for k, v in pipe.batch_at(step).items()}
+    if cfg.family == "audio":
+        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + step)
+        out["enc_embeds"] = torch.randn((rows, ENC_LEN, cfg.d_model), generator=gen,
+                                        device=dev).to(torch.bfloat16)
+    return out
 
 
 def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_groups=1,
@@ -2704,6 +2742,7 @@ def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_g
     import torch
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import moe_gmm as gk
+    from repro_torch.kernels import ssm_scan as sk
     from repro_torch.models import build_model
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.train.steps import make_train_step, train_state
@@ -2734,6 +2773,7 @@ def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_g
     return state, dict(losses=losses, norms=norms, walls=walls, launches=kernel_counts(),
                        account=account, peak_bytes=peak,
                        lse=fk.lse_launches, flash_by_path=dict(fk.launches_by_path),
+                       ssd_by_path=dict(sk.launches_by_path),
                        gmm_by_path={"fwd": dict(gk.launches_by_path),
                                     "dx": dict(gk.dx_launches_by_path),
                                     "dw": dict(gk.dw_launches_by_path)})
@@ -2924,21 +2964,26 @@ def rel_gate(label, got, want, tol):
 def dp_launch_gate(label, run, cfg, n_micro, steps):
     """A run's kernel launches: exactly what its layers ask for
     (train_launches), every flash launch with the lse through `flash_wgmma`,
-    every moe_gmm product through `gmm_wgmma`."""
+    every moe_gmm product through `gmm_wgmma`, every ssd_scan through the
+    tensor-core path."""
     want = train_launches(cfg, n_micro, steps)
     n_flash = want["flash_attention"]
     got = (run["launches"], run["lse"], run["flash_by_path"])
     ok = got == (want, n_flash, {"wgmma": n_flash, "simt": 0})
+    if cfg.family == "hybrid":
+        ok &= run["ssd_by_path"] == {"mma": want["ssm_scan"], "simt": 0}
     if cfg.family == "moe":
         ok &= run["gmm_by_path"] == {
             kind: {"wgmma": want[key], "rows": 0, "tiled": 0}
             for kind, key in (("fwd", "moe_gmm"), ("dx", "moe_gmm_dx"), ("dw", "moe_gmm_dw"))}
     say(f"  {'ok  ' if ok else 'FAIL'} {label}: launches {run['launches']}, {run['lse']} flash "
         f"with the lse, flash by kernel {run['flash_by_path']}"
-        + (f", moe_gmm by kernel {run['gmm_by_path']}" if cfg.family == "moe" else ""))
+        + (f", moe_gmm by kernel {run['gmm_by_path']}" if cfg.family == "moe" else "")
+        + (f", ssd_scan by kernel {run['ssd_by_path']}" if cfg.family == "hybrid" else ""))
     if not ok:
         fail(f"{label}: the ranks did not go through the kernels as their layers ask: want "
-             f"{want}, all flash with the lse on flash_wgmma, every moe_gmm on gmm_wgmma")
+             f"{want}, all flash with the lse on flash_wgmma, every moe_gmm on gmm_wgmma, "
+             "every ssd_scan on the tensor-core path")
     return run["launches"]
 
 
@@ -3337,13 +3382,15 @@ TP_GMM_SHAPES = (
 )
 
 
-def tp_kernel_phase(gen, dev) -> dict:
+def tp_kernel_phase(gen, dev, flash_shapes=TP_FLASH_SHAPES, decode_shapes=TP_DECODE_SHAPES,
+                    gmm_shapes=TP_GMM_SHAPES) -> dict:
     """13d: flash, decode and moe_gmm at the shapes a rank of 13a-13c gives
     them (its heads, its cache heads, its d_ff), each against its plain
     version in bf16 (the int8 cache with a bf16 q), the route it takes
     named and gated (the tensor-core or split kernel), and timed: device
-    ms, plain ms, the library call's and the bound. Returns the rows by
-    kernel."""
+    ms, plain ms, the library call's and the bound; 16d the same at the
+    shapes given (no moe_gmm row where `gmm_shapes` is empty). Returns the
+    rows by kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
@@ -3352,7 +3399,7 @@ def tp_kernel_phase(gen, dev) -> dict:
 
     rnd = _rnd(gen, dev)
     rows = {"flash_attention": [], "decode_attention": []}
-    for label, B, T, Hq, Hkv, D, heads in TP_FLASH_SHAPES:
+    for label, B, T, Hq, Hkv, D, heads in flash_shapes:
         q = rnd(B, T, Hq, D).transpose(1, 2)
         k, v = (rnd(B, T, Hkv, D) for _ in range(2))
         if heads is not None:
@@ -3363,7 +3410,7 @@ def tp_kernel_phase(gen, dev) -> dict:
         err = gate(f"flash {label}, {shape} ({path})", ops.flash_attention(q, k, v),
                    ref.flash_attention_ref(q, k, v), BF16_TOL)
         if path != "wgmma":
-            fail(f"13d: flash at {label} did not route to the tensor-core kernel: {path}")
+            fail(f"flash at {label} did not route to the tensor-core kernel: {path}")
         ms = device_ms(lambda: ops.flash_attention(q, k, v), 20)
         sdpa = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=Hq != k.shape[1]), 20)
@@ -3375,7 +3422,7 @@ def tp_kernel_phase(gen, dev) -> dict:
                                             max_abs_err=err, ms=ms, plain_ms=plain,
                                             bound_ms=bound, bound_by=by, library_ms=sdpa))
         del q, k, v
-    for label, B, Hq, Hc, S, D, n_valid, int8 in TP_DECODE_SHAPES:
+    for label, B, Hq, Hc, S, D, n_valid, int8 in decode_shapes:
         q = rnd(B, Hq, D)
         valid = torch.full((B,), n_valid, device=dev, dtype=torch.int32)
         if int8:
@@ -3395,7 +3442,7 @@ def tp_kernel_phase(gen, dev) -> dict:
                    ops.decode_attention(q, kc, vc, valid, *scales),
                    ref.decode_attention_ref(q, kc, vc, valid, *scales), BF16_TOL)
         if path != "split":
-            fail(f"13d: decode at {label} did not route to the split kernel: {path}")
+            fail(f"decode at {label} did not route to the split kernel: {path}")
         t = decode_times(q, kc, vc, valid, scales)
         plain = cuda_ms(lambda: ref.decode_attention_ref(q, kc, vc, valid, *scales), 5)
         bound, _ = bound_ms(costs.decode_cost(B, Hq, Hc, S, D, rows=B * n_valid,
@@ -3406,7 +3453,8 @@ def tp_kernel_phase(gen, dev) -> dict:
             plain_ms=plain, bound_ms=bound, bound_by="bytes", library_ms=t["sdpa"],
             simt_ms=t["simt"]))
         del q, kc, vc
-    rows["moe_gmm"] = gmm_rows(rnd, dev, TP_GMM_SHAPES)
+    if gmm_shapes:
+        rows["moe_gmm"] = gmm_rows(rnd, dev, gmm_shapes)
     return rows
 
 
@@ -3880,7 +3928,8 @@ def tp_train_kernel_phase(gen, dev, flash_shapes=TP_TRAIN_FLASH_SHAPES, gmm_expe
     plain version's out and lse, timed beside the plain version, SDPA and
     the bound) and moe_gmm's dx and dw at a TP 2 rank's d_ff (gmm_bwd_phase
     at C=320); 15d the same at the shapes `flash_shapes`, `gmm_experts` and
-    `gmm_dims` give. Returns the rows by kernel."""
+    `gmm_dims` give (16d: no moe_gmm where `gmm_dims` is None). Returns the
+    rows by kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import costs, ops, ref
@@ -3907,7 +3956,8 @@ def tp_train_kernel_phase(gen, dev, flash_shapes=TP_TRAIN_FLASH_SHAPES, gmm_expe
                                             ms=ms, plain_ms=plain, library_ms=sdpa,
                                             bound_ms=bound, bound_by=by))
         del q, k, v, out, lse, want_out, want_lse
-    rows["moe_gmm"] = gmm_bwd_phase(gen, dev, E=gmm_experts, caps=(320,), dims=gmm_dims)
+    if gmm_dims is not None:
+        rows["moe_gmm"] = gmm_bwd_phase(gen, dev, E=gmm_experts, caps=(320,), dims=gmm_dims)
     return rows
 
 
@@ -3945,6 +3995,7 @@ def tp_train_rank(rank, world, dev, job):
         state, run = dp_run(cfg, job["seed"], dev, job["steps"], job["n_micro"], job["rows"],
                             job["seq"], mesh, shard, account_last=job.get("account", False))
     run["dp_calls"] = dp_calls(job["steps"])
+    run["tp_calls"] = tp_calls(job["steps"])
     run["peak_gb"] = run["peak_bytes"] / 1e9
     if rank == 0:
         say(f"  [rank 0] {cfg.name} on {job['shape']}: steps "
@@ -3957,12 +4008,19 @@ def tp_train_rank(rank, world, dev, job):
     sh = model_shardings(meta, cfg, mesh, single_pod_rules())
     p0 = model.init_params(torch.Generator(device=dev).manual_seed(job["seed"]))
     sq = upd = 0.0
-    for got, want, first, blk in zip(leaves(state["params"]), leaves(single), leaves(p0),
-                                     sh.index(meta, torch.distributed.get_rank())):
+    by_leaf = []
+    for (path, got), want, first, blk in zip(flatten(state["params"]), leaves(single),
+                                             leaves(p0), sh.index(meta,
+                                                                  torch.distributed.get_rank())):
         w = want[blk].to(dev).float()
-        sq += float(torch.sum(torch.square(got.float() - w)))
-        upd += float(torch.sum(torch.square(w - first.float())))
+        d = float(torch.sum(torch.square(got.float() - w)))
+        u = float(torch.sum(torch.square(w - first.float())))
+        sq, upd = sq + d, upd + u
+        by_leaf.append(("/".join(map(str, path)), d, u))
     del single, p0
+    # the leaves that carry most of the distance, each with its own ratio
+    run["worst"] = [(k, d, (d / u) ** 0.5 if u else float("inf"))
+                    for k, d, u in sorted(by_leaf, key=lambda t: -t[1])[:3]]
     run.update(sq=sq, upd=upd, whole={"/".join(map(str, p)): digest(t) for (p, t), m in
                                       zip(flatten(state["params"]), leaves(meta))
                                       if tuple(t.shape) == tuple(m.shape)})
@@ -3980,9 +4038,11 @@ def tp_train_rank(rank, world, dev, job):
 
 
 def reset_dp_calls():
-    from repro_torch.models import data_parallel
-    for name in data_parallel.calls:
-        data_parallel.calls[name] = 0
+    """Zero the FSDP, EP and TP collectives' counters."""
+    from repro_torch.models import data_parallel, tensor_parallel
+    for calls in (data_parallel.calls, tensor_parallel.calls):
+        for name in calls:
+            calls[name] = 0
 
 
 def dp_calls(steps) -> dict:
@@ -3991,26 +4051,37 @@ def dp_calls(steps) -> dict:
     return {name: n / steps for name, n in data_parallel.calls.items()}
 
 
+def tp_calls(steps=1) -> dict:
+    """The TP collectives (`tensor_parallel.calls`, by span name) run since
+    reset_dp_calls, a step."""
+    from repro_torch.models import tensor_parallel
+    return {name: n / steps for name, n in tensor_parallel.calls.items()}
+
+
 def tp_train_job_rank(rank, world, dev, jobs):
     """Each of `jobs` on this rank, in order (one spawn for the runs of one
-    world size): a training run, or with "serve" phase 15c's serving run."""
+    world size): a training run, or with "serve" a serving run (True: phase
+    15c's; "tp": phase 16's)."""
     import torch
     out = {}
     for name, job in jobs.items():
-        out[name] = (dp_serve_rank if job.get("serve") else tp_train_rank)(rank, world, dev, job)
+        body = {True: dp_serve_rank, "tp": tp_family_serve_rank}.get(job.get("serve"),
+                                                                    tp_train_rank)
+        out[name] = body(rank, world, dev, job)
         torch.cuda.empty_cache()
     return out
 
 
 def tp_train_configs():
     """14a-14c's configs at published width, cut in depth: name -> (config,
-    mesh shape, ZeRO-2, steps, a profiled step). 14c takes 2 steps and no
-    profile: on one card each of its ZeRO-2 steps moves the fp32 gradients
-    through the host, 17.4 s a step (NVIDIA H100 80GB HBM3, 700 W)."""
+    mesh shape, ZeRO-2, steps, a profiled step). Each takes 2 steps (14a
+    and 14b took 3 before phase 16 needed the time), 14c no profile: on one
+    card each of its ZeRO-2 steps moves the fp32 gradients through the
+    host, 17.4 s a step (NVIDIA H100 80GB HBM3, 700 W)."""
     from repro_torch.configs import get_config
     llama, phi = get_config("llama3-8b"), get_config("phi3.5-moe-42b-a6.6b")
-    return {"14a": (llama.replace(n_layers=4), (1, 4), False, 3, True),
-            "14b": (phi.replace(n_layers=2), (1, 2), False, 3, True),
+    return {"14a": (llama.replace(n_layers=4), (1, 4), False, 2, True),
+            "14b": (phi.replace(n_layers=2), (1, 2), False, 2, True),
             "14c": (llama.replace(n_layers=2), (2, 2), True, 2, False)}
 
 
@@ -4027,10 +4098,11 @@ def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
 
 
 def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_want=None,
-                account=()) -> dict:
+                account=(), tp_span_want=None, floor=()) -> dict:
     """Each of `configs` (name -> (config, mesh shape, ZeRO-2, steps, a
-    profiled step)) trained by AdamW steps at DP_LR of rows x seq
-    TokenPipeline tokens in `n_micro` microbatches (phase 8b's batch), first
+    profiled step[, its own seq])) trained by AdamW steps at DP_LR of rows x
+    seq TokenPipeline tokens (whisper's with its stub frames, dp_batch) in
+    `n_micro` microbatches (phase 8b's batch), first
     in this process, then on the ranks from the same seed (one spawn a
     world size; an MoE run's ranks replaying its routing, `routed_as`:
     bf16 rounding flips near-tie router choices, and a flip moves an
@@ -4039,9 +4111,15 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
     norms within DP_METRIC_TOL, each rank's blocks within DP_UPDATE_TOL of
     their update, the leaves no rank splits bit-identical on every rank,
     the launches exact (forward and remat), all on `flash_wgmma` with the
-    lse and `gmm_wgmma`; with `span_want` (name -> {span: count a step}) the
-    FSDP and EP collectives a step (`data_parallel.calls`, the spans'
-    names). Prints each rank's step time and peak memory beside the single
+    lse, `gmm_wgmma` and the SSD scan's tensor-core path; with `span_want`
+    (name -> {span: count a step}) the FSDP and EP collectives a step
+    (`data_parallel.calls`, the spans' names), with `tp_span_want` the TP
+    collectives a step (`tensor_parallel.calls`). For the runs named in
+    `floor` the single process trains a second time on the kernels' plain
+    versions (plain_kernels): the distance between its two runs over the
+    update is the rounding floor of the config (a change of the order of
+    sums alone), and the ranks' blocks are gated at NOISE_FACTOR times it
+    where that exceeds DP_UPDATE_TOL. Prints each rank's step time and peak memory beside the single
     process's and a profiled step's spans.
     `extra` (name -> job) runs in the same spawn (phase 15c's serving);
     the runs named in `account` also measure the dry-run's account of their
@@ -4051,29 +4129,40 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
     import numpy as np
     import torch
     from repro_torch import distributed as D
+    from repro_torch.models import build_model
     from repro_torch.tree import tree_map
 
-    runs = {name: (cfg, shape, zero, seed + i, steps, prof)
-            for i, (name, (cfg, shape, zero, steps, prof)) in enumerate(configs.items())}
+    runs = {name: (cfg, shape, zero, seed + i, steps, prof, *(rest or (seq,)))
+            for i, (name, (cfg, shape, zero, steps, prof, *rest)) in enumerate(configs.items())}
     out, by_world, singles = {}, {}, {}
-    tokens = rows * seq
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (cfg, shape, zero, s, steps, prof) in runs.items():
+        for name, (cfg, shape, zero, s, steps, prof, sq) in runs.items():
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             routing = []
             with routed_as(routing, replay=False):
-                state, single = dp_run(cfg, s, dev, steps, n_micro, rows, seq,
+                state, single = dp_run(cfg, s, dev, steps, n_micro, rows, sq,
                                        n_groups=shape[0] if cfg.family == "moe" else 1)
             single["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             path = f"{tmp}/{name}.pt"
             torch.save(tree_map(lambda t: t.cpu(), state["params"]), path)
             del state
             dp_launch_gate(f"{name} single process", single, cfg, n_micro, steps)
+            if name in floor:
+                with plain_kernels():
+                    other, _ = dp_run(cfg, s, dev, steps, n_micro, rows, sq)
+                mine = torch.load(path, mmap=True)
+                p0 = build_model(cfg, device=dev).init_params(
+                    torch.Generator(device=dev).manual_seed(s))
+                single["floor"] = (sq_dist(other["params"], mine)
+                                   / sq_dist(p0, mine)) ** 0.5
+                say(f"  {name} rounding floor: the single process on the plain kernels against "
+                    f"it on the kernels, {single['floor']:.3e} of the update")
+                del other, mine, p0
             singles[name] = single
             by_world.setdefault(shape[0] * shape[1], {})[name] = dict(
                 cfg=cfg, shape=shape, zero=zero, seed=s, steps=steps, n_micro=n_micro,
-                rows=rows, seq=seq, single=path, routing=[c.cpu().numpy() for c in routing],
+                rows=rows, seq=sq, single=path, routing=[c.cpu().numpy() for c in routing],
                 profile=prof, account=name in account)
         for name, job in (extra or {}).items():
             world = job["shape"][0] * job["shape"][1]
@@ -4088,10 +4177,11 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
             say(f"  {world} ranks ({', '.join(jobs)}): {time.perf_counter() - t0:.1f} s wall")
             for name in jobs:
                 ranks[name] = [r[name] for r in res]
-    for name, (cfg, shape, zero, _, steps, _) in runs.items():
+    for name, (cfg, shape, zero, _, steps, _, sq) in runs.items():
         single, rs = singles[name], ranks[name]
+        tokens = rows * sq
         say(f"phase {name}: {cfg.name} x {cfg.n_layers} layers at published width on a {shape} "
-            f"mesh{', ZeRO-2 over the data axis' if zero else ''}, {steps} steps of {rows} x {seq} "
+            f"mesh{', ZeRO-2 over the data axis' if zero else ''}, {steps} steps of {rows} x {sq} "
             f"tokens in {n_micro} microbatches, over {rs[0]['transport']}")
         t_single = float(np.median(single["walls"][1:]))
         say(f"  single process: median step {t_single * 1e3:.1f} ms, {tokens / t_single:.0f} "
@@ -4113,10 +4203,13 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
                 rel_gate(f"{name} rank {rank} step {i + 1} grad norm", r["norms"][i],
                          single["norms"][i], DP_METRIC_TOL)
             d = (r["sq"] / r["upd"]) ** 0.5
-            ok = d <= DP_UPDATE_TOL
+            tol = max(DP_UPDATE_TOL, NOISE_FACTOR * single.get("floor", 0.0))
+            ok = d <= tol
             say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: its blocks' distance to the single "
-                f"process's, over their update, {d:.3e} (gate <= {DP_UPDATE_TOL:g}; update "
-                f"{r['upd'] ** 0.5:.3f})")
+                f"process's, over their update, {d:.3e} (gate <= {tol:.4g}; update "
+                f"{r['upd'] ** 0.5:.3f}); most of it in " + ", ".join(
+                    f"{k} ({sq / r['sq'] * 100:.0f}%, {ratio:.3f} of its update)"
+                    for k, sq, ratio in r["worst"]))
             if not ok:
                 fail(f"{name}: rank {rank}'s params part from the single process's")
             dp_launch_gate(f"{name} rank {rank}", r, cfg, n_micro, steps)
@@ -4127,20 +4220,32 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
                     f"from the code {span_want[name]}")
                 if not ok:
                     fail(f"{name}: rank {rank}'s collectives a step are not the code's")
+            if tp_span_want and name in tp_span_want:
+                got = r["tp_calls"]
+                ok = got == tp_span_want[name]
+                say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: TP spans a step {got}, from the "
+                    f"code {tp_span_want[name]}")
+                if not ok:
+                    fail(f"{name}: rank {rank}'s TP collectives a step are not the code's")
         same = all(r["whole"] == rs[0]["whole"] for r in rs)
         say(f"  {'ok  ' if same else 'FAIL'} the {len(rs[0]['whole'])} leaves no rank splits are "
             "bit-identical on every rank")
         if not same:
             fail(f"{name}: a replicated leaf differs across the ranks")
         out[name] = dict(single_step_ms=t_single * 1e3, single_peak_gb=single["peak_gb"],
+                         floor=single.get("floor"),
+                         update_ratio=[(r["sq"] / r["upd"]) ** 0.5 for r in rs],
                          step_ms=[float(np.median(r["walls"][1:])) * 1e3 for r in rs],
                          peak_gb=[r["peak_gb"] for r in rs], profile=[r["profile"] for r in rs],
-                         account=rs[0]["account"], walls=[r["walls"] for r in rs])
+                         account=rs[0]["account"], walls=[r["walls"] for r in rs],
+                         tp_calls=rs[0]["tp_calls"])
     train_runs = [r for name in runs for r in ranks[name]]
     out.update({n: sum(r["launches"][n] for r in train_runs) for n in kernel_counts()})
     out["lse"] = sum(r["lse"] for r in train_runs)
     out["flash_attention_by_path"] = {p: sum(r["flash_by_path"][p] for r in train_runs)
                                       for p in ("wgmma", "simt")}
+    out["ssm_scan_by_path"] = {p: sum(r["ssd_by_path"][p] for r in train_runs)
+                               for p in ("mma", "simt")}
     out["moe_gmm_by_path"] = {kind: {p: sum(r["gmm_by_path"][kind][p] for r in train_runs)
                                      for p in ("wgmma", "rows", "tiled")}
                               for kind in ("fwd", "dx", "dw")}
@@ -4169,16 +4274,17 @@ DP_ACCOUNT_FILE = ROOT / "build" / "dryrun" / "chip_smoke" / "qwen-2x2-account.j
 
 def dp_train_configs():
     """15a's and 15b's configs at published width, cut in depth, each on
-    (2, 2) with ZeRO-2, 3 steps and no profiled step (the collectives are
-    counted, `data_parallel.calls`): 15a phi3.5-moe x 2 of
+    (2, 2) with ZeRO-2, 2 steps (3 before phase 16 needed the time) and no
+    profiled step (the collectives are counted, `data_parallel.calls`):
+    15a phi3.5-moe x 2 of
     32 layers (EP over "data", expert-TP over "model"); 15b qwen1.5-32b x 2
     of 64 (FSDP over "data", TP over "model"): 1.05 B params in the two
     layers and 1.56 B in the untied embeddings, 42 GB at 16 bytes a param
     in the single process."""
     from repro_torch.configs import get_config
     phi, qwen = get_config("phi3.5-moe-42b-a6.6b"), get_config("qwen1.5-32b")
-    return {"15a": (phi.replace(n_layers=2), DP_TP_SHAPE, True, 3, False),
-            "15b": (qwen.replace(n_layers=2), DP_TP_SHAPE, True, 3, False)}
+    return {"15a": (phi.replace(n_layers=2), DP_TP_SHAPE, True, 2, False),
+            "15b": (qwen.replace(n_layers=2), DP_TP_SHAPE, True, 2, False)}
 
 
 def fsdp_leaves(cfg) -> int:
@@ -4513,6 +4619,401 @@ def dp_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# phase 16: tensor parallelism of the hybrid and whisper over the "model" axis
+# ----------------------------------------------------------------------------
+
+# the mesh of phase 16: four ranks over "model"
+HYBRID_TP_SHAPE = (1, 4)
+# 16d: the SSD scan at a TP 4 rank's 20 of zamba2's 80 heads, (label, B, H,
+# T, P, N, chunk), fp32 as the model hands it over
+HYBRID_TP_SSD_SHAPES = (("zamba2 TP 4 prefill, 20 of 80 heads", 4, 20, 1024, 64, 64, 256),)
+# flash without and with the lse, and decode, at the shared block's 8 of 32
+# heads a rank (head dim 80), on 16a's prefill and its cache of 1032 rows
+HYBRID_TP_FLASH_SHAPES = (("zamba2 TP 4 prefill, 8 of 32 heads", 4, 1024, 8, 8, 80, None),)
+HYBRID_TP_LSE_SHAPES = (("zamba2 TP 4, 8 of 32 heads", 4, 1024, 8, 8, 80),)
+HYBRID_TP_DECODE_SHAPES = (("zamba2 TP 4, 8 of 32 cache heads, 4 x 1032 rows", 4, 8, 8, 1032, 80,
+                            1032, False),)
+
+
+def tp_spans(cfg, n, kind, micro=1) -> dict:
+    """The TP collectives (`tensor_parallel.calls`, by span) that a rank of
+    n runs for the hybrid or whisper, from the code: a prefill, a decode
+    step, or a train step of `micro` microbatches. Every layer's wo and FFN
+    products are partial sums (all-reduced once each), the vocabulary is
+    split (the embedding's all-reduce; serving gathers the logits, the loss
+    takes a max and a sum), and where a rank's q or k/v columns split heads
+    they are gathered (q one, k/v two a call). A mamba2 block gathers w_zx's
+    product and all-reduces the gated norm's statistic and w_out's product.
+    A train step runs each layer's forward, its remat replay (all of it but
+    the super-block's or layer's last all-reduce) and its backward (one
+    all-reduce a mamba2 block of its entered tensors, one of the statistic;
+    q/k/v's and the FFN's inputs, the cross q's; each gather's
+    reduce-scatter), whisper's encoder output entering once, the unembed's
+    input, and the global norm's all-reduce a step."""
+    hq, hkv, hd = cfg.eff_q_heads, cfg.eff_kv_heads, cfg.resolved_head_dim
+    if cfg.d_ff % n or cfg.padded_vocab % n or hq * hd % n:
+        raise ValueError(f"tp_spans counts {cfg.name}'s splits on {n} ranks only where its "
+                         "d_ff, vocabulary and q columns split")
+    gq = int(hq % n != 0)
+    gkv = int(hkv % n != 0 and hkv * hd % n == 0)
+    self_ag = gq + 2 * gkv
+    if cfg.family == "hybrid":
+        L, nb = cfg.n_layers, cfg.n_layers // cfg.hybrid.attn_every
+        fwd_ar, fwd_ag = 2 * L + 2 * nb, L + nb * self_ag
+        bwd_ar = 2 * L + 2 * nb
+        replay_ar = fwd_ar - 1 * nb
+    else:
+        le, ld = cfg.encdec.n_enc_layers, cfg.n_layers
+        cross_ag = gq + (2 * gkv if kind != "decode" else 0)
+        fwd_ar = (2 * le if kind != "decode" else 0) + 3 * ld
+        fwd_ag = (le * self_ag if kind != "decode" else 0) + ld * (self_ag + cross_ag)
+        bwd_ar = 2 * le + 3 * ld + 1          # + the encoder output's entry
+        replay_ar = fwd_ar - le - ld
+    if kind != "train":
+        return {"tp_all_reduce": fwd_ar + 1, "tp_all_gather": fwd_ag + 1,
+                "tp_reduce_scatter": 0}
+    per_micro = fwd_ar + replay_ar + bwd_ar + 4
+    return {"tp_all_reduce": micro * per_micro + 1, "tp_all_gather": 2 * micro * fwd_ag,
+            "tp_reduce_scatter": micro * fwd_ag}
+
+
+def serve_batch(cfg, seed, B, T, dev):
+    """16a's and 16c's prompts: B x T tokens from the seed (numpy) and, for
+    whisper, B x ENC_LEN bf16 stub frames from a generator on the card
+    seeded with it: every process draws the same."""
+    import numpy as np
+    import torch
+    from repro_torch.models.whisper import ENC_LEN
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (B, T)), dtype=torch.int32,
+                                    device=dev)}
+    if cfg.family == "audio":
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batch["enc_embeds"] = torch.randn((B, ENC_LEN, cfg.d_model), generator=gen,
+                                          device=dev).to(torch.bfloat16)
+    return batch
+
+
+def tp_family_references(cfg, seed, n, B, T, tokens, dev):
+    """16a's and 16c's single-process side, run in this process before the
+    ranks start: the whole model drawn from `seed`, the digests and bytes of
+    each rank's block of every leaf on (1, n), and on the plain path in bf16
+    and in fp32 the prefill's logits, the first decode step's (`tokens`,
+    one a sequence) and the hybrid's SSM state after the prefill; the bf16
+    plain path's peak memory, the single process's."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.tree import flatten
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = build_model(cfg, device=dev).init_params(
+        torch.Generator(device=dev).manual_seed(seed))
+    sh, _ = tp_blocks(cfg, n)
+    out = {"digests": [], "bytes": []}
+    for r in range(n):
+        blocks = [(p, t[b]) for (p, t), b in zip(flatten(params), sh.index(params, r))]
+        out["digests"].append({"/".join(map(str, p)): digest(t) for p, t in blocks})
+        out["bytes"].append(sum(t.numel() * t.element_size() for _, t in blocks))
+    batch = serve_batch(cfg, seed, B, T, dev)
+    first = {"tokens": torch.tensor(tokens, dtype=torch.int32, device=dev)[:, None],
+             "positions": torch.full((B,), T, dtype=torch.int32, device=dev)}
+
+    def run(c, p):
+        model = build_model(c, device=dev)
+        lp, pc = model.prefill(p, batch)
+        cache = model.init_cache(B, T + 1)
+        fill_cache(cache, pc, T)
+        ssm = pc["ssm"].float().cpu() if "ssm" in pc else None
+        del pc
+        ld, _ = model.decode_step(p, cache, first)
+        return lp.float().cpu(), ld.float().cpu(), ssm
+    with torch.inference_mode(), plain_kernels():
+        out["plain"] = run(cfg, params)
+        out["single_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        params = _to_f32(params)
+        out["exact"] = run(cfg.replace(param_dtype="float32"), params)
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_family_serve_rank(rank, world, dev, job):
+    """16a and 16c's serving on one rank of a (1, world) mesh: the model
+    drawn from the seed (init_params keeps the rank's blocks), its blocks'
+    digests and bytes; one batched prefill and `job["steps"]` decode steps
+    through the model interface, timed, its kernel launches by kernel, the
+    TP collectives of the prefill and of a decode step
+    (`tensor_parallel.calls`), the prefill's SSM state (the rank's heads),
+    the gate's logits (the prefill's, the first step's); then a profiled
+    window of decode steps."""
+    import torch
+    from repro_torch import distributed as D
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ssm_scan as sk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.tree import flatten
+    _rank_setup()
+    cfg, dev = job["cfg"], torch.device(dev)
+    mesh = make_mesh(job["shape"], ("data", "model"), device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, mesh=mesh)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(job["seed"]))
+    out = {"transport": D.transport(dev),
+           "digests": {"/".join(map(str, p)): digest(t) for p, t in flatten(params)},
+           "param_bytes": sum(t.numel() * t.element_size() for _, t in flatten(params)),
+           "plan": {k: str(v) for k, v in vars(model.tp).items() if k != "group"}}
+    batch = serve_batch(cfg, job["seed"], job["B"], job["T"], dev)
+    B, T = batch["tokens"].shape
+    tokens, n_steps = job["tokens"], job["steps"]
+    timings = {"prefill": [], "decode": []}
+    tm = timed_model(model, timings)
+    first, outputs = [], []
+
+    def step():
+        i = len(outputs)
+        b = {"tokens": torch.tensor(tokens[i], dtype=torch.int32, device=dev)[:, None],
+             "positions": torch.full((B,), T + i, dtype=torch.int32, device=dev)}
+        lg = tm.decode_step(params, cache, b)[0]
+        if not first:
+            first.append(lg.float().cpu().numpy())
+        outputs.append(lg[:, -1].argmax(-1))
+    with torch.inference_mode():
+        reset_counts()
+        reset_dp_calls()
+        lp, pc = tm.prefill(params, batch)
+        out["prefill_spans"] = tp_calls()
+        cache = model.init_cache(B, T + len(tokens))
+        fill_cache(cache, pc, T)
+        out["ssm"] = pc["ssm"].cpu().numpy() if "ssm" in pc else None
+        del pc
+        reset_dp_calls()
+        step()
+        out["step_spans"] = tp_calls()
+        out["gate"] = (lp.float().cpu().numpy(), first[0])
+        while len(outputs) < n_steps:
+            step()
+        torch.cuda.synchronize()
+        out.update(launches=kernel_counts(), prefills=1, steps=n_steps,
+                   by_path={"flash_attention": dict(fk.launches_by_path),
+                            "decode_attention": dict(dk.launches_by_path),
+                            "ssm_scan": dict(sk.launches_by_path)},
+                   timings={k: list(v) for k, v in timings.items()},
+                   outputs=torch.stack(outputs, 1).tolist())
+        out["profile"] = tp_profile(step, len(tokens) - n_steps)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del cache, outputs, params
+    if rank == 0:
+        say(f"  [rank 0] {cfg.name} served on {job['shape']}: prefill {spread(timings['prefill'])}"
+            f", decode {spread(out['timings']['decode'])}, peak {out['peak_gb']:.2f} GB")
+    D.all_reduce_(torch.zeros(1, device=dev))   # every rank done before any frees the group
+    return out
+
+
+def state_gate(name, kern, plain, exact) -> float:
+    """A rank's recurrent state against the single process's on the same
+    heads: finite, and no further from the fp32 model's than NOISE_FACTOR
+    times the plain bf16 path's (the logits gate's rule). Returns the
+    kernel path's distance."""
+    import torch
+    e_kern, e_plain = rel_l2(kern, exact), rel_l2(plain, exact)
+    ok = bool(torch.isfinite(kern).all()) and e_kern <= NOISE_FACTOR * e_plain
+    say(f"  {'ok  ' if ok else 'FAIL'} {name}: rel L2 err vs fp32: the rank's {e_kern:.3e}, "
+        f"plain path {e_plain:.3e} (gate <= {NOISE_FACTOR:g} x); rank vs plain "
+        f"{rel_l2(kern, plain):.3e}")
+    if not ok:
+        fail(f"{name}: the rank's state is further from fp32 than bf16 rounding explains")
+    return e_kern
+
+
+def tp_family_serve_gate(label, cfg, refs, ranks, smi) -> dict:
+    """16a's and 16c's gates on one model's ranks: each rank's blocks'
+    digests equal this process's blocks of the whole draw, its param bytes
+    their sum; its launches exact (the hybrid: a flash launch a shared-block
+    application and an ssd_scan a mamba2 block a prefill, a decode launch
+    an application a step; whisper: an encoder layer's flash, a decoder
+    layer's two, two decode launches a decoder layer a step), all on
+    `flash_wgmma`, `decode_split` and the SSD scan's tensor-core path; the
+    TP collectives of the prefill and of a decode step the code's
+    (tp_spans); outputs and gate logits bit-identical across the ranks; the
+    gate's logits (rank 0) held to this process's plain path in bf16 and
+    fp32 (logits_gate); the hybrid's SSM state of every rank against this
+    process's on its heads (state_gate). Prints the times, each rank's
+    spans a decode step and its peak beside the single process's."""
+    import numpy as np
+    import torch
+    n = len(ranks)
+    steps = ranks[0]["steps"]
+    if cfg.family == "hybrid":
+        nb = cfg.n_layers // cfg.hybrid.attn_every
+        pre, dec, ssd = nb, nb, cfg.n_layers
+    else:
+        pre, dec, ssd = cfg.encdec.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers, 0
+    want = {"flash_attention": pre, "decode_attention": dec * steps, "moe_gmm": 0,
+            "ssm_scan": ssd, "moe_gmm_dx": 0, "moe_gmm_dw": 0}
+    paths = {"flash_attention": {"wgmma": pre, "simt": 0},
+             "decode_attention": {"split": dec * steps, "simt": 0},
+             "ssm_scan": {"mma": ssd, "simt": 0}}
+    spans = {"prefill_spans": tp_spans(cfg, n, "prefill"),
+             "step_spans": tp_spans(cfg, n, "decode")}
+    for rank, r in enumerate(ranks):
+        same = r["digests"] == refs["digests"][rank]
+        ok = same and r["param_bytes"] == refs["bytes"][rank]
+        say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: {len(r['digests'])} leaves, their blocks' "
+            f"digests equal this process's blocks of the whole draw: {same}; param bytes "
+            f"{r['param_bytes']} = sum of its blocks {refs['bytes'][rank]}")
+        if not ok:
+            fail(f"{label}: rank {rank}'s weights are not its blocks of the seed's draw")
+        ok = r["launches"] == want and r["by_path"] == paths
+        say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: launches {r['launches']}, by kernel "
+            f"{r['by_path']} (a prefill and {steps} decode steps)")
+        if not ok:
+            fail(f"{label}: rank {rank} did not launch the kernels as its layers ask: want "
+                 f"{want}, all on {paths}")
+        got = {k: r[k] for k in spans}
+        ok = got == spans
+        say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: TP spans {got}, from the code {spans}")
+        if not ok:
+            fail(f"{label}: rank {rank}'s TP collectives are not the code's")
+    r0 = ranks[0]
+    if not all(r["outputs"] == r0["outputs"] and all(np.array_equal(a, b) for a, b in
+                                                     zip(r["gate"], r0["gate"])) for r in ranks):
+        fail(f"{label}: the ranks' outputs or gate logits differ")
+    pre_t, dec_t = r0["timings"]["prefill"], r0["timings"]["decode"]
+    say(f"  ok   outputs and gate logits bit-identical across ranks; rank 0: prefill "
+        f"{spread(pre_t)} per batch, decode {spread(dec_t)} per step [{smi}]; plan {r0['plan']}")
+    for rank, r in enumerate(ranks):
+        p = r["profile"]
+        say(f"  rank {rank}, profiled decode steps: {p['step_ms']:.2f} ms a step, "
+            + ", ".join(f"{s} {p[s + '_count']:.0f} spans {p[s + '_ms']:.2f} ms"
+                        for s in TP_SPANS if p[s + "_count"])
+            + f" a step (host spans), NCCL kernels {p['nccl_ms']:.3f} ms; device busy "
+            f"{p['busy'] * 100:.1f}%, copies {p['copy_ms']:.2f} ms a step; peak "
+            f"{r['peak_gb']:.2f} GB, single process {refs['single_peak_gb']:.2f} GB")
+    B = r0["gate"][0].shape[0]
+    for i, name in enumerate((f"prefill logits (B={B})", f"decode-step logits (B={B})")):
+        logits_gate(name, torch.from_numpy(r0["gate"][i]), refs["plain"][i], refs["exact"][i],
+                    cfg.vocab_size)
+    errs = []
+    if cfg.family == "hybrid":
+        for rank, r in enumerate(ranks):
+            h = r["ssm"].shape[3]
+            heads = slice(rank * h, (rank + 1) * h)
+            errs.append(state_gate(f"rank {rank}'s SSM state after the prefill (heads "
+                                   f"{heads.start}-{heads.stop - 1})", torch.from_numpy(r["ssm"]),
+                                   refs["plain"][2][:, :, :, heads], refs["exact"][2][:, :, :, heads]))
+    return dict(decode_ms=float(np.median(dec_t)) * 1e3, prefill_ms=float(np.median(pre_t)) * 1e3,
+                peak_gb=[r["peak_gb"] for r in ranks], single_peak_gb=refs["single_peak_gb"],
+                profile=[r["profile"] for r in ranks], state_err=errs,
+                spans={k: r0[k] for k in spans})
+
+
+def ssd_rows(gen, dev, shapes):
+    """The SSD scan at each of `shapes` ((label, B, H, T, P, N, chunk)) in
+    fp32 against its plain version, its route gated (the tensor-core path),
+    timed beside the plain version and the bound (no PyTorch call computes
+    it): the rows."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssm_scan as sk
+    rnd = _rnd(gen, dev)
+    rows = []
+    for label, B, H, T, P, N, Q in shapes:
+        args = _ssd_inputs(rnd, B, T, H, P, 1, N, torch.float32)
+        path = sk.route_for(args[0], args[3], args[4], chunk=Q)
+        shape = f"B={B} H={H} T={T} P={P} N={N} chunk {Q} fp32"
+        y, st = ops.ssd_scan(*args, chunk=Q)
+        want_y, want_s = ref.ssd_scan_ref(*args, chunk=Q)
+        err = gate(f"ssd_scan {label}, {shape} ({path}) y", y, want_y, SSD_F32_TOL)
+        gate(f"ssd_scan {label} ({path}) state", st, want_s, SSD_F32_TOL)
+        if path != "mma":
+            fail(f"ssd_scan at {label} did not route to the tensor-core path: {path}")
+        ms = device_ms(lambda: ops.ssd_scan(*args, chunk=Q), 20)
+        plain = cuda_ms(lambda: ref.ssd_scan_ref(*args, chunk=Q), 3)
+        bound, by, flops, nbytes = ssd_bound(B, H, T, P, N, Q, 4)
+        say(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms by {by} "
+            f"({flops / 1e9:.3f} GFLOP at the TF32 rate, {nbytes / 1e6:.2f} MB); no library call")
+        rows.append(dict(path_of=label, shape=shape, kernel=path, max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None))
+        del args, y, st, want_y, want_s
+    return rows
+
+
+def hybrid_tp_configs():
+    """16b's and 16c's training at published width: name -> (config, mesh
+    shape, ZeRO-2, steps, a profiled step, seq). 16b zamba2-2.7b x 6 of 54
+    layers (one super-block, the shared block once) on 8f's batch of 4 x
+    1024; 16c whisper-tiny at published width and depth on 8g's 4 x 448
+    tokens and 4 x 1536 stub frames; 2 steps each, 16c's third profiled."""
+    from repro_torch.configs import get_config
+    return {"16b": (get_config("zamba2-2.7b").replace(n_layers=6), HYBRID_TP_SHAPE, False, 2,
+                    False, 1024),
+            "16c train": (get_config("whisper-tiny"), HYBRID_TP_SHAPE, False, 2, True, 448)}
+
+
+def hybrid_tp_phase(seed, dev, smi, gen, n_micro=2, rows=4) -> dict:
+    """Phase 16: tensor parallelism of the hybrid and whisper on four ranks of
+    a (1, 4) mesh on the cards present (ranks as in phase 13), each rank
+    holding its blocks (the hybrid's mamba2 blocks on 20 of 80 SSM heads,
+    w_zx's product gathered; whisper's 6 heads gathered by column): 16a
+    zamba2-2.7b x 12 of 54 layers (two super-blocks) serving phase 7's
+    prefill of 4 x 1024 and 8 decode steps (tp_family_serve_gate, with
+    each rank's SSM state); 16b zamba2-2.7b x 6 trained as phase 14 trains
+    (train_ranks); 16c whisper-tiny at published width and depth, 9a's
+    prefill (8 x 64 tokens over 8 x 1536 frames) and 8 decode steps, and
+    8g's training; the TP collectives of every prefill, decode step and
+    train step held to the code's count (tp_spans); 16d the kernels at a
+    rank's shapes. One spawn of four ranks runs 16a-c, after this process's
+    references; the ranks run with expandable segments (four share the
+    card). Returns the ranks' launches summed and 16d's rows."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    configs = hybrid_tp_configs()
+    n = HYBRID_TP_SHAPE[1]
+    tp_span_want = {name: tp_spans(cfg, n, "train", n_micro)
+                    for name, (cfg, *_rest) in configs.items()}
+    serve, refs = {}, {}
+    rng = np.random.default_rng(seed + 5)
+    for name, cfg, B, T in (("16a", get_config("zamba2-2.7b").replace(n_layers=12), 4, 1024),
+                            ("16c serve", get_config("whisper-tiny"), 8, 64)):
+        tokens = rng.integers(0, cfg.vocab_size, (8 + TP_PROFILE_STEPS, B)).tolist()
+        t0 = time.perf_counter()
+        refs[name] = tp_family_references(cfg, seed + 3, n, B, T, tokens[0], dev)
+        say(f"  {name} single process, {cfg.name} x {cfg.n_layers}: whole model and the gate's "
+            f"references in {time.perf_counter() - t0:.1f} s")
+        serve[name] = dict(serve="tp", cfg=cfg, shape=HYBRID_TP_SHAPE, seed=seed + 3, B=B, T=T,
+                           tokens=tokens, steps=8)
+    say("phase 16a-c: the single processes first, then one spawn of 4 ranks")
+    with mock.patch.dict(os.environ, {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}):
+        out = train_ranks(configs, seed, dev, smi, n_micro, rows, 1024, extra=serve,
+                          tp_span_want=tp_span_want, floor=tuple(configs))
+    for name, job in serve.items():
+        cfg = job["cfg"]
+        say(f"phase {name}: {cfg.name} x {cfg.n_layers} layers at published width on a "
+            f"{HYBRID_TP_SHAPE} mesh, {job['B']} x {job['T']}-token prompts, {job['steps']} "
+            "decode steps, through the model interface")
+        out[name] = tp_family_serve_gate(name, cfg, refs[name], out["extra"][name], smi)
+    served = [r for name in serve for r in out["extra"][name]]
+    for k in kernel_counts():
+        out[k] += sum(r["launches"][k] for r in served)
+    out["flash_attention_by_path"]["wgmma"] += sum(r["by_path"]["flash_attention"]["wgmma"]
+                                                   for r in served)
+    out["ssm_scan_by_path"]["mma"] += sum(r["by_path"]["ssm_scan"]["mma"] for r in served)
+    out["decode_attention_by_path"] = {p: sum(r["by_path"]["decode_attention"][p]
+                                              for r in served) for p in ("split", "simt")}
+    out.pop("extra")
+    say("phase 16d: the kernels at a rank's shapes")
+    rows_ = tp_kernel_phase(gen, dev, HYBRID_TP_FLASH_SHAPES, HYBRID_TP_DECODE_SHAPES, ())
+    rows_["flash_attention_lse"] = tp_train_kernel_phase(gen, dev, HYBRID_TP_LSE_SHAPES,
+                                                         gmm_dims=None)["flash_attention"]
+    rows_["ssm_scan"] = ssd_rows(gen, dev, HYBRID_TP_SSD_SHAPES)
+    out["kernels"] = rows_
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4700,7 +5201,11 @@ def main() -> int:
     say('phase 15: FSDP and EP over the "data" axis, ranks on the cards present')
     runs["15"] = timed("15 FSDP and EP", dp_phase, args.seed + 18, dev, smi, gen)
     dp_rows = runs["15"].pop("kernels")
-    say("phase 16: the kernel table and the device")
+    say('phase 16: tensor parallelism of the hybrid and whisper over the "model" axis, ranks on '
+        'the cards present')
+    runs["16"] = timed("16 TP hybrid, whisper", hybrid_tp_phase, args.seed + 19, dev, smi, gen)
+    hy_rows = runs["16"].pop("kernels")
+    say("phase 17: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 
@@ -4726,7 +5231,7 @@ def main() -> int:
                       event_ms=flash["event_ms"], lse=True,
                       lse_launches=sum(runs[k]["flash_attention"]
                                        for k in ("8", "8e", "8f", "8g", "8i", "11", "14"))
-                      + runs["15"]["lse"],
+                      + runs["15"]["lse"] + runs["16"]["lse"],
                       **{k: flash[k] for k in ("nolse_ms", "lse_ms", "bwd_ms", "bwd_sdpa_ms",
                                                "bwd_bound_ms", "bwd_shape")},
                       launches_by_kernel={p: sum(r["flash_attention_by_path"][p]
@@ -4736,7 +5241,8 @@ def main() -> int:
                       phase9_shapes=new_shapes["flash_attention"],
                       tp_shapes=tp_rows["flash_attention"],
                       tp_train_shapes=tp_train_rows["flash_attention"],
-                      dp_train_shapes=dp_rows["flash_attention"])
+                      dp_train_shapes=dp_rows["flash_attention"],
+                      tp_hybrid_shapes=hy_rows["flash_attention"] + hy_rows["flash_attention_lse"])
     dec = table["decode_attention"]
     kernels[1].update(kernel=dec["path"], simt_ms=dec["simt_ms"], event_ms=dec["event_ms"],
                       launches_by_kernel={p: sum(r["decode_attention_by_path"][p]
@@ -4744,7 +5250,8 @@ def main() -> int:
                                                  if "decode_attention_by_path" in r)
                                           for p in ("split", "simt")},
                       phase9_shapes=new_shapes["decode_attention"],
-                      tp_shapes=tp_rows["decode_attention"])
+                      tp_shapes=tp_rows["decode_attention"],
+                      tp_hybrid_shapes=hy_rows["decode_attention"])
     train_gmm = {kind: {p: sum(runs[k]["moe_gmm_by_path"][kind][p]
                                for k in ("8e", "11", "14", "15"))
                         for p in by_path}
@@ -4769,7 +5276,9 @@ def main() -> int:
                       dist_fp64=ssd["dist_fp64"],
                       launches_by_kernel={p: runs["7"]["ssm_scan_by_path"][p]
                                           + runs["8f"]["ssm_scan_by_path"][p]
+                                          + runs["16"]["ssm_scan_by_path"][p]
                                           for p in runs["7"]["ssm_scan_by_path"]},
+                      tp_hybrid_shapes=hy_rows["ssm_scan"],
                       prefill_ms=runs["7"]["ssd_prefill_ms"],
                       **{k: ssd[k] for k in ("ssd_bwd_ms", "ssd_bwd_bound_ms",
                                              "ssd_bwd_bound_by", "ssd_bwd_shape")})

@@ -33,8 +33,11 @@ the vocab-parallel loss's. Serving cells on a mesh with a data axis shard
 the weights over it where the reference's `_serve_cfg` does
 (`registry.serve_config`), and the record says `"serve_weights": "fsdp"`;
 otherwise "tensor-parallel" on a "model" axis, "whole" without. The
-hybrid, xLSTM and whisper families' cells with a "model" axis are errors
-that say their TP is not ported (ROADMAP Queue 1, item 6c).
+hybrid's and whisper's cells on a "model" axis count their TP's
+collectives too: a mamba2 block's gather of w_zx's product, the gated
+norm's statistic, whisper's column gathers of heads that do not divide the
+axis. The xLSTM's cells with a "model" axis are errors that say its TP is
+not ported (ROADMAP Queue 1, item 6c).
 
 Records are JSON under build/dryrun/<tag>/<mesh>/<arch>__<shape>.json, with
 the status `ok`, `skipped` (by `configs.shapes.applicable`) or `error` (the

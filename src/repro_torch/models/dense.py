@@ -98,12 +98,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     }
 
 
-def _block_keeper(cfg: ModelConfig, mesh, rank: int):
+def _block_keeper(cfg: ModelConfig, mesh, rank: int, init=None):
     """keep(prefix, subtree) -> the subtree's leaves cut to rank `rank`'s
-    blocks under the param specs of `mesh`; the identity without a mesh."""
+    blocks under the param specs of `mesh`; the identity without a mesh.
+    `init` draws the family's whole params (this module's by default)."""
     if mesh is None:
         return lambda prefix, tree: tree
-    whole = init_params(torch.Generator(), cfg, device="meta")
+    whole = (init or init_params)(torch.Generator(), cfg, device="meta")
     sh = model_shardings(whole, cfg, mesh, rules_for(mesh))
     return lambda prefix, tree: sh.take(tree, rank, prefix)
 

@@ -33,6 +33,18 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return (xf * torch.rsqrt(var + eps)).to(dt) * w   # cast back before * w
 
 
+def rms_norm_split(x: torch.Tensor, w: torch.Tensor, width: int, tp,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """`rms_norm` over a last dim of `width` split over the "model" ranks:
+    x and w are the rank's part of it. The fp32 mean of squares is each
+    rank's sum, summed over the ranks (`shared_sum`, whose backward sums
+    too: each rank's normed part reads the statistic), over `width`."""
+    dt = x.dtype
+    xf = x.to(F32)
+    var = tp.shared_sum(torch.sum(torch.square(xf), dim=-1, keepdim=True)) / width
+    return (xf * torch.rsqrt(var + eps)).to(dt) * w
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., T, H, Dh), positions: (..., T). Halves split, not
     interleaved; frequencies in fp32."""
@@ -138,6 +150,38 @@ def qkv(p, x, positions, cfg, tp=None):
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
+def project_q(p, x, cfg, tp=None):
+    """The q heads (B,T,Hq,hd) of x, bias added, no rope (cross-attention's
+    q): under `tp` the rank's heads, or every head gathered where its
+    columns split heads (`qkv`'s q)."""
+    B, T, _ = x.shape
+    split = tp is not None and (tp.q_split or tp.gather_q)
+    q = (tp.enter(x) if split else x) @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    if split and tp.gather_q:
+        q = tp.all_gather(q)
+    return q.reshape(B, T, -1, cfg.resolved_head_dim)
+
+
+def project_kv(p, x, cfg, tp=None):
+    """The k and v heads (B,T,Hkv,hd) of x, no rope (cross-attention's k/v
+    of the encoder's output): under `tp` as `qkv` makes them. x must have
+    entered already where the rank's k/v product is split
+    (`tp.kv_split or tp.gather_kv`): whisper enters its encoder output once
+    for every decoder layer."""
+    B, T, _ = x.shape
+    k, v = x @ p["wk"], x @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    if tp is not None and tp.kv_read_partially:
+        k, v = tp.enter(k, v)
+    if tp is not None and tp.gather_kv:
+        k, v = tp.all_gather(k), tp.all_gather(v)
+    hd = cfg.resolved_head_dim
+    return k.reshape(B, T, -1, hd), v.reshape(B, T, -1, hd)
+
+
 def attn_out(p, out, tp=None):
     """The output projection of the attention's heads out (B,T,Hq*hd): under
     `tp` the rank's rows of wo over its heads' columns, all-reduced where
@@ -159,23 +203,20 @@ def attention(p, x, positions, cfg, *, causal: bool = True,
     (B,T,Hkv,hd) for the cache, or (out, None) for cross-attention. Under
     autograd (training) it goes through the flash backward's Function, with
     the reference's blocks of 512; otherwise (serving) straight to the
-    kernel, which writes no lse. Under tensor parallelism (`tp`,
-    self-attention only) over the rank's heads: its q heads read the kv
-    heads of their groups, and k/v are the rank's."""
+    kernel, which writes no lse. Under tensor parallelism (`tp`) over the
+    rank's heads: its q heads read the kv heads of their groups, and k/v
+    are the rank's (cross_kv: `project_kv`'s, under the same plan)."""
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     if cross_kv is None:
         q, k, v = qkv(p, x, positions, cfg, tp)
         new_kv = (k, v)
-        if tp is not None and tp.kv_heads is not None:
-            k, v = k[:, :, tp.kv_heads], v[:, :, tp.kv_heads]
     else:
-        q = x @ p["wq"]
-        if "bq" in p:
-            q = q + p["bq"]
-        q = q.reshape(B, T, cfg.eff_q_heads, hd)
+        q = project_q(p, x, cfg, tp)
         (k, v), new_kv = cross_kv, None
         causal, window = False, None
+    if tp is not None and tp.kv_heads is not None:
+        k, v = k[:, :, tp.kv_heads], v[:, :, tp.kv_heads]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out = flash_vjp.flash_attention_vjp(q, k, v, causal=causal, window=window)
     else:

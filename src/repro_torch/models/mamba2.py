@@ -15,10 +15,23 @@ model's `_ssd_chunked` casts them inside, and the port keeps the model's
 numerics exactly at bf16 too. `_ssd_chunked` is the oracle of the model's
 own form of the scan (the tests hold `ops.ssd_scan` to it) and the function
 `SSDScan`'s backward differentiates; no forward path calls it.
+
+Under tensor parallelism (`tp`, `tensor_parallel.py`) a rank runs its H/n
+SSM heads: its block of w_zx is gathered into z and x of every head (its
+columns are not its heads'), and it takes its heads' of them; the conv
+runs on its heads' x channels and every B and C channel, the scan on its
+heads, the gated RMSNorm's statistic is summed over the ranks, and
+y @ w_out (its rows are its heads' channels) is a partial sum,
+all-reduced once. Its recurrent state is its heads' SSM state and the
+whole conv buffer (the raw [x | B | C] of every channel, which the
+gathered zx makes whole at no cost). Under autograd the block enters its
+normed input, the fp32 B and C, dt and the replicated leaves it reads only
+its heads' part of through one `enter` (`mamba_fwd`), so their gradients
+are whole on every rank.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -27,6 +40,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.dense import param_dtype
+from repro_torch.sharding.axes import constrain
 
 F32 = torch.float32
 
@@ -178,81 +192,141 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int):
     return ops.ssd_scan(*args, chunk=chunk)
 
 
-def _in_proj(p, xn, cfg: ModelConfig):
-    """z, the conv input (x, B, C) and dt of this call's tokens."""
+def _project(p, xn):
+    """The raw B and C (every group) and dt (every head, fp32) of this
+    call's tokens."""
+    dt = torch.nn.functional.softplus((xn @ p["w_dt"]).to(F32) + p["dt_bias"])
+    return xn @ p["w_bc"], dt
+
+
+def _zx(p, xn, cfg: ModelConfig, tp=None):
+    """z and x of w_zx's product: under `tp` gathered from the rank's
+    columns (they are not its heads'), z then cut to the rank's heads and x
+    kept whole (the conv buffer holds every channel)."""
     d_in = _dims(cfg)[0]
     zx = xn @ p["w_zx"]
+    if tp is not None and tp.gather_zx:
+        zx = tp.all_gather(zx)
     z, xin = zx[..., :d_in], zx[..., d_in:]
-    dt = torch.nn.functional.softplus((xn @ p["w_dt"]).to(F32) + p["dt_bias"])
-    return z, torch.cat([xin, xn @ p["w_bc"]], dim=-1), dt
+    return (z if tp is None else z[..., tp.ssm_channels]), xin
 
 
-def _out_proj(p, x, y, z, cfg: ModelConfig):
-    y = L.rms_norm(y * _silu_f32(z), p["norm_w"], cfg.norm_eps)
-    return x + y @ p["w_out"]
+def _split_bc(bc, G: int, N: int, tp):
+    """The conv's B and C channels (..., 2 G N) -> B, C (..., G', N): the
+    groups the rank's heads read (all G without `tp`)."""
+    Bm, Cm = bc.reshape(*bc.shape[:-1], 2 * G, N).split(G, dim=-2)
+    if tp is not None:
+        Bm, Cm = Bm[..., tp.ssm_groups, :], Cm[..., tp.ssm_groups, :]
+    return Bm, Cm
 
 
-def mamba_fwd(p, x, cfg: ModelConfig, return_state: bool = False):
+def _out_proj(p, x, y, z, norm_w, cfg: ModelConfig, tp=None):
+    """x + the gated RMSNorm of y (its statistic over every head) @ w_out,
+    summed over the ranks under `tp`."""
+    g = y * _silu_f32(z)
+    if tp is None:
+        return x + L.rms_norm(g, norm_w, cfg.norm_eps) @ p["w_out"]
+    g = L.rms_norm_split(g, norm_w, _dims(cfg)[0], tp, cfg.norm_eps)
+    return x + constrain(tp.psum((g @ p["w_out"], True)), "batch", None, None)
+
+
+def mamba_fwd(p, x, cfg: ModelConfig, return_state: bool = False, tp=None):
     """Full-sequence mamba2 block. x: (B, T, d) -> (B, T, d).
 
     With return_state=True also returns (conv_buf, ssm_state) at position T,
-    so prefill can hand a decode-ready recurrent cache over."""
+    so prefill can hand a decode-ready recurrent cache over (under `tp` the
+    whole conv buffer and the rank's heads' state).
+
+    The conv is depthwise, so its B and C channels run apart from its x
+    channels, on the raw B and C every rank computes alike. Under `tp` one
+    `enter` then takes the normed input of w_zx's split product, dt, the
+    conv's x weights and bias, A_log, D, norm_w (the rank reads its heads'
+    part of each) and the fp32 B and C the scan reads (every head reads
+    them), so their partial gradients are summed in one fp32 all-reduce,
+    B's and C's before any bf16 rounding, as one process sums its heads'."""
     d_in, H, P, G, N = _dims(cfg)
     K = cfg.ssm.conv_dim
     B, T, _ = x.shape
-    z, xbc_raw, dt = _in_proj(p, L.rms_norm(x, p["ln"], cfg.norm_eps), cfg)
-    xbc = _silu_f32(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
-    xin, bc = xbc[..., :d_in], xbc[..., d_in:]
-    Bm, Cm = bc.reshape(B, T, 2 * G, N).split(G, dim=2)
-
-    A = -torch.exp(p["A_log"])
-    xh = xin.reshape(B, T, H, P).to(F32)
+    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    bc_raw, dt = _project(p, xn)
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    Bm, Cm = _split_bc(_silu_f32(_causal_conv(bc_raw, conv_w[:, d_in:], conv_b[d_in:])), G, N, tp)
+    Bm, Cm = Bm.to(F32), Cm.to(F32)
+    w_x, b_x, A_log, Dp, norm_w = conv_w[:, :d_in], conv_b[:d_in], p["A_log"], p["D"], p["norm_w"]
+    if tp is not None:
+        xn, dt, w_x, b_x, A_log, Dp, norm_w, Bm, Cm = tp.enter(xn, dt, w_x, b_x, A_log, Dp,
+                                                              norm_w, Bm, Cm)
+        ch, h = tp.ssm_channels, tp.ssm_heads
+        dt, w_x, b_x, A_log, Dp, norm_w = dt[..., h], w_x[:, ch], b_x[ch], A_log[h], Dp[h], norm_w[ch]
+    z, xin = _zx(p, xn, cfg, tp)
+    xr = xin if tp is None else xin[..., tp.ssm_channels]
+    Hr = xr.shape[-1] // P
+    xh = constrain(_silu_f32(_causal_conv(xr, w_x, b_x)).reshape(B, T, Hr, P),
+                   "batch", None, "model", None, full=(B, T, H, P)).to(F32)
+    A = -torch.exp(A_log)
     chunk = min(cfg.ssm.chunk_size, T)
     if T % chunk:
         raise ValueError(f"sequence length {T} is not a multiple of the SSD chunk {chunk}")
     # (B,T,H,P) etc. read as (B,H,T,P) through strides; y comes back in xh's layout
     y, S_fin = ssd_scan(xh.transpose(1, 2), dt.transpose(1, 2), A,
-                        Bm.to(F32).transpose(1, 2), Cm.to(F32).transpose(1, 2), chunk)
-    y = y.transpose(1, 2) + p["D"][None, None, :, None] * xh
-    out = _out_proj(p, x, y.reshape(B, T, d_in).to(x.dtype), z, cfg)
+                        Bm.transpose(1, 2), Cm.transpose(1, 2), chunk)
+    y = y.transpose(1, 2) + Dp[None, None, :, None] * xh
+    out = _out_proj(p, x, y.reshape(B, T, Hr * P).to(x.dtype), z, norm_w, cfg, tp)
     if not return_state:
         return out
+    xbc_raw = torch.cat([xin, bc_raw], dim=-1)
     tail = torch.nn.functional.pad(xbc_raw, (0, 0, max(K - 1 - T, 0), 0))[:, -(K - 1):]
     return out, (tail.to(x.dtype), S_fin)
 
 
-def mamba_decode(p, x, state, cfg: ModelConfig):
+def mamba_decode(p, x, state, cfg: ModelConfig, tp=None):
     """One-token recurrent update. x: (B, 1, d); state = (conv_buf, S) with
-    conv_buf (B, K-1, conv_ch) and S (B, H, P, N) fp32. Returns
-    (out, (new conv_buf, new S))."""
+    conv_buf (B, K-1, conv_ch) and S (B, H, P, N) fp32 (under `tp` the
+    rank's H/n heads). Returns (out, (new conv_buf, new S))."""
     d_in, H, P, G, N = _dims(cfg)
     conv_buf, S = state
     B = x.shape[0]
-    z, xbc_new, dt = _in_proj(p, L.rms_norm(x, p["ln"], cfg.norm_eps), cfg)
-    dt = dt[:, 0]                                           # (B, H)
-    full = torch.cat([conv_buf, xbc_new], dim=1)            # (B, K, C)
+    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    bc_raw, dt = _project(p, xn)
+    z, xin = _zx(p, xn, cfg, tp)
+    full = torch.cat([conv_buf, torch.cat([xin, bc_raw], dim=-1)], dim=1)   # (B, K, C)
+    conv_w, conv_b, A_log, Dp, norm_w = (p[k] for k in ("conv_w", "conv_b", "A_log", "D",
+                                                        "norm_w"))
+    dt, full_r = dt[:, 0], full                             # (B, H)
+    if tp is not None:
+        ch, h = tp.ssm_channels, tp.ssm_heads
+        full_r = torch.cat([full[..., ch], full[..., d_in:]], dim=-1)
+        conv_w = torch.cat([conv_w[:, ch], conv_w[:, d_in:]], dim=-1)
+        conv_b = torch.cat([conv_b[ch], conv_b[d_in:]])
+        dt, A_log, Dp, norm_w = dt[:, h], A_log[h], Dp[h], norm_w[ch]
     # the JAX einsum "bkc,kc->bc": products summed in fp32, one rounding
-    conv = (full.to(F32) * p["conv_w"].to(F32)).sum(1).to(x.dtype) + p["conv_b"]
+    conv = (full_r.to(F32) * conv_w.to(F32)).sum(1).to(x.dtype) + conv_b
     conv = _silu_f32(conv)
 
-    xin1, bc1 = conv[..., :d_in], conv[..., d_in:]
-    Bm, Cm = bc1.reshape(B, 2 * G, N).split(G, dim=1)
-    Bh = torch.repeat_interleave(Bm, H // G, dim=1).to(F32)  # (B, H, N)
-    Ch = torch.repeat_interleave(Cm, H // G, dim=1).to(F32)
-    A = -torch.exp(p["A_log"])
-    xh = xin1.reshape(B, H, P).to(F32)
+    Hr = S.shape[1]
+    xin1, bc1 = conv[..., :Hr * P], conv[..., Hr * P:]
+    Bm, Cm = _split_bc(bc1, G, N, tp)                       # (B, G', N)
+    rep = H // G
+    first = 0 if tp is None else tp.ssm_heads.start % rep
+    Bh = torch.repeat_interleave(Bm, rep, dim=1)[:, first:first + Hr].to(F32)   # (B, Hr, N)
+    Ch = torch.repeat_interleave(Cm, rep, dim=1)[:, first:first + Hr].to(F32)
+    A = -torch.exp(A_log)
+    xh = xin1.reshape(B, Hr, P).to(F32)
     S = torch.exp(dt * A)[:, :, None, None] * S + \
         (dt[:, :, None] * xh)[..., None] * Bh[:, :, None, :]
-    y = torch.einsum("bhn,bhpn->bhp", Ch, S) + p["D"][None, :, None] * xh
-    out = _out_proj(p, x, y.reshape(B, 1, d_in).to(x.dtype), z, cfg)
+    y = torch.einsum("bhn,bhpn->bhp", Ch, S) + Dp[None, :, None] * xh
+    out = _out_proj(p, x, y.reshape(B, 1, Hr * P).to(x.dtype), z, norm_w, cfg, tp)
     return out, (full[:, 1:], S)
 
 
-def init_mamba_state(cfg: ModelConfig, batch: int, *, device="cuda"):
-    """Zero (conv_buf in the param dtype, S in fp32) for `batch` sequences."""
+def init_mamba_state(cfg: ModelConfig, batch: int, *, device="cuda", tp=None):
+    """Zero (conv_buf in the param dtype, S in fp32) for `batch` sequences;
+    under `tp` the whole conv buffer and the rank's heads' S."""
     dev = resolve_device(device)
     d_in, H, P, G, N = _dims(cfg)
     K = cfg.ssm.conv_dim
+    if tp is not None:
+        H = tp.ssm_heads.stop - tp.ssm_heads.start
     return (torch.zeros((batch, K - 1, d_in + 2 * G * N), dtype=param_dtype(cfg),
                         device=dev),
             torch.zeros((batch, H, P, N), dtype=F32, device=dev))

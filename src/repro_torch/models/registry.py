@@ -23,11 +23,13 @@ takes the MoE aux loss's means and a masked token mean over the mesh's
 data-parallel group, so that the mean of the ranks' losses is the global
 loss (`train/steps.py` under the same mesh).
 
-The dense, MoE and VLM families hold the reference's block of every leaf
-on any mesh (`sharding/rules.py::model_shardings`): over a "model" axis
-larger than 1 (tensor parallelism, `tensor_parallel.py`), and over the data
-axes where the guarded specs put them there: the FSDP archs' weights
-(cfg.fsdp) and the MoE experts (expert parallelism; `data_parallel.py`).
+The dense, MoE, VLM, hybrid and audio families hold the reference's block
+of every leaf on any mesh (`sharding/rules.py::model_shardings`): over a
+"model" axis larger than 1 (tensor parallelism, `tensor_parallel.py`), and
+over the data axes where the guarded specs put them there: the FSDP archs'
+weights (cfg.fsdp) and the MoE experts (expert parallelism;
+`data_parallel.py`; the hybrid's and whisper's specs name no data axis).
+The xLSTM (family "ssm") refuses a "model" axis (ROADMAP Queue 1, item 6c).
 The rank's init_params draws its blocks of the weights, init_cache holds
 its rows' cache heads, and prefill and decode_step run under the mesh's
 axis rules, whose `constrain` checks each annotated activation's layout,
@@ -164,33 +166,43 @@ def _cuts_data(cfg: ModelConfig, mesh) -> bool:
     return any(c.data for c in model_dims(_whole(cfg), cfg, mesh, rules_for(mesh)).values())
 
 
+_MODULES = {"dense": dense, "moe": dense, "vlm": dense, "hybrid": hybrid, "audio": whisper}
+
+
 def _whole(cfg: ModelConfig):
-    return dense.init_params(torch.Generator(), cfg, device="meta")
+    return _MODULES[cfg.family].init_params(torch.Generator(), cfg, device="meta")
 
 
 def _sharded_model(cfg: ModelConfig, dev, window, n_groups: int, mesh) -> Model:
-    """The dense, MoE and VLM model of which this rank holds the reference's
-    blocks on `mesh`: tensor-parallel over "model", FSDP and EP over the
-    data axes."""
-    if cfg.family not in ("dense", "moe", "vlm"):
+    """The model of which this rank holds the reference's blocks on `mesh`:
+    tensor-parallel over "model" (every family but the xLSTM), FSDP and EP
+    over the data axes (the dense, MoE and VLM families)."""
+    if cfg.family not in _MODULES:
         raise NotImplementedError(f"TP not yet ported for {cfg.family} ({cfg.name}): a "
-                                  f"\"model\" axis of {tp_degree(mesh)} needs its heads and "
-                                  "states split (ROADMAP Queue 1, item 6c)")
+                                  f"\"model\" axis of {tp_degree(mesh)} needs the mLSTM's heads "
+                                  "and the sLSTM's gates split (ROADMAP Queue 1, item 6c)")
     group = tp_group(mesh)
     tp = TensorParallel.plan(cfg, group) if tp_degree(mesh) > 1 else None
     whole, rules = _whole(cfg), rules_for(mesh)
     dp = DataParallel.plan(cfg, whole, mesh, rules)
     split = Split(group, 1 if tp is None else tp.size, model_dims(whole, cfg, mesh, rules))
-    kw = dict(cfg=cfg, n_groups=n_groups, tp=tp, dp=dp)
+    mod = _MODULES[cfg.family]
+    if mod is dense:
+        kw = dict(cfg=cfg, n_groups=n_groups, tp=tp, dp=dp)
+        pre_kw, cache_kw = dict(kw, window=window), {}
+    else:
+        kw = dict(cfg=cfg, tp=tp)
+        pre_kw = dict(kw, window=window) if mod is hybrid else kw
+        cache_kw = dict(window=window) if mod is hybrid else {}
     return Model(
         cfg=cfg,
         device=dev,
-        init_params=functools.partial(dense.init_params, cfg=cfg, device=dev, mesh=mesh,
+        init_params=functools.partial(mod.init_params, cfg=cfg, device=dev, mesh=mesh,
                                       rank=dist.get_rank()),
-        loss=_bound(mesh, functools.partial(dense.lm_loss, group=dp_group(mesh), **kw)),
-        prefill=_bound(mesh, functools.partial(dense.lm_prefill, window=window, **kw)),
-        decode_step=_bound(mesh, functools.partial(dense.lm_decode_step, **kw)),
-        init_cache=functools.partial(dense.init_cache, cfg, device=dev, tp=tp),
+        loss=_bound(mesh, functools.partial(mod.lm_loss, group=dp_group(mesh), **kw)),
+        prefill=_bound(mesh, functools.partial(mod.lm_prefill, **pre_kw)),
+        decode_step=_bound(mesh, functools.partial(mod.lm_decode_step, **kw)),
+        init_cache=functools.partial(mod.init_cache, cfg, device=dev, tp=tp, **cache_kw),
         mesh=mesh,
         tp=tp,
         split=split,

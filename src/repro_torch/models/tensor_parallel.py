@@ -1,5 +1,5 @@
-"""Tensor parallelism over the mesh's "model" axis, for serving: what a rank
-of the dense, MoE and VLM models holds, and the collectives that make its
+"""Tensor parallelism over the mesh's "model" axis: what a rank of the dense,
+MoE, VLM, hybrid and audio models holds, and the collectives that make its
 blocks compute what the whole model computes.
 
 The reference shards by annotation: the serving specs (`sharding/rules.py`:
@@ -33,12 +33,23 @@ that says, from the config alone, what the rank holds:
   * the embeddings' vocab rows: a masked lookup of the rank's rows,
     all-reduced; the logits of the rank's rows, masked by global vocab id,
     all-gathered into the (B, T, V) logits every caller expects.
+  * the hybrid's mamba2 blocks (`ssm_heads`, where n divides the SSM heads
+    H = d_in / P): w_zx's block is columns of [z | x], not the rank's
+    heads' z and x (at n = 4 two ranks hold z and two x), so the product's
+    columns are gathered (`gather_zx`) and the rank takes its heads' z and
+    x of it; the conv's input stays whole (the recurrent conv buffer holds
+    every channel). The scan runs on the rank's heads, which read every B
+    and C of their groups (`ssm_groups`); w_out's row block is exactly the
+    rank's heads' channels, so y @ w_out is a partial sum, all-reduced
+    once. The gated RMSNorm's statistic spans every head: each rank sums
+    its channels' squares and the sums are all-reduced (`shared_sum`).
 
 Partial sums are all-reduced in fp32 and cast back, so gloo (ranks sharing
 a card, through host memory) and NCCL (a card a rank) sum the same values
 in the same precision. Each collective runs under a `record_function`
 ("tp_all_reduce", "tp_all_gather", "tp_reduce_scatter"), which a profile of
-the step reads.
+the step reads, and is counted by that name in `calls` (read by
+chip_smoke.py, as data_parallel.calls is).
 
 Training (Megatron's f and g, each a `torch.autograd.Function` over the
 "model" group; every rank computes the same replicated loss, so a
@@ -52,11 +63,21 @@ block's gradient exact for the block):
     their replicated input. On the normed activation entering each split
     product (q/k/v, the FFN, the experts' dispatch) and on the unembed's
     input; a replicated product reads the activation as it is.
-  * `all_gather` (the guard's column gathers, `gather_q`/`gather_kv`): every
-    rank's columns forward; backward the sum over the ranks of the whole
-    gradient, of which the rank keeps its columns (a reduce-scatter): the
-    gathered heads feed a partial product (`out_cols`, or q heads that read
-    only their groups' kv heads), so each rank's gradient of them is partial.
+  * `all_gather` (the guard's column gathers, `gather_q`/`gather_kv`,
+    `gather_zx`): every rank's columns forward; backward the sum over the
+    ranks of the whole gradient, of which the rank keeps its columns (a
+    reduce-scatter): the gathered heads feed a partial product (`out_cols`,
+    q heads that read only their groups' kv heads, the rank's SSM heads),
+    so each rank's gradient of them is partial.
+  * `shared_sum`: the sum over the ranks forward and backward. A statistic
+    of a split dim (the gated RMSNorm's sum of squares) that each rank then
+    reads for its own part only: the rank's gradient of the sum is partial.
+`enter` takes several tensors at once and sums their gradients in one
+all-reduce: a mamba2 block enters its normed input, the fp32 B and C
+(every head reads them), dt and the replicated leaves whose heads' part
+alone the rank reads (the conv's x weights and bias, A_log, D, norm_w),
+whose gradients would otherwise be right on the rank's heads and zero
+elsewhere, and drift apart across the ranks.
 """
 from __future__ import annotations
 
@@ -70,6 +91,9 @@ from repro_torch import distributed as D
 from repro_torch.configs.base import ModelConfig
 
 F32 = torch.float32
+
+# the collectives run in this process, by span name
+calls = {"tp_all_reduce": 0, "tp_all_gather": 0, "tp_reduce_scatter": 0}
 
 
 def _group_heads(hq: int, hk: int, n: int, r: int) -> slice:
@@ -106,6 +130,10 @@ class TensorParallel:
     out_cols: Optional[slice]      # its wo rows' columns of a whole attention output
     attn_partial: bool             # out @ wo is a partial sum
     vocab_rows: Optional[slice]    # its rows of the (padded) embeddings, or None: all
+    ssm_heads: Optional[slice] = None    # the hybrid's SSM heads it computes, of H
+    ssm_channels: Optional[slice] = None  # their channels of d_in (z, x, norm_w, w_out rows)
+    ssm_groups: Optional[slice] = None   # the B/C groups those heads read, of G
+    gather_zx: bool = False              # w_zx's columns are gathered (split, not by head)
 
     @classmethod
     def plan(cls, cfg: ModelConfig, group) -> "TensorParallel":
@@ -129,7 +157,8 @@ class TensorParallel:
                       if rows % n == 0 and not q_split else None),
             attn_partial=rows % n == 0,
             vocab_rows=(slice(r * vocab // n, (r + 1) * vocab // n)
-                        if vocab % n == 0 else None))
+                        if vocab % n == 0 else None),
+            **(_ssm_plan(cfg, n, r) if cfg.family == "hybrid" else {}))
 
     @property
     def kv_read_partially(self) -> bool:
@@ -149,13 +178,16 @@ class TensorParallel:
         x's dtype; under autograd its backward is the identity (g)."""
         return _Reduce.apply(x, self.group)
 
-    def enter(self, x: torch.Tensor) -> torch.Tensor:
-        """x, replicated, as the input of column-parallel products: the
-        identity, whose backward sums the ranks' partial gradients. Outside
-        autograd, x itself."""
-        if torch.is_grad_enabled() and x.requires_grad:
-            return _Enter.apply(x, self.group)
-        return x
+    def enter(self, *xs: torch.Tensor):
+        """xs, replicated, as the input of column-parallel products (or of
+        the rank's heads): the identity, whose backward sums the ranks'
+        partial gradients, all of them in one all-reduce. One tensor given,
+        one returned, else a tuple. Outside autograd, xs themselves."""
+        if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+            out = _Enter.apply(self.group, *xs)
+        else:
+            out = xs
+        return out[0] if len(xs) == 1 else tuple(out)
 
     def psum(self, *parts) -> torch.Tensor:
         """The sum of `parts`, each (tensor, partial): the partial ones
@@ -167,6 +199,12 @@ class TensorParallel:
             out = t if out is None else out + t
         return out
 
+    def shared_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of x (in fp32, returned in x's dtype),
+        which every rank then reads for its own part of a split dim: its
+        backward sums the ranks' partial gradients too."""
+        return _SharedSum.apply(x, self.group)
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's x, concatenated in rank order along the last dim;
         under autograd its backward is the reduce-scatter of the gradient
@@ -175,16 +213,45 @@ class TensorParallel:
 
     def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the ranks of x (no gradient)."""
+        calls["tp_all_reduce"] += 1
         with torch.profiler.record_function("tp_all_reduce"):
             return D.all_reduce_(x.detach().clone(), op=dist.ReduceOp.MAX, group=self.group)
 
 
+def _ssm_plan(cfg: ModelConfig, n: int, r: int) -> dict:
+    """The hybrid's mamba2 part of rank r's plan of n: its H/n SSM heads,
+    their channels and the groups they read. The guard splits w_zx's 2 d_in
+    columns and w_out's d_in rows wherever n divides them; the port splits
+    the scan by head, so n must divide H."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    H, G = d_in // s.head_dim, s.n_groups
+    if H % n:
+        raise NotImplementedError(
+            f"{cfg.name}: {H} SSM heads do not split {n} ways (d_in {d_in}): the port splits "
+            "the mamba2 scan by head, and a rank's block of w_zx and w_out would cut a head")
+    local, per_group = H // n, H // G
+    if local % per_group == 0:
+        groups = slice(r * local // per_group, (r + 1) * local // per_group)
+    elif per_group % local == 0:
+        groups = slice(r * local // per_group, r * local // per_group + 1)
+    else:
+        raise NotImplementedError(f"{cfg.name}: a rank's {local} SSM heads straddle the "
+                                  f"groups of {per_group} heads")
+    P = s.head_dim
+    return dict(ssm_heads=slice(r * local, (r + 1) * local),
+                ssm_channels=slice(r * local * P, (r + 1) * local * P),
+                ssm_groups=groups, gather_zx=2 * d_in % n == 0)
+
+
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    calls["tp_all_reduce"] += 1
     with torch.profiler.record_function("tp_all_reduce"):
         return D.all_reduce_(x.to(F32, copy=True), group=group).to(x.dtype)
 
 
 def _gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    calls["tp_all_gather"] += 1
     with torch.profiler.record_function("tp_all_gather"):
         n = dist.get_world_size(group)
         x = x.contiguous()
@@ -197,6 +264,7 @@ def _gather_last(x: torch.Tensor, group) -> torch.Tensor:
 def _reduce_scatter_last(dy: torch.Tensor, group) -> torch.Tensor:
     """The rank's columns of the sum over the ranks of dy (..., n c), in fp32
     and returned in dy's dtype."""
+    calls["tp_reduce_scatter"] += 1
     with torch.profiler.record_function("tp_reduce_scatter"):
         n = dist.get_world_size(group)
         parts = dy.reshape(*dy.shape[:-1], n, dy.shape[-1] // n).movedim(-2, 0)
@@ -218,12 +286,34 @@ class _Reduce(torch.autograd.Function):
 
 
 class _Enter(torch.autograd.Function):
-    """f: the identity forward, the sum over the "model" group backward."""
+    """f: the identity forward, the sum over the "model" group backward, of
+    every input's gradient in one fp32 all-reduce."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        need = ctx.needs_input_grad[1:]
+        live = [dy for dy, k in zip(dys, need) if k]
+        if len(live) == 1:
+            summed = iter([_sum(live[0], ctx.group)])
+        else:
+            flat = _sum(torch.cat([dy.reshape(-1).to(F32) for dy in live]), ctx.group)
+            summed = (part.view(dy.shape).to(dy.dtype) for part, dy in
+                      zip(flat.split([dy.numel() for dy in live]), live))
+        return (None, *(next(summed) if k else None for k in need))
+
+
+class _SharedSum(torch.autograd.Function):
+    """The sum over the "model" group forward and backward."""
 
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return x.view_as(x)
+        return _sum(x, group)
 
     @staticmethod
     def backward(ctx, dy):

@@ -120,7 +120,8 @@ def world_rank(rank, world, dev, jobs):
 
 def train_rank(rank, world, dev, cases):
     """Each case {"arch", "shape" (the mesh), "zero", "state" (JAX's train
-    state at step 0, numpy), "batch", "lr", "steps", "micro"[, "fsdp"]}
+    state at step 0, numpy), "batch", "lr", "steps", "micro"[, "fsdp",
+    "config" (more SMOKE overrides)]}
     trained by this rank: its loss and its gradient blocks at the step-0
     params on the whole batch (its data group's share, averaged over the
     group; a block cut over the data axes comes summed over it), then
@@ -135,7 +136,7 @@ def train_rank(rank, world, dev, cases):
     from repro_torch.tree import leaves, tree_map
     out = {}
     for name, c in cases.items():
-        cfg = smoke_cfg(c["arch"]).replace(fsdp=c.get("fsdp", False))
+        cfg = smoke_cfg(c["arch"]).replace(fsdp=c.get("fsdp", False), **c.get("config", {}))
         mesh = make_mesh(c["shape"], ("data", "model"), device=dev)
         model = build_model(cfg, device=dev, mesh=mesh)
         whole = bridge.train_state_from_jax(c["state"], dev)

@@ -383,9 +383,9 @@ def test_zero_state_bytes_per_rank_match_jax(arch, mesh):
     `init_params` under the mesh) equal the reference's guarded param block
     of that rank (`named_shardings`: "model", and the data axes where FSDP
     and the experts put them), and its AdamW moments (ZeRO-1) and ZeRO-2
-    accumulator the reference's ZeRO-1 blocks. The hybrid, xLSTM and
-    whisper families hold their whole params on a "model" axis no wider
-    than 1 only (their TP is ROADMAP item 6c)."""
+    accumulator the reference's ZeRO-1 blocks. The xLSTM holds its whole
+    params on a "model" axis no wider than 1 only (its TP is ROADMAP item
+    6c); the hybrid and whisper build there."""
     cfg = get_config(arch)
     mesh = D.MESHES[mesh]
     whole = M.build_model(cfg, device="meta").init_params(torch.Generator())
@@ -393,7 +393,7 @@ def test_zero_state_bytes_per_rank_match_jax(arch, mesh):
     zero, param = _ref_zero_bytes(arch, mesh.shape, mesh.axis_names)
     with D.fake_mesh(mesh) as m:
         g_sh = RU.shardings_for(whole, cfg, m, rules, zero1=True)
-        if cfg.family in ("hybrid", "ssm", "audio") and mesh.shape[-1] > 1:
+        if cfg.family == "ssm" and mesh.shape[-1] > 1:
             with pytest.raises(NotImplementedError, match="item 6c"):
                 M.build_model(cfg, device="meta", mesh=m)
             params = RU.model_shardings(whole, cfg, m, rules).take(whole, 0)
@@ -604,13 +604,41 @@ def test_all_to_all_and_group_collectives_wire_bytes():
     assert coll["all-gather"] == [1, 512, 512 * (2 - 1)]
 
 
+def tp_collectives(cfg, kind: str, micro: int = 1) -> dict:
+    """The "model" axis's all-reduces and all-gathers (and reduce-scatters)
+    of a hybrid or whisper step on a rank of four, whose heads split (the
+    SMOKE configs): what models/mamba2.py, hybrid.py and whisper.py run.
+    A mamba2 block: w_zx's gather, the gated norm's statistic and w_out's
+    sum forward; again in the remat replay; backward one all-reduce of its
+    entered tensors and the statistic's, w_zx's reduce-scatter. The shared
+    block: wo's and the FFN's sums (the replay stops before the FFN's),
+    backward q/k/v's and the FFN's input. Whisper: an encoder layer as a
+    dense layer (2 + 1 + 2), a decoder layer 3 sums forward (self, cross,
+    FFN), 2 in the replay, 3 backward (its self q/k/v, cross q and FFN
+    inputs); the encoder's output enters the cross k/v products once. Per
+    microbatch the embedding's sum, the loss's 2 and the unembed input's
+    backward; one for the global norm; serving gathers the logits."""
+    assert cfg.n_heads % 4 == 0
+    if cfg.family == "hybrid":
+        L, nb = cfg.n_layers, cfg.n_layers // cfg.hybrid.attn_every
+        if kind == "train":
+            return {"all-reduce": micro * (6 * L + 5 * nb + 4) + 1, "all-gather": 2 * L * micro,
+                    "reduce-scatter": L * micro}
+        return {"all-reduce": 2 * L + 2 * nb + 1, "all-gather": L + 1}
+    le, ld = cfg.encdec.n_enc_layers, cfg.n_layers
+    if kind == "train":
+        return {"all-reduce": micro * (5 * le + 8 * ld + 5) + 1}
+    return {"all-reduce": (2 * le if kind == "prefill" else 0) + 3 * ld + 1, "all-gather": 1}
+
+
 @pytest.mark.parametrize("mesh", ["1x1", "4x1", "2x4"])
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_run_cell_at_smoke(arch, mesh, tmp_path):
     """run_cell on (1, 1), (4, 1) and (2, 4) for every shape: ok where
     applicable says, skipped where it does not; arctic's train cells are
-    errors that name Adafactor's ZeRO-1, and on (2, 4) the hybrid's, the
-    xLSTM's and whisper's cells errors that name their TP (item 6c). Each
+    errors that name Adafactor's ZeRO-1, and on (2, 4) the xLSTM's cells
+    errors that name its TP (item 6c); the hybrid's and whisper's are
+    accounts with the collectives of their TP (`tp_collectives`). Each
     record has the reference's fields."""
     cfg = get_config(arch, smoke=True)
     mesh = D.MESHES[mesh]
@@ -621,7 +649,7 @@ def test_run_cell_at_smoke(arch, mesh, tmp_path):
             assert (tmp_path / "baseline" / D.mesh_name(mesh) / f"{arch}__{name}.json").exists()
             if not applicable(cfg.family, cfg.sub_quadratic, name):
                 assert rec["status"] == "skipped", rec
-            elif mesh.shape[-1] > 1 and cfg.family in ("hybrid", "ssm", "audio"):
+            elif mesh.shape[-1] > 1 and cfg.family == "ssm":
                 assert rec["status"] == "error" and "item 6c" in rec["error"], rec
             elif cfg.optimizer == "adafactor" and SHAPES[name].kind == "train":
                 assert rec["status"] == "error" and "ZeRO-1" in rec["error"] \
@@ -637,6 +665,13 @@ def test_run_cell_at_smoke(arch, mesh, tmp_path):
                     # SMOKE's params are far under the reference's 2 GiB a chip
                     assert rec["serve_weights"] == ("tensor-parallel" if mesh.shape[-1] > 1
                                                     else "whole"), rec
+                if mesh.shape[-1] > 1 and cfg.family in ("hybrid", "audio"):
+                    # ZeRO-2's over "data" come on top in the train step
+                    want = tp_collectives(cfg, SHAPES[name].kind, rec.get("microbatches", 1))
+                    coll = r["collectives"]
+                    for op, count in want.items():
+                        assert coll[op][0] == count or (SHAPES[name].kind == "train" and
+                                                        coll[op][0] > count), (op, coll)
 
 
 # ----------------------------------------------------------------------------
@@ -680,10 +715,11 @@ def test_tp_cell_holds_the_rank_s_blocks_and_a_quarter_of_the_flops(arch, shape)
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_run_cell_on_the_tp_mesh_at_smoke(arch, tmp_path):
-    """run_cell on (1, 4): every shape ok for the dense, MoE and VLM
-    families (the train shape through the tensor-parallel train step, no
-    skip), errors that name ROADMAP item 6c for the others, long_500k as on
-    (1, 1)."""
+    """run_cell on (1, 4): every shape ok for the dense, MoE, VLM, hybrid
+    and audio families (the train shape through the tensor-parallel train
+    step, no skip; the hybrid's and whisper's collectives exactly
+    `tp_collectives`), errors that name ROADMAP item 6c for the xLSTM,
+    long_500k as on (1, 1)."""
     cfg = get_config(arch, smoke=True)
     mesh = D.MESHES["1x4"]
     for name in SHAPES:
@@ -691,9 +727,14 @@ def test_run_cell_on_the_tp_mesh_at_smoke(arch, tmp_path):
                          out_dir=tmp_path)
         if not applicable(cfg.family, cfg.sub_quadratic, name):
             assert rec["status"] == "skipped" and "long_500k" in rec["reason"], rec
-        elif cfg.family in ("hybrid", "ssm", "audio"):
+        elif cfg.family == "ssm":
             assert rec["status"] == "error" and "TP not yet ported" in rec["error"] \
                 and "item 6c" in rec["error"], rec
+        elif cfg.family in ("hybrid", "audio"):
+            assert rec["status"] == "ok", rec.get("traceback", rec)
+            coll = {op: c[0] for op, c in rec["roofline"]["collectives"].items()}
+            assert coll == tp_collectives(cfg, SHAPES[name].kind, rec.get("microbatches", 1))
+            assert rec.get("serve_weights", "tensor-parallel") == "tensor-parallel"
         else:
             assert rec["status"] == "ok", rec.get("traceback", rec)
             coll = rec["roofline"]["collectives"]
