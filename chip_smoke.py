@@ -160,8 +160,9 @@ exits non-zero on failure; nothing is caught and carried on.
      interactions/s), no kernel launched; then `run_benchmark_local` with 4
      tasks of 1000 steps for Cartpole and Humanoid through a pool of
      threads (`ThreadPoolCluster`);
- 11. the multi-rank paths, their ranks spawned on the cards present
-     (`repro_torch.distributed.spawn`; NCCL with a card a rank, else gloo,
+ 11. the multi-rank paths, their ranks started on the cards present, one
+     set a world size that runs every multi-rank phase's jobs in turn
+     (`repro_torch.distributed.Ranks`; NCCL with a card a rank, else gloo,
      the payload through host memory; one line names W, the backend, each
      rank's device and the card): a. the int8 ring all-reduce
      (`compressed_psum_mean`) on 4 ranks over the gradient tree of one
@@ -307,7 +308,23 @@ exits non-zero on failure; nothing is caught and carried on.
      decode on a rank's cache (B=4, 8 heads, 1032 rows), against their
      plain versions, timed beside SDPA where it computes the same and the
      bound;
- 17. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+ 17. Adafactor and checkpoints on four ranks of a (2, 2) mesh, in phase
+     15's job on the ranks (run after 16): a. 15a's phi3.5-moe x 2 (EP over
+     "data", expert-TP) and b. 15b's qwen1.5-32b x 2 (FSDP, TP), each with
+     Adafactor, ZeRO-2 accumulators and a ZeRO-1 state (the rank's blocks
+     of every factored statistic, their means summed over the ranks that
+     cut them), trained and gated as 15 trains and gates (15's
+     collectives a step; twice each config's rounding floor, measured by
+     tools/update_floor.py, is under the 0.1 of the update that the ranks'
+     blocks are held to); c. a's final state
+     saved by the Checkpointer from the 4 ranks and restored into one
+     process and into the ranks, every rank's blocks bit-identical
+     (digests) to both restores, the seconds of each printed; d. the
+     dry-run's (2, 2) account of a's rank 0 on meta against one more step
+     of that rank on the card, routed by its own router: FLOPs, bytes,
+     kernel ops and collectives (Adafactor's sums among them) equal, the
+     high-water mark as 12d holds it;
+ 18. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
      at C=320, ssd_scan's with its plain backward, flash's, decode's,
      moe_gmm's and ssd_scan's with their rows at phase 9's, 13's, 14's,
      15's and 16's shapes) and, last, the device line `{"ok": true,
@@ -2619,7 +2636,38 @@ DP_UPDATE_TOL = 0.1
 # the learning rate of 11b and 11c: the Trainer's base rate, held constant
 # (warmup_cosine is 0 at step 0, where an update would compare nothing)
 DP_LR = 3e-4
+# Adafactor's learning rate (17a, 17b): its step is relative (lr x the
+# leaf's RMS x an update clipped to RMS 1), so at DP_LR a bf16 entry would
+# move by about a tenth of an ulp and most would not move at all; at 3e-2
+# an entry moves 4-8 ulps, as AdamW's first step at DP_LR moves one ~5
+AF_LR = 3e-2
 RING_WORLD, DP_WORLD = 4, 2
+
+
+# the ranks of the multi-rank phases (11, 13-17): one set a world size,
+# started at first use and kept to the end (distributed.Ranks), so a spawn's
+# start-up (imports, the card's context, the group, the pinned buffers) is
+# paid once a world size, not once a phase. Their allocators use expandable
+# segments: the ranks share the card, and return what a job frees
+_RANKS = {}
+
+
+def on_ranks(fn, world, dev, *args):
+    """fn(rank, world, device, *args) on the script's `world` ranks: each
+    rank's result, by rank."""
+    from repro_torch import distributed as D
+    if world not in _RANKS:
+        with mock.patch.dict(os.environ,
+                             {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}):
+            _RANKS[world] = D.Ranks(world, device=dev.type, timeout=900)
+        atexit.register(_RANKS[world].close)
+    return _RANKS[world].run(fn, *args)
+
+
+def train_lr(cfg) -> float:
+    """The constant learning rate of a training run of `cfg`: AF_LR for
+    Adafactor, DP_LR for AdamW."""
+    return AF_LR if cfg.optimizer == "adafactor" else DP_LR
 
 
 def _rank_setup():
@@ -2734,7 +2782,8 @@ def dp_batch(cfg, seed, step, dev, rows, seq):
 
 def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_groups=1,
            account_last=False):
-    """`steps` AdamW steps of `cfg` at DP_LR from weights drawn from `seed`,
+    """`steps` steps of `cfg` at `train_lr` with its optimizer (AdamW; Adafactor
+    where the config names it) from weights drawn from `seed`,
     on global batches of rows x seq: (state, the per-step losses, grad norms
     and walls, and the kernels' launches counted from the first step). With
     `account_last` the last step runs under the dry-run's account
@@ -2747,10 +2796,10 @@ def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_g
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.train.steps import make_train_step, train_state
     model = build_model(cfg, device=dev, mesh=mesh, n_groups=n_groups)
-    opt = make_optimizer("adamw")
+    opt = make_optimizer(cfg.optimizer)
     state = train_state(model.init_params(torch.Generator(device=dev).manual_seed(seed)), opt,
-                        shard)
-    step = make_train_step(model, opt, lambda s: DP_LR, n_microbatches=n_micro,
+                        shard, model.split)
+    step = make_train_step(model, opt, lambda s: train_lr(cfg), n_microbatches=n_micro,
                            grad_shardings=shard, mesh=mesh)
     losses, norms, walls = [], [], []
     account, peak = None, 0
@@ -2838,9 +2887,9 @@ def block_digests(state, shardings, rank):
 
 
 def dp_shardings(cfg, mesh, stack=True):
-    """(ZeRO-2 grad shardings, the train state's shardings) of `cfg` on
-    `mesh` under the single-pod rules, the DP axes on the layer axis or,
-    without `stack`, on an inner dim."""
+    """(ZeRO-2 grad shardings, the train state's shardings) of `cfg` (its
+    optimizer) on `mesh` under the single-pod rules, the DP axes on the
+    layer axis or, without `stack`, on an inner dim."""
     import torch
     from repro_torch.models import build_model
     from repro_torch.optim.optimizers import make_optimizer
@@ -2848,9 +2897,9 @@ def dp_shardings(cfg, mesh, stack=True):
     from repro_torch.sharding.rules import shardings_for, state_shardings
     from repro_torch.train.steps import train_state
     meta = build_model(cfg, device="meta").init_params(torch.Generator())
-    return (shardings_for(meta, cfg, mesh, single_pod_rules(), zero1=True, zero1_stack=stack),
-            state_shardings(train_state(meta, make_optimizer("adamw")), cfg, mesh,
-                            single_pod_rules(), zero1_stack=stack))
+    shard = shardings_for(meta, cfg, mesh, single_pod_rules(), zero1=True, zero1_stack=stack)
+    return shard, state_shardings(train_state(meta, make_optimizer(cfg.optimizer)), cfg, mesh,
+                                  single_pod_rules(), shard)
 
 
 def dp_rank(rank, world, dev, seed, single_path, ckpt_dir, steps, n_micro, rows, seq):
@@ -3013,7 +3062,7 @@ def ranks_phase(seed, dev, smi, step_8b_ms=None, steps=3, n_micro=2, seq=1024):
     say("phase 11a: the int8 ring all-reduce with error feedback, the gradient tree of one "
         "llama3-8b layer at full width")
     ranks_line(RING_WORLD)
-    ring = D.spawn(ring_rank, RING_WORLD, seed, device=dev.type, timeout=600)
+    ring = on_ranks(ring_rank, RING_WORLD, dev, seed)
     r0 = ring[0]
     say(f"  {r0['entries'] / 1e6:.1f} M fp32 entries a rank, over {r0['transport']}: ring "
         f"{r0['ring_ms']:.1f} ms (median of 3, rank 0), dist.all_reduce on the same tensors "
@@ -3049,8 +3098,8 @@ def ranks_phase(seed, dev, smi, step_8b_ms=None, steps=3, n_micro=2, seq=1024):
             f"tokens/s, peak {single['peak_gb']:.2f} GB"
             + (f" (phase 8b, x 4 layers on 4 x 1024: {step_8b_ms:.1f} ms)" if step_8b_ms else ""))
         ranks_line(DP_WORLD)
-        ranks = D.spawn(dp_rank, DP_WORLD, seed, f"{tmp}/single.pt", f"{tmp}/ckpt", steps,
-                        n_micro, rows, seq, device=dev.type, timeout=900)
+        ranks = on_ranks(dp_rank, DP_WORLD, dev, seed, f"{tmp}/single.pt", f"{tmp}/ckpt", steps,
+                         n_micro, rows, seq)
         say("phase 11b: data-parallel training, llama3-8b x 2 of 32 layers at full width, bf16, "
             f"AdamW at {DP_LR:g}, plain DP and ZeRO-2 (ZeRO-1 state)")
         upd = single["sq_update"] ** 0.5
@@ -3238,19 +3287,21 @@ def account_gate(label, kind, cfg, seed, dev, smi, rows, seq):
 
 def start_sweep():
     """12c's production sweep on the meta device, one process an arch and
-    mesh, and 12d's meta account (meta_account_main), started at low
+    mesh, and 12d's and 17d's meta accounts (meta_account_main), started at low
     priority so that they run beside the card's phases. Returns the
     processes."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     log_dir = ROOT / "build" / "dryrun" / SWEEP_TAG
     log_dir.mkdir(parents=True, exist_ok=True)
-    DP_ACCOUNT_FILE.unlink(missing_ok=True)
-    log = open(log_dir / "qwen-2x2-account.log", "w")
-    procs = [(subprocess.Popen(["nice", "-n", "19", sys.executable, "-W", "ignore",
-                                str(ROOT / "chip_smoke.py"), "--meta-account",
-                                str(DP_ACCOUNT_FILE)], cwd=ROOT, env=env, stdout=log,
-                               stderr=subprocess.STDOUT), log)]
+    procs = []
+    for path, run in ((DP_ACCOUNT_FILE, "15b"), (AF_ACCOUNT_FILE, "17a")):
+        path.unlink(missing_ok=True)
+        log = open(log_dir / f"{path.stem}.log", "w")
+        procs.append((subprocess.Popen(["nice", "-n", "19", sys.executable, "-W", "ignore",
+                                        str(ROOT / "chip_smoke.py"), "--meta-account",
+                                        str(path), "--meta-run", run], cwd=ROOT, env=env,
+                                       stdout=log, stderr=subprocess.STDOUT), log))
     for arch in SWEEP_ARCHS:
         for mesh in ("1x1", "4x1"):
             cmd = ["nice", "-n", "19", sys.executable, "-W", "ignore", "-m",
@@ -3742,7 +3793,7 @@ def tp_launch_gate(label, r, cfg):
 
 def tp_phase(label, cfg, seed, n, dev, smi, *, requests=None, prompts=None, slots=8,
              max_len=2048, new_tokens=16, steps=8, gate_layers=None, phase4=None):
-    """13a-13c: `cfg` served on n ranks of a (1, n) mesh (distributed.spawn:
+    """13a-13c: `cfg` served on n ranks of a (1, n) mesh (on_ranks:
     NCCL with a card a rank, else gloo through host memory), held to this
     process's whole model from the same seed. With `requests` (prompts of
     any length) a ServeEngine of `slots` x `max_len` on every rank serves
@@ -3783,7 +3834,7 @@ def tp_phase(label, cfg, seed, n, dev, smi, *, requests=None, prompts=None, slot
     say(f"  single process: whole model and the references on {gate_layers} layers in "
         f"{time.perf_counter() - t0:.1f} s; bf16 plain path's peak {refs['single_peak_gb']:.2f} GB")
     t0 = time.perf_counter()
-    ranks = D.spawn(tp_rank, n, job, device=dev.type, timeout=600)
+    ranks = on_ranks(tp_rank, n, dev, job)
     inits = ", ".join(f"{r['init_s']:.1f}" for r in ranks)
     say(f"  {n} ranks over {ranks[0]['transport']}: {time.perf_counter() - t0:.1f} s wall, "
         f"init {inits} s")
@@ -3962,13 +4013,16 @@ def tp_train_kernel_phase(gen, dev, flash_shapes=TP_TRAIN_FLASH_SHAPES, gmm_expe
 
 
 def tp_train_rank(rank, world, dev, job):
-    """14a-14c on one rank: `job["steps"]` AdamW steps of `job["cfg"]` on a
-    `job["shape"]` mesh (ZeRO-2 over its data axis with `job["zero"]`),
-    from the seed's weights (the rank's blocks of the whole draw) on the
-    same batches as the single process (dp_run); then the distance of its
-    blocks to the single process's (saved at `job["single"]`) and of their
-    update, the digests of the leaves no rank splits, its peak memory and a
-    profiled step's TP spans."""
+    """14a-14c on one rank: `job["steps"]` steps of `job["cfg"]` (its
+    optimizer) on a `job["shape"]` mesh (ZeRO-2 over its data axis with
+    `job["zero"]`), from the seed's weights (the rank's blocks of the whole
+    draw) on the same batches as the single process (dp_run); then the
+    distance of its blocks to the single process's (saved at
+    `job["single"]`) and of their update, the digests of the leaves no
+    rank splits, its peak memory and a profiled step's TP spans. With
+    `job["ckpt"]` (17c) the state is saved there and restored (ckpt_rank);
+    with `job["account_after"]` (17d) one more step, routed by its own
+    router, runs under the dry-run's account."""
     import torch
     from repro_torch import distributed as D
     from repro_torch.launch.mesh import make_mesh
@@ -4027,14 +4081,58 @@ def tp_train_rank(rank, world, dev, job):
     run["held"] = sum(t.numel() for t in leaves(state["params"]))
     run["profile"] = None
     if job["profile"]:
-        step = make_train_step(model, make_optimizer("adamw"), lambda s: DP_LR,
+        step = make_train_step(model, make_optimizer(cfg.optimizer), lambda s: train_lr(cfg),
                                n_microbatches=job["n_micro"], grad_shardings=shard, mesh=mesh)
         b = dp_batch(cfg, job["seed"], job["steps"], dev, job["rows"], job["seq"])
         D.all_reduce_(torch.zeros(1, device=dev))   # start together
         run["profile"] = tp_profile(lambda: step(state, b), 1)
+    if job.get("ckpt"):
+        run["ckpt"] = ckpt_rank(cfg, mesh, shard, state, job, dev)
+    if job.get("account_after"):
+        # 17d: one more step, routed by its own router, under the account
+        step = make_train_step(model, make_optimizer(cfg.optimizer), lambda s: train_lr(cfg),
+                               n_microbatches=job["n_micro"], grad_shardings=shard, mesh=mesh)
+        b = dp_batch(cfg, job["seed"], job["steps"], dev, job["rows"], job["seq"])
+        torch.cuda.synchronize()
+        D.all_reduce_(torch.zeros(1, device=dev))   # start together
+        torch.cuda.reset_peak_memory_stats()
+        _, run["account"] = accounted_step(lambda: step(state, b), dev, state, b, shard)
     del state
     D.all_reduce_(torch.zeros(1, device=dev))   # every rank done before any frees the group
     return run
+
+
+def ckpt_rank(cfg, mesh, shard, state, job, dev):
+    """17c on one rank: the train state saved by the Checkpointer from every
+    rank (rank 0 writes) into `job["ckpt"]`, then restored into a fresh
+    state of this rank's blocks, both by the train state's shardings
+    (dp_shardings: ZeRO-1's blocks, as `shard`'s): the digests of its
+    blocks saved and restored, and the save's and the restore's seconds."""
+    import torch
+    from repro_torch import distributed as D
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.steps import train_state
+    _, full = dp_shardings(cfg, mesh)
+    rank = torch.distributed.get_rank()
+    out = {"saved": block_digests(state, full, rank)}
+    D.all_reduce_(torch.zeros(1, device=dev))   # start together
+    t0 = time.perf_counter()
+    Checkpointer(job["ckpt"]).save(job["steps"], state, blocking=True, shardings=full)
+    out["save_s"] = time.perf_counter() - t0
+    model = build_model(cfg, device=dev, mesh=mesh)
+    like = train_state(model.init_params(torch.Generator(device=dev).manual_seed(0)),
+                       make_optimizer(cfg.optimizer), shard, model.split)
+    D.all_reduce_(torch.zeros(1, device=dev))
+    t0 = time.perf_counter()
+    Checkpointer(job["ckpt"]).restore(like, step=job["steps"], shardings=full)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored"] = block_digests(like, full, rank)
+    del like
+    torch.cuda.empty_cache()
+    return out
 
 
 def reset_dp_calls():
@@ -4059,8 +4157,8 @@ def tp_calls(steps=1) -> dict:
 
 
 def tp_train_job_rank(rank, world, dev, jobs):
-    """Each of `jobs` on this rank, in order (one spawn for the runs of one
-    world size): a training run, or with "serve" a serving run (True: phase
+    """Each of `jobs` on this rank, in order (one job on the ranks for the runs
+    of one world size): a training run, or with "serve" a serving run (True: phase
     15c's; "tp": phase 16's)."""
     import torch
     out = {}
@@ -4098,13 +4196,13 @@ def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
 
 
 def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_want=None,
-                account=(), tp_span_want=None, floor=()) -> dict:
+                account=(), tp_span_want=None, floor=(), ckpt=None, account_after=()) -> dict:
     """Each of `configs` (name -> (config, mesh shape, ZeRO-2, steps, a
-    profiled step[, its own seq])) trained by AdamW steps at DP_LR of rows x
-    seq TokenPipeline tokens (whisper's with its stub frames, dp_batch) in
+    profiled step[, its own seq])) trained by steps of its optimizer at its
+    `train_lr` of rows x seq TokenPipeline tokens (whisper's with its stub frames, dp_batch) in
     `n_micro` microbatches (phase 8b's batch), first
-    in this process, then on the ranks from the same seed (one spawn a
-    world size; an MoE run's ranks replaying its routing, `routed_as`:
+    in this process, then on the ranks from the same seed (one job a
+    world size, on_ranks; an MoE run's ranks replaying its routing, `routed_as`:
     bf16 rounding flips near-tie router choices, and a flip moves an
     expert's update outright; the single process dispatches the data
     ranks' groups, as many as the mesh's data axis). Gates: losses and grad
@@ -4121,10 +4219,13 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
     sums alone), and the ranks' blocks are gated at NOISE_FACTOR times it
     where that exceeds DP_UPDATE_TOL. Prints each rank's step time and peak memory beside the single
     process's and a profiled step's spans.
-    `extra` (name -> job) runs in the same spawn (phase 15c's serving);
+    `extra` (name -> job) runs in the same job (phase 15c's serving);
     the runs named in `account` also measure the dry-run's account of their
-    step on the card (phase 12d). Returns the ranks' launches summed, each
-    run's times and memory, and the extra jobs' results."""
+    last step on the card (phase 12d), those in `account_after` of one more
+    step that routes by its own router (17d); `ckpt` (name -> directory)
+    saves and restores a run's final state on its ranks (17c, ckpt_rank).
+    Returns the ranks' launches summed, each run's times, memory, accounts
+    and checkpoint results, and the extra jobs' results."""
     import tempfile
     import numpy as np
     import torch
@@ -4148,9 +4249,10 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
             torch.save(tree_map(lambda t: t.cpu(), state["params"]), path)
             del state
             dp_launch_gate(f"{name} single process", single, cfg, n_micro, steps)
-            if name in floor:
-                with plain_kernels():
-                    other, _ = dp_run(cfg, s, dev, steps, n_micro, rows, sq)
+            if name in floor:   # an MoE run routes as the kernel run did
+                with plain_kernels(), routed_as(routing, replay=True):
+                    other, _ = dp_run(cfg, s, dev, steps, n_micro, rows, sq,
+                                      n_groups=shape[0] if cfg.family == "moe" else 1)
                 mine = torch.load(path, mmap=True)
                 p0 = build_model(cfg, device=dev).init_params(
                     torch.Generator(device=dev).manual_seed(s))
@@ -4163,7 +4265,8 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
             by_world.setdefault(shape[0] * shape[1], {})[name] = dict(
                 cfg=cfg, shape=shape, zero=zero, seed=s, steps=steps, n_micro=n_micro,
                 rows=rows, seq=sq, single=path, routing=[c.cpu().numpy() for c in routing],
-                profile=prof, account=name in account)
+                profile=prof, account=name in account, account_after=name in account_after,
+                ckpt=(ckpt or {}).get(name))
         for name, job in (extra or {}).items():
             world = job["shape"][0] * job["shape"][1]
             by_world.setdefault(world, {})[name] = job
@@ -4173,7 +4276,7 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
             say(f"  ranks: W={world}, backend {D.backend_for(world, dev)}, devices "
                 f"{[str(D.rank_device(r, dev)) for r in range(world)]}, card {smi}")
             t0 = time.perf_counter()
-            res = D.spawn(tp_train_job_rank, world, jobs, device=dev.type, timeout=900)
+            res = on_ranks(tp_train_job_rank, world, dev, jobs)
             say(f"  {world} ranks ({', '.join(jobs)}): {time.perf_counter() - t0:.1f} s wall")
             for name in jobs:
                 ranks[name] = [r[name] for r in res]
@@ -4238,7 +4341,7 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
                          step_ms=[float(np.median(r["walls"][1:])) * 1e3 for r in rs],
                          peak_gb=[r["peak_gb"] for r in rs], profile=[r["profile"] for r in rs],
                          account=rs[0]["account"], walls=[r["walls"] for r in rs],
-                         tp_calls=rs[0]["tp_calls"])
+                         tp_calls=rs[0]["tp_calls"], ckpt=[r.get("ckpt") for r in rs])
     train_runs = [r for name in runs for r in ranks[name]]
     out.update({n: sum(r["launches"][n] for r in train_runs) for n in kernel_counts()})
     out["lse"] = sum(r["lse"] for r in train_runs)
@@ -4496,7 +4599,7 @@ def dp_serve_gate(label, cfg, refs, ranks, smi):
         fail(f"{label}: fewer than half the sequences were routed alike")
 
 
-def dp_account_gate(card, smi):
+def dp_account_gate(card, smi, label="12d", path=DP_ACCOUNT_FILE):
     """12d: the dry-run's meta account of 15b's rank 0 (qwen1.5-32b x 2 on an
     abstract (2, 2) mesh over the fake process group, computed beside
     phases 3-11 into DP_ACCOUNT_FILE) against the account of 15b's last step
@@ -4504,10 +4607,11 @@ def dp_account_gate(card, smi):
     card's own): FLOPs, bytes, collectives (count, operand and wire bytes
     by kind), kernel ops and the high-water mark equal, the ZeRO-2
     accumulator's bytes equal, the allocator's peak within
-    ACCOUNT_PEAK_RATIO of the account's."""
-    if not DP_ACCOUNT_FILE.exists():
-        fail(f"12d: no meta account at {DP_ACCOUNT_FILE}")
-    meta = json.loads(DP_ACCOUNT_FILE.read_text())
+    ACCOUNT_PEAK_RATIO of the account's. 17d the same of 17a's extra step
+    against the account at `path`."""
+    if not path.exists():
+        fail(f"{label}: no meta account at {path}")
+    meta = json.loads(path.read_text())
     coll = {k: [float(x) for x in v] for k, v in card["collectives"].items()}
     same = {"flops": meta["flops"] == card["flops"], "bytes": meta["bytes"] == card["bytes"],
             "collectives": meta["collectives"] == coll,
@@ -4524,25 +4628,26 @@ def dp_account_gate(card, smi):
         f"{card['allocator_peak_bytes'] / 1e9:.3f} GB (ratio {ratio:.3f}, gate "
         f"{ACCOUNT_PEAK_RATIO}); accumulator {card['accum_bytes']} bytes; equal: {same}")
     if not ok:
-        fail("12d: the dry-run's (2, 2) account and 15b's rank on the card disagree")
+        fail(f"{label}: the dry-run's (2, 2) account and the rank on the card disagree")
     return dict(meta=meta, card=card, ratio=ratio)
 
 
-def meta_account_main(path, rows=4, seq=1024):
-    """Write the dry-run's meta account of 15b's rank 0 to `path` (JSON): the
-    train step of qwen1.5-32b x 2 on rank 0 of an abstract (2, 2) mesh, rows
-    x seq tokens in 2 microbatches, ZeRO-2 over "data", at 15b's learning
-    rate (DP_LR, held constant: the account of 15b's last step)."""
+def meta_account_main(path, rows=4, seq=1024, run="15b"):
+    """Write the dry-run's meta account of `run`'s rank 0 to `path` (JSON):
+    the train step of its config (15b: qwen1.5-32b x 2; 17a: phi3.5-moe x 2
+    with Adafactor) on rank 0 of an abstract (2, 2) mesh, rows x seq tokens
+    in 2 microbatches, ZeRO-2 over "data", at its learning rate
+    (`train_lr`, held constant: the account of its last step)."""
     import torch
     from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.models.registry import make_batch
-    cfg = dp_train_configs()["15b"][0]
+    cfg = {**dp_train_configs(), **adafactor_train_configs()}[run][0]
     batch = make_batch(cfg, ShapeConfig("train", "train", seq, rows), device="meta",
                        generator=torch.Generator().manual_seed(0))
     with dryrun.fake_mesh(dryrun.Mesh(DP_TP_SHAPE, ("data", "model"))) as mesh:
         acct, _ = dryrun.train_account(cfg, batch, n_micro=2, device="meta", mesh=mesh,
-                                       lr_fn=lambda s: DP_LR)
+                                       lr_fn=lambda s: train_lr(cfg))
     c = acct.cost
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(json.dumps(dict(
@@ -4551,23 +4656,30 @@ def meta_account_main(path, rows=4, seq=1024):
 
 
 def dp_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
-    """Phase 15: FSDP and expert parallelism over the data axis on four
-    ranks of a (2, 2) mesh on the cards present (ranks as in phase 13), at
-    published width: 15a phi3.5-moe x 2 (EP, expert-TP, ZeRO-2) and 15b
-    qwen1.5-32b x 2 (FSDP, TP, ZeRO-2) trained as phase 14 trains
-    (train_ranks), the all-gathers, reduce-scatters and all-to-alls of a
-    step held to the code's count (dp_spans); 15c decode on
+    """Phases 15 and 17, in one job on four ranks of a (2, 2) mesh on the
+    cards present (ranks as in phase 13), at published width. Phase 15, FSDP
+    and expert parallelism over the data axis: 15a phi3.5-moe x 2 (EP,
+    expert-TP, ZeRO-2) and 15b qwen1.5-32b x 2 (FSDP, TP, ZeRO-2) trained as
+    phase 14 trains (train_ranks), the all-gathers, reduce-scatters and
+    all-to-alls of a step held to the code's count (dp_spans); 15c decode on
     (2, 2), phi3.5-moe x 2 (FSDP and EP, as the reference serves it) and
     qwen1.5-32b x 2 (FSDP, its int8 cache): 4 prompts of 512 tokens, each
     data rank two, then 8 decode steps (dp_serve_gate); 12d the dry-run's
-    (2, 2) account of 15b's rank held to the card's (its last step); 15d
-    the kernels at a rank's shapes. Its ranks run with expandable
-    segments: four share the card. Returns the ranks' launches summed and
-    15d's rows."""
+    (2, 2) account of 15b's rank held to the card's (its last step); 15d the
+    kernels at a rank's shapes. Phase 17, Adafactor: 17a and 17b, 15a's and
+    15b's runs with Adafactor (ZeRO-2 accumulators, a ZeRO-1 state), trained
+    beside them, the ranks' blocks gated at DP_UPDATE_TOL of their update
+    (twice their rounding floors is less: adafactor_train_configs);
+    17c 17a's final state saved by the ranks and restored into one process
+    and into the ranks (ckpt_gate); 17d the dry-run's (2, 2) account of
+    17a's rank 0 on meta against one more step of that rank on the card.
+    Returns the ranks' launches summed, 15d's rows and the gates' numbers."""
+    import tempfile
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.registry import serve_config
-    configs = dp_train_configs()
+    af = adafactor_train_configs()
+    configs = {**dp_train_configs(), **af}
     span_want = {name: dp_spans(cfg, cfg.n_layers, n_micro, ep=cfg.family == "moe")
                  for name, (cfg, *_rest) in configs.items()}
     serve, refs = {}, {}
@@ -4584,11 +4696,17 @@ def dp_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
             f"{time.perf_counter() - t0:.1f} s")
         serve[name] = dict(serve=True, cfg=cfg, shape=DP_TP_SHAPE, seed=seed + 6 + i,
                            prompts=prompts, tokens=tokens)
-    say("phase 15a-c: the single processes first, then one spawn of 4 ranks")
-    # four ranks share the card: their allocators return what they free
-    with mock.patch.dict(os.environ, {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}):
+    say("phase 15a-c, 17a-b: the single processes first, then one job on 4 ranks")
+    with tempfile.TemporaryDirectory() as tmp:
         out = train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=serve,
-                          span_want=span_want, account=("15b",))
+                          span_want=span_want, account=("15b",), ckpt={"17a": f"{tmp}/17c"},
+                          account_after=("17a",))
+        say("phase 17c: 17a's final state saved from the 4 ranks, restored into one process "
+            "and into the ranks")
+        cfg, _, _, steps, _ = af["17a"]
+        out["17c"] = ckpt_gate("17c", cfg, out["17a"]["ckpt"], f"{tmp}/17c", steps, dev, smi)
+    for name in configs:
+        out[name].pop("ckpt")
     for name, job in serve.items():
         cfg = job["cfg"]
         say(f"phase {name}: x {cfg.n_layers} layers at published width on a {DP_TP_SHAPE} mesh, "
@@ -4612,6 +4730,8 @@ def dp_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
                     for name, rs in out.pop("extra").items()}
     say("phase 12d: the dry-run's (2, 2) account of 15b's rank 0, on meta, against the card")
     out["12d"] = dp_account_gate(out["15b"]["account"], smi)
+    say("phase 17d: the dry-run's (2, 2) account of 17a's rank 0, on meta, against the card")
+    out["17d"] = dp_account_gate(out["17a"]["account"], smi, "17d", AF_ACCOUNT_FILE)
     say("phase 15d: the kernels at a rank's shapes")
     rnd = _rnd(gen, dev)
     out["kernels"] = tp_train_kernel_phase(gen, dev, DP_FLASH_SHAPES, 8, DP_GMM_DIMS)
@@ -4966,9 +5086,8 @@ def hybrid_tp_phase(seed, dev, smi, gen, n_micro=2, rows=4) -> dict:
     prefill (8 x 64 tokens over 8 x 1536 frames) and 8 decode steps, and
     8g's training; the TP collectives of every prefill, decode step and
     train step held to the code's count (tp_spans); 16d the kernels at a
-    rank's shapes. One spawn of four ranks runs 16a-c, after this process's
-    references; the ranks run with expandable segments (four share the
-    card). Returns the ranks' launches summed and 16d's rows."""
+    rank's shapes. The four ranks run 16a-c, after this process's
+    references. Returns the ranks' launches summed and 16d's rows."""
     import numpy as np
     from repro_torch.configs import get_config
     configs = hybrid_tp_configs()
@@ -4986,10 +5105,9 @@ def hybrid_tp_phase(seed, dev, smi, gen, n_micro=2, rows=4) -> dict:
             f"references in {time.perf_counter() - t0:.1f} s")
         serve[name] = dict(serve="tp", cfg=cfg, shape=HYBRID_TP_SHAPE, seed=seed + 3, B=B, T=T,
                            tokens=tokens, steps=8)
-    say("phase 16a-c: the single processes first, then one spawn of 4 ranks")
-    with mock.patch.dict(os.environ, {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}):
-        out = train_ranks(configs, seed, dev, smi, n_micro, rows, 1024, extra=serve,
-                          tp_span_want=tp_span_want, floor=tuple(configs))
+    say("phase 16a-c: the single processes first, then one job on 4 ranks")
+    out = train_ranks(configs, seed, dev, smi, n_micro, rows, 1024, extra=serve,
+                      tp_span_want=tp_span_want, floor=tuple(configs))
     for name, job in serve.items():
         cfg = job["cfg"]
         say(f"phase {name}: {cfg.name} x {cfg.n_layers} layers at published width on a "
@@ -5014,6 +5132,74 @@ def hybrid_tp_phase(seed, dev, smi, gen, n_micro=2, rows=4) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# phase 17: Adafactor and checkpoints on a (2, 2) mesh
+# ----------------------------------------------------------------------------
+
+# 17d: the dry-run's meta account of 17a's rank 0, computed beside phases 3-11
+AF_ACCOUNT_FILE = ROOT / "build" / "dryrun" / "chip_smoke" / "phi-adafactor-2x2-account.json"
+
+
+def adafactor_train_configs():
+    """17a's and 17b's configs: 15a's and 15b's (published width, 2 of 32
+    and 2 of 64 layers, (2, 2), ZeRO-2, 2 steps, no profile) with
+    Adafactor: 17a phi3.5-moe's experts over "data" and d_ff over "model";
+    17b qwen1.5-32b's FSDP leaves over "data", TP over "model". Their
+    rounding floors are 0.0387 and 0.0189 of the update
+    (tools/update_floor.py --optimizer adafactor; the same single-process
+    runs inside this script printed 0.02914 and 0.01913 in two calls, bit
+    for bit, on an NVIDIA H100 80GB HBM3 at 700 W). Twice each is under
+    DP_UPDATE_TOL, so phase 17 gates its ranks at DP_UPDATE_TOL and does not
+    train its single processes again on the plain kernels (phase 16 does:
+    zamba2's floor is 0.09)."""
+    return {name.replace("15", "17"): (cfg.replace(optimizer="adafactor"), *rest)
+            for name, (cfg, *rest) in dp_train_configs().items()}
+
+
+def ckpt_gate(label, cfg, results, directory, step, dev, smi) -> dict:
+    """17c: the checkpoint the ranks wrote of `cfg`'s state on DP_TP_SHAPE
+    (ZeRO-2) restored into this process, whole: each rank's block of it,
+    and each rank's own restore, bit-identical (digests) to the blocks the
+    rank saved. Prints the save's and the restores' seconds."""
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.steps import train_state
+    from repro_torch.tree import tree_map
+    mesh = Mesh(DP_TP_SHAPE, ("data", "model"))
+    meta = build_model(cfg, device="meta").init_params(torch.Generator())
+    _, full = dp_shardings(cfg, mesh)
+    t0 = time.perf_counter()
+    whole = train_state(tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=dev),
+                                 meta), make_optimizer(cfg.optimizer))
+    Checkpointer(directory).restore(whole, step=step)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bad = []
+    for rank, r in enumerate(results):
+        want = block_digests(whole, full, rank)
+        bad += [("one process", rank, k) for k in want if r["saved"].get(k) != want[k]]
+        bad += [("ranks", rank, k) for k in r["saved"] if r["restored"].get(k) != r["saved"][k]]
+        bad += [("missing", rank, k) for k in r["saved"] if k not in want]
+    n_stats = sum(1 for k in results[0]["saved"] if k.startswith("opt/s/"))
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(whole))
+    say(f"  {'ok  ' if not bad else 'FAIL'} [{smi}] {label}: {len(results[0]['saved'])} blocks a "
+        f"rank ({n_stats} of Adafactor's statistics), saved from {len(results)} ranks in "
+        f"{max(r['save_s'] for r in results):.2f} s, restored on the ranks in "
+        f"{max(r['restore_s'] for r in results):.2f} s and into one process "
+        f"({nbytes / 1e9:.2f} GB) in {load_s:.2f} s: every rank's blocks bit-identical to "
+        "both restores")
+    if bad:
+        fail(f"{label}: restored blocks differ from the saved ones: {bad[:8]}")
+    del whole
+    torch.cuda.empty_cache()
+    return dict(save_s=[r["save_s"] for r in results],
+                restore_s=[r["restore_s"] for r in results], one_process_s=load_s,
+                state_gb=nbytes / 1e9)
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5030,9 +5216,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--meta-account", default=None,
                     help="write 12d's meta account to this file and exit (no card needed)")
+    ap.add_argument("--meta-run", default="15b", choices=("15b", "17a"),
+                    help="the run whose rank 0 --meta-account accounts")
     args = ap.parse_args()
     if args.meta_account:
-        meta_account_main(args.meta_account)
+        meta_account_main(args.meta_account, run=args.meta_run)
         return 0
 
     import torch
@@ -5198,14 +5386,18 @@ def main() -> int:
     say('phase 14: tensor-parallel training over the "model" axis, ranks on the cards present')
     runs["14"] = timed("14 TP training", tp_train_phase, args.seed + 17, dev, smi, gen)
     tp_train_rows = runs["14"].pop("kernels")
-    say('phase 15: FSDP and EP over the "data" axis, ranks on the cards present')
-    runs["15"] = timed("15 FSDP and EP", dp_phase, args.seed + 18, dev, smi, gen)
-    dp_rows = runs["15"].pop("kernels")
     say('phase 16: tensor parallelism of the hybrid and whisper over the "model" axis, ranks on '
         'the cards present')
     runs["16"] = timed("16 TP hybrid, whisper", hybrid_tp_phase, args.seed + 19, dev, smi, gen)
     hy_rows = runs["16"].pop("kernels")
-    say("phase 17: the kernel table and the device")
+    # 15 and 17 train the same configs on the same mesh, with AdamW and with
+    # Adafactor: one job on the ranks runs both (17a's seed is 15a's + 2)
+    say('phases 15 and 17: FSDP and EP over the "data" axis, then Adafactor and checkpoints, '
+        'on a (2, 2) mesh, ranks on the cards present')
+    runs["15"] = timed("15, 17 FSDP and EP; Adafactor, checkpoints", dp_phase, args.seed + 18,
+                       dev, smi, gen)
+    dp_rows = runs["15"].pop("kernels")
+    say("phase 18: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 

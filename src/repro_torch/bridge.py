@@ -28,10 +28,10 @@ the stack) stays stacked in `s["layers_stacked"]` or `s["mamba_stacked"]`.
 `shard_params` cuts the port's whole params to a rank's blocks (over
 "model", and over the data axes where FSDP and the experts cut them), and
 `shard_train_state` a whole train state: the params' blocks, each AdamW
-moment's (with ZeRO, the rank's ZeRO block of it, inside its block of the
-params), and each Adafactor statistic's block of the whole leaf's (`vr` cut
-where the leaf's rows are, `vc` where its columns are), so both packages
-can start from the same step-k state. `assemble` puts every rank's blocks
+moment's and each Adafactor statistic's block of the whole leaf's (`vr` cut
+where the leaf's rows are, `vc` where its columns are; with ZeRO, the
+rank's ZeRO-1 block), so both packages can start from the same step-k
+state. `assemble` puts every rank's blocks
 of a tree back together into the whole tree, for the comparison.
 
 The RL rollout's policy weights ({"w1", "w2", "w3"}) and a surrogate
@@ -50,8 +50,9 @@ import torch
 
 from repro_torch.optim.optimizers import per_layer
 from repro_torch.sharding.axes import rules_for
-from repro_torch.sharding.rules import coordinate, model_dims, model_shardings
-from repro_torch.tree import flatten, get, leaves, tree_map, unflatten, unflatten_like
+from repro_torch.sharding.rules import model_shardings, state_shardings
+from repro_torch.tree import (flatten, get, leaves, map_with_path, tree_map, unflatten,
+                              unflatten_like)
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -139,81 +140,23 @@ def _np_leaf(x) -> np.ndarray:
     return array_from_tensor(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _cut(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
-    size = t.shape[dim] // n
-    return t.narrow(dim, r * size, size).clone()
-
-
-def _cut_stats(st: Dict[str, torch.Tensor], dim: int, nd: int, n: int, r: int):
-    """Adafactor's state of a leaf of `nd` dims, cut along `dim` n ways:
-    the rank `r`'s block of the whole leaf's statistics."""
-    if "v" in st:
-        return {"v": _cut(st["v"], dim, n, r)}
-    return {"vr": _cut(st["vr"], dim, n, r) if dim < nd - 1 else st["vr"].clone(),
-            "vc": _cut(st["vc"], min(dim, nd - 2), n, r) if dim != nd - 2 else st["vc"].clone()}
-
-
 def shard_train_state(state: Dict[str, Any], cfg, mesh, rank: int,
                       shardings=None) -> Dict[str, Any]:
-    """Rank `rank`'s blocks of the port's whole train state on `mesh` (see
-    the module's docstring); `shardings`, the step's ZeRO-2
-    `grad_shardings`, cut AdamW's moments to the rank's ZeRO block (an empty
-    tensor where another rank owns the leaf's item), as `train_state`
-    makes them."""
-    rules = rules_for(mesh)
-    sh = model_shardings(state["params"], cfg, mesh, rules)
-    params = sh.take(state["params"], rank)
-    opt = {"step": state["opt"]["step"].clone()}
-    if "m" in state["opt"]:
-        idx = shardings.local_index(params, rank) if shardings is not None else None
-        for name in ("m", "v"):
-            blocks = sh.take(state["opt"][name], rank)
-            if idx is not None:
-                blocks = unflatten_like(blocks, [t[b].clone() if b is not None else
-                                                 t.new_empty((0,))
-                                                 for t, b in zip(leaves(blocks), idx)])
-            opt[name] = blocks
-        return {"params": params, "opt": opt, "step": state["step"].clone()}
-    if shardings is not None:
-        raise NotImplementedError("ZeRO-1 state sharding needs AdamW (ROADMAP Queue 1, item 7)")
-    dims = model_dims(state["params"], cfg, mesh, rules)
-    if any(c.data for c in dims.values()):
-        raise NotImplementedError("Adafactor's statistics of a leaf cut over the data axes "
-                                  "belong with ZeRO-1 for Adafactor (ROADMAP Queue 1, item 7)")
-    n = dict(zip(mesh.axis_names, mesh.shape))["model"]
-    r = coordinate(mesh, rank)[mesh.axis_names.index("model")]
+    """Rank `rank`'s blocks of the port's whole train state on `mesh`, as
+    `train_state` makes them and the step updates them
+    (`sharding/rules.py::state_shardings`): the params' blocks, and each
+    optimizer leaf's block of the whole leaf (AdamW's moments as their
+    params; Adafactor's `vr` cut where the leaf's rows and leading dims
+    are, `vc` where its columns and leading dims are). With `shardings`,
+    the step's ZeRO-2 `grad_shardings`, the optimizer leaves are the rank's
+    ZeRO-1 blocks: contiguous copies, empty tensors where another rank owns
+    the leaf's layer."""
+    sh = state_shardings(state, cfg, mesh, rules_for(mesh), shardings)
 
-    def cut(path, st, nd, lead):
-        c = dims.get(tuple(k for k in path if isinstance(k, str)))
-        d = None if c is None else c.model
-        return {k: v.clone() for k, v in st.items()} if d is None else \
-            _cut_stats(st, d + lead, nd + lead, n, r)
-
-    s = {}
-    for k, sub in state["params"].items():
-        src = state["opt"]["s"]
-        if isinstance(sub, torch.Tensor):
-            s[k] = cut((k,), src[k], sub.ndim, 0)
-            continue
-        if not isinstance(sub, list):
-            s[k] = unflatten((path, cut((k,) + path, get(src[k], path), get(sub, path).ndim, 0))
-                             for path in _stat_paths(src[k]))
-            continue
-        item = sub[0]
-        s[k] = [unflatten((path, cut((k,) + path, get(si, path), get(item, path).ndim, 0))
-                          for path in _stat_paths(si)) for si in src[k]]
-        s[k + "_stacked"] = unflatten(
-            (path, cut((k,) + path, get(src[k + "_stacked"], path), get(item, path).ndim, 1))
-            for path in _stat_paths(src[k + "_stacked"]))
-    opt["s"] = s
-    return {"params": params, "opt": opt, "step": state["step"].clone()}
-
-
-def _stat_paths(tree):
-    """The paths of the leaves of a params-like tree whose leaves are
-    Adafactor's per-leaf state dicts ({"vr", "vc"} or {"v"})."""
-    paths = {path[:-1] for path, _ in flatten(tree)}
-    return sorted(paths)
+    def cut(path, t):
+        b = sh.block_of(path, rank)
+        return t.new_empty((0,)) if b is None else t[b].clone()
+    return map_with_path(cut, state)
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:

@@ -17,17 +17,22 @@ A leaf's key is its path, dict keys and list indices joined by "/"
 ("params/layers/0/attn/wq").
 
 Sharded state (`shardings=`, a `sharding/rules.py::Shardings` over the
-state's stacked view, e.g. `state_shardings` of the train state): every
-rank of the process group calls `save` with its blocks; each leaf is
-gathered whole onto rank 0 (each distinct block sent once, by its first
-holder) and only rank 0 writes, in the same layout, so a checkpoint does
-not record the topology that wrote it. `restore(like, shardings=...)`
-reshards to any mesh (the elastic restart after losing ranks): each rank
-reads every leaf memory-mapped and copies only its block into `like`, which
-holds the rank's blocks (empty tensors where another rank owns the leaf),
-so no rank holds the whole state on top of its own. The ranks meet at a
-barrier once rank 0's write has committed (at the next `wait`, `save` or
-`restore`, or before a blocking `save` returns).
+state's stacked view that states each rank's block of every leaf:
+`state_shardings` of the train state, which follows what the train step
+holds and updates on any mesh: the "model" blocks, FSDP's and the experts'
+blocks over the data axes, ZeRO-1's blocks of the optimizer state on a
+(dp, tp) mesh, Adafactor's statistics of each): every rank of the process
+group calls `save` with its blocks; each leaf is gathered whole onto rank
+0 (each distinct block sent once, by its first holder) and only rank 0
+writes, in the same layout, so a checkpoint does not record the topology
+that wrote it. A rank whose tensor is not the shape of its block raises
+before anything is sent. `restore(like, shardings=...)` reshards to any
+mesh (the same one, another shape after losing ranks, or one process):
+each rank reads every leaf memory-mapped and copies only its block into
+`like`, which holds the rank's blocks (empty tensors where another rank
+owns the leaf), so no rank holds the whole state on top of its own. The
+ranks meet at a barrier once rank 0's write has committed (at the next
+`wait`, `save` or `restore`, or before a blocking `save` returns).
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ def _gather(state, shardings) -> Optional[Dict[str, Any]]:
     on the other ranks."""
     rank, n = dist.get_rank(), dist.get_world_size()
     blocks = [shardings.index(state, q) for q in range(n)]
+    _check_blocks(state, blocks[rank])
     out = {} if rank == 0 else None
     for j, (path, t) in enumerate(flatten(state)):
         whole = torch.empty(shardings.full_shape(path), dtype=t.dtype) if rank == 0 else None
@@ -84,6 +90,16 @@ def _gather(state, shardings) -> Optional[Dict[str, Any]]:
         if rank == 0:
             out["/".join(str(k) for k in path)] = (_to_host(whole), _logical(t))
     return out
+
+
+def _check_blocks(tree, index) -> None:
+    """Raise where a leaf of `tree` is not the shape of its block (`index`,
+    None: another rank owns it, and the rank holds an empty tensor)."""
+    for (path, t), b in zip(flatten(tree), index):
+        want = (0,) if b is None else tuple(s.stop - s.start for s in b)
+        if tuple(t.shape) != want and not (b is None and t.numel() == 0):
+            raise ValueError(f"{'/'.join(map(str, path))}: the rank holds {tuple(t.shape)}, "
+                             f"its block under the shardings is {want}")
 
 
 class Checkpointer:
@@ -181,8 +197,10 @@ class Checkpointer:
         with open(os.path.join(cdir, "manifest.json")) as f:
             manifest = json.load(f)
         items = _flatten(like).items()
-        blocks = shardings.index(like, dist.get_rank()) if shardings is not None \
-            else [()] * len(items)
+        blocks = [()] * len(items)
+        if shardings is not None:
+            blocks = shardings.index(like, dist.get_rank())
+            _check_blocks(like, blocks)
         for (key, t), b in zip(items, blocks):
             meta = manifest["leaves"].get(key)
             if meta is None:

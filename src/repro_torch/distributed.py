@@ -2,13 +2,17 @@
 
 `spawn(fn, world_size, *args, device=...)` runs `fn(rank, world_size,
 device, *args)` in `world_size` fresh processes (the `spawn` start method)
-and returns their results by rank. Each rank's device is explicit: the CPU
-when asked for, else card `rank % torch.cuda.device_count()`. The group is
-initialised from a `file://` rendezvous in a temporary directory, so
-parallel test workers never contend for a port, with `timeout` on every
-collective, so a hung collective raises instead of hanging; it is torn down
-in a `finally`. A rank that raises makes `spawn` raise with its traceback,
-and the other ranks are stopped.
+and returns their results by rank. `Ranks(world_size, device=...)` starts
+such processes once and runs job after job on them (`run(fn, *args)`), so a
+caller with many multi-rank jobs pays the processes' start-up (imports,
+the card's context, the group) once; `spawn` is one job on a `Ranks`. Each
+rank's device is explicit: the CPU when asked for, else card
+`rank % torch.cuda.device_count()`. The group is initialised from a
+`file://` rendezvous in a temporary directory, so parallel test workers
+never contend for a port, with `timeout` on every collective, so a hung
+collective raises instead of hanging; it is torn down in a `finally`. A
+rank that raises makes `spawn` (or `run`) raise with its traceback, and the
+other ranks are stopped.
 
 The backend follows from the cards present (`backend_for`): NCCL needs a
 card of its own for every rank, so NCCL when there are at least as many
@@ -24,14 +28,21 @@ gloo's `all_to_all_single` takes CPU tensors); the arithmetic stays on the
 card. The copies go through two pinned host buffers a process, one for
 what a collective reads and one for what it writes, grown to the largest
 payload (a pinned copy runs at the link's rate, a pageable one through a
-bounce buffer). Under NCCL every payload stays on the card. The cost account
-(`roofline.CostModel`) counts a collective on such a host copy as the
-card's own collective and leaves the staging copies out, so a rank's
-account on the card is the account of the same step under NCCL.
+bounce buffer). Under gloo `reduce_scatter_` and `all_gather_` run as rings
+of n - 1 point-to-point hops (`shift`), the sums on the rank's device:
+gloo's own `reduce_scatter_tensor` runs a whole all-reduce and its
+`all_gather_into_tensor` takes as long or longer, where a ring moves
+(n - 1)/n of the payload a rank (tests/test_torch_distributed.py holds the
+rings to gloo's ops). Under NCCL every payload stays on the card. The cost
+account (`roofline.CostModel`) counts a collective on such a host copy, or
+run as a ring (`CostModel.count_collective`), as the card's own collective
+and leaves the staging copies and the hops out, so a rank's account on the
+card is the account of the same step under NCCL.
 """
 from __future__ import annotations
 
 import datetime
+import gc
 import multiprocessing as mp
 import os
 import queue
@@ -42,7 +53,8 @@ from typing import Any, Callable, List
 
 import torch
 import torch.distributed as dist
-from torch.utils._python_dispatch import _disable_current_modes
+from torch.utils._python_dispatch import (_disable_current_modes,
+                                          _get_current_dispatch_mode_stack)
 
 SUM = dist.ReduceOp.SUM
 
@@ -62,7 +74,7 @@ def rank_device(rank: int, device="cuda") -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def _rank_main(fn, rank, world_size, device, init, timeout, args, results):
+def _rank_main(rank, world_size, device, init, timeout, jobs, results):
     dev = rank_device(rank, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -72,53 +84,103 @@ def _rank_main(fn, rank, world_size, device, init, timeout, args, results):
                             world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout))
     try:
-        results.put((rank, True, fn(rank, world_size, dev, *args)))
-    except BaseException:
-        results.put((rank, False, traceback.format_exc()))
-        raise
+        for fn, args in iter(jobs.get, None):
+            try:
+                value = fn(rank, world_size, dev, *args)
+            except BaseException:
+                results.put((rank, False, traceback.format_exc()))
+                raise
+            results.put((rank, True, value))
+            del value
+            # a job's staging buffers and cached blocks do not outlive it:
+            # the next job starts with the memory of a fresh rank
+            _PINNED.clear()
+            if dev.type == "cuda":
+                gc.collect()
+                torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world_size: int, *args, device="cuda",
-          timeout: float = 300.0) -> List[Any]:
-    """Run `fn(rank, world_size, device, *args)` on `world_size` ranks; return
-    each rank's result, by rank. `fn` must be importable (a module-level
-    function) and return plain Python or numpy values, which are pickled back.
-    `timeout` (seconds) bounds the rendezvous and every collective."""
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    with tempfile.TemporaryDirectory(prefix="repro-torch-rdv-") as tmp:
-        init = "file://" + os.path.join(tmp, "init")
-        procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(fn, r, world_size, device, init, timeout, args, results))
-                 for r in range(world_size)]
-        for p in procs:
+class Ranks:
+    """`world_size` rank processes (the `spawn` start method) in one process
+    group, kept until `close()`: `run(fn, *args)` runs `fn(rank, world_size,
+    device, *args)` on every rank and returns each rank's result, by rank.
+    `fn` must be importable (a module-level function) and return plain
+    Python or numpy values, which are pickled back. `timeout` (seconds)
+    bounds the rendezvous and every collective. A rank that raises, or
+    dies, makes `run` raise and stops the ranks."""
+
+    def __init__(self, world_size: int, device="cuda", timeout: float = 300.0):
+        ctx = mp.get_context("spawn")
+        self.world_size = world_size
+        self._tmp = tempfile.TemporaryDirectory(prefix="repro-torch-rdv-")
+        init = "file://" + os.path.join(self._tmp.name, "init")
+        self._results = ctx.Queue()
+        self._jobs = [ctx.Queue() for _ in range(world_size)]   # a rank's own: each runs every job
+        self._procs = [ctx.Process(target=_rank_main, daemon=True,
+                                   args=(r, world_size, device, init, timeout, self._jobs[r],
+                                         self._results))
+                       for r in range(world_size)]
+        for p in self._procs:
             p.start()
+
+    def run(self, fn: Callable, *args) -> List[Any]:
+        if self._procs is None:
+            raise RuntimeError("these ranks are closed")
+        for q in self._jobs:
+            q.put((fn, args))
         got = {}
         try:
-            while len(got) < world_size:
+            while len(got) < self.world_size:
                 try:
-                    rank, ok, value = results.get(timeout=1.0)
+                    rank, ok, value = self._results.get(timeout=1.0)
                 except queue.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if r not in got and p.exitcode not in (None, 0)]
+                    dead = [r for r, p in enumerate(self._procs)
+                            if r not in got and p.exitcode is not None]
                     if dead:
                         raise RuntimeError(f"rank {dead[0]} exited with code "
-                                           f"{procs[dead[0]].exitcode} and no result")
+                                           f"{self._procs[dead[0]].exitcode} and no result")
                     continue
                 if not ok:
-                    raise RuntimeError(f"rank {rank} of {world_size} failed:\n{value}")
+                    raise RuntimeError(f"rank {rank} of {self.world_size} failed:\n{value}")
                 got[rank] = value
-        finally:
-            for p in procs:
-                p.join(timeout=30 if len(got) == world_size else 0)
-            for p in procs:
-                if p.is_alive():
-                    p.terminate()
-                    p.join()
-            results.close()
-    return [got[r] for r in range(world_size)]
+        except BaseException:
+            self.close(wait=False)
+            raise
+        return [got[r] for r in range(self.world_size)]
+
+    def close(self, wait: bool = True):
+        """Stop the ranks: each leaves after its job (`wait`: within 30 s),
+        else it is terminated."""
+        if self._procs is None:
+            return
+        procs, self._procs = self._procs, None
+        for q in self._jobs:
+            q.put(None)
+        for p in procs:
+            p.join(timeout=30 if wait else 0)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        for q in (self._results, *self._jobs):
+            q.close()
+        self._tmp.cleanup()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close(wait=exc[0] is None)
+
+
+def spawn(fn: Callable, world_size: int, *args, device="cuda",
+          timeout: float = 300.0) -> List[Any]:
+    """Run `fn(rank, world_size, device, *args)` on `world_size` fresh ranks
+    (`Ranks`) and stop them; return each rank's result, by rank."""
+    with Ranks(world_size, device, timeout) as ranks:
+        return ranks.run(fn, *args)
 
 
 # ----------------------------------------------------------------------------
@@ -206,19 +268,55 @@ def broadcast_(t, src: int, group=None):
     return _back(t, h)
 
 
+def _count_ring(name, out, inp, group):
+    """Show a collective that ran as point-to-point hops (out of sight of
+    any dispatch mode) to the cost accounts that are on
+    (`roofline.CostModel.count_collective`) as the c10d op `name`."""
+    for mode in _get_current_dispatch_mode_stack():
+        count = getattr(mode, "count_collective", None)
+        if count is not None:
+            count(name, out, inp, dist.get_world_size(group))
+
+
 def reduce_scatter_(out, inp, group=None):
     """`out` (the rank's part, dim 0) <- the sum over ranks of `inp`, which
-    stacks every rank's part on dim 0."""
-    ho, hi = _host(out, group, read=False), _host(inp, group)
-    dist.reduce_scatter_tensor(ho, hi, SUM, group)
-    return _back(out, ho)
+    stacks every rank's part on dim 0. Under gloo a ring of n - 1 hops
+    (`shift`), each adding the rank's part on its device to the partial sum
+    it receives: gloo runs `reduce_scatter_tensor` as a whole all-reduce."""
+    if dist.get_backend(group) != "gloo":   # no staging: NCCL takes the card's tensors
+        dist.reduce_scatter_tensor(out, inp, SUM, group)
+        return out
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    with _disable_current_modes():   # the ring is the collective's transport
+        parts = inp.chunk(n)
+        if n == 1:
+            out.copy_(parts[0])
+        send = parts[(r - 1) % n]
+        for s in range(n - 1):   # part (r - s - 2) % n's partial sum arrives
+            shift(send, out, group)
+            out.add_(parts[(r - s - 2) % n])
+            if s < n - 2:
+                send = out.clone()
+    _count_ring("c10d::_reduce_scatter_base_", out, inp, group)
+    return out
 
 
 def all_gather_(out, inp, group=None):
-    """`out` <- every rank's `inp`, stacked on dim 0 in rank order."""
-    ho, hi = _host(out, group, read=False), _host(inp, group)
-    dist.all_gather_into_tensor(ho, hi, group)
-    return _back(out, ho)
+    """`out` <- every rank's `inp`, stacked on dim 0 in rank order. Under
+    gloo a ring of n - 1 hops (`shift`), each passing on the part the rank
+    received last: gloo's `all_gather_into_tensor` takes about twice an
+    all-reduce of the output."""
+    if dist.get_backend(group) != "gloo":
+        dist.all_gather_into_tensor(out, inp, group)
+        return out
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    with _disable_current_modes():
+        parts = out.chunk(n)
+        parts[r].copy_(inp)
+        for s in range(n - 1):   # part (r - s - 1) % n arrives
+            shift(parts[(r - s) % n], parts[(r - s - 1) % n], group)
+    _count_ring("c10d::_allgather_base_", out, inp, group)
+    return out
 
 
 def all_to_all_(out, inp, group=None):

@@ -5,8 +5,10 @@ C interface, loaded with `ctypes` (no PyTorch headers, so a build takes
 seconds). Libraries are named by a digest of their sources and flags and go
 to `build/kernels/` at the repository root, which `.gitignore` lists; a
 library already built from the same sources is reused. Sources start
-compiling together, one `nvcc` each. A failed build raises: nothing falls
-back to the plain PyTorch versions.
+compiling together, one `nvcc` each, and each splits its device code's
+optimisation over the host's cores (`--split-compile=0`: the decode
+source's many instantiations are the build's long pole). A failed build
+raises: nothing falls back to the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention", "decode_attention", "moe_gmm", "ssm_scan")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v", *ARCH_FLAGS]
+              "-Xptxas", "-v", "--split-compile=0", *ARCH_FLAGS]
 
 TMA_ALIGN = 16  # bytes: TMA's rule for base addresses and strides
 

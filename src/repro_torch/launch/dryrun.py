@@ -29,7 +29,11 @@ rank, `dp_degree(mesh)` groups in all, as the reference's. Train cells run
 rank 0's train step: its blocks of the params, the ZeRO-1 optimizer state
 and the ZeRO-2 accumulator (over the data axes, where the mesh has one),
 the forward's collectives, their replay under remat, the backward's and
-the vocab-parallel loss's. Serving cells on a mesh with a data axis shard
+the vocab-parallel loss's, and the optimizer's: arctic-480b's Adafactor
+updates its ZeRO-1 blocks, and each of its statistics' means over a dim
+that a data or "model" cut splits, and each unit's RMS and scale, sum over
+the ranks of that cut (all-reduces, counted as every collective is).
+Serving cells on a mesh with a data axis shard
 the weights over it where the reference's `_serve_cfg` does
 (`registry.serve_config`), and the record says `"serve_weights": "fsdp"`;
 otherwise "tensor-parallel" on a "model" axis, "whole" without. The
@@ -41,9 +45,10 @@ not ported (ROADMAP Queue 1, item 6c).
 
 Records are JSON under build/dryrun/<tag>/<mesh>/<arch>__<shape>.json, with
 the status `ok`, `skipped` (by `configs.shapes.applicable`) or `error` (the
-exception's text; arctic-480b's train cells: ZeRO-1 for Adafactor is not
-ported). `memory.fits_80gb` reads whether rank 0's high-water mark stays
-under the card's 80 GiB.
+exception's text: the xLSTM's cells on a "model" axis). `memory.fits_80gb`
+reads whether rank 0's high-water mark stays under the card's 80 GiB;
+`memory.opt_gb` is rank 0's optimizer state (AdamW's ZeRO-1 moments,
+Adafactor's ZeRO-1 statistics).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k

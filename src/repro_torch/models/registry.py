@@ -59,7 +59,7 @@ from repro_torch.models import dense, hybrid, whisper, xlstm
 from repro_torch.models.data_parallel import DataParallel
 from repro_torch.models.tensor_parallel import TensorParallel
 from repro_torch.optim.optimizers import Split
-from repro_torch.sharding.rules import model_dims
+from repro_torch.sharding.rules import model_dims, model_shardings
 from repro_torch.sharding.axes import axis_rules, rules_for
 from repro_torch.models.whisper import ENC_LEN
 
@@ -185,7 +185,7 @@ def _sharded_model(cfg: ModelConfig, dev, window, n_groups: int, mesh) -> Model:
     tp = TensorParallel.plan(cfg, group) if tp_degree(mesh) > 1 else None
     whole, rules = _whole(cfg), rules_for(mesh)
     dp = DataParallel.plan(cfg, whole, mesh, rules)
-    split = Split(group, 1 if tp is None else tp.size, model_dims(whole, cfg, mesh, rules))
+    split = Split(model_dims(whole, cfg, mesh, rules), model_shardings(whole, cfg, mesh, rules))
     mod = _MODULES[cfg.family]
     if mod is dense:
         kw = dict(cfg=cfg, n_groups=n_groups, tp=tp, dp=dp)

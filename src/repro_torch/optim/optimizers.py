@@ -28,27 +28,37 @@ other (a per-layer 1-D norm or bias: factored over the stack, one RMS clip
 over the stack) is stacked whole for its update, with its state stacked in
 `s[key + "_stacked"]`.
 
-Under tensor parallelism a rank holds a block of some leaves (`Split`: the
-dim each such leaf is cut along over the "model" group), and under FSDP
-and expert parallelism a block over the data axes too. AdamW is
-elementwise and reads nothing else; the train step's global norm counts
-each block once over the (data, model) group (`train/steps.py`). Adafactor's statistics read the whole
-leaf: whether it factors, its row and column means, the update's RMS and
-the parameter scale are the whole leaf's, through sums over the group;
-its state is the rank's block of the whole leaf's (`vr` cut where the
-rows are, `vc` where the columns are). A leaf cut over the data axes is
-refused (ROADMAP Queue 1, item 7).
+Across ranks a rank holds a block of some leaves and updates a block of
+each (`Split`): its "model" block under tensor parallelism, its block over
+the data axes under FSDP and expert parallelism, and with ZeRO-1 its ZeRO
+block of those, or whole layers of a stack, or nothing of a layer another
+rank owns. AdamW is elementwise and reads nothing else; the train step's
+global norm counts each block once over the (data, model) group
+(`train/steps.py`). Adafactor's statistics read the whole leaf (the unit
+the reference updates: a leaf, a layer of a stack, or a stack of norms):
+whether it factors is decided by the whole unit's shape; each mean sums
+over the ranks that cut the dim it averages, and the update's RMS and the
+parameter scale over the ranks that cut any dim, so each comes out as the
+whole unit's. Its state is the rank's block of the whole unit's statistics
+(`vr` cut where the rows and leading dims are, `vc` where the columns and
+leading dims are; `sharding/rules.py::stat_spec`), and empty tensors for a
+layer another rank owns.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import distributed as D
-from repro_torch.tree import flatten, get, leaves, map_with_path, tree_map, unflatten
+from repro_torch.launch.mesh import group_over
+from repro_torch.sharding.axes import _axes, axis_sizes
+from repro_torch.sharding.rules import block, coordinate
+from repro_torch.tree import flatten, get, leaves, tree_map
 
 F32 = torch.float32
 
@@ -62,14 +72,18 @@ class Optimizer:
 
 @dataclasses.dataclass(frozen=True)
 class Split:
-    """The leaves of a params tree of which a rank holds a block: the path
-    of each (its dict keys, the stacked view's path) -> its
-    `sharding.rules.Cut`: the dim, of the port's leaf, cut evenly over the
-    `size` ranks of the "model" axis's `group`, and the dims cut over the
-    data-parallel axes (FSDP, the experts)."""
-    group: Any
-    size: int
+    """What a rank holds of a params tree and which block of each leaf its
+    optimizer updates. `dims`: the stacked path of each leaf the rank holds
+    a block of -> its `sharding.rules.Cut` (the dim cut over the "model"
+    axis, and the dims cut over the data-parallel axes: FSDP, the experts).
+    `blocks`: a `sharding.rules.Shardings` of the whole params whose specs
+    are the blocks the optimizer updates (the held ones, `model_shardings`;
+    with ZeRO-1, `zero`, the step's grad shardings), None where every leaf
+    is whole. `groups` caches the process groups of its cuts."""
     dims: Dict[Tuple[str, ...], Any]
+    blocks: Any = None
+    groups: Dict[Any, Any] = dataclasses.field(default_factory=dict, compare=False,
+                                               repr=False)
 
     def _cut(self, path):
         return self.dims.get(tuple(k for k in path if isinstance(k, str)))
@@ -87,30 +101,19 @@ class Split:
         cut = self._cut(path)
         return cut is not None and bool(cut.data)
 
-    def refuse_data_cuts(self, what: str) -> None:
-        """Raise where a leaf is cut over the data axes: `what` reads whole
-        rows and columns of each leaf."""
-        cut = sorted(p for p, c in self.dims.items() if c.data)
-        if cut:
-            raise NotImplementedError(
-                f"{what} reads whole rows and columns of each leaf, and "
-                f"{'/'.join(cut[0])} (and {len(cut) - 1} more) are cut over the data axes: its "
-                "statistics of such a leaf belong with ZeRO-1 for Adafactor (ROADMAP Queue 1, "
-                "item 7)")
+    def zero(self, shardings) -> "Split":
+        """This split with the optimizer updating the blocks of `shardings`
+        (ZeRO-1: the rank's block of each leaf in its data group)."""
+        return dataclasses.replace(self, blocks=shardings, groups={})
 
-    def whole(self, shape, dim: Optional[int]) -> Tuple[int, ...]:
-        """The whole leaf's shape of a block of `shape` cut along `dim`."""
-        shape = tuple(shape)
-        if dim is None:
-            return shape
-        return shape[:dim] + (shape[dim] * self.size,) + shape[dim + 1:]
-
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """x summed over the ranks, in place."""
-        return D.all_reduce_(x, group=self.group)
+    def group_over(self, axes: Tuple[str, ...]):
+        """The process group of the ranks that differ only along `axes`."""
+        if axes not in self.groups:
+            self.groups[axes] = group_over(self.blocks.mesh, axes)
+        return self.groups[axes]
 
 
-WHOLE = Split(group=None, size=1, dims={})   # every leaf whole: no rank splits one
+WHOLE = Split(dims={})   # every leaf whole: no rank splits one
 
 
 def _device(params):
@@ -182,108 +185,146 @@ def _stack_depth(tree) -> int:
     return depth
 
 
-def _stacked_paths(stack, depth: int, key: str, split: Split):
-    """(path, stacked shape, the whole leaf's stacked shape, the cut dim of
-    the stacked leaf or None) of each leaf of params[key], a stack of
-    `depth` list axes."""
-    lead = []
-    for _ in range(depth):
-        lead.append(len(stack))
-        stack = stack[0]
+@dataclasses.dataclass(frozen=True)
+class _Unit:
+    """One tensor the reference's Adafactor updates (a leaf, a layer of a
+    stacked leaf, or a stack of per-layer norms) and the rank's block of it:
+    the list indices of the items it holds of params[key] (row-major; each
+    item's leaf at `path` is the rank's block of it), how many it holds
+    along each of the unit's own list axes (`lead`), the whole unit's shape,
+    per dim of the unit the process group whose ranks cut it (None: whole),
+    and where its statistics are in the state's "s"."""
+    key: str
+    path: Tuple[str, ...]
+    items: Tuple[Tuple[int, ...], ...]
+    lead: Tuple[int, ...]
+    whole: Tuple[int, ...]
+    cuts: Tuple[Any, ...]
+    state: Tuple[Any, ...]
+
+
+def _units(params, split: Split):
+    """The units of a params tree of which the rank holds the blocks `split`
+    updates (`split.blocks`' specs; every leaf whole without them), in one
+    order on every rank; the units of a layer another rank owns have no
+    items. A stacked leaf the reference maps over its first axis
+    (`per_layer`) is a unit per item of its outer list, the inner lists
+    stacked; any other stacked leaf is one unit of every item."""
+    sh = split.blocks
+    coord = None if sh is None else coordinate(sh.mesh, dist.get_rank())
+    sizes = {} if sh is None else axis_sizes(sh.mesh)
     out = []
-    for path, p in flatten(stack):
-        dim = split.dim((key,) + path)
-        out.append((path, tuple(lead) + tuple(p.shape), tuple(lead) + split.whole(p.shape, dim),
-                    None if dim is None else dim + depth))
+    for key in sorted(params):
+        depth = _stack_depth(params[key])
+        lengths, first = [], params[key]
+        for _ in range(depth):
+            lengths.append(len(first))
+            first = first[0]
+        for path, leaf in flatten(first):
+            if sh is None:
+                whole, cuts = tuple(lengths) + tuple(leaf.shape), (None,) * (depth + leaf.ndim)
+                b = tuple(slice(0, n) for n in whole)
+            else:
+                whole, spec = sh.shapes[(key,) + path], sh.specs[(key,) + path]
+                b = block(whole, spec, sh.mesh, coord)
+                spec = tuple(spec) + (None,) * (len(whole) - len(spec))
+                cuts = tuple(None if not live else split.group_over(live) for live in
+                             (tuple(a for a in _axes(e) if sizes[a] > 1) for e in spec))
+            ranges = [range(s.start, s.stop) for s in b[:depth]]
+            if depth and per_layer(whole):
+                for i in range(whole[0]):
+                    items = tuple((i,) + rest for rest in itertools.product(*ranges[1:])) \
+                        if i in ranges[0] else ()
+                    out.append(_Unit(key, path, items, tuple(map(len, ranges[1:])), whole[1:],
+                                     cuts[1:], (key, i) + path))
+            else:
+                out.append(_Unit(key, path, tuple(itertools.product(*ranges)),
+                                 tuple(map(len, ranges)), whole, cuts,
+                                 ((key + "_stacked",) if depth else (key,)) + path))
     return out
 
 
-def _stacked_leaf(stack, path, depth: int):
-    """The leaf at `path` of every item of the stack, as one tensor."""
-    if depth == 0:
-        return get(stack, path)
-    return torch.stack([_stacked_leaf(item, path, depth - 1) for item in stack])
+def _items(params, u: _Unit):
+    return [get(params[u.key], item + u.path) for item in u.items]
 
 
-def _write_leaf(stack, path, depth: int, new) -> None:
-    """The inverse of _stacked_leaf: each item's leaf takes its row of `new`."""
-    if depth == 0:
-        get(stack, path).copy_(new)
-        return
-    for item, row in zip(stack, new):
-        _write_leaf(item, path, depth - 1, row)
+def _put(tree, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {}) if isinstance(tree, dict) else tree[k]
+    tree[path[-1]] = value
 
 
 def adafactor(eps1: float = 1e-30, eps2: float = 1e-3, clip: float = 1.0,
               decay_pow: float = 0.8, weight_decay: float = 0.0) -> Optimizer:
-    def per(shape, device, whole=None):
-        """The state of a leaf of `shape`, a block of one of shape `whole`."""
-        if _factored(whole or shape):
-            return {"vr": torch.zeros(shape[:-1], dtype=F32, device=device),
-                    "vc": torch.zeros(shape[:-2] + shape[-1:], dtype=F32, device=device)}
-        return {"v": torch.zeros(shape, dtype=F32, device=device)}
+    def per(shape, device, whole):
+        """The state of a block of `shape` of a unit of shape `whole`: empty
+        tensors where the rank holds none of it."""
+        held = shape is not None
+        if _factored(whole):
+            return {"vr": torch.zeros(shape[:-1] if held else (0,), dtype=F32, device=device),
+                    "vc": torch.zeros(shape[:-2] + shape[-1:] if held else (0,), dtype=F32,
+                                      device=device)}
+        return {"v": torch.zeros(shape if held else (0,), dtype=F32, device=device)}
 
     def init(params, split=None):
         split = split or WHOLE
-        split.refuse_data_cuts("Adafactor")
         dev = _device(params)
         s = {}
-        for k, v in params.items():
-            depth = _stack_depth(v)
-            if not depth:
-                s[k] = map_with_path(lambda path, p: per(
-                    tuple(p.shape), dev, split.whole(p.shape, split.dim((k,) + path))), v)
-                continue
-            paths = _stacked_paths(v, depth, k, split)
-            s[k] = [unflatten((path, per(shape[1:], dev, whole[1:]))
-                              for path, shape, whole, _ in paths if per_layer(whole)) for _ in v]
-            s[k + "_stacked"] = unflatten((path, per(shape, dev, whole))
-                                          for path, shape, whole, _ in paths
-                                          if not per_layer(whole))
+        for key, sub in params.items():
+            if _stack_depth(sub):
+                s[key], s[key + "_stacked"] = [{} for _ in sub], {}
+        for u in _units(params, split):
+            shape = u.lead + tuple(_items(params, u)[0].shape) if u.items else None
+            _put(s, u.state, per(shape, dev, u.whole))
         return {"s": s, "step": _step0(params)}
 
     @torch.no_grad()
     def update(params, grads, state, lr, split=None):
         split = split or WHOLE
-        split.refuse_data_cuts("Adafactor")
         step = state["step"] + 1
         t = step.to(F32)
         beta = 1.0 - t ** (-decay_pow)
 
-        def mean(x, dim, cut, n, keepdim=False):
-            """The mean over `dim` of x, a block cut along `dim` (`cut`) of a
-            whole leaf whose dim has n entries: summed over the ranks."""
-            if not cut:
-                return torch.mean(x, dim=dim, keepdim=keepdim)
-            return split.sum(torch.sum(x, dim=dim, keepdim=keepdim)) / n
+        def upd_core(p, g, s, whole, cuts):
+            """The new value of p, the rank's block of a unit of shape
+            `whole` whose dims the ranks of `cuts` cut; s is updated in
+            place."""
+            rows, cols = p.ndim - 2, p.ndim - 1
 
-        def upd_core(p, g, s, dim=None):
-            """The new value of p (a block cut along `dim` under `split`, or
-            whole); s is updated in place."""
-            nd = p.ndim
-            whole = split.whole(p.shape, dim)
+            def mean(x, dim, over, n, keepdim=False):
+                """The mean over `dim` of x, whose entries along it are the
+                unit's dim `over` of n: summed over the ranks that cut it."""
+                group = cuts[over]
+                if group is None:
+                    return torch.mean(x, dim=dim, keepdim=keepdim)
+                return D.all_reduce_(torch.sum(x, dim=dim, keepdim=keepdim), group=group) / n
+
             g = g.to(F32)
             g2 = torch.square(g) + eps1
             if _factored(whole):
-                rows_cut, cols_cut = dim == nd - 2, dim == nd - 1
-                s["vr"].copy_(beta * s["vr"] + (1 - beta) * mean(g2, -1, cols_cut, whole[-1]))
-                s["vc"].copy_(beta * s["vc"] + (1 - beta) * mean(g2, -2, rows_cut, whole[-2]))
+                s["vr"].copy_(beta * s["vr"] + (1 - beta) * mean(g2, -1, cols, whole[-1]))
+                s["vc"].copy_(beta * s["vc"] + (1 - beta) * mean(g2, -2, rows, whole[-2]))
                 vr, vc = s["vr"], s["vc"]
-                denom = mean(vr, -1, rows_cut, whole[-2], keepdim=True)
+                denom = mean(vr, -1, rows, whole[-2], keepdim=True)
                 u = g * torch.rsqrt(vr / torch.clamp_min(denom, eps1))[..., None] \
                     * torch.rsqrt(vc)[..., None, :]
             else:
                 s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
                 u = g * torch.rsqrt(s["v"])
-            # RMS clipping, and the parameter's scale: the whole leaf's
-            if dim is None:
+            # RMS clipping, and the parameter's scale: the whole unit's
+            groups = []
+            for c in cuts:
+                if c is not None and all(c is not h for h in groups):
+                    groups.append(c)
+            if not groups:
                 ms_u = torch.mean(torch.square(u))
                 ms_p = torch.mean(torch.square(p.to(F32)))
             else:
-                numel = math.prod(whole)
-                ms_u, ms_p = (split.sum(torch.stack([torch.sum(torch.square(u)),
-                                                      torch.sum(torch.square(p.to(F32)))]))
-                              / numel).unbind(0)
+                sums = torch.stack([torch.sum(torch.square(u)),
+                                    torch.sum(torch.square(p.to(F32)))])
+                for group in groups:
+                    D.all_reduce_(sums, group=group)
+                ms_u, ms_p = (sums / math.prod(whole)).unbind(0)
             rms_u = torch.sqrt(ms_u + eps1)
             u = u / torch.clamp_min(rms_u / clip, 1.0)
             scale = torch.clamp_min(torch.sqrt(ms_p), eps2)
@@ -292,25 +333,18 @@ def adafactor(eps1: float = 1e-30, eps2: float = 1e-3, clip: float = 1.0,
                 delta = delta + lr * weight_decay * p.to(F32)
             return (p.to(F32) - delta).to(p.dtype)
 
-        s = state["s"]
-        for k, sub in params.items():
-            depth = _stack_depth(sub)
-            if not depth:
-                for path, p in flatten(sub):
-                    p.copy_(upd_core(p, get(grads[k], path), get(s[k], path),
-                                     split.dim((k,) + path)))
+        for u in _units(params, split):
+            if not u.items:   # a layer another rank owns
                 continue
-            for path, _, shape, dim in _stacked_paths(sub, depth, k, split):
-                if per_layer(shape):   # item by item along the stack's first axis
-                    for item, g, si in zip(sub, grads[k], s[k]):
-                        _write_leaf(item, path, depth - 1, upd_core(
-                            _stacked_leaf(item, path, depth - 1),
-                            _stacked_leaf(g, path, depth - 1), get(si, path),
-                            None if dim is None else dim - 1))
-                else:
-                    _write_leaf(sub, path, depth, upd_core(
-                        _stacked_leaf(sub, path, depth), _stacked_leaf(grads[k], path, depth),
-                        get(s[k + "_stacked"], path), dim))
+            ps, gs = _items(params, u), _items(grads, u)
+            if len(ps) == 1 and not u.lead:
+                p, g = ps[0], gs[0]
+            else:   # the stack of the items, as the reference's leaf
+                p = torch.stack(ps).reshape(u.lead + tuple(ps[0].shape))
+                g = torch.stack(gs).reshape(u.lead + tuple(gs[0].shape))
+            new = upd_core(p, g, get(state["s"], u.state), u.whole, u.cuts)
+            for t_, row in zip(ps, new.reshape((len(ps),) + tuple(ps[0].shape))):
+                t_.copy_(row)
         state["step"] = step
         return params, state, {"grad_norm": global_norm(grads)}
 

@@ -245,6 +245,26 @@ class CostModel(TorchDispatchMode):
         row[1] += flops
         row[2] += nbytes
 
+    def count_collective(self, name: str, out: torch.Tensor, inp: torch.Tensor,
+                         parts: int) -> None:
+        """Count the c10d op `name` (`_reduce_scatter_base_` or
+        `_allgather_base_`) on `out` and `inp` over `parts` devices, as a
+        dispatch of it would be counted: a collective that `distributed.py`
+        ran as point-to-point hops under gloo, which this mode did not see."""
+        if not (self._on_device(out) or self._on_device(inp)):
+            return
+        ckind, _ = _COLLECTIVES[name]
+        operand = tensor_bytes(inp)
+        nbytes = 2 * tensor_bytes(out) + operand   # its arguments, then its result
+        cur = self.totals.collectives.setdefault(ckind, [0.0, 0.0, 0.0])
+        cur[0] += 1
+        cur[1] += operand
+        cur[2] += wire_bytes(ckind, operand, parts)
+        self.totals.bytes += nbytes
+        row = self.by_op.setdefault(name, [0, 0.0, 0.0])
+        row[0] += 1
+        row[2] += nbytes
+
 
 def _staged_collective(func, ins) -> bool:
     """Whether `func` is a collective on host copies that stand for a card's

@@ -369,18 +369,58 @@ def model_dims(tree, cfg: ModelConfig, mesh, rules) -> Dict[Path, Cut]:
     return out
 
 
-def state_shardings(state, cfg: ModelConfig, mesh, rules, *,
-                    zero1_stack: bool = True) -> Shardings:
-    """Shardings of a train state {"params", "opt", "step"}: the params'
-    guarded specs, the optimizer state's ZeRO-1 specs (the dry-run's
-    `state_shardings`). `state` holds whole leaves; meta tensors will do."""
+_STATS = {"vr": -1, "vc": -2, "v": None}   # Adafactor's statistic -> the dim it drops
+
+
+def stat_spec(spec: Spec, ndim: int, stat: Optional[str]) -> Spec:
+    """The block of a statistic (or a moment, `stat` None) of a leaf of
+    `ndim` dims whose block is `spec`: `vr`, the mean over the last dim, is
+    cut where the leaf's other dims are; `vc` where all but its second last
+    are; `v` and the moments as the leaf is."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    drop = _STATS.get(stat)
+    if drop is None:
+        return spec
+    return spec[:ndim + drop] + spec[ndim + drop + 1:]
+
+
+def state_shardings(state, cfg: ModelConfig, mesh, rules,
+                    updates: Optional[Shardings] = None) -> Shardings:
+    """Shardings of a train state {"params", "opt", "step"} that state what
+    a rank holds: the params' guarded specs (`model_shardings`), and each
+    optimizer leaf its block of the whole leaf, which follows the block of
+    its parameter that the step updates: under `updates`, the step's ZeRO-2
+    grad shardings (`shardings_for(..., zero1=True)`), its ZeRO-1 block;
+    without, the params' block. AdamW's moments are that block, Adafactor's
+    statistics that block without the dim each averages away (`stat_spec`;
+    a sum over the ranks that cut that dim makes the rest whole,
+    `optim/optimizers.py`). `held` states the same leaves' blocks under the
+    params' specs (the coordinates of `local_block_of`). `state` holds whole
+    leaves; meta tensors will do.
+
+    With `updates`, AdamW's blocks are the reference dry-run's ZeRO-1
+    specs; its Adafactor statistics take the specs their names give (none:
+    replicated) extended by ZeRO-1 on their own shapes, which the port's
+    blocks are not (ROADMAP Queue 3)."""
     view = stacked_view(state)
     dp_axes = tuple(rules.get("batch", ()))
-    return Shardings(mesh, {p: s.shape for p, s in view.items()},
-                     {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, p[0] == "opt", zero1_stack)
-                      for p, s in view.items()},
-                     {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, False)
-                      for p, s in view.items()})
+    params = {p[1:]: s for p, s in view.items() if p[0] == "params"}
+    held = {p: leaf_spec(p, s, cfg, mesh, rules, dp_axes, False) for p, s in params.items()}
+    upd = held if updates is None else updates.specs
+    specs: Dict[Path, Spec] = {}
+    held_specs: Dict[Path, Spec] = {}
+    for p, s in view.items():
+        if p[0] == "params":
+            specs[p] = held_specs[p] = held[p[1:]]
+        elif p[0] == "opt" and len(p) > 1 and p[1] != "step":
+            # AdamW's ("opt", "m" or "v", *param), Adafactor's ("opt", "s", *param, stat)
+            param, stat = (p[2:-1], p[-1]) if p[1] == "s" else (p[2:], None)
+            ndim = len(params[param].shape)
+            specs[p] = stat_spec(upd[param], ndim, stat)
+            held_specs[p] = stat_spec(held[param], ndim, stat)
+        else:   # the step counters
+            specs[p] = held_specs[p] = (None,) * len(s.shape)
+    return Shardings(mesh, {p: s.shape for p, s in view.items()}, specs, held_specs)
 
 
 def cache_shardings(cache, cfg: ModelConfig, mesh, rules, global_batch: int) -> Shardings:

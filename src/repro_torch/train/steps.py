@@ -41,8 +41,8 @@ replicated leaf once. ZeRO-2 (`grad_shardings`, on a mesh with a data
 axis) cuts each rank's blocks further over its data group: its ZeRO block
 of a leaf is stated inside its "model" block (`Shardings.local_index`), and
 the collectives above run over the data group. Adafactor reads whole
-leaves through the model's `Split` (`optim/optimizers.py`); with ZeRO-1 it
-is refused (ROADMAP Queue 1, item 7).
+leaves through the model's `Split` (`optim/optimizers.py`), its sums over
+the "model" group, and with ZeRO-1 over the data group too.
 
 Under FSDP and expert parallelism (a leaf the model's `Split` marks as cut
 over the data axes: `models/data_parallel.py`) the rank holds its block of
@@ -53,7 +53,9 @@ ZeRO-2 reduces it again: it is accumulated as it comes, divided by M n
 with the rest, updated in place and never gathered; ZeRO-1 cuts its
 optimizer state no further (`zero1_extend` leaves a spec that names the
 data axes as it is). The global norm counts each of its blocks once over
-the (data, model) group.
+the (data, model) group. Adafactor's statistics of such a block are its
+block's, its means summed over the data group where that cuts the dim
+they average.
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ import torch.distributed as dist
 from repro_torch import distributed as D
 from repro_torch.launch.mesh import DP_AXES, dp_group, tp_degree
 from repro_torch.models.registry import Model
-from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
+from repro_torch.optim.optimizers import WHOLE, Optimizer, clip_by_global_norm
 from repro_torch.tree import flatten, leaves, tree_map, unflatten_like
 
 F32 = torch.float32
@@ -178,10 +180,6 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
     the model was built under (`mesh`, where given, must be that one; so
     must `grad_shardings`'), see the module's docstring."""
     acc_dtype = ACC_DTYPES[accum_dtype]
-    if grad_shardings is not None and opt.name != "adamw":
-        raise NotImplementedError(
-            f"ZeRO-1 state sharding needs an elementwise update (AdamW); {opt.name}'s "
-            "factored statistics read whole rows and columns (ROADMAP Queue 1, item 7)")
     if mesh is not None and mesh is not model.mesh:
         raise ValueError("build the model under the step's mesh: its loss takes the "
                          "group's means")
@@ -195,8 +193,8 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
     n = dist.get_world_size(group) if group is not None else 1
     rank = dist.get_rank(group) if group is not None else 0
     split = model.split
-    if split is not None and opt.name != "adamw":
-        split.refuse_data_cuts(opt.name)
+    # the blocks the optimizer updates: ZeRO-1's, or what the rank holds
+    zero = None if grad_shardings is None else (split or WHOLE).zero(grad_shardings)
     if split is not None and group is not None:
         live = {a for a, k in zip(mesh.axis_names, mesh.shape) if a in DP_AXES and k > 1}
         for path, cut in split.dims.items():
@@ -284,13 +282,7 @@ def make_train_step(model: Model, opt: Optimizer, lr_fn: Callable[[Any], Any],
         if grad_shardings is None:
             opt.update(params, grads, state["opt"], lr, model.split)
         else:
-            held = [j for j, b in enumerate(layout.mine) if b is not None]
-            m, v = leaves(state["opt"]["m"]), leaves(state["opt"]["v"])
-            sub = {"m": [m[j] for j in held], "v": [v[j] for j in held],
-                   "step": state["opt"]["step"]}
-            opt.update([plist[j][layout.mine[j]] for j in held], [acc[j] for j in held],
-                       sub, lr)
-            state["opt"]["step"] = sub["step"]
+            opt.update(_local(params, layout.mine), grads, state["opt"], lr, zero)
             layout.gather(params, group)
         new_state = {"params": params, "opt": state["opt"], "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
@@ -323,18 +315,16 @@ def _global_norm(acc, counted, summed, cut, group, tp, device) -> torch.Tensor:
 
 
 def train_state(params, opt: Optimizer, shardings=None, split=None) -> Dict[str, Any]:
-    """{"params", "opt", "step"} at step 0 for `params`: whole, or under a
-    "model" axis the rank's blocks, of which `split` (the model's) says
-    which. With `shardings` (the step's `grad_shardings`), the optimizer
-    state is this rank's ZeRO-1 share: its block of each moment (inside its
-    "model" block), an empty tensor where another rank owns the leaf."""
+    """{"params", "opt", "step"} at step 0 for `params`: whole, or the
+    rank's blocks of which `split` (the model's) says which. With
+    `shardings` (the step's `grad_shardings`), the optimizer state is this
+    rank's ZeRO-1 share: its block of each moment or statistic (inside what
+    it holds), empty tensors where another rank owns the layer."""
     if shardings is None:
         opt_state = opt.init(params, split)
     else:
-        if opt.name != "adamw":
-            raise NotImplementedError(f"ZeRO-1 state sharding needs AdamW, not {opt.name} "
-                                      "(ROADMAP Queue 1, item 7)")
-        opt_state = opt.init(_local(params, shardings.local_index(params, dist.get_rank())))
+        opt_state = opt.init(_local(params, shardings.local_index(params, dist.get_rank())),
+                             (split or WHOLE).zero(shardings))
     step = torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
     return {"params": params, "opt": opt_state, "step": step}
 

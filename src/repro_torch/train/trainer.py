@@ -9,15 +9,15 @@ are read on the host only at log steps, so the loop does not wait for the
 card in between; the final save blocks.
 
 Across ranks every rank runs the loop on the mesh its model was built
-under (`train/steps.py`), and `shardings`, the train state's
-(`sharding/rules.py::state_shardings`), go to the checkpointer, which
-gathers the blocks to rank 0. A tensor-parallel model's state is blocks on
-every rank, so its Trainer needs `shardings`; it trains AdamW on a (1, n)
-mesh, where those shardings cut the state as the step does. Adafactor's
-and a (dp, tp) mesh's TP state wait for sharded checkpoints (ROADMAP
-Queue 1, item 6e), and so does a state whose blocks the data axes cut
-(FSDP, the experts: `models/data_parallel.py`), which the checkpointer's
-gather does not cut.
+under (`train/steps.py`), on any mesh and with either optimizer: data
+parallelism, with ZeRO-2 over the data axes wherever the mesh has them
+(the step's grad shardings, `sharding/rules.py::shardings_for(...,
+zero1=True)`, as the reference's dry-run puts ZeRO-1 on every optimizer
+leaf), tensor parallelism over "model", FSDP and the experts over the data
+axes. The train state's shardings (`sharding/rules.py::state_shardings`:
+each rank's block of every param, moment and Adafactor statistic, as the
+step holds and updates them) go to the checkpointer, which gathers the
+blocks to rank 0 and restores each rank's blocks, on this mesh or another.
 """
 from __future__ import annotations
 
@@ -33,9 +33,11 @@ import torch
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.mesh import dp_degree
-from repro_torch.models.registry import Model
+from repro_torch.models.registry import Model, build_model
 from repro_torch.optim.optimizers import Optimizer, warmup_cosine
-from repro_torch.train.steps import make_init_state, make_train_step
+from repro_torch.sharding.axes import rules_for
+from repro_torch.sharding.rules import shardings_for, state_shardings
+from repro_torch.train.steps import make_init_state, make_train_step, train_state
 
 
 class Preempted(Exception):
@@ -57,23 +59,15 @@ class Trainer:
     def __init__(self, model: Model, opt: Optimizer, pipeline: TokenPipeline,
                  checkpointer: Checkpointer, cfg: TrainerConfig,
                  lr_fn: Optional[Callable] = None,
-                 failure_hook: Optional[Callable[[int], None]] = None,
-                 shardings=None):
-        if model.dp is not None and dp_degree(model.mesh) > 1:
-            raise NotImplementedError(
-                f"checkpoints of a state cut over the data axes (FSDP or the experts) on a "
-                f"{tuple(model.mesh.shape)} mesh are not ported: the checkpointer's gather "
-                "does not cut these blocks (ROADMAP Queue 1, item 6e)")
-        if model.tp is not None:
-            if dp_degree(model.mesh) > 1 or opt.name != "adamw":
-                raise NotImplementedError(
-                    f"checkpoints of a tensor-parallel {opt.name} state on a "
-                    f"{tuple(model.mesh.shape)} mesh are not ported: the Trainer checkpoints "
-                    "AdamW on a (1, n) mesh (ROADMAP Queue 1, item 6e)")
-            if shardings is None:
-                raise ValueError("a tensor-parallel model's state is blocks on every rank: "
-                                 "pass the train state's shardings, which its checkpoints "
-                                 "gather by")
+                 failure_hook: Optional[Callable[[int], None]] = None):
+        self.grad_shardings = self.shardings = None
+        if model.mesh is not None:
+            mcfg, rules = model.cfg, rules_for(model.mesh)
+            whole = build_model(mcfg, device="meta").init_params(torch.Generator())
+            if dp_degree(model.mesh) > 1:
+                self.grad_shardings = shardings_for(whole, mcfg, model.mesh, rules, zero1=True)
+            self.shardings = state_shardings(train_state(whole, opt), mcfg, model.mesh, rules,
+                                             self.grad_shardings)
         self.model = model
         self.opt = opt
         self.pipe = pipeline
@@ -83,10 +77,10 @@ class Trainer:
         self.failure_hook = failure_hook or (lambda step: None)
         self._preempt = threading.Event()
         self.history: List[Dict[str, float]] = []
-        self.shardings = shardings
         self._step_fn = make_train_step(model, opt, self.lr_fn,
                                         n_microbatches=cfg.n_microbatches,
-                                        clip_norm=cfg.clip_norm)
+                                        clip_norm=cfg.clip_norm,
+                                        grad_shardings=self.grad_shardings)
 
     def request_preemption(self, *_args):
         """SIGTERM handler on real clusters (Slurm sends it before the kill)."""
@@ -102,7 +96,7 @@ class Trainer:
         with `seed`, or, where a checkpoint exists, the latest one copied
         into it."""
         gen = torch.Generator(device=self.model.device).manual_seed(seed)
-        state = make_init_state(self.model, self.opt)(gen)
+        state = make_init_state(self.model, self.opt, self.grad_shardings)(gen)
         if self.ckpt.latest_step() is None:
             return state
         return self.ckpt.restore(state, shardings=self.shardings)

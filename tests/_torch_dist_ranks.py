@@ -40,6 +40,45 @@ def compression_rank(rank, world, dev, g_all, steps):
     return _np(mean), _np(err), _np(acc / steps)
 
 
+def pid_sum_rank(rank, world, dev, x):
+    """(this process's id, the sum over the ranks of x + rank)."""
+    import os
+    from repro_torch import distributed as D
+    t = torch.tensor([float(x + rank)], device=dev)
+    return os.getpid(), float(D.all_reduce_(t)[0])
+
+
+def raising_rank(rank, world, dev):
+    """Rank 1 raises; the others wait at a collective rank 1 never joins."""
+    from repro_torch import distributed as D
+    if rank == 1:
+        raise ValueError("rank 1 raises")
+    D.all_reduce_(torch.zeros(1, device=dev))
+
+
+def ring_collectives_rank(rank, world, dev, x_all):
+    """D.reduce_scatter_ and D.all_gather_ (gloo's rings) against gloo's own
+    reduce_scatter_tensor and all_gather_into_tensor on rows of x_all, each
+    under a CostModel: (ring sum, gloo sum, ring gather, gloo gather, both
+    accounts' collectives and by-op rows)."""
+    import torch.distributed as dist
+    from repro_torch import distributed as D
+    from repro_torch.roofline import CostModel
+    x = torch.from_numpy(x_all[rank]).to(dev)            # (world * k, m)
+    k = x.shape[0] // world
+    out = {}
+    for name, rs, ag in (
+            ("ring", D.reduce_scatter_, D.all_gather_),
+            ("gloo", lambda o, i: (dist.reduce_scatter_tensor(o, i), o)[1],
+             lambda o, i: (dist.all_gather_into_tensor(o, i), o)[1])):
+        with CostModel(dev.type) as cm:
+            s = rs(torch.empty(k, x.shape[1], dtype=x.dtype, device=dev), x)
+            g = ag(torch.empty_like(x), s)
+        out[name] = (_np(s), _np(g), {k_: list(v) for k_, v in cm.totals.collectives.items()},
+                     {k_: list(v) for k_, v in cm.by_op.items()}, cm.totals.bytes)
+    return out
+
+
 def smoke_cfg(arch):
     return get_config(arch, smoke=True).replace(param_dtype="float32")
 
@@ -195,7 +234,7 @@ def dp_run(rank, world, dev, arch, params_np, batches, n_micro, directory, save_
     world's shardings); the state saved (gathered, written by rank 0) after
     each step in `save_at`."""
     cfg, mesh, model, opt, shard, state = dp_setup(rank, world, dev, arch, params_np, True)
-    full = state_shardings(whole_state(cfg, opt), cfg, mesh, single_pod_rules())
+    full = state_shardings(whole_state(cfg, opt), cfg, mesh, single_pod_rules(), shard)
     ck = Checkpointer(directory)
     first = 0
     if resume is not None:
@@ -232,8 +271,7 @@ def dp_restore_rank(rank, world, dev, arch, params_np, directory, step):
     for stack in (True, False):
         cfg, mesh, model, opt, shard, state = dp_setup(rank, world, dev, arch, params_np, True,
                                                        stack=stack)
-        full = state_shardings(whole_state(cfg, opt), cfg, mesh, single_pod_rules(),
-                               zero1_stack=stack)
+        full = state_shardings(whole_state(cfg, opt), cfg, mesh, single_pod_rules(), shard)
         Checkpointer(directory).restore(state, step=step, shardings=full)
         out[str(stack)] = {"/".join(map(str, path)): (
             None if b is None else [(s.start, s.stop) for s in b], _np(t))

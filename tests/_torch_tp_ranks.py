@@ -228,22 +228,15 @@ def trainer_run(dev, ckpt_dir, mesh=None):
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.optim.optimizers import make_optimizer
-    from repro_torch.sharding.axes import rules_for
-    from repro_torch.sharding.rules import state_shardings
-    from repro_torch.train.steps import train_state
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg = smoke_cfg("llama3-8b")
     model = build_model(cfg, device=dev, mesh=mesh)
     opt = make_optimizer("adamw")
-    sh = None
-    if mesh is not None:
-        meta = build_model(cfg, device="meta").init_params(torch.Generator())
-        sh = state_shardings(train_state(meta, opt), cfg, mesh, rules_for(mesh))
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
                                     seed=5))
     trainer = Trainer(model, opt, pipe, Checkpointer(ckpt_dir),
                       TrainerConfig(num_steps=3, ckpt_every=2, log_every=1, n_microbatches=2,
-                                    base_lr=1e-2, warmup=1), shardings=sh)
+                                    base_lr=1e-2, warmup=1))
     state = trainer.run(trainer.init_or_restore(5))
     return {"/".join(map(str, p)): _np(t) for p, t in flatten(state)}
 

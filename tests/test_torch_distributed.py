@@ -375,3 +375,61 @@ def test_build_model_n_groups_matches_jax():
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(float(metrics["aux"]), float(jmetrics["aux"]), rtol=1e-5)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=1e-5, rtol=1e-5)
+
+
+def test_ranks_run_job_after_job_in_the_same_processes():
+    """`Ranks` keeps its processes and group from one job to the next, and
+    `spawn` is one job on fresh ranks: the same sums either way."""
+    from repro_torch import distributed as D
+    import _torch_dist_ranks as R
+    with D.Ranks(2, device="cpu", timeout=60) as ranks:
+        first = ranks.run(R.pid_sum_rank, 1)
+        second = ranks.run(R.pid_sum_rank, 10)
+    assert [pid for pid, _ in first] == [pid for pid, _ in second]
+    assert [v for _, v in first] == [3.0, 3.0] and [v for _, v in second] == [21.0, 21.0]
+    fresh = D.spawn(R.pid_sum_rank, 2, 1, device="cpu", timeout=60)
+    assert [v for _, v in fresh] == [3.0, 3.0]
+    assert {pid for pid, _ in fresh}.isdisjoint(pid for pid, _ in first)
+
+
+def test_ranks_raise_a_rank_s_error_and_stop():
+    """A job that raises on one rank makes `run` raise with that rank's
+    traceback, and the ranks are stopped: no further job runs."""
+    from repro_torch import distributed as D
+    import _torch_dist_ranks as R
+    ranks = D.Ranks(2, device="cpu", timeout=60)
+    with pytest.raises(RuntimeError, match="rank 1 raises"):
+        ranks.run(R.raising_rank)
+    with pytest.raises(RuntimeError, match="closed"):
+        ranks.run(R.pid_sum_rank, 1)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gloo_rings_are_gloo_s_collectives(world):
+    """Under gloo, `reduce_scatter_` and `all_gather_` run as rings of
+    point-to-point hops: the same sums as gloo's `reduce_scatter_tensor`
+    (bit for bit over 2 ranks, whose sum has one order; within fp32
+    rounding over 4), the same gather bit for bit, and the same cost
+    account as the c10d ops they stand for."""
+    import numpy as np
+    from repro_torch import distributed as D
+    import _torch_dist_ranks as R
+    x = np.random.default_rng(7).standard_normal((world, world * 3, 5)).astype(np.float32)
+    res = D.spawn(R.ring_collectives_rank, world, x, device="cpu", timeout=120)
+    whole = x.sum(0)
+    for rank, r in enumerate(res):
+        (rs, rg, rc, rop, rb), (gs, gg, gc, gop, gb) = r["ring"], r["gloo"]
+        np.testing.assert_allclose(rs, whole[3 * rank:3 * rank + 3], rtol=1e-6, atol=1e-6)
+        if world == 2:
+            np.testing.assert_array_equal(rs, gs)
+        else:
+            np.testing.assert_allclose(rs, gs, rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(rg, np.concatenate([q["ring"][0] for q in res]))
+        # gloo's own ops add copies of their own on the CPU (no card's
+        # account sees them): the rings' account is the c10d ops' alone
+        assert rc == gc
+        ops = ("c10d::_reduce_scatter_base_", "c10d::_allgather_base_")
+        assert {k: v for k, v in rop.items() if k.startswith("c10d::")} == \
+            {k: gop[k] for k in ops}
+        assert rb == sum(gop[k][2] for k in ops)
+        assert rc["reduce-scatter"][0] == 1 and rc["all-gather"][0] == 1

@@ -384,35 +384,62 @@ def test_fsdp_gather_and_expert_all_to_all_backward(runs, n):
 
 @pytest.mark.parametrize("arch, shape", [("phi3.5-moe-42b-a6.6b", (2, 1)),
                                          ("qwen1.5-32b", (2, 1)), ("qwen1.5-32b", (2, 2))])
-def test_trainer_refuses_states_cut_over_the_data_axis(tmp_path, arch, shape):
-    """The checkpointer's gather does not cut FSDP's or the experts' blocks:
-    the Trainer refuses such a state when it is made (ROADMAP item 6e)."""
+def test_trainer_checkpoints_the_blocks_of_states_cut_over_the_data_axis(tmp_path, arch,
+                                                                          shape):
+    """The Trainer of a state that FSDP or the experts cut over the data
+    axis checkpoints by the train state's shardings: it runs ZeRO-2 over the
+    data axis, and each leaf of the state it draws is its block under them
+    (params, AdamW's moments as ZeRO-1 blocks), and the data axis cuts some
+    of them."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten
     cfg = get_config(arch, smoke=True).replace(fsdp=get_config(arch).fsdp)
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4))
     with fake_group(shape[0] * shape[1]):
         model = build_model(cfg, device="meta",
                             mesh=make_mesh(shape, ("data", "model"), device="cpu"))
         assert model.dp is not None
-        with pytest.raises(NotImplementedError, match="item 6e"):
-            Trainer(model, make_optimizer("adamw"), pipe, Checkpointer(str(tmp_path)),
+        t = Trainer(model, make_optimizer("adamw"), pipe, Checkpointer(str(tmp_path)),
                     TrainerConfig())
+        assert t.grad_shardings is not None
+        state = train_state(model.init_params(torch.Generator()), t.opt, t.grad_shardings,
+                            model.split)
+        cut = 0
+        for (path, leaf), b in zip(flatten(state), t.shardings.index(state, 0)):
+            want = (0,) if b is None else tuple(s.stop - s.start for s in b)
+            assert tuple(leaf.shape) == want, (path, tuple(leaf.shape), want)
+            cut += b is not None and want != t.shardings.full_shape(path)
+        assert cut > 0
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (2, 2)])
-def test_adafactor_refuses_leaves_cut_over_the_data_axis(shape):
-    """arctic-480b's Adafactor reads whole rows and columns: on a data axis
-    its FSDP and expert leaves wait for ZeRO-1 for Adafactor (item 7), at
-    the state and at the step."""
+def test_adafactor_state_of_leaves_cut_over_the_data_axis_is_their_blocks(shape):
+    """arctic-480b's Adafactor on its FSDP and expert leaves: each statistic
+    the state holds is the rank's block of the whole leaf's (`vr` cut where
+    the rows are, `vc` where the columns are, `state_shardings`), with and
+    without ZeRO-1, and the train step builds."""
+    from repro_torch.sharding.axes import rules_for
+    from repro_torch.sharding.rules import shardings_for, state_shardings
+    from repro_torch.tree import flatten
     cfg = get_config("arctic-480b", smoke=True).replace(fsdp=True)
+    whole = build_model(cfg, device="meta").init_params(torch.Generator())
+    opt = make_optimizer("adafactor")
     with fake_group(shape[0] * shape[1]):
-        model = build_model(cfg, device="meta",
-                            mesh=make_mesh(shape, ("data", "model"), device="cpu"))
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        model = build_model(cfg, device="meta", mesh=mesh)
         params = model.init_params(torch.Generator())
-        opt = make_optimizer("adafactor")
-        with pytest.raises(NotImplementedError, match="item 7"):
-            train_state(params, opt, None, model.split)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            make_train_step(model, opt, lambda s: 1e-3)
+        for zero in (False, True):
+            gsh = shardings_for(whole, cfg, mesh, rules_for(mesh), zero1=True) if zero else None
+            sh = state_shardings(train_state(whole, opt), cfg, mesh, rules_for(mesh), gsh)
+            state = train_state(params, opt, gsh, model.split)
+            cut = 0
+            for (path, leaf), b in zip(flatten(state), sh.index(state, 0)):
+                if path[:2] != ("opt", "s"):
+                    continue
+                want = (0,) if b is None else tuple(s.stop - s.start for s in b)
+                assert tuple(leaf.shape) == want, (path, tuple(leaf.shape), want)
+                cut += b is not None and want != sh.full_shape(path)
+            assert cut > 0
+            assert make_train_step(model, opt, lambda s: 1e-3, grad_shardings=gsh) is not None

@@ -54,7 +54,7 @@ from repro_torch.models import dense
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.sharding import axes as A
 from repro_torch.sharding.rules import shardings_for
-from repro_torch.train.steps import make_train_step
+from repro_torch.train.steps import make_train_step, train_state
 from repro_torch.tree import flatten
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -420,20 +420,26 @@ def test_build_model_refuses_tp_for_the_other_families(arch):
                     mesh=Mesh((1, 2), ("data", "model")))
 
 
-def test_train_step_refuses_a_model_axis(monkeypatch):
+def test_train_step_on_a_model_axis_refuses_only_the_xlstm(monkeypatch):
     """What a "model" axis still cannot train is refused, naming the ROADMAP
-    item that lifts it: the xLSTM (6c), Adafactor under
-    ZeRO-1 (7), and so Adafactor on leaves an FSDP arch cuts over a data
-    axis (arctic-480b on (2, 2), which builds, its FSDP and expert leaves
-    the rank's blocks: item 7); and the step refuses ZeRO on a (1, n) mesh
-    (no data axis to shard over) and a model built without the step's mesh.
-    The TP model's loss trains (tests/test_torch_tp_train.py)."""
+    item that lifts it: the xLSTM (6c). Adafactor trains on every cut:
+    arctic-480b on (2, 2) builds, its FSDP and expert leaves the rank's
+    blocks, and so does its step, with and without ZeRO-2, and arctic SMOKE's
+    ZeRO-2 step on (1, n)'s abstract mesh asks for a data axis as AdamW's
+    does. The step refuses ZeRO on a (1, n) mesh (no data axis to shard
+    over) and a model built without the step's mesh. The TP model's loss
+    trains (tests/test_torch_tp_train.py)."""
     from repro_torch.launch.dryrun import fake_mesh
     with fake_mesh(Mesh((2, 2), ("data", "model"))) as m:
         arctic = build_model(get_config("arctic-480b"), device="meta", mesh=m)
         assert arctic.dp.gathers and torch.distributed.get_world_size(arctic.dp.ep_group) == 2
-        with pytest.raises(NotImplementedError, match="item 7"):
-            make_train_step(arctic, make_optimizer("adafactor"), lambda s: 1e-3)
+        assert make_train_step(arctic, make_optimizer("adafactor"), lambda s: 1e-3) is not None
+        whole = build_model(get_config("arctic-480b"), device="meta").init_params(
+            torch.Generator())
+        g_sh = shardings_for(whole, get_config("arctic-480b"), m, A.single_pod_rules(),
+                             zero1=True)
+        assert make_train_step(arctic, make_optimizer("adafactor"), lambda s: 1e-3,
+                               grad_shardings=g_sh) is not None
     monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 0)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
     mesh = Mesh((1, 2), ("data", "model"))
@@ -451,7 +457,7 @@ def test_train_step_refuses_a_model_axis(monkeypatch):
                         grad_shardings=shardings_for(whole, cfg, mesh, A.single_pod_rules(),
                                                      zero1=True))
     arctic = get_config("arctic-480b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="has none"):
         make_train_step(build_model(arctic, device="cpu", mesh=mesh), make_optimizer("adafactor"),
                         lambda s: 1e-3, grad_shardings=shardings_for(
                             whole, cfg, mesh, A.single_pod_rules(), zero1=True))
@@ -461,30 +467,33 @@ def test_train_step_refuses_a_model_axis(monkeypatch):
 @pytest.mark.parametrize("arch, shape, opt_name", [
     ("llama3-8b", (2, 2), "adamw"), ("phi3.5-moe-42b-a6.6b", (2, 2), "adamw"),
     ("arctic-480b", (1, 2), "adafactor")])
-def test_trainer_refuses_tp_states_it_cannot_checkpoint(tmp_path, arch, shape, opt_name):
-    """The Trainer checkpoints a tensor-parallel AdamW state on a (1, n)
-    mesh only: a TP state on a (dp, tp) mesh and Adafactor's under TP wait
-    for sharded checkpoints (ROADMAP item 6e), refused when the Trainer is
-    made, not at its final save. On (1, n) it asks for the state's
-    shardings."""
+def test_trainer_checkpoints_tp_states_by_their_blocks(tmp_path, arch, shape, opt_name):
+    """The Trainer of a tensor-parallel state on a (dp, tp) mesh (where it
+    runs ZeRO-2 over "data") or with Adafactor under TP takes the train
+    state's shardings: each leaf of the state it draws is the rank's block
+    under them, and the "model" axis cuts some optimizer leaves."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.launch.dryrun import fake_group
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import flatten
     cfg = get_config(arch, smoke=True)
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4))
     with fake_group(shape[0] * shape[1]):
         model = build_model(cfg, device="meta",
                             mesh=make_mesh(shape, ("data", "model"), device="cpu"))
-        with pytest.raises(NotImplementedError, match="item 6e"):
-            Trainer(model, make_optimizer(opt_name), pipe, Checkpointer(str(tmp_path)),
+        t = Trainer(model, make_optimizer(opt_name), pipe, Checkpointer(str(tmp_path)),
                     TrainerConfig())
-    with fake_group(2):
-        model = build_model(cfg, device="meta", mesh=Mesh((1, 2), ("data", "model")))
-        with pytest.raises(ValueError, match="shardings"):
-            Trainer(model, make_optimizer("adamw"), pipe, Checkpointer(str(tmp_path)),
-                    TrainerConfig())
+        assert (t.grad_shardings is not None) == (shape[0] > 1)
+        state = train_state(model.init_params(torch.Generator()), t.opt, t.grad_shardings,
+                            model.split)
+        cut = 0
+        for (path, leaf), b in zip(flatten(state), t.shardings.index(state, 0)):
+            want = (0,) if b is None else tuple(s.stop - s.start for s in b)
+            assert tuple(leaf.shape) == want, (path, tuple(leaf.shape), want)
+            cut += path[0] == "opt" and b is not None and want != t.shardings.full_shape(path)
+        assert cut > 0
 
 
 def test_groups_of_abstract_meshes():

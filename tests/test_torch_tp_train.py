@@ -444,12 +444,12 @@ def test_tp_training_refuses_the_other_families(arch):
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "internvl2-76b", "qwen1.5-32b"])
-def test_tp_training_refuses_fsdp_archs_with_a_data_axis(arch, monkeypatch):
+def test_tp_training_of_fsdp_archs_on_a_data_axis(arch, monkeypatch):
     """The FSDP archs (at their published configs; SMOKE turns FSDP off)
     build on (2, 2), each rank holding the reference's blocks: every
     projection and the embeddings cut over "data" too, gathered before use,
-    the arch's training step made; arctic-480b's Adafactor on those leaves
-    is refused (ROADMAP item 7). On (1, n) they build, with a loss."""
+    the arch's training step made with its own optimizer (arctic-480b's
+    Adafactor on those leaves too). On (1, n) they build, with a loss."""
     from repro_torch.launch.dryrun import fake_mesh
     from repro_torch.sharding.rules import model_shardings
     from repro_torch.tree import leaves
@@ -464,27 +464,38 @@ def test_tp_training_refuses_fsdp_archs_with_a_data_axis(arch, monkeypatch):
             [tuple(t[b].shape) for t, b in zip(leaves(whole), sh.index(whole, 0))]
         assert ("layers", "attn", "wq") in model.dp.gathers and ("embed", "tok") in model.dp.gathers
         opt = make_optimizer(cfg.optimizer)
-        if cfg.optimizer == "adafactor":
-            with pytest.raises(NotImplementedError, match="item 7"):
-                make_train_step(model, opt, lambda s: 1e-3)
-        else:
-            assert make_train_step(model, opt, lambda s: 1e-3) is not None
+        assert make_train_step(model, opt, lambda s: 1e-3) is not None
     monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 0)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
     model = build_model(cfg, device="meta", mesh=Mesh((1, 2), ("data", "model")))
     assert model.tp is not None and model.split.dims
 
 
-def test_zero1_refuses_adafactor():
-    """Adafactor's factored statistics read whole rows and columns: ZeRO-1
-    of its state waits for ROADMAP item 7."""
+def test_zero1_of_adafactor_holds_the_rank_s_blocks():
+    """ZeRO-1 of arctic SMOKE's Adafactor state on a (2, 1) mesh (its
+    experts cut over "data" too): rank 0's statistics are its blocks of the
+    whole leaf's under the train state's shardings (whole layers of a
+    stacked leaf, empty for the other rank's layers; a block of a stack of
+    norms), and the ZeRO-2 step builds."""
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import state_shardings
+    from repro_torch.tree import flatten
     cfg = get_config("arctic-480b", smoke=True)
-    mesh = Mesh((2, 1), ("data", "model"))
-    model = build_model(cfg, device="cpu")
-    params = model.init_params(torch.Generator().manual_seed(0))
-    g_sh = shardings_for(params, cfg, mesh, single_pod_rules(), zero1=True)
+    whole = build_model(cfg, device="meta").init_params(torch.Generator())
     opt = make_optimizer("adafactor")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_train_step(model, opt, lambda s: 1e-3, grad_shardings=g_sh)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_state(params, opt, g_sh)
+    with fake_group(2):
+        mesh = make_mesh((2, 1), ("data", "model"), device="cpu")
+        model = build_model(cfg, device="meta", mesh=mesh)
+        g_sh = shardings_for(whole, cfg, mesh, single_pod_rules(), zero1=True)
+        state = train_state(model.init_params(torch.Generator()), opt, g_sh, model.split)
+        sh = state_shardings(train_state(whole, opt), cfg, mesh, single_pod_rules(), g_sh)
+        kinds = set()
+        for (path, leaf), b in zip(flatten(state), sh.index(state, 0)):
+            want = (0,) if b is None else tuple(s.stop - s.start for s in b)
+            assert tuple(leaf.shape) == want, (path, tuple(leaf.shape), want)
+            if path[:2] == ("opt", "s"):
+                kinds.add("empty" if b is None else "whole" if want == sh.full_shape(path)
+                          else "cut")
+        assert kinds == {"empty", "whole", "cut"}, kinds
+        assert make_train_step(model, opt, lambda s: 1e-3, grad_shardings=g_sh) is not None
