@@ -281,27 +281,43 @@ exits non-zero on failure; nothing is caught and carried on.
      and flash with the lse at qwen's TP 2 training heads, against their
      plain versions, timed beside torch.bmm or SDPA and the bound. Prints
      each rank's step time and peak memory beside the single process's;
- 16. tensor parallelism of the hybrid and whisper over the "model" axis, on
-     four ranks of a (1, 4) mesh, ranks as in 13 (each rank's mamba2 blocks
-     on 20 of zamba2's 80 SSM heads, w_zx's product gathered, the gated
-     norm's statistic summed; whisper's 6 heads gathered by column): a.
+ 16. tensor parallelism of the hybrid, whisper and the xLSTM over the
+     "model" axis, on four ranks of a (1, 4) mesh, ranks as in 13 (each
+     rank's mamba2 blocks on 20 of zamba2's 80 SSM heads, w_zx's product
+     gathered, the gated norm's statistic summed; whisper's 6 heads gathered
+     by column; the xLSTM's blocks on 1 of its 4 heads, w_up's product and
+     the sLSTM's h gathered, the mLSTM norm's statistic summed): a.
      zamba2-2.7b at published width, 12 of 54 layers (two super-blocks, the
      shared block twice), phase 7's prefill of 4 x 1024 and 8 decode steps
      through the model interface; b. zamba2-2.7b x 6 (one super-block)
      trained as 14 (2 steps of 4 x 1024 in 2 microbatches); c. whisper-tiny
      at published width and depth, 9a's prefill (8 x 64 tokens over 8 x 1536
      frames) and 8 decode steps, and 8g's training (4 x 448 tokens and 4 x
-     1536 frames, 2 steps). Serving gates: each rank's blocks' digests and
-     bytes, its launches exact and on `flash_wgmma`, `decode_split` and the
-     SSD scan's tensor-core path, outputs and gate logits identical across
-     ranks, the gate's logits held by `logits_gate` to this process's plain
-     path in bf16 and fp32, each rank's SSM state after the prefill held
-     the same way to this process's on its heads (`state_gate`). Training
-     gates: 14's, except that the blocks' distance over the update is held
-     at NOISE_FACTOR times the config's rounding floor where that exceeds
-     DP_UPDATE_TOL (the single process trained again on the plain kernels:
-     zamba2's two steps move 0.091 of their update on the order of sums
-     alone, llama3-8b x 4's 0.025). The TP collectives of every prefill,
+     1536 frames, 2 steps); e. xlstm-350m at published width and 8 of its
+     24 layers (one super-block), 4 prompts of 256 tokens and 8 decode
+     steps, and 8h's training in fp32 (32 x 64 tokens in 2 microbatches, 2
+     steps). At 24 layers the random-weight model is chaotic: the plain bf16
+     path's logits sit 1.00 rel L2 from fp32's, so logits_gate would hold
+     nothing, and in fp32 two single runs whose sums differ in order only
+     start from first gradients 0.36-0.49 rel L2 apart (grad norm ~1e4),
+     so no gate can hold a rank there; at 8 layers in bf16 they sit 0.97
+     of their update apart. Serving gates: each rank's blocks' digests and bytes, its launches exact and on `flash_wgmma`,
+     `decode_split` and the SSD scan's tensor-core path (the xLSTM none),
+     outputs and gate logits identical across ranks, the gate's logits held
+     by `logits_gate` to this process's plain path in bf16 and fp32, each
+     rank's SSM state after the prefill, and its mLSTM C (last super-block)
+     and sLSTM c after the first decode step, held the same way to this
+     process's on its heads (`state_gate`). Training gates: 14's, except
+     that the blocks' distance over the update is held at NOISE_FACTOR times
+     the config's rounding floor where that exceeds DP_UPDATE_TOL (the
+     single trained again on the plain kernels, or for the xLSTM, which
+     launches none, with its mLSTM heads in reverse order, a symmetry of
+     the model: zamba2's two steps move 0.091 of their update on the order
+     of sums alone, llama3-8b x 4's 0.025); 16e's second grad norm at
+     XLSTM_STEP2_NORM_TOL, and each 16e rank's blocks of the first step's
+     gradient, by leaf kind, within GRAD_KIND_TOL (relative L2; the
+     heads-reversed run's under half of it). The TP collectives of every
+     prefill,
      decode step and train step equal the code's count (tp_spans); d. the
      SSD scan at a rank's 20 heads (B=4 T=1024 fp32), flash without and
      with the lse at the shared block's 8 heads (B=4 T=1024 D=80) and
@@ -327,8 +343,9 @@ exits non-zero on failure; nothing is caught and carried on.
  18. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
      at C=320, ssd_scan's with its plain backward, flash's, decode's,
      moe_gmm's and ssd_scan's with their rows at phase 9's, 13's, 14's,
-     15's and 16's shapes) and, last, the device line `{"ok": true,
-     "device": {...}}`.
+     15's and 16's shapes; the launches of every phase's main path, 16e's
+     xLSTM adding none, since its blocks run no kernel) and, last, the
+     device line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -382,6 +399,24 @@ MOE_ROUTING_AGREEMENT = 0.95
 # on the CPU), so fp32 rounding reaches the logits at ~1e-2 after 24
 # layers on either package.
 XLSTM_BLOCK_L2 = 1e-5
+# 16e's second grad norm, a rank's against the single process's (fp32):
+# AdamW's first step moves every entry by about lr x sign(g), those whose
+# gradient is at rounding level by a sign that the order of sums decides, so
+# the second gradients differ where the first's did not: the heads-reversed
+# single run's sat 4.5e-2 from the single run's at 8 layers (NVIDIA H100
+# 80GB HBM3, 700 W, tools/hybrid_tp_phase.py). The first step's loss and
+# grad norm and the second's loss keep DP_METRIC_TOL.
+XLSTM_STEP2_NORM_TOL = 0.1
+# 16e's first gradient, each leaf kind of a rank's blocks against the single
+# process's (relative L2, fp32). A fault in how a leaf's gradient is summed
+# over the ranks (a missing or doubled all-reduce, a head's share dropped)
+# moves its kind by 0.25 or more; at 8 layers the order of sums alone moved
+# the heads-reversed run's kinds by up to 5.0e-4 and the ranks' by up to
+# 2.2e-3, each kind by 1.9-12x its floor (NVIDIA H100 80GB HBM3, 700 W,
+# tools/hybrid_tp_phase.py): the ranks reorder the sums of every product,
+# the heads' reversal only those over d_in. The gate holds where the floor
+# run sits under half of it.
+GRAD_KIND_TOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -2780,14 +2815,105 @@ def dp_batch(cfg, seed, step, dev, rows, seq):
     return out
 
 
+def reverse_mlstm_heads(params, cfg):
+    """The xLSTM's whole params with each mLSTM block's heads in reverse
+    order, in place: a symmetry of the model (q, k, v, the gates' columns,
+    z's channels, norm_w and w_down's rows permuted alike), so each block
+    computes the same function with its sums over d_in (w_down's product,
+    the norm's statistic) and their gradients in another order, the sums a
+    "model" rank cuts. Its own inverse."""
+    import torch
+    H, d_in = cfg.n_heads, int(cfg.xlstm.mlstm_expand * cfg.d_model)
+
+    def rev(t, dim, groups=1):   # t's dim laid out (groups, H, width): reverse H
+        return t.unflatten(dim, (groups, H, -1)).flip(dim + 1).flatten(dim, dim + 2)
+    with torch.no_grad():
+        for blocks in params["mlstm"]:
+            for p in blocks:
+                for k in ("w_q", "w_k", "w_v"):
+                    p[k].copy_(rev(p[k], 1))
+                p["w_if"].copy_(rev(p["w_if"], 1, 2))
+                p["b_if"].copy_(rev(p["b_if"], 0, 2))
+                p["w_up"][:, d_in:].copy_(rev(p["w_up"][:, d_in:], 1))
+                p["norm_w"].copy_(rev(p["norm_w"], 0))
+                p["w_down"].copy_(rev(p["w_down"], 0))
+    return params
+
+
+def first_grads(model, params, batch, n_micro):
+    """The first step's gradient, before its clipping: the mean over the
+    microbatches of `batch` (as the train step cuts them on one data rank)
+    of the loss's gradient, fp32, on `model`'s mesh (a rank's blocks)."""
+    import torch
+    from repro_torch.tree import leaves, tree_map, unflatten_like
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    acc = None
+    for i in range(n_micro):
+        mb = {k: v.reshape(n_micro, -1, *v.shape[1:])[i] for k, v in batch.items()}
+        loss, _ = model.loss(live, mb)
+        g = [t.float() for t in torch.autograd.grad(loss, leaves(live))]
+        acc = g if acc is None else [a.add_(t) for a, t in zip(acc, g)]
+    return unflatten_like(params, [a.div_(n_micro) for a in acc])
+
+
+def single_grads(cfg, seed, dev, n_micro, rows, seq, reverse_heads, path) -> dict:
+    """The single process's first gradient (first_grads) of `cfg` drawn
+    from `seed` on dp_run's first batch, saved to `path` for the ranks;
+    and again on the plain kernels, with `reverse_heads` on its mLSTM heads
+    in reverse order (turned back after): kind -> that floor run's relative
+    L2 distance to the first (kind_dists)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    model = build_model(cfg, device=dev)
+    batch = dp_batch(cfg, seed, 0, dev, rows, seq)
+
+    def draw():
+        return model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    mine = first_grads(model, draw(), batch, n_micro)
+    torch.save(tree_map(lambda t: t.cpu(), mine), path)
+    with plain_kernels():
+        params = draw()
+        other = first_grads(model, reverse_mlstm_heads(params, cfg) if reverse_heads
+                            else params, batch, n_micro)
+    if reverse_heads:
+        reverse_mlstm_heads(other, cfg)
+    return {k: (d / u) ** 0.5 for k, (d, u) in kind_dists(other, mine).items()}
+
+
+def leaf_kind(path) -> str:
+    """A leaf's kind, the gradient gate's group: its stack and its name
+    ("mlstm/w_up", "slstm/r_gates", "embed/tok")."""
+    return "/".join(map(str, (path[0], path[-1]))) if len(path) > 1 else str(path[0])
+
+
+def kind_dists(got, want, blocks=None) -> dict:
+    """Kind -> [squared distance, squared norm of want] between two grads
+    trees, summed over each kind's leaves (leaf_kind); `want`'s leaves cut to
+    `blocks` (a rank's) where given."""
+    import torch
+    from repro_torch.tree import flatten, leaves
+    out = {}
+    for i, ((path, g), w) in enumerate(zip(flatten(got), leaves(want))):
+        w = (w if blocks is None else w[blocks[i]]).to(g.device).float()
+        k = out.setdefault(leaf_kind(path), [0.0, 0.0])
+        k[0] += float(torch.sum(torch.square(g.float() - w)))
+        k[1] += float(torch.sum(torch.square(w)))
+    return out
+
+
 def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_groups=1,
-           account_last=False):
+           account_last=False, reverse_heads=False):
     """`steps` steps of `cfg` at `train_lr` with its optimizer (AdamW; Adafactor
     where the config names it) from weights drawn from `seed`,
     on global batches of rows x seq: (state, the per-step losses, grad norms
     and walls, and the kernels' launches counted from the first step). With
     `account_last` the last step runs under the dry-run's account
-    (`launch/dryrun.py::accounted`), returned as "account" (phase 12d)."""
+    (`launch/dryrun.py::accounted`), returned as "account" (phase 12d). With
+    `reverse_heads` (the xLSTM) the mLSTM blocks run with their heads in
+    reverse order and the state's params come back in the drawn order
+    (reverse_mlstm_heads: the rounding floor's run of a model that launches
+    no kernel, train_ranks)."""
     import torch
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import moe_gmm as gk
@@ -2797,8 +2923,10 @@ def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_g
     from repro_torch.train.steps import make_train_step, train_state
     model = build_model(cfg, device=dev, mesh=mesh, n_groups=n_groups)
     opt = make_optimizer(cfg.optimizer)
-    state = train_state(model.init_params(torch.Generator(device=dev).manual_seed(seed)), opt,
-                        shard, model.split)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    if reverse_heads:
+        reverse_mlstm_heads(params, cfg)
+    state = train_state(params, opt, shard, model.split)
     step = make_train_step(model, opt, lambda s: train_lr(cfg), n_microbatches=n_micro,
                            grad_shardings=shard, mesh=mesh)
     losses, norms, walls = [], [], []
@@ -2819,6 +2947,8 @@ def dp_run(cfg, seed, dev, steps, n_micro, rows, seq, mesh=None, shard=None, n_g
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     peak = max(peak, torch.cuda.max_memory_allocated())
+    if reverse_heads:
+        reverse_mlstm_heads(state["params"], cfg)
     return state, dict(losses=losses, norms=norms, walls=walls, launches=kernel_counts(),
                        account=account, peak_bytes=peak,
                        lse=fk.lse_launches, flash_by_path=dict(fk.launches_by_path),
@@ -4022,7 +4152,9 @@ def tp_train_rank(rank, world, dev, job):
     rank splits, its peak memory and a profiled step's TP spans. With
     `job["ckpt"]` (17c) the state is saved there and restored (ckpt_rank);
     with `job["account_after"]` (17d) one more step, routed by its own
-    router, runs under the dry-run's account."""
+    router, runs under the dry-run's account; with `job["grads"]` (16e) its
+    blocks of the first step's gradient are held to the single process's
+    saved there (first_grads, kind_dists)."""
     import torch
     from repro_torch import distributed as D
     from repro_torch.launch.mesh import make_mesh
@@ -4071,6 +4203,13 @@ def tp_train_rank(rank, world, dev, job):
         u = float(torch.sum(torch.square(w - first.float())))
         sq, upd = sq + d, upd + u
         by_leaf.append(("/".join(map(str, path)), d, u))
+    if job.get("grads"):   # its blocks of the first gradient, by leaf kind
+        b = dp_batch(cfg, job["seed"], 0, dev, job["rows"], job["seq"])
+        g = first_grads(model, p0, b, job["n_micro"])
+        want = torch.load(job["grads"], mmap=True)
+        run["grad_kinds"] = {k: (d / u) ** 0.5 for k, (d, u) in kind_dists(
+            g, want, sh.index(meta, torch.distributed.get_rank())).items()}
+        del g, want
     del single, p0
     # the leaves that carry most of the distance, each with its own ratio
     run["worst"] = [(k, d, (d / u) ** 0.5 if u else float("inf"))
@@ -4159,13 +4298,15 @@ def tp_calls(steps=1) -> dict:
 def tp_train_job_rank(rank, world, dev, jobs):
     """Each of `jobs` on this rank, in order (one job on the ranks for the runs
     of one world size): a training run, or with "serve" a serving run (True: phase
-    15c's; "tp": phase 16's)."""
+    15c's; "tp": phase 16's), each with its wall time ("job_s")."""
     import torch
     out = {}
     for name, job in jobs.items():
         body = {True: dp_serve_rank, "tp": tp_family_serve_rank}.get(job.get("serve"),
                                                                     tp_train_rank)
+        t0 = time.perf_counter()
         out[name] = body(rank, world, dev, job)
+        out[name]["job_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     return out
 
@@ -4198,8 +4339,8 @@ def tp_train_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
 def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_want=None,
                 account=(), tp_span_want=None, floor=(), ckpt=None, account_after=()) -> dict:
     """Each of `configs` (name -> (config, mesh shape, ZeRO-2, steps, a
-    profiled step[, its own seq])) trained by steps of its optimizer at its
-    `train_lr` of rows x seq TokenPipeline tokens (whisper's with its stub frames, dp_batch) in
+    profiled step[, its own seq[, its own rows[, options]]])) trained by steps of its
+    optimizer at its `train_lr` of rows x seq TokenPipeline tokens (whisper's with its stub frames, dp_batch) in
     `n_micro` microbatches (phase 8b's batch), first
     in this process, then on the ranks from the same seed (one job a
     world size, on_ranks; an MoE run's ranks replaying its routing, `routed_as`:
@@ -4214,10 +4355,17 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
     (`data_parallel.calls`, the spans' names), with `tp_span_want` the TP
     collectives a step (`tensor_parallel.calls`). For the runs named in
     `floor` the single process trains a second time on the kernels' plain
-    versions (plain_kernels): the distance between its two runs over the
-    update is the rounding floor of the config (a change of the order of
-    sums alone), and the ranks' blocks are gated at NOISE_FACTOR times it
-    where that exceeds DP_UPDATE_TOL. Prints each rank's step time and peak memory beside the single
+    versions (plain_kernels), with the option "reverse_heads" also with its
+    mLSTM heads in reverse order (dp_run's `reverse_heads`: the xLSTM
+    launches no kernel): the distance between its two runs over the update
+    is the rounding floor of the config (a change of the order of sums
+    alone), and the ranks' blocks are gated at NOISE_FACTOR times it where
+    that exceeds DP_UPDATE_TOL; the two runs' losses and grad norms are
+    printed. The option "norm_tol" gives a run's grad norms a tolerance a
+    step in place of DP_METRIC_TOL; with "grad_blocks" each rank's blocks
+    of the first step's gradient (first_grads) are held, by leaf kind, to
+    the single process's within GRAD_KIND_TOL (relative L2), where the
+    floor run's sit under 1 / NOISE_FACTOR of it. Prints each rank's step time and peak memory beside the single
     process's and a profiled step's spans.
     `extra` (name -> job) runs in the same job (phase 15c's serving);
     the runs named in `account` also measure the dry-run's account of their
@@ -4233,40 +4381,64 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
 
-    runs = {name: (cfg, shape, zero, seed + i, steps, prof, *(rest or (seq,)))
+    runs = {name: (cfg, shape, zero, seed + i, steps, prof, *rest, *(seq, rows, {})[len(rest):])
             for i, (name, (cfg, shape, zero, steps, prof, *rest)) in enumerate(configs.items())}
     out, by_world, singles = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (cfg, shape, zero, s, steps, prof, sq) in runs.items():
+        for name, (cfg, shape, zero, s, steps, prof, sq, rw, opts) in runs.items():
+            t0 = time.perf_counter()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             routing = []
             with routed_as(routing, replay=False):
-                state, single = dp_run(cfg, s, dev, steps, n_micro, rows, sq,
+                state, single = dp_run(cfg, s, dev, steps, n_micro, rw, sq,
                                        n_groups=shape[0] if cfg.family == "moe" else 1)
             single["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             path = f"{tmp}/{name}.pt"
             torch.save(tree_map(lambda t: t.cpu(), state["params"]), path)
             del state
             dp_launch_gate(f"{name} single process", single, cfg, n_micro, steps)
+            rev = opts.get("reverse_heads", False)
             if name in floor:   # an MoE run routes as the kernel run did
                 with plain_kernels(), routed_as(routing, replay=True):
-                    other, _ = dp_run(cfg, s, dev, steps, n_micro, rows, sq,
-                                      n_groups=shape[0] if cfg.family == "moe" else 1)
+                    other, orun = dp_run(cfg, s, dev, steps, n_micro, rw, sq,
+                                         n_groups=shape[0] if cfg.family == "moe" else 1,
+                                         reverse_heads=rev)
+                apart = [max(abs(a - b) / abs(b) for a, b in zip(pair, (single["losses"][i],
+                                                                       single["norms"][i])))
+                         for i, pair in enumerate(zip(orun["losses"], orun["norms"]))]
                 mine = torch.load(path, mmap=True)
                 p0 = build_model(cfg, device=dev).init_params(
                     torch.Generator(device=dev).manual_seed(s))
                 single["floor"] = (sq_dist(other["params"], mine)
                                    / sq_dist(p0, mine)) ** 0.5
-                say(f"  {name} rounding floor: the single process on the plain kernels against "
-                    f"it on the kernels, {single['floor']:.3e} of the update")
+                say(f"  {name} rounding floor: the single process "
+                    + ("with its mLSTM heads in reverse order" if rev else
+                       "on the plain kernels") + f" against it, {single['floor']:.3e} of the "
+                    "update; its losses and grad norms "
+                    + ", ".join(f"{m:.3e}" for m in apart) + " apart a step")
                 del other, mine, p0
+            grads = None
+            if opts.get("grad_blocks"):
+                grads = f"{tmp}/{name}.grads.pt"
+                single["grad_floor"] = single_grads(cfg, s, dev, n_micro, rw, sq, rev, grads)
+                big = max(single["grad_floor"].values())
+                ok = NOISE_FACTOR * big <= GRAD_KIND_TOL
+                say(f"  {'ok  ' if ok else 'FAIL'} {name} first step's gradient, the floor run's "
+                    f"against it (rel L2; gate: {NOISE_FACTOR:g} x the largest <= "
+                    f"{GRAD_KIND_TOL:g}): " + ", ".join(
+                        f"{k} {v:.2e}" for k, v in single["grad_floor"].items()))
+                if not ok:
+                    fail(f"{name}: the order of sums alone moves the first gradient too far "
+                         "for its gate to hold the ranks")
+            say(f"  {name} single process{' and its floor' if name in floor else ''}: "
+                f"{time.perf_counter() - t0:.1f} s")
             singles[name] = single
             by_world.setdefault(shape[0] * shape[1], {})[name] = dict(
                 cfg=cfg, shape=shape, zero=zero, seed=s, steps=steps, n_micro=n_micro,
-                rows=rows, seq=sq, single=path, routing=[c.cpu().numpy() for c in routing],
+                rows=rw, seq=sq, single=path, routing=[c.cpu().numpy() for c in routing],
                 profile=prof, account=name in account, account_after=name in account_after,
-                ckpt=(ckpt or {}).get(name))
+                ckpt=(ckpt or {}).get(name), grads=grads)
         for name, job in (extra or {}).items():
             world = job["shape"][0] * job["shape"][1]
             by_world.setdefault(world, {})[name] = job
@@ -4277,14 +4449,15 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
                 f"{[str(D.rank_device(r, dev)) for r in range(world)]}, card {smi}")
             t0 = time.perf_counter()
             res = on_ranks(tp_train_job_rank, world, dev, jobs)
-            say(f"  {world} ranks ({', '.join(jobs)}): {time.perf_counter() - t0:.1f} s wall")
+            say(f"  {world} ranks ({', '.join(jobs)}): {time.perf_counter() - t0:.1f} s wall; "
+                "rank 0's jobs " + ", ".join(f"{n} {res[0][n]['job_s']:.1f} s" for n in jobs))
             for name in jobs:
                 ranks[name] = [r[name] for r in res]
-    for name, (cfg, shape, zero, _, steps, _, sq) in runs.items():
+    for name, (cfg, shape, zero, _, steps, _, sq, rw, opts) in runs.items():
         single, rs = singles[name], ranks[name]
-        tokens = rows * sq
+        tokens = rw * sq
         say(f"phase {name}: {cfg.name} x {cfg.n_layers} layers at published width on a {shape} "
-            f"mesh{', ZeRO-2 over the data axis' if zero else ''}, {steps} steps of {rows} x {sq} "
+            f"mesh{', ZeRO-2 over the data axis' if zero else ''}, {steps} steps of {rw} x {sq} "
             f"tokens in {n_micro} microbatches, over {rs[0]['transport']}")
         t_single = float(np.median(single["walls"][1:]))
         say(f"  single process: median step {t_single * 1e3:.1f} ms, {tokens / t_single:.0f} "
@@ -4300,11 +4473,21 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
                     for n in TP_SPANS + DP_SPANS if p[n + "_count"])
                     + f", NCCL kernels {p['nccl_ms']:.2f} ms, copies {p['copy_ms']:.1f} ms, "
                     f"device busy {p['busy'] * 100:.1f}% (kernels and copies summed)"))
+            if "grad_floor" in single:
+                worst = max(r["grad_kinds"], key=r["grad_kinds"].get)
+                ok = r["grad_kinds"][worst] <= GRAD_KIND_TOL
+                say(f"  {'ok  ' if ok else 'FAIL'} rank {rank}: its blocks of the first gradient "
+                    f"by leaf kind from the single process's (rel L2; gate <= {GRAD_KIND_TOL:g}): "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in r["grad_kinds"].items()))
+                if not ok:
+                    fail(f"{name}: rank {rank}'s {worst} gradient parts from the single "
+                         "process's")
+            norm_tol = opts.get("norm_tol", (DP_METRIC_TOL,) * steps)
             for i in range(steps):
                 rel_gate(f"{name} rank {rank} step {i + 1} loss", r["losses"][i],
                          single["losses"][i], DP_METRIC_TOL)
                 rel_gate(f"{name} rank {rank} step {i + 1} grad norm", r["norms"][i],
-                         single["norms"][i], DP_METRIC_TOL)
+                         single["norms"][i], norm_tol[i])
             d = (r["sq"] / r["upd"]) ** 0.5
             tol = max(DP_UPDATE_TOL, NOISE_FACTOR * single.get("floor", 0.0))
             ok = d <= tol
@@ -4740,7 +4923,7 @@ def dp_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
 
 
 # ----------------------------------------------------------------------------
-# phase 16: tensor parallelism of the hybrid and whisper over the "model" axis
+# phase 16: tensor parallelism of the hybrid, whisper and the xLSTM over "model"
 # ----------------------------------------------------------------------------
 
 # the mesh of phase 16: four ranks over "model"
@@ -4770,7 +4953,32 @@ def tp_spans(cfg, n, kind, micro=1) -> dict:
     all-reduce a mamba2 block of its entered tensors, one of the statistic;
     q/k/v's and the FFN's inputs, the cross q's; each gather's
     reduce-scatter), whisper's encoder output entering once, the unembed's
-    input, and the global norm's all-reduce a step."""
+    input, and the global norm's all-reduce a step. The xLSTM (n dividing
+    its d_in, not its GeGLU width): an mLSTM block gathers w_up's product
+    and, where n does not divide the heads, q/k/v's columns (one gather),
+    and all-reduces w_down's product and, where the heads split, the norm's
+    statistic; an sLSTM block gathers its heads' h (or its gate product's
+    columns) and the GeGLU's w_ff1 product where that splits; the remat
+    replay is all of the forward's; backward one all-reduce a block's
+    entered tensors (a GeGLU's apart), the statistic's, a reduce-scatter an
+    mLSTM gather."""
+    if cfg.family == "ssm":
+        x, d = cfg.xlstm, cfg.d_model
+        d_in, dp = int(x.mlstm_expand * d), int(x.slstm_proj_factor * d)
+        if d_in % n or dp % n == 0 or cfg.padded_vocab % n:
+            raise ValueError(f"tp_spans counts {cfg.name}'s splits on {n} ranks only where its "
+                             "d_in and vocabulary split and its GeGLU's w_ff2 rows do not")
+        nb = cfg.n_layers // x.slstm_every
+        nm = nb * (x.slstm_every - 1)
+        heads, ff = cfg.n_heads % n == 0, 2 * dp % n == 0
+        fwd_ar, fwd_ag = nm * (1 + heads), nm * (2 - heads) + nb * (1 + ff)
+        if kind != "train":
+            return {"tp_all_reduce": fwd_ar + 1, "tp_all_gather": fwd_ag + 1,
+                    "tp_reduce_scatter": 0}
+        bwd_ar = nm * (1 + heads) + nb * (1 + ff) + 1
+        return {"tp_all_reduce": micro * (2 * fwd_ar + 3 + bwd_ar) + 1,
+                "tp_all_gather": 2 * micro * fwd_ag,
+                "tp_reduce_scatter": micro * nm * (2 - heads)}
     hq, hkv, hd = cfg.eff_q_heads, cfg.eff_kv_heads, cfg.resolved_head_dim
     if cfg.d_ff % n or cfg.padded_vocab % n or hq * hd % n:
         raise ValueError(f"tp_spans counts {cfg.name}'s splits on {n} ranks only where its "
@@ -4798,8 +5006,26 @@ def tp_spans(cfg, n, kind, micro=1) -> dict:
             "tp_reduce_scatter": micro * fwd_ag}
 
 
+# the recurrent states phase 16 gates on each rank's heads: name -> (what it
+# is, its heads' dim as gate_states returns it)
+GATED_STATES = {"ssm": ("SSM state after the prefill", 3),
+                "m_C": ("last super-block's mLSTM C after the first decode step", 2),
+                "s_c": ("sLSTM c after the first decode step", 2)}
+
+
+def gate_states(cfg, cache) -> dict:
+    """The states of `cache` that phase 16 gates (GATED_STATES), fp32 on the
+    host: the hybrid's SSM state, read from a prefill's cache, and the
+    xLSTM's, read after the first decode step (its prefill returns empty
+    states, as the reference's)."""
+    import torch
+    names = {"hybrid": ("ssm",), "ssm": ("m_C", "s_c")}.get(cfg.family, ())
+    return {k: (cache[k][-1] if k == "m_C" else cache[k]).to("cpu", torch.float32, copy=True)
+            for k in names}
+
+
 def serve_batch(cfg, seed, B, T, dev):
-    """16a's and 16c's prompts: B x T tokens from the seed (numpy) and, for
+    """16a's, 16c's and 16e's prompts: B x T tokens from the seed (numpy) and, for
     whisper, B x ENC_LEN bf16 stub frames from a generator on the card
     seeded with it: every process draws the same."""
     import numpy as np
@@ -4816,12 +5042,13 @@ def serve_batch(cfg, seed, B, T, dev):
 
 
 def tp_family_references(cfg, seed, n, B, T, tokens, dev):
-    """16a's and 16c's single-process side, run in this process before the
-    ranks start: the whole model drawn from `seed`, the digests and bytes of
-    each rank's block of every leaf on (1, n), and on the plain path in bf16
-    and in fp32 the prefill's logits, the first decode step's (`tokens`,
-    one a sequence) and the hybrid's SSM state after the prefill; the bf16
-    plain path's peak memory, the single process's."""
+    """16a's, 16c's and 16e's single-process side, run in this process before
+    the ranks start: the whole model drawn from `seed`, the digests and
+    bytes of each rank's block of every leaf on (1, n), and on the plain
+    path in bf16 and in fp32 the prefill's logits, the first decode step's
+    (`tokens`, one a sequence) and the recurrent states it gates
+    (gate_states); the bf16 plain path's peak memory, the single
+    process's."""
     import torch
     from repro_torch.models import build_model
     from repro_torch.tree import flatten
@@ -4844,10 +5071,10 @@ def tp_family_references(cfg, seed, n, B, T, tokens, dev):
         lp, pc = model.prefill(p, batch)
         cache = model.init_cache(B, T + 1)
         fill_cache(cache, pc, T)
-        ssm = pc["ssm"].float().cpu() if "ssm" in pc else None
+        states = gate_states(c, pc) if c.family == "hybrid" else None
         del pc
         ld, _ = model.decode_step(p, cache, first)
-        return lp.float().cpu(), ld.float().cpu(), ssm
+        return lp.float().cpu(), ld.float().cpu(), states or gate_states(c, cache)
     with torch.inference_mode(), plain_kernels():
         out["plain"] = run(cfg, params)
         out["single_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -4859,14 +5086,14 @@ def tp_family_references(cfg, seed, n, B, T, tokens, dev):
 
 
 def tp_family_serve_rank(rank, world, dev, job):
-    """16a and 16c's serving on one rank of a (1, world) mesh: the model
+    """16a, 16c and 16e's serving on one rank of a (1, world) mesh: the model
     drawn from the seed (init_params keeps the rank's blocks), its blocks'
     digests and bytes; one batched prefill and `job["steps"]` decode steps
     through the model interface, timed, its kernel launches by kernel, the
     TP collectives of the prefill and of a decode step
-    (`tensor_parallel.calls`), the prefill's SSM state (the rank's heads),
-    the gate's logits (the prefill's, the first step's); then a profiled
-    window of decode steps."""
+    (`tensor_parallel.calls`), the states gate_states reads (the rank's
+    heads), the gate's logits (the prefill's, the first step's); then a
+    profiled window of decode steps."""
     import torch
     from repro_torch import distributed as D
     from repro_torch.kernels import decode_attention as dk
@@ -4908,11 +5135,12 @@ def tp_family_serve_rank(rank, world, dev, job):
         out["prefill_spans"] = tp_calls()
         cache = model.init_cache(B, T + len(tokens))
         fill_cache(cache, pc, T)
-        out["ssm"] = pc["ssm"].cpu().numpy() if "ssm" in pc else None
+        states = gate_states(cfg, pc) if cfg.family == "hybrid" else None
         del pc
         reset_dp_calls()
         step()
         out["step_spans"] = tp_calls()
+        out["states"] = {k: v.numpy() for k, v in (states or gate_states(cfg, cache)).items()}
         out["gate"] = (lp.float().cpu().numpy(), first[0])
         while len(outputs) < n_steps:
             step()
@@ -4950,19 +5178,21 @@ def state_gate(name, kern, plain, exact) -> float:
 
 
 def tp_family_serve_gate(label, cfg, refs, ranks, smi) -> dict:
-    """16a's and 16c's gates on one model's ranks: each rank's blocks'
+    """16a's, 16c's and 16e's gates on one model's ranks: each rank's blocks'
     digests equal this process's blocks of the whole draw, its param bytes
     their sum; its launches exact (the hybrid: a flash launch a shared-block
     application and an ssd_scan a mamba2 block a prefill, a decode launch
     an application a step; whisper: an encoder layer's flash, a decoder
-    layer's two, two decode launches a decoder layer a step), all on
+    layer's two, two decode launches a decoder layer a step; the xLSTM
+    none), all on
     `flash_wgmma`, `decode_split` and the SSD scan's tensor-core path; the
     TP collectives of the prefill and of a decode step the code's
     (tp_spans); outputs and gate logits bit-identical across the ranks; the
     gate's logits (rank 0) held to this process's plain path in bf16 and
-    fp32 (logits_gate); the hybrid's SSM state of every rank against this
-    process's on its heads (state_gate). Prints the times, each rank's
-    spans a decode step and its peak beside the single process's."""
+    fp32 (logits_gate); the hybrid's SSM state and the xLSTM's states of
+    every rank against this process's on its heads (gate_states,
+    state_gate). Prints the times, each rank's spans a decode step and its
+    peak beside the single process's."""
     import numpy as np
     import torch
     n = len(ranks)
@@ -4970,6 +5200,8 @@ def tp_family_serve_gate(label, cfg, refs, ranks, smi) -> dict:
     if cfg.family == "hybrid":
         nb = cfg.n_layers // cfg.hybrid.attn_every
         pre, dec, ssd = nb, nb, cfg.n_layers
+    elif cfg.family == "ssm":
+        pre = dec = ssd = 0
     else:
         pre, dec, ssd = cfg.encdec.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers, 0
     want = {"flash_attention": pre, "decode_attention": dec * steps, "moe_gmm": 0,
@@ -5018,13 +5250,14 @@ def tp_family_serve_gate(label, cfg, refs, ranks, smi) -> dict:
         logits_gate(name, torch.from_numpy(r0["gate"][i]), refs["plain"][i], refs["exact"][i],
                     cfg.vocab_size)
     errs = []
-    if cfg.family == "hybrid":
-        for rank, r in enumerate(ranks):
-            h = r["ssm"].shape[3]
-            heads = slice(rank * h, (rank + 1) * h)
-            errs.append(state_gate(f"rank {rank}'s SSM state after the prefill (heads "
-                                   f"{heads.start}-{heads.stop - 1})", torch.from_numpy(r["ssm"]),
-                                   refs["plain"][2][:, :, :, heads], refs["exact"][2][:, :, :, heads]))
+    for rank, r in enumerate(ranks):
+        for k, got in r["states"].items():
+            what, dim = GATED_STATES[k]
+            h = got.shape[dim]
+            errs.append(state_gate(f"rank {rank}'s {what} (heads {rank * h}-{(rank + 1) * h - 1})",
+                                   torch.from_numpy(got),
+                                   refs["plain"][2][k].narrow(dim, rank * h, h),
+                                   refs["exact"][2][k].narrow(dim, rank * h, h)))
     return dict(decode_ms=float(np.median(dec_t)) * 1e3, prefill_ms=float(np.median(pre_t)) * 1e3,
                 peak_gb=[r["peak_gb"] for r in ranks], single_peak_gb=refs["single_peak_gb"],
                 profile=[r["profile"] for r in ranks], state_err=errs,
@@ -5063,31 +5296,48 @@ def ssd_rows(gen, dev, shapes):
 
 
 def hybrid_tp_configs():
-    """16b's and 16c's training at published width: name -> (config, mesh
-    shape, ZeRO-2, steps, a profiled step, seq). 16b zamba2-2.7b x 6 of 54
-    layers (one super-block, the shared block once) on 8f's batch of 4 x
-    1024; 16c whisper-tiny at published width and depth on 8g's 4 x 448
-    tokens and 4 x 1536 stub frames; 2 steps each, 16c's third profiled."""
+    """16b's, 16c's and 16e's training at published width: name -> (config,
+    mesh shape, ZeRO-2, steps, a profiled step, seq[, rows[, train_ranks's
+    options]]). 16b zamba2-2.7b x 6 of 54 layers (one super-block, the
+    shared block once) on 8f's batch of 4 x 1024; 16c whisper-tiny at
+    published width and depth on 8g's 4 x 448 tokens and 4 x 1536 stub
+    frames; 16e xlstm-350m x 8 of 24 layers (one super-block) in fp32 on
+    8h's 32 x 64 tokens (two single runs whose sums differ in order only
+    start from first gradients 0.36-0.49 rel L2 apart at 24 layers in
+    fp32, and sit 0.97 of the update apart at 8 in bf16), its floor run
+    with the mLSTM heads reversed, its first gradient gated by leaf kind
+    and its second grad norm at XLSTM_STEP2_NORM_TOL; 2 steps each, 16c's
+    third profiled."""
     from repro_torch.configs import get_config
     return {"16b": (get_config("zamba2-2.7b").replace(n_layers=6), HYBRID_TP_SHAPE, False, 2,
                     False, 1024),
-            "16c train": (get_config("whisper-tiny"), HYBRID_TP_SHAPE, False, 2, True, 448)}
+            "16c train": (get_config("whisper-tiny"), HYBRID_TP_SHAPE, False, 2, True, 448),
+            "16e train": (get_config("xlstm-350m").replace(n_layers=8, param_dtype="float32"),
+                          HYBRID_TP_SHAPE, False, 2, False, 64, 32,
+                          dict(reverse_heads=True, grad_blocks=True,
+                               norm_tol=(DP_METRIC_TOL, XLSTM_STEP2_NORM_TOL)))}
 
 
 def hybrid_tp_phase(seed, dev, smi, gen, n_micro=2, rows=4) -> dict:
-    """Phase 16: tensor parallelism of the hybrid and whisper on four ranks of
-    a (1, 4) mesh on the cards present (ranks as in phase 13), each rank
-    holding its blocks (the hybrid's mamba2 blocks on 20 of 80 SSM heads,
-    w_zx's product gathered; whisper's 6 heads gathered by column): 16a
-    zamba2-2.7b x 12 of 54 layers (two super-blocks) serving phase 7's
-    prefill of 4 x 1024 and 8 decode steps (tp_family_serve_gate, with
-    each rank's SSM state); 16b zamba2-2.7b x 6 trained as phase 14 trains
-    (train_ranks); 16c whisper-tiny at published width and depth, 9a's
-    prefill (8 x 64 tokens over 8 x 1536 frames) and 8 decode steps, and
-    8g's training; the TP collectives of every prefill, decode step and
-    train step held to the code's count (tp_spans); 16d the kernels at a
-    rank's shapes. The four ranks run 16a-c, after this process's
-    references. Returns the ranks' launches summed and 16d's rows."""
+    """Phase 16: tensor parallelism of the hybrid, whisper and the xLSTM on
+    four ranks of a (1, 4) mesh on the cards present (ranks as in phase
+    13), each rank holding its blocks (the hybrid's mamba2 blocks on 20 of
+    80 SSM heads, w_zx's product gathered; whisper's 6 heads gathered by
+    column; the xLSTM's mLSTM and sLSTM blocks on 1 of 4 heads, w_up's
+    product and the sLSTM's h gathered): 16a zamba2-2.7b x 12 of 54 layers
+    (two super-blocks) serving phase 7's prefill of 4 x 1024 and 8 decode
+    steps (tp_family_serve_gate, with each rank's SSM state); 16b
+    zamba2-2.7b x 6 trained as phase 14 trains (train_ranks); 16c
+    whisper-tiny at published width and depth, 9a's prefill (8 x 64 tokens
+    over 8 x 1536 frames) and 8 decode steps, and 8g's training; 16e
+    xlstm-350m at published width, 8 of 24 layers (one super-block), 4
+    prompts of 256 tokens and 8 decode steps (each rank's mLSTM and sLSTM
+    states after the first step), and 8h's training (32 x 64, in fp32);
+    the TP collectives of every prefill,
+    decode step and train step held to the code's count (tp_spans); 16d
+    the kernels at a rank's shapes. The four ranks run 16a-c and 16e,
+    after this process's references. Returns the ranks' launches summed and
+    16d's rows."""
     import numpy as np
     from repro_torch.configs import get_config
     configs = hybrid_tp_configs()
@@ -5097,7 +5347,8 @@ def hybrid_tp_phase(seed, dev, smi, gen, n_micro=2, rows=4) -> dict:
     serve, refs = {}, {}
     rng = np.random.default_rng(seed + 5)
     for name, cfg, B, T in (("16a", get_config("zamba2-2.7b").replace(n_layers=12), 4, 1024),
-                            ("16c serve", get_config("whisper-tiny"), 8, 64)):
+                            ("16c serve", get_config("whisper-tiny"), 8, 64),
+                            ("16e serve", get_config("xlstm-350m").replace(n_layers=8), 4, 256)):
         tokens = rng.integers(0, cfg.vocab_size, (8 + TP_PROFILE_STEPS, B)).tolist()
         t0 = time.perf_counter()
         refs[name] = tp_family_references(cfg, seed + 3, n, B, T, tokens[0], dev)
@@ -5105,7 +5356,7 @@ def hybrid_tp_phase(seed, dev, smi, gen, n_micro=2, rows=4) -> dict:
             f"references in {time.perf_counter() - t0:.1f} s")
         serve[name] = dict(serve="tp", cfg=cfg, shape=HYBRID_TP_SHAPE, seed=seed + 3, B=B, T=T,
                            tokens=tokens, steps=8)
-    say("phase 16a-c: the single processes first, then one job on 4 ranks")
+    say("phase 16a-c, 16e: the single processes first, then one job on 4 ranks")
     out = train_ranks(configs, seed, dev, smi, n_micro, rows, 1024, extra=serve,
                       tp_span_want=tp_span_want, floor=tuple(configs))
     for name, job in serve.items():
@@ -5386,9 +5637,10 @@ def main() -> int:
     say('phase 14: tensor-parallel training over the "model" axis, ranks on the cards present')
     runs["14"] = timed("14 TP training", tp_train_phase, args.seed + 17, dev, smi, gen)
     tp_train_rows = runs["14"].pop("kernels")
-    say('phase 16: tensor parallelism of the hybrid and whisper over the "model" axis, ranks on '
-        'the cards present')
-    runs["16"] = timed("16 TP hybrid, whisper", hybrid_tp_phase, args.seed + 19, dev, smi, gen)
+    say('phase 16: tensor parallelism of the hybrid, whisper and the xLSTM over the "model" '
+        'axis, ranks on the cards present')
+    runs["16"] = timed("16 TP hybrid, whisper, xLSTM", hybrid_tp_phase, args.seed + 19, dev, smi,
+                       gen)
     hy_rows = runs["16"].pop("kernels")
     # 15 and 17 train the same configs on the same mesh, with AdamW and with
     # Adafactor: one job on the ranks runs both (17a's seed is 15a's + 2)

@@ -33,6 +33,10 @@ where the leaf's rows are, `vc` where its columns are; with ZeRO, the
 rank's ZeRO-1 block), so both packages can start from the same step-k
 state. `assemble` puts every rank's blocks
 of a tree back together into the whole tree, for the comparison.
+`shard_cache` cuts a whole decode cache to what a rank's model holds: its
+block under the reference dry-run's cache specs, and its heads of the
+recurrent states that those specs leave whole (the hybrid's `ssm`, the
+xLSTM's `m_C`).
 
 The RL rollout's policy weights ({"w1", "w2", "w3"}) and a surrogate
 environment's matrices (W, Pobs, Pact) cross as they are
@@ -50,7 +54,8 @@ import torch
 
 from repro_torch.optim.optimizers import per_layer
 from repro_torch.sharding.axes import rules_for
-from repro_torch.sharding.rules import model_shardings, state_shardings
+from repro_torch.sharding.rules import (cache_shardings, coordinate, model_shardings,
+                                        state_shardings)
 from repro_torch.tree import (flatten, get, leaves, map_with_path, tree_map, unflatten,
                               unflatten_like)
 
@@ -157,6 +162,32 @@ def shard_train_state(state: Dict[str, Any], cfg, mesh, rank: int,
         b = sh.block_of(path, rank)
         return t.new_empty((0,)) if b is None else t[b].clone()
     return map_with_path(cut, state)
+
+
+# cache leaves whose heads (dim 3) the port cuts over "model" though the
+# reference's cache specs leave them whole (H is not among their last two dims)
+_HEADS_CUT = {"ssm", "m_C"}
+
+
+def shard_cache(cache: Dict[str, Any], cfg, mesh, rank: int, global_batch: int):
+    """Rank `rank`'s part of a whole decode cache (the stacked layout; numpy
+    arrays or tensors) on `mesh`, as its model's `init_cache` lays it out:
+    its block under `sharding/rules.py::cache_shardings` (its data
+    coordinate's rows of the `global_batch`; the k/v cache heads and the
+    xLSTM's m_n, m_m and s_* heads over "model" where they divide), and of
+    the hybrid's `ssm` and the xLSTM's `m_C`, which those specs leave whole,
+    its heads where the "model" axis divides them. Views of `cache`."""
+    sh = cache_shardings(cache, cfg, mesh, rules_for(mesh), global_batch)
+    axes = dict(zip(mesh.axis_names, zip(mesh.shape, coordinate(mesh, rank))))
+    n, r = axes.get("model", (1, 0))
+    out = {}
+    for name, leaf in cache.items():
+        part = leaf[sh.block_of((name,), rank)]
+        if name in _HEADS_CUT and part.shape[3] % n == 0:
+            h = part.shape[3] // n
+            part = part[:, :, :, r * h:(r + 1) * h]
+        out[name] = part
+    return out
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:

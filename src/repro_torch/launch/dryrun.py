@@ -37,15 +37,16 @@ Serving cells on a mesh with a data axis shard
 the weights over it where the reference's `_serve_cfg` does
 (`registry.serve_config`), and the record says `"serve_weights": "fsdp"`;
 otherwise "tensor-parallel" on a "model" axis, "whole" without. The
-hybrid's and whisper's cells on a "model" axis count their TP's
-collectives too: a mamba2 block's gather of w_zx's product, the gated
-norm's statistic, whisper's column gathers of heads that do not divide the
-axis. The xLSTM's cells with a "model" axis are errors that say its TP is
-not ported (ROADMAP Queue 1, item 6c).
+hybrid's, the xLSTM's and whisper's cells on a "model" axis count their
+TP's collectives too: a mamba2 block's gather of w_zx's product, the gated
+norm's statistic, an mLSTM block's gather of w_up's product and its norm's
+statistic, an sLSTM block's gather of its heads' h, whisper's column
+gathers of heads that do not divide the axis; an xLSTM rank's cache holds
+its heads of every state.
 
 Records are JSON under build/dryrun/<tag>/<mesh>/<arch>__<shape>.json, with
 the status `ok`, `skipped` (by `configs.shapes.applicable`) or `error` (the
-exception's text: the xLSTM's cells on a "model" axis). `memory.fits_80gb`
+exception's text). `memory.fits_80gb`
 reads whether rank 0's high-water mark stays under the card's 80 GiB;
 `memory.opt_gb` is rank 0's optimizer state (AdamW's ZeRO-1 moments,
 Adafactor's ZeRO-1 statistics).

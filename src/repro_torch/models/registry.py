@@ -23,14 +23,12 @@ takes the MoE aux loss's means and a masked token mean over the mesh's
 data-parallel group, so that the mean of the ranks' losses is the global
 loss (`train/steps.py` under the same mesh).
 
-The dense, MoE, VLM, hybrid and audio families hold the reference's block
-of every leaf on any mesh (`sharding/rules.py::model_shardings`): over a
+Every family holds the reference's block of every leaf on any mesh (`sharding/rules.py::model_shardings`): over a
 "model" axis larger than 1 (tensor parallelism, `tensor_parallel.py`), and
 over the data axes where the guarded specs put them there: the FSDP archs'
 weights (cfg.fsdp) and the MoE experts (expert parallelism;
-`data_parallel.py`; the hybrid's and whisper's specs name no data axis).
-The xLSTM (family "ssm") refuses a "model" axis (ROADMAP Queue 1, item 6c).
-The rank's init_params draws its blocks of the weights, init_cache holds
+`data_parallel.py`; the hybrid's, the xLSTM's and whisper's specs name no
+data axis). The rank's init_params draws its blocks of the weights, init_cache holds
 its rows' cache heads, and prefill and decode_step run under the mesh's
 axis rules, whose `constrain` checks each annotated activation's layout,
 and return the logits of the rank's rows. On a (dp, tp) mesh every data
@@ -166,7 +164,8 @@ def _cuts_data(cfg: ModelConfig, mesh) -> bool:
     return any(c.data for c in model_dims(_whole(cfg), cfg, mesh, rules_for(mesh)).values())
 
 
-_MODULES = {"dense": dense, "moe": dense, "vlm": dense, "hybrid": hybrid, "audio": whisper}
+_MODULES = {"dense": dense, "moe": dense, "vlm": dense, "hybrid": hybrid, "ssm": xlstm,
+            "audio": whisper}
 
 
 def _whole(cfg: ModelConfig):
@@ -175,12 +174,8 @@ def _whole(cfg: ModelConfig):
 
 def _sharded_model(cfg: ModelConfig, dev, window, n_groups: int, mesh) -> Model:
     """The model of which this rank holds the reference's blocks on `mesh`:
-    tensor-parallel over "model" (every family but the xLSTM), FSDP and EP
-    over the data axes (the dense, MoE and VLM families)."""
-    if cfg.family not in _MODULES:
-        raise NotImplementedError(f"TP not yet ported for {cfg.family} ({cfg.name}): a "
-                                  f"\"model\" axis of {tp_degree(mesh)} needs the mLSTM's heads "
-                                  "and the sLSTM's gates split (ROADMAP Queue 1, item 6c)")
+    tensor-parallel over "model" (every family), FSDP and EP over the data
+    axes (the dense, MoE and VLM families)."""
     group = tp_group(mesh)
     tp = TensorParallel.plan(cfg, group) if tp_degree(mesh) > 1 else None
     whole, rules = _whole(cfg), rules_for(mesh)

@@ -1,5 +1,5 @@
 """Tensor parallelism over the mesh's "model" axis: what a rank of the dense,
-MoE, VLM, hybrid and audio models holds, and the collectives that make its
+MoE, VLM, hybrid, xLSTM and audio models holds, and the collectives that make its
 blocks compute what the whole model computes.
 
 The reference shards by annotation: the serving specs (`sharding/rules.py`:
@@ -43,6 +43,24 @@ that says, from the config alone, what the rank holds:
     rank's heads' channels, so y @ w_out is a partial sum, all-reduced
     once. The gated RMSNorm's statistic spans every head: each rank sums
     its channels' squares and the sums are all-reduced (`shared_sum`).
+  * the xLSTM's blocks (`xl_heads`, where n divides the heads H, which the
+    mLSTM and the sLSTM share; the guard splits d_in = mlstm_expand x
+    d_model, which n must divide). w_up's block is columns of [xi | z], not
+    the rank's heads' (at n = 4 two ranks hold xi and two z), so its product
+    is always gathered and every rank has the whole xi; it takes its heads'
+    z channels (`xl_channels`). An mLSTM's w_q/w_k/w_v column blocks
+    are the rank's heads' q, k and v; its gates' w_if and b_if, and norm_w,
+    are whole, and the rank reads its heads' part; the norm's statistic is
+    summed over the ranks (`shared_sum`), and w_down's rows are the rank's
+    channels, so its product is a partial sum, all-reduced once. An sLSTM's
+    w_gates block is its heads' z, i, f and o (the gate product is laid out
+    head by head), so its recurrence runs on its heads with no collective
+    per token, and h is all-gathered once a block, before the residual.
+    Where n does not divide the heads (`xl_heads` None), q/k/v's columns
+    and the gate product's are gathered, every rank runs every head, and
+    the rank multiplies its channels of the mLSTM's output by its rows of
+    w_down. The GeGLU's w_ff1 is [a | b] columns, gathered where split
+    (`gather_ff`); w_ff2 stays whole, so every rank computes the FFN whole.
 
 Partial sums are all-reduced in fp32 and cast back, so gloo (ranks sharing
 a card, through host memory) and NCCL (a card a rank) sum the same values
@@ -64,11 +82,15 @@ block's gradient exact for the block):
     product (q/k/v, the FFN, the experts' dispatch) and on the unembed's
     input; a replicated product reads the activation as it is.
   * `all_gather` (the guard's column gathers, `gather_q`/`gather_kv`,
-    `gather_zx`): every rank's columns forward; backward the sum over the
-    ranks of the whole gradient, of which the rank keeps its columns (a
-    reduce-scatter): the gathered heads feed a partial product (`out_cols`,
-    q heads that read only their groups' kv heads, the rank's SSM heads),
-    so each rank's gradient of them is partial.
+    the xLSTM's): every rank's columns forward;
+    backward the sum over the ranks of the whole gradient, of which the
+    rank keeps its columns (a reduce-scatter): the gathered heads feed a
+    partial product (`out_cols`, q heads that read only their groups' kv
+    heads, the rank's SSM or mLSTM heads), so each rank's gradient of them
+    is partial. With `partial=False` the gathered tensor feeds computation
+    every rank repeats whole (the sLSTM's h and its gathered gates, the
+    GeGLU's product): its gradient is whole on every rank, and
+    the backward keeps the rank's columns of it, with no collective.
   * `shared_sum`: the sum over the ranks forward and backward. A statistic
     of a split dim (the gated RMSNorm's sum of squares) that each rank then
     reads for its own part only: the rank's gradient of the sum is partial.
@@ -134,6 +156,10 @@ class TensorParallel:
     ssm_channels: Optional[slice] = None  # their channels of d_in (z, x, norm_w, w_out rows)
     ssm_groups: Optional[slice] = None   # the B/C groups those heads read, of G
     gather_zx: bool = False              # w_zx's columns are gathered (split, not by head)
+    xl_heads: Optional[slice] = None     # the xLSTM's heads it computes, of H (None: all,
+                                         # q/k/v's and the gates' columns gathered)
+    xl_channels: Optional[slice] = None  # its block of d_in (z, norm_w, w_down rows)
+    gather_ff: bool = False              # w_ff1's columns ([a | b]) are gathered
 
     @classmethod
     def plan(cls, cfg: ModelConfig, group) -> "TensorParallel":
@@ -158,7 +184,8 @@ class TensorParallel:
             attn_partial=rows % n == 0,
             vocab_rows=(slice(r * vocab // n, (r + 1) * vocab // n)
                         if vocab % n == 0 else None),
-            **(_ssm_plan(cfg, n, r) if cfg.family == "hybrid" else {}))
+            **(_ssm_plan(cfg, n, r) if cfg.family == "hybrid" else
+               _xlstm_plan(cfg, n, r) if cfg.family == "ssm" else {}))
 
     @property
     def kv_read_partially(self) -> bool:
@@ -205,11 +232,12 @@ class TensorParallel:
         backward sums the ranks' partial gradients too."""
         return _SharedSum.apply(x, self.group)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, partial: bool = True) -> torch.Tensor:
         """Every rank's x, concatenated in rank order along the last dim;
-        under autograd its backward is the reduce-scatter of the gradient
-        (see the module's docstring)."""
-        return _Gather.apply(x, self.group)
+        under autograd its backward is the reduce-scatter of the gradient,
+        or with `partial=False` the rank's columns of it (see the module's
+        docstring)."""
+        return (_Gather if partial else _GatherWhole).apply(x, self.group)
 
     def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the ranks of x (no gradient)."""
@@ -242,6 +270,25 @@ def _ssm_plan(cfg: ModelConfig, n: int, r: int) -> dict:
     return dict(ssm_heads=slice(r * local, (r + 1) * local),
                 ssm_channels=slice(r * local * P, (r + 1) * local * P),
                 ssm_groups=groups, gather_zx=2 * d_in % n == 0)
+
+
+def _xlstm_plan(cfg: ModelConfig, n: int, r: int) -> dict:
+    """The xLSTM part of rank r's plan of n: its heads where n divides them
+    (else every head, the guard's column gathers), its block of d_in, and
+    whether w_ff1's product is gathered. The guard splits w_up's and w_q's
+    columns, w_down's rows and w_gates's 4 d_model columns where n divides
+    them; the port needs all of them split, so that every block's output is
+    a partial sum or a gathered whole on every rank, and w_ff2's rows whole
+    (no config's GeGLU width divides a d_in's factor)."""
+    d, H = cfg.d_model, cfg.n_heads
+    d_in, dp = int(cfg.xlstm.mlstm_expand * d), int(cfg.xlstm.slstm_proj_factor * d)
+    if d_in % n or 4 * d % n or dp % n == 0:
+        raise NotImplementedError(f"{cfg.name}: the port splits the xLSTM {n} ways where n "
+                                  f"divides d_in {d_in} and 4 d_model {4 * d} but not the GeGLU "
+                                  f"width {dp}")
+    return dict(xl_heads=slice(r * H // n, (r + 1) * H // n) if H % n == 0 else None,
+                xl_channels=slice(r * d_in // n, (r + 1) * d_in // n),
+                gather_ff=2 * dp % n == 0)
 
 
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -331,3 +378,17 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return _reduce_scatter_last(dy, ctx.group), None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """The all-gather of the last dim forward; backward the rank's columns
+    of a gradient that is whole on every rank, with no collective."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.rank, ctx.n = dist.get_rank(group), dist.get_world_size(group)
+        return _gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy.chunk(ctx.n, dim=-1)[ctx.rank], None

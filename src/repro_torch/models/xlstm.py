@@ -22,6 +22,22 @@ its recurrence passes through the hidden state.
 Reference behaviour kept as it is: `lm_prefill` returns empty recurrent
 states (`init_cache`), not the prompt's; the JAX model's note says the
 serving engine rebuilds them.
+
+Under tensor parallelism (`tp`, `tensor_parallel.py`) each rank holds its
+blocks of the weights (`init_params(..., mesh=, rank=)`). An mLSTM block
+gathers w_up's product (its columns are [xi | z], not the rank's heads'),
+so every rank has the whole xi and takes its heads' z; its q, k and v
+come from its column blocks of w_q, w_k and w_v, the chunked form runs on
+its heads, the output norm's statistic is summed over the ranks, and
+w_down's rows (its channels) make a partial sum, all-reduced once. The
+whole w_if, b_if and norm_w enter with the block's normed input, since the
+rank reads its heads' part of them. An sLSTM block's w_gates columns are
+its heads' gates, so its recurrence runs on its heads over time with no
+collective, and h is all-gathered once before the residual; the GeGLU
+gathers w_ff1's product where it is split. Where n does not divide the
+heads, q/k/v's and the gates' columns are gathered and every rank runs
+every head (`TensorParallel`'s docstring). The rank's cache holds its
+heads' states (m_C too, which the reference's cache specs leave whole).
 """
 from __future__ import annotations
 
@@ -34,7 +50,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import dense
 from repro_torch.models.dense import param_dtype
+from repro_torch.sharding.axes import constrain
 
 F32 = torch.float32
 NEG = -1e30
@@ -134,42 +152,86 @@ def _mlstm_chunked(q, k, v, ig, lf, chunk: int):
     return torch.stack(hs, dim=1).reshape(B, T, H, Dh)
 
 
-def _mlstm_in(p, x, cfg: ModelConfig):
-    """The block's input side: (xi, z) halves of the up-projection of the
-    normed x, and the gate preacts (ig, lf) in fp32."""
+def _head_cols(t, heads: slice, width: int, H: int):
+    """The columns of heads `heads` in each of the H-head groups of `width`
+    columns a head that make up t's last dim (w_if's [i | f], b_gates's
+    head-major z, i, f, o)."""
+    groups = t.shape[-1] // (H * width)
+    return torch.cat([t[..., g * H * width + heads.start * width:g * H * width + heads.stop * width]
+                      for g in range(groups)], dim=-1)
+
+
+def _mlstm_in(p, x, cfg: ModelConfig, tp=None):
+    """The block's input side: xi (every channel) and z halves of the
+    up-projection of the normed x, the gate preacts (ig, lf) in fp32, and
+    norm_w; under `tp` z, the gates and norm_w of the rank's heads (all of
+    them where its heads are not split), w_up's product gathered, and the
+    normed x, w_if, b_if and norm_w entered in one `enter`."""
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    xi, z = torch.chunk(xn @ p["w_up"], 2, dim=-1)
-    gif = xi.to(F32) @ p["w_if"] + p["b_if"]
+    w_if, b_if, norm_w = p["w_if"], p["b_if"], p["norm_w"]
+    if tp is not None:
+        xn, w_if, b_if, norm_w = tp.enter(xn, w_if, b_if, norm_w)
+    up = xn @ p["w_up"]
+    if tp is not None:
+        up = tp.all_gather(up)
+    xi, z = torch.chunk(up, 2, dim=-1)
+    if tp is not None and tp.xl_heads is not None:
+        H = cfg.n_heads
+        w_if, b_if = _head_cols(w_if, tp.xl_heads, 1, H), _head_cols(b_if, tp.xl_heads, 1, H)
+        z, norm_w = z[..., tp.xl_channels], norm_w[tp.xl_channels]
+    gif = xi.to(F32) @ w_if + b_if
     ig, fg = torch.chunk(gif, 2, dim=-1)
-    return xi, z, ig, F.logsigmoid(fg)
+    return xi, z, ig, F.logsigmoid(fg), norm_w
 
 
-def _mlstm_out(p, x, h, z, cfg: ModelConfig):
-    h = L.rms_norm(h * F.silu(z.to(F32)).to(z.dtype), p["norm_w"], cfg.norm_eps)
-    return x + h @ p["w_down"]
+def _qkv(p, xi, tp=None):
+    """q, k and v of xi: under `tp` of the rank's heads (its column blocks),
+    or of every head, the three blocks gathered in one all-gather, where
+    its columns are not its heads'."""
+    if tp is None or tp.xl_heads is not None:
+        return xi @ p["w_q"], xi @ p["w_k"], xi @ p["w_v"]
+    c = p["w_q"].shape[1]
+    qkv = tp.all_gather(torch.cat([xi @ p["w_q"], xi @ p["w_k"], xi @ p["w_v"]], dim=-1))
+    parts = qkv.unflatten(-1, (tp.size, 3, c))
+    return tuple(parts[..., i, :].flatten(-2) for i in range(3))
 
 
-def mlstm_fwd(p, x, cfg: ModelConfig, chunk: int = 256):
-    """The block over x (B, T, d); T must be a multiple of min(chunk, T)."""
+def _mlstm_out(p, x, h, z, norm_w, cfg: ModelConfig, tp=None):
+    """x + the normed, z-gated h @ w_down; under `tp` the norm's statistic
+    over every channel (summed over the ranks where h is the rank's heads',
+    else computed whole and the rank's channels taken), w_down's rows
+    the rank's: a partial sum, all-reduced."""
+    g = h * F.silu(z.to(F32)).to(z.dtype)
+    if tp is None:
+        return x + L.rms_norm(g, norm_w, cfg.norm_eps) @ p["w_down"]
+    if tp.xl_heads is not None:
+        g = L.rms_norm_split(g, norm_w, _mlstm_dims(cfg)[0], tp, cfg.norm_eps)
+    else:
+        g = L.rms_norm(g, norm_w, cfg.norm_eps)[..., tp.xl_channels]
+    return x + constrain(tp.all_reduce(g @ p["w_down"]), "batch", None, None)
+
+
+def mlstm_fwd(p, x, cfg: ModelConfig, chunk: int = 256, tp=None):
+    """The block over x (B, T, d); T must be a multiple of min(chunk, T).
+    Under `tp` the chunked form runs on the rank's heads."""
     d_in, H, Dh = _mlstm_dims(cfg)
     B, T, _ = x.shape
-    xi, z, ig, lf = _mlstm_in(p, x, cfg)
-    q = (xi @ p["w_q"]).reshape(B, T, H, Dh)
-    k = (xi @ p["w_k"]).reshape(B, T, H, Dh)
-    v = (xi @ p["w_v"]).reshape(B, T, H, Dh)
+    xi, z, ig, lf, norm_w = _mlstm_in(p, x, cfg, tp)
+    q, k, v = (t.reshape(B, T, -1, Dh) for t in _qkv(p, xi, tp))
+    q = constrain(q, "batch", None, "model", None, full=(B, T, H, Dh))
     h = _mlstm_chunked(q, k, v, ig, lf, min(chunk, T))
-    return _mlstm_out(p, x, h.reshape(B, T, d_in).to(x.dtype), z, cfg)
+    return _mlstm_out(p, x, h.reshape(B, T, -1).to(x.dtype), z, norm_w, cfg, tp)
 
 
-def mlstm_decode(p, x, state, cfg: ModelConfig):
-    """O(1) recurrent mLSTM step of x (B, 1, d). state = (C, n, m)."""
+def mlstm_decode(p, x, state, cfg: ModelConfig, tp=None):
+    """O(1) recurrent mLSTM step of x (B, 1, d). state = (C, n, m), under
+    `tp` of the rank's heads."""
     d_in, H, Dh = _mlstm_dims(cfg)
     B = x.shape[0]
     C, n, m = state
-    xi, z, ig, lf = _mlstm_in(p, x, cfg)
-    q = (xi @ p["w_q"]).reshape(B, H, Dh).to(F32) * (Dh ** -0.5)
-    k = (xi @ p["w_k"]).reshape(B, H, Dh).to(F32)
-    v = (xi @ p["w_v"]).reshape(B, H, Dh).to(F32)
+    xi, z, ig, lf, norm_w = _mlstm_in(p, x, cfg, tp)
+    q, k, v = (t.reshape(B, -1, Dh).to(F32) for t in _qkv(p, xi, tp))
+    q = q * (Dh ** -0.5)
     ig, lf = ig[:, 0], lf[:, 0]                                      # (B,H)
 
     m_new = torch.maximum(lf + m, ig)
@@ -179,8 +241,8 @@ def mlstm_decode(p, x, state, cfg: ModelConfig):
     n = fp[:, :, None] * n + ip[:, :, None] * k
     num = torch.einsum("bhd,bhde->bhe", q, C)
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", q, n)), torch.exp(-m_new))
-    h = (num / den[:, :, None]).reshape(B, 1, d_in).to(x.dtype)
-    return _mlstm_out(p, x, h, z, cfg), (C, n, m_new)
+    h = (num / den[:, :, None]).reshape(B, 1, -1).to(x.dtype)
+    return _mlstm_out(p, x, h, z, norm_w, cfg, tp), (C, n, m_new)
 
 
 # ----------------------------------------------------------------------------
@@ -223,39 +285,69 @@ def _slstm_cell(state, gates_x, r, H: int, Dh: int):
     return c_new, n_new, m_new, h_new
 
 
-def _slstm_gates(p, x, cfg: ModelConfig):
+def _slstm_gates(p, x, cfg: ModelConfig, tp=None):
+    """The gate preacts (B, T, 4 d') in fp32 and r_gates of the heads the
+    block runs: under `tp` the rank's (its column block of w_gates; its
+    heads' b_gates and r_gates, entered with the normed x), or every head,
+    the gate product's columns gathered, where its heads are not split."""
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    return (xn @ p["w_gates"]).to(F32) + p["b_gates"]
+    b, r = p["b_gates"], p["r_gates"]
+    if tp is not None and tp.xl_heads is not None:
+        xn, b, r = tp.enter(xn, b, r)
+        Dh = cfg.d_model // cfg.n_heads
+        b, r = _head_cols(b, tp.xl_heads, 4 * Dh, cfg.n_heads), r[tp.xl_heads]
+        return (xn @ p["w_gates"]).to(F32) + b, r
+    if tp is not None:
+        return tp.all_gather(tp.enter(xn) @ p["w_gates"], partial=False).to(F32) + b, r
+    return (xn @ p["w_gates"]).to(F32) + b, r
 
 
-def _geglu(p, x, cfg: ModelConfig):
-    """The GeGLU FFN sub-layer; `jax.nn.gelu` is the tanh approximation."""
-    a, b = torch.chunk(L.rms_norm(x, p["ln_ffn"], cfg.norm_eps) @ p["w_ff1"], 2, dim=-1)
+def _geglu(p, x, cfg: ModelConfig, tp=None):
+    """The GeGLU FFN sub-layer; `jax.nn.gelu` is the tanh approximation.
+    Under `tp` w_ff1's product is gathered where it is split, and every rank
+    computes the FFN whole (w_ff2 is whole)."""
+    xn = L.rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+    if tp is not None and tp.gather_ff:
+        up = tp.all_gather(tp.enter(xn) @ p["w_ff1"], partial=False)
+    else:
+        up = xn @ p["w_ff1"]
+    a, b = torch.chunk(up, 2, dim=-1)
     y = F.gelu(a.to(F32), approximate="tanh").to(a.dtype) * b
     return x + y @ p["w_ff2"]
 
 
-def slstm_fwd(p, x, cfg: ModelConfig):
-    d, H = cfg.d_model, cfg.n_heads
-    Dh = d // H
+def _slstm_h(h, x, tp):
+    """The block's h (B, T, heads x Dh) in x's dtype, under `tp` its heads'
+    gathered into every head's (once a block, before the residual)."""
+    h = h.reshape(*x.shape[:2], -1).to(x.dtype)
+    if tp is not None and tp.xl_heads is not None:
+        h = tp.all_gather(h, partial=False)
+    return h
+
+
+def slstm_fwd(p, x, cfg: ModelConfig, tp=None):
+    """The block over x (B, T, d), its recurrence over time on the rank's
+    heads under `tp`."""
+    Dh = cfg.d_model // cfg.n_heads
     B, T, _ = x.shape
-    gates_x = _slstm_gates(p, x, cfg)                               # (B,T,4d)
+    gates_x, r = _slstm_gates(p, x, cfg, tp)                       # (B,T,4d')
+    H = r.shape[0]
     zeros = torch.zeros((B, H, Dh), dtype=F32, device=x.device)
     state = (zeros, zeros, torch.full_like(zeros, M0), zeros)
     hs = []
     for t in range(T):
-        state = _slstm_cell(state, gates_x[:, t], p["r_gates"], H, Dh)
+        state = _slstm_cell(state, gates_x[:, t], r, H, Dh)
         hs.append(state[3])
-    h = torch.stack(hs, dim=1).reshape(B, T, d).to(x.dtype)
-    return _geglu(p, x + h, cfg)
+    return _geglu(p, x + _slstm_h(torch.stack(hs, dim=1), x, tp), cfg, tp)
 
 
-def slstm_decode(p, x, state, cfg: ModelConfig):
-    """One step of x (B, 1, d). state = (c, n, m, h)."""
-    d, H = cfg.d_model, cfg.n_heads
-    state = _slstm_cell(state, _slstm_gates(p, x, cfg)[:, 0], p["r_gates"], H, d // H)
-    x = x + state[3].reshape(x.shape[0], 1, d).to(x.dtype)
-    return _geglu(p, x, cfg), state
+def slstm_decode(p, x, state, cfg: ModelConfig, tp=None):
+    """One step of x (B, 1, d). state = (c, n, m, h), under `tp` of the
+    rank's heads."""
+    gates_x, r = _slstm_gates(p, x, cfg, tp)
+    state = _slstm_cell(state, gates_x[:, 0], r, r.shape[0], cfg.d_model // cfg.n_heads)
+    x = x + _slstm_h(state[3], x, tp)
+    return _geglu(p, x, cfg, tp), state
 
 
 # ----------------------------------------------------------------------------
@@ -263,58 +355,71 @@ def slstm_decode(p, x, state, cfg: ModelConfig):
 # ----------------------------------------------------------------------------
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", mesh=None, rank: int = 0) -> Dict[str, Any]:
     """Random weights drawn from `generator`, which must live on `device`,
-    with the JAX init's distributions (from another stream)."""
+    with the JAX init's distributions (from another stream). With a `mesh`,
+    rank `rank`'s blocks of them, each leaf drawn whole in the same order
+    and cut a block at a time, as `dense.init_params` cuts them."""
     dev = resolve_device(device)
     dtype = param_dtype(cfg)
     nb, n_m = _nb(cfg), cfg.xlstm.slstm_every - 1
+    keep = dense._block_keeper(cfg, mesh, rank, init_params)
     return {
-        "embed": L.init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype,
-                                  cfg.tie_embeddings, cfg.padded_vocab, device=dev),
-        "mlstm": [[init_mlstm_block(generator, cfg, dtype, dev) for _ in range(n_m)]
-                  for _ in range(nb)],
-        "slstm": [init_slstm_block(generator, cfg, dtype, dev) for _ in range(nb)],
+        "embed": keep(("embed",), L.init_embedding(
+            generator, cfg.vocab_size, cfg.d_model, dtype, cfg.tie_embeddings,
+            cfg.padded_vocab, device=dev)),
+        "mlstm": [[keep(("mlstm", i, j), init_mlstm_block(generator, cfg, dtype, dev))
+                   for j in range(n_m)] for i in range(nb)],
+        "slstm": [keep(("slstm", i), init_slstm_block(generator, cfg, dtype, dev))
+                  for i in range(nb)],
         "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
     }
 
 
-def _super_block(blocks, sp, x, cfg: ModelConfig):
+def _super_block(blocks, sp, x, cfg: ModelConfig, tp=None):
     """slstm_every - 1 mLSTM blocks, then the sLSTM block: the JAX scan body."""
     for mp in blocks:
-        x = mlstm_fwd(mp, x, cfg)
-    return slstm_fwd(sp, x, cfg)
+        x = mlstm_fwd(mp, x, cfg, tp=tp)
+    return slstm_fwd(sp, x, cfg, tp)
 
 
-def backbone_fwd(params, x, cfg: ModelConfig, *, remat: bool = True):
+def backbone_fwd(params, x, cfg: ModelConfig, *, remat: bool = True, tp=None):
     """The stack over x (B, T, d), then the final norm. With `remat` (the
     JAX `lm_loss` checkpoints its super-block) and autograd recording, each
-    super-block keeps only its input for the backward and runs again there."""
+    super-block keeps only its input for the backward and runs again there;
+    under `tp` the replay runs all of the super-block's collectives again
+    (the sLSTM's GeGLU reads its gathered product)."""
     for blocks, sp in zip(params["mlstm"], params["slstm"]):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_super_block, blocks, sp, x, cfg, use_reentrant=False)
+            x = checkpoint(_super_block, blocks, sp, x, cfg, tp, use_reentrant=False)
         else:
-            x = _super_block(blocks, sp, x, cfg)
+            x = _super_block(blocks, sp, x, cfg, tp)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True, group=None):
+def lm_loss(params, batch, cfg: ModelConfig, *, remat: bool = True, group=None, tp=None):
     """Next-token loss of batch {"tokens", "targets"} (B, T) [+ "loss_mask"].
-    Returns (xent, {"xent": xent}), as the JAX `lm_loss`."""
-    x = L.embed(params["embed"], batch["tokens"])
-    x = backbone_fwd(params, x, cfg, remat=remat)
-    logits = L.unembed(params["embed"], x, cfg.vocab_size)
-    loss = L.softmax_xent(logits, batch["targets"], batch.get("loss_mask"), group)
+    Returns (xent, {"xent": xent}), as the JAX `lm_loss`. `group`: the
+    data-parallel group, as `dense.lm_loss` takes it; under `tp` the rank's
+    blocks compute the whole model's loss, its vocab-parallel part without
+    gathering the logits."""
+    x = L.embed(params["embed"], batch["tokens"], tp)
+    x = backbone_fwd(params, x, cfg, remat=remat, tp=tp)
+    logits = L.unembed(params["embed"], x, cfg.vocab_size, tp, gather=False)
+    loss = L.softmax_xent(logits, batch["targets"], batch.get("loss_mask"), group, tp)
     return loss, {"xent": loss}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, *,
-               device="cuda") -> Dict[str, torch.Tensor]:
-    """Empty recurrent states; `max_len` is unused (the state is O(1))."""
+               device="cuda", tp=None) -> Dict[str, torch.Tensor]:
+    """Empty recurrent states; `max_len` is unused (the state is O(1)).
+    Under `tp` of the rank's heads (all of them where they are not split)."""
     dev = resolve_device(device)
     nb, n_m = _nb(cfg), cfg.xlstm.slstm_every - 1
     _, H, Dh = _mlstm_dims(cfg)
     Hs, Dhs = cfg.n_heads, cfg.d_model // cfg.n_heads
+    if tp is not None and tp.xl_heads is not None:
+        H = Hs = tp.xl_heads.stop - tp.xl_heads.start
 
     def z(*shape):
         return torch.zeros(shape, dtype=F32, device=dev)
@@ -329,30 +434,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, *,
     }
 
 
-def lm_decode_step(params, cache, batch, cfg: ModelConfig):
+def lm_decode_step(params, cache, batch, cfg: ModelConfig, tp=None):
     """One-token decode. batch: {"tokens": (B, 1)} ("positions" is not
     read: the state is the position). Returns (logits (B, 1, V), cache), the
-    cache being the same dictionary, updated in place."""
-    x = L.embed(params["embed"], batch["tokens"])
+    cache being the same dictionary, updated in place; under `tp` the
+    rank's heads' states."""
+    x = L.embed(params["embed"], batch["tokens"], tp)
     for a, (blocks, sp) in enumerate(zip(params["mlstm"], params["slstm"])):
         for j, mp in enumerate(blocks):
             x, (C, n, m) = mlstm_decode(
-                mp, x, (cache["m_C"][a, j], cache["m_n"][a, j], cache["m_m"][a, j]), cfg)
+                mp, x, (cache["m_C"][a, j], cache["m_n"][a, j], cache["m_m"][a, j]), cfg, tp)
             cache["m_C"][a, j], cache["m_n"][a, j], cache["m_m"][a, j] = C, n, m
         names = ("s_c", "s_n", "s_m", "s_h")
-        x, state = slstm_decode(sp, x, tuple(cache[k][a] for k in names), cfg)
+        x, state = slstm_decode(sp, x, tuple(cache[k][a] for k in names), cfg, tp)
         for k, s in zip(names, state):
             cache[k][a] = s
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg.vocab_size), cache
+    return L.unembed(params["embed"], x, cfg.vocab_size, tp), cache
 
 
-def lm_prefill(params, batch, cfg: ModelConfig):
+def lm_prefill(params, batch, cfg: ModelConfig, tp=None):
     """The full forward's last-token logits (B, 1, V), and empty recurrent
     states, as the JAX `lm_prefill` returns (its note: the serving engine
     rebuilds the states); the prompt is not carried into the cache."""
     tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens)
-    x = backbone_fwd(params, x, cfg, remat=False)
-    logits = L.unembed(params["embed"], x[:, -1:, :], cfg.vocab_size)
-    return logits, init_cache(cfg, tokens.shape[0], device=tokens.device)
+    x = L.embed(params["embed"], tokens, tp)
+    x = backbone_fwd(params, x, cfg, remat=False, tp=tp)
+    logits = L.unembed(params["embed"], x[:, -1:, :], cfg.vocab_size, tp)
+    return logits, init_cache(cfg, tokens.shape[0], device=tokens.device, tp=tp)

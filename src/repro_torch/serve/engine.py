@@ -14,6 +14,11 @@ semantics and the surface the router duck-types (`add_request`, `tick`,
     slot's position reaches max_len - 1.
 The serving path runs under `torch.inference_mode()`. Slot positions and
 the tokens of a tick stay on the device; the host reads both once per tick.
+
+`StubEngine` is the port of the JAX engine's model-free reference engine:
+ServeEngine's admission semantics and surface, each request's output a pure
+function of its prompt (`stub_output`), no model, device or tensor. The
+router, the simulator's cost model and hosts without a card drive it.
 """
 from __future__ import annotations
 
@@ -37,30 +42,19 @@ class Request:
     done: bool = False
 
 
-class ServeEngine:
-    def __init__(self, model: Model, params, batch_slots: int, max_len: int,
-                 *, device="cuda"):
-        self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model is built for {model.device}, engine asked "
-                             f"for {self.device}")
-        self.model = model
-        self.params = params
+class _Slots:
+    """The admission surface both engines share: B slots, a queue, the
+    requests completed since the last pop, and what the router reads of
+    them."""
+
+    def __init__(self, batch_slots: int, max_len: int):
         self.B = batch_slots
         self.max_len = max_len
-        with torch.inference_mode():
-            self.cache = model.init_cache(batch_slots, max_len)
-            self.positions = torch.zeros(batch_slots, dtype=torch.int32,
-                                         device=self.device)
-            self.tokens = torch.zeros((batch_slots, 1), dtype=torch.int32,
-                                      device=self.device)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.queue: "collections.deque[Request]" = collections.deque()
         self._completed: List[Request] = []
         self.stats = {"ticks": 0, "prefills": 0, "decoded_tokens": 0,
                       "completed": 0}
-
-    # -- request management ------------------------------------------------------
 
     def add_request(self, req: Request):
         self.queue.append(req)
@@ -84,6 +78,37 @@ class ServeEngine:
         owed += sum(r.max_new_tokens - len(r.output)
                     for r in self.slot_req if r is not None)
         return owed
+
+    def pop_completed(self) -> List[Request]:
+        """Requests finished since the last pop (the router's per-tick
+        harvest)."""
+        out, self._completed = self._completed, []
+        return out
+
+    def run_until_drained(self, max_ticks: int = 10000) -> List[Request]:
+        for _ in range(max_ticks):
+            if not self.queue and all(r is None for r in self.slot_req):
+                break
+            self.tick()
+        return self.pop_completed()
+
+
+class ServeEngine(_Slots):
+    def __init__(self, model: Model, params, batch_slots: int, max_len: int,
+                 *, device="cuda"):
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model is built for {model.device}, engine asked "
+                             f"for {self.device}")
+        super().__init__(batch_slots, max_len)
+        self.model = model
+        self.params = params
+        with torch.inference_mode():
+            self.cache = model.init_cache(batch_slots, max_len)
+            self.positions = torch.zeros(batch_slots, dtype=torch.int32,
+                                         device=self.device)
+            self.tokens = torch.zeros((batch_slots, 1), dtype=torch.int32,
+                                      device=self.device)
 
     @torch.inference_mode()
     def _fill_free_slots(self):
@@ -139,15 +164,59 @@ class ServeEngine:
                 self.stats["completed"] += 1
         return len(active)
 
-    def pop_completed(self) -> List[Request]:
-        """Requests finished since the last pop (the router's per-tick
-        harvest)."""
-        out, self._completed = self._completed, []
+
+class StubEngine(_Slots):
+    """Model-free engine with ServeEngine's admission semantics (B slots, a
+    queue, completion at each tick) and duck-typed surface, for the router,
+    the simulator's cost model and hosts without a card.
+
+    Deterministic: a request's output is a pure function of its prompt
+    (`stub_output`), so routing a stream over K replicas gives every request
+    the tokens one local engine gives it. Each tick decodes one token a
+    busy slot, as the batched decode step does. `max_len` is kept for the
+    surface; no token limit reads it."""
+
+    def __init__(self, batch_slots: int, max_len: int = 1 << 30):
+        super().__init__(batch_slots, max_len)
+
+    @staticmethod
+    def stub_output(prompt: List[int], n: int) -> List[int]:
+        """The deterministic "model": token i is a rolling digest of the
+        prompt, the same on every replica."""
+        acc = 1469598103
+        for t in prompt:
+            acc = (acc * 16777619 + int(t)) & 0x7FFFFFFF
+        out = []
+        for _ in range(n):
+            acc = (acc * 16777619 + 13) & 0x7FFFFFFF
+            out.append(acc % 50_000)
         return out
 
-    def run_until_drained(self, max_ticks: int = 10000) -> List[Request]:
-        for _ in range(max_ticks):
-            if not self.queue and all(r is None for r in self.slot_req):
-                break
-            self.tick()
-        return self.pop_completed()
+    def _fill_free_slots(self):
+        for slot in range(self.B):
+            if self.slot_req[slot] is not None or not self.queue:
+                continue
+            req = self.queue.popleft()
+            # the prefill emits the first token, as ServeEngine's does
+            req.output.append(self.stub_output(req.prompt, len(req.output) + 1)[-1])
+            self.slot_req[slot] = req
+            self.stats["prefills"] += 1
+
+    def tick(self) -> int:
+        """One engine iteration; returns the number of active slots decoded."""
+        self._fill_free_slots()
+        active = [s for s in range(self.B) if self.slot_req[s] is not None]
+        if not active:
+            return 0
+        self.stats["ticks"] += 1
+        for s in active:
+            req = self.slot_req[s]
+            tok = self.stub_output(req.prompt, len(req.output) + 1)[-1]
+            req.output.append(tok)
+            self.stats["decoded_tokens"] += 1
+            if tok == req.eos_id or len(req.output) >= req.max_new_tokens:
+                req.done = True
+                self.slot_req[s] = None
+                self._completed.append(req)
+                self.stats["completed"] += 1
+        return len(active)

@@ -14,6 +14,8 @@ card's and its account can be held to the meta account op for op.
 """
 import ast
 import dataclasses
+import functools
+import importlib.util
 import math
 import os
 import types
@@ -383,9 +385,8 @@ def test_zero_state_bytes_per_rank_match_jax(arch, mesh):
     `init_params` under the mesh) equal the reference's guarded param block
     of that rank (`named_shardings`: "model", and the data axes where FSDP
     and the experts put them), and its AdamW moments (ZeRO-1) and ZeRO-2
-    accumulator the reference's ZeRO-1 blocks. The xLSTM holds its whole
-    params on a "model" axis no wider than 1 only (its TP is ROADMAP item
-    6c); the hybrid and whisper build there."""
+    accumulator the reference's ZeRO-1 blocks. Every family builds there,
+    the xLSTM too since its TP (ROADMAP item 6c) was ported."""
     cfg = get_config(arch)
     mesh = D.MESHES[mesh]
     whole = M.build_model(cfg, device="meta").init_params(torch.Generator())
@@ -393,13 +394,8 @@ def test_zero_state_bytes_per_rank_match_jax(arch, mesh):
     zero, param = _ref_zero_bytes(arch, mesh.shape, mesh.axis_names)
     with D.fake_mesh(mesh) as m:
         g_sh = RU.shardings_for(whole, cfg, m, rules, zero1=True)
-        if cfg.family == "ssm" and mesh.shape[-1] > 1:
-            with pytest.raises(NotImplementedError, match="item 6c"):
-                M.build_model(cfg, device="meta", mesh=m)
-            params = RU.model_shardings(whole, cfg, m, rules).take(whole, 0)
-        else:
-            model = M.build_model(cfg, device="meta", mesh=m)
-            params = model.init_params(torch.Generator())
+        model = M.build_model(cfg, device="meta", mesh=m)
+        params = model.init_params(torch.Generator())
         state = train_state(params, make_optimizer("adamw"), g_sh)
     held = sum(t.numel() * t.element_size() for t in leaves(params))
     accum = 4 * sum(p[b].numel() for p, b in zip(leaves(params), g_sh.local_index(params, 0))
@@ -604,31 +600,43 @@ def test_all_to_all_and_group_collectives_wire_bytes():
     assert coll["all-gather"] == [1, 512, 512 * (2 - 1)]
 
 
-def tp_collectives(cfg, kind: str, micro: int = 1) -> dict:
+@functools.lru_cache(maxsize=1)
+def _tp_spans():
+    """chip_smoke.py's `tp_spans`, the one count of the TP collectives that
+    the card's phase 16 and these dry-run tests share."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.tp_spans
+
+
+def tp_collectives(cfg, kind: str, micro: int = 1, n: int = 4) -> dict:
     """The "model" axis's all-reduces and all-gathers (and reduce-scatters)
-    of a hybrid or whisper step on a rank of four, whose heads split (the
-    SMOKE configs): what models/mamba2.py, hybrid.py and whisper.py run.
-    A mamba2 block: w_zx's gather, the gated norm's statistic and w_out's
-    sum forward; again in the remat replay; backward one all-reduce of its
-    entered tensors and the statistic's, w_zx's reduce-scatter. The shared
-    block: wo's and the FFN's sums (the replay stops before the FFN's),
-    backward q/k/v's and the FFN's input. Whisper: an encoder layer as a
-    dense layer (2 + 1 + 2), a decoder layer 3 sums forward (self, cross,
-    FFN), 2 in the replay, 3 backward (its self q/k/v, cross q and FFN
-    inputs); the encoder's output enters the cross k/v products once. Per
-    microbatch the embedding's sum, the loss's 2 and the unembed input's
-    backward; one for the global norm; serving gathers the logits."""
-    assert cfg.n_heads % 4 == 0
-    if cfg.family == "hybrid":
-        L, nb = cfg.n_layers, cfg.n_layers // cfg.hybrid.attn_every
-        if kind == "train":
-            return {"all-reduce": micro * (6 * L + 5 * nb + 4) + 1, "all-gather": 2 * L * micro,
-                    "reduce-scatter": L * micro}
-        return {"all-reduce": 2 * L + 2 * nb + 1, "all-gather": L + 1}
-    le, ld = cfg.encdec.n_enc_layers, cfg.n_layers
-    if kind == "train":
-        return {"all-reduce": micro * (5 * le + 8 * ld + 5) + 1}
-    return {"all-reduce": (2 * le if kind == "prefill" else 0) + 3 * ld + 1, "all-gather": 1}
+    of a hybrid, xLSTM or whisper step on a rank of n, by the dry-run's
+    names: `chip_smoke.tp_spans`, what models/mamba2.py, hybrid.py, xlstm.py
+    and whisper.py run, the counts that are not 0."""
+    spans = _tp_spans()(cfg, n, kind, micro)
+    return {op: spans["tp_" + op.replace("-", "_")] for op in
+            ("all-reduce", "all-gather", "reduce-scatter")
+            if spans["tp_" + op.replace("-", "_")]}
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_tp_spans_count_the_xlstm_s_dry_run_cells_at_full_width(shape, tmp_path):
+    """xlstm-350m's 1x4 serving cells at published width (its 4 heads split
+    over 4 ranks, the GeGLU's w_ff1 whole) run exactly the TP collectives
+    that chip_smoke.py's `tp_spans` counts and phase 16e holds the card's
+    ranks to; SMOKE's cells (its 2 heads gathered by column) are
+    test_run_cell_on_the_tp_mesh_at_smoke's."""
+    cfg = get_config("xlstm-350m")
+    rec = D.run_cell("xlstm-350m", shape, D.MESHES["1x4"], out_dir=tmp_path)
+    assert rec["status"] == "ok", rec.get("traceback", rec)
+    coll = {op: c[0] for op, c in rec["roofline"]["collectives"].items()}
+    assert coll == tp_collectives(cfg, SHAPES[shape].kind)
+    # 21 mLSTM blocks: w_down's sum, the norm's statistic, w_up's gather; 3
+    # sLSTM blocks: h's gather; the embedding's sum, the logits' gather
+    assert coll == {"all-reduce": 2 * 21 + 1, "all-gather": 21 + 3 + 1}
 
 
 @pytest.mark.parametrize("mesh", ["1x1", "4x1", "2x4"])
@@ -637,10 +645,9 @@ def test_run_cell_at_smoke(arch, mesh, tmp_path):
     """run_cell on (1, 1), (4, 1) and (2, 4) for every shape: ok where
     applicable says, skipped where it does not (arctic's train cells are
     accounts of Adafactor with ZeRO-1, whose statistics' sums over the data
-    group add all-reduces); on (2, 4) the xLSTM's cells are errors that
-    name its TP (item 6c); the hybrid's and whisper's are
-    accounts with the collectives of their TP (`tp_collectives`). Each
-    record has the reference's fields."""
+    group add all-reduces); on (2, 4) the hybrid's, the xLSTM's and
+    whisper's are accounts with the collectives of their TP
+    (`tp_collectives`). Each record has the reference's fields."""
     cfg = get_config(arch, smoke=True)
     mesh = D.MESHES[mesh]
     if True:
@@ -650,8 +657,6 @@ def test_run_cell_at_smoke(arch, mesh, tmp_path):
             assert (tmp_path / "baseline" / D.mesh_name(mesh) / f"{arch}__{name}.json").exists()
             if not applicable(cfg.family, cfg.sub_quadratic, name):
                 assert rec["status"] == "skipped", rec
-            elif mesh.shape[-1] > 1 and cfg.family == "ssm":
-                assert rec["status"] == "error" and "item 6c" in rec["error"], rec
             else:
                 assert rec["status"] == "ok", rec.get("traceback", rec)
                 r, m = rec["roofline"], rec["memory"]
@@ -666,7 +671,7 @@ def test_run_cell_at_smoke(arch, mesh, tmp_path):
                 if cfg.optimizer == "adafactor" and SHAPES[name].kind == "train" \
                         and mesh.size > 1:
                     assert rec["roofline"]["collectives"]["all-reduce"][0] > 0, rec
-                if mesh.shape[-1] > 1 and cfg.family in ("hybrid", "audio"):
+                if mesh.shape[-1] > 1 and cfg.family in ("hybrid", "ssm", "audio"):
                     # ZeRO-2's over "data" come on top in the train step
                     want = tp_collectives(cfg, SHAPES[name].kind, rec.get("microbatches", 1))
                     coll = r["collectives"]
@@ -716,11 +721,10 @@ def test_tp_cell_holds_the_rank_s_blocks_and_a_quarter_of_the_flops(arch, shape)
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_run_cell_on_the_tp_mesh_at_smoke(arch, tmp_path):
-    """run_cell on (1, 4): every shape ok for the dense, MoE, VLM, hybrid
-    and audio families (the train shape through the tensor-parallel train
-    step, no skip; the hybrid's and whisper's collectives exactly
-    `tp_collectives`), errors that name ROADMAP item 6c for the xLSTM,
-    long_500k as on (1, 1)."""
+    """run_cell on (1, 4): every shape ok for every family (the train shape
+    through the tensor-parallel train step, no skip; the hybrid's, the
+    xLSTM's and whisper's collectives exactly `tp_collectives`), long_500k
+    as on (1, 1)."""
     cfg = get_config(arch, smoke=True)
     mesh = D.MESHES["1x4"]
     for name in SHAPES:
@@ -728,10 +732,7 @@ def test_run_cell_on_the_tp_mesh_at_smoke(arch, tmp_path):
                          out_dir=tmp_path)
         if not applicable(cfg.family, cfg.sub_quadratic, name):
             assert rec["status"] == "skipped" and "long_500k" in rec["reason"], rec
-        elif cfg.family == "ssm":
-            assert rec["status"] == "error" and "TP not yet ported" in rec["error"] \
-                and "item 6c" in rec["error"], rec
-        elif cfg.family in ("hybrid", "audio"):
+        elif cfg.family in ("hybrid", "ssm", "audio"):
             assert rec["status"] == "ok", rec.get("traceback", rec)
             coll = {op: c[0] for op, c in rec["roofline"]["collectives"].items()}
             assert coll == tp_collectives(cfg, SHAPES[name].kind, rec.get("microbatches", 1))

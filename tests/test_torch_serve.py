@@ -3,13 +3,16 @@ JAX engine, and driven by the JAX package's router, on the CPU.
 
 At fp32 the two engines must emit identical tokens: same weights (handed over
 by `repro_torch.bridge`), same requests, same slot scheduling, the same
-position advance for every slot and the same completion rule.
+position advance for every slot and the same completion rule. The model-free
+StubEngine matches the JAX package's token for token and stat for stat at
+every tick, and routed over K replicas completes what one local engine does.
 """
 import runpy
 import sys
 from pathlib import Path
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -20,7 +23,7 @@ from repro.serve.router import ReplicaActor, Router
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, StubEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -146,3 +149,80 @@ def test_serve_torch_example_runs_on_the_cpu(monkeypatch, capsys):
     runpy.run_path(str(ROOT / "examples" / "serve_torch.py"), run_name="__main__")
     out = capsys.readouterr().out
     assert "6 requests" in out and "on cpu" in out
+
+
+def _stub_stream(rng, n):
+    """n random requests (prompt, budget, eos): a third end at an EOS token
+    their stub output reaches before the budget, the rest at the budget."""
+    specs = []
+    for _ in range(n):
+        prompt = rng.integers(0, 50_000, int(rng.integers(1, 6))).tolist()
+        budget = int(rng.integers(1, 9))
+        eos = -1
+        if rng.random() < 1 / 3:
+            eos = StubEngine.stub_output(prompt, budget)[int(rng.integers(0, budget))]
+        specs.append((prompt, budget, eos))
+    return specs
+
+
+def _stub_view(engine, reqs):
+    return {"stats": dict(engine.stats), "free": engine.free_slots, "queue": engine.queue_len,
+            "owed": engine.outstanding_tokens,
+            "slots": [None if r is None else r.id for r in engine.slot_req],
+            "outputs": [list(r.output) for r in reqs], "done": [r.done for r in reqs]}
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_stub_engine_matches_jax_stub_engine_every_tick(seed):
+    """The port's StubEngine and repro.serve.engine.StubEngine fed the same
+    random stream (EOS and budgets; 1-4 slots; requests arriving between
+    ticks): at every tick the same active count, stats, free slots, queue,
+    owed tokens, slot assignment, outputs, done flags and completions."""
+    rng = np.random.default_rng(seed)
+    slots = 1 + seed % 4
+    specs = _stub_stream(rng, int(rng.integers(4, 16)))
+    arrivals = sorted(int(rng.integers(0, 6)) for _ in specs)
+    engines = [StubEngine(slots), jax_engine.StubEngine(slots)]
+    reqs = [[cls(id=i, prompt=list(p), max_new_tokens=n, eos_id=e)
+             for i, (p, n, e) in enumerate(specs)] for cls in (Request, jax_engine.Request)]
+    done = [[], []]
+    for tick in range(200):
+        for eng, rs in zip(engines, reqs):
+            for r, at in zip(rs, arrivals):
+                if at == tick:
+                    eng.add_request(r)
+        active = [eng.tick() for eng in engines]
+        assert active[0] == active[1], tick
+        views = [_stub_view(eng, rs) for eng, rs in zip(engines, reqs)]
+        assert views[0] == views[1], tick
+        for side, eng in enumerate(engines):
+            done[side].append([r.id for r in eng.pop_completed()])
+        assert done[0][-1] == done[1][-1], tick
+    assert all(r.done for r in reqs[0]) and engines[0].stats["completed"] == len(specs)
+    assert any(r.eos_id in r.output for r in reqs[0]) or all(e == -1 for *_, e in specs)
+
+
+@pytest.mark.parametrize("n_replicas,slots", [(1, 1), (2, 2), (3, 4), (4, 3)])
+def test_routed_stub_engines_complete_as_one_local_engine(n_replicas, slots):
+    """repro.serve.router.Router over K of the port's StubEngines completes
+    every request of a random stream (EOS included) with the tokens one
+    local engine gives it, which are the JAX package's StubEngine's."""
+    rng = np.random.default_rng(100 + n_replicas)
+    specs = _stub_stream(rng, 30)
+    want = {}
+    for cls_engine, cls_req in ((StubEngine, Request), (jax_engine.StubEngine,
+                                                        jax_engine.Request)):
+        local = cls_engine(slots)
+        for i, (p, n, e) in enumerate(specs):
+            local.add_request(cls_req(id=i, prompt=list(p), max_new_tokens=n, eos_id=e))
+        want[cls_engine] = {r.id: r.output for r in local.run_until_drained(100000)}
+    assert want[StubEngine] == want[jax_engine.StubEngine] and len(want[StubEngine]) == 30
+    router = Router(max_queue_per_replica=3, max_retry_backlog=1000)
+    for i in range(n_replicas):
+        router.add_replica(f"r{i}", StubEngine(slots))
+    stream = [Request(id=i, prompt=list(p), max_new_tokens=n, eos_id=e)
+              for i, (p, n, e) in enumerate(specs)]
+    assert all(router.submit(r) for r in stream)
+    done = router.flush(max_ticks=100000)
+    assert sorted(r.id for r in done) == list(range(30))
+    assert {r.id: r.output for r in done} == want[StubEngine]

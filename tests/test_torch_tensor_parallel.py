@@ -414,15 +414,26 @@ def test_per_rank_init_blocks_are_the_whole_init_s(arch):
 
 
 @pytest.mark.parametrize("arch", ["xlstm-350m"])
-def test_build_model_refuses_tp_for_the_other_families(arch):
-    with pytest.raises(NotImplementedError, match="TP not yet ported for"):
-        build_model(get_config(arch, smoke=True), device="cpu",
-                    mesh=Mesh((1, 2), ("data", "model")))
+def test_build_model_refuses_tp_for_the_other_families(arch, monkeypatch):
+    """No family is refused a "model" axis any more: the xLSTM, the last
+    one (ROADMAP item 6c), builds on (1, 2), rank 1 holding its head of
+    SMOKE's two and its block of every split leaf, its cache its head's
+    states (tests/test_torch_tp_xlstm.py holds it to JAX)."""
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 1)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, device="cpu", mesh=Mesh((1, 2), ("data", "model")))
+    assert model.tp.xl_heads == slice(1, 2) and model.tp.xl_channels == slice(64, 128)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    assert params["mlstm"][0][0]["w_q"].shape == (128, 64)
+    assert params["slstm"][0]["w_gates"].shape == (64, 128)
+    assert model.init_cache(3)["m_C"].shape == (2, 1, 3, 1, 64, 64)
 
 
 def test_train_step_on_a_model_axis_refuses_only_the_xlstm(monkeypatch):
-    """What a "model" axis still cannot train is refused, naming the ROADMAP
-    item that lifts it: the xLSTM (6c). Adafactor trains on every cut:
+    """Every family builds on a "model" axis, and its step is made: the
+    xLSTM, refused until its TP (ROADMAP item 6c) was ported, too. Adafactor
+    trains on every cut:
     arctic-480b on (2, 2) builds, its FSDP and expert leaves the rank's
     blocks, and so does its step, with and without ZeRO-2, and arctic SMOKE's
     ZeRO-2 step on (1, n)'s abstract mesh asks for a data axis as AdamW's
@@ -444,8 +455,10 @@ def test_train_step_on_a_model_axis_refuses_only_the_xlstm(monkeypatch):
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
     mesh = Mesh((1, 2), ("data", "model"))
     for arch in ("xlstm-350m",):
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            build_model(get_config(arch, smoke=True), device="cpu", mesh=mesh)
+        xl = build_model(get_config(arch, smoke=True), device="cpu", mesh=mesh)
+        assert xl.tp.xl_heads == slice(0, 1) and xl.split.dims
+        assert make_train_step(xl, make_optimizer("adamw"), lambda s: 1e-3,
+                               mesh=mesh) is not None
     cfg = get_config("llama3-8b", smoke=True)
     with pytest.raises(ValueError, match="build the model under the step's mesh"):
         make_train_step(build_model(cfg, device="cpu"), make_optimizer("adamw"),

@@ -515,8 +515,13 @@ def test_build_model_on_tp_meshes_at_full_width(arch):
 
 
 def test_xlstm_still_refuses_a_model_axis(monkeypatch):
+    """The xLSTM, refused a "model" axis until its TP (ROADMAP item 6c) was
+    ported, builds beside the hybrid and whisper: on (1, 2) rank 0 runs its
+    head of SMOKE's two, w_up's and w_ff1's products gathered
+    (tests/test_torch_tp_xlstm.py holds it to JAX)."""
     monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 0)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        build_model(get_config("xlstm-350m", smoke=True), device="cpu",
-                    mesh=Mesh((1, 2), ("data", "model")))
+    model = build_model(get_config("xlstm-350m", smoke=True), device="cpu",
+                        mesh=Mesh((1, 2), ("data", "model")))
+    tp = model.tp
+    assert tp.xl_heads == slice(0, 1) and tp.xl_channels == slice(0, 64) and tp.gather_ff

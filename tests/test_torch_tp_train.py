@@ -435,12 +435,21 @@ def test_collectives_backward(runs, n):
 # ----------------------------------------------------------------- in process
 
 @pytest.mark.parametrize("arch", ["xlstm-350m"])
-def test_tp_training_refuses_the_other_families(arch):
-    """The xLSTM's TP (ROADMAP item 6c; the hybrid's and whisper's:
-    tests/test_torch_tp_hybrid.py)."""
-    with pytest.raises(NotImplementedError, match="6c"):
-        build_model(get_config(arch, smoke=True), device="cpu",
-                    mesh=Mesh((1, 2), ("data", "model")))
+def test_tp_training_refuses_the_other_families(arch, monkeypatch):
+    """No family is refused TP training any more: the xLSTM's (ROADMAP item
+    6c, held to JAX by tests/test_torch_tp_xlstm.py; the hybrid's and
+    whisper's by tests/test_torch_tp_hybrid.py) builds on (1, 2) with the
+    leaves it splits in its Split, and its train step is made, with AdamW
+    and with Adafactor."""
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 0)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    mesh = Mesh((1, 2), ("data", "model"))
+    model = build_model(get_config(arch, smoke=True), device="cpu", mesh=mesh)
+    assert {p[-1] for p in model.split.dims} == {"tok", "w_up", "w_q", "w_k", "w_v",
+                                                 "w_down", "w_gates", "w_ff1"}
+    for opt in ("adamw", "adafactor"):
+        assert make_train_step(model, make_optimizer(opt), lambda s: 1e-3,
+                               mesh=mesh) is not None
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "internvl2-76b", "qwen1.5-32b"])

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Phase 16 of chip_smoke.py alone: tensor parallelism of the hybrid (zamba2)
-and whisper over the "model" axis, on the cards present.
+"""Phase 16 of chip_smoke.py alone: tensor parallelism of the hybrid (zamba2),
+whisper and the xLSTM over the "model" axis, on the cards present.
 
     PYTHONPATH=src python3 tools/hybrid_tp_phase.py [--seed N]
 
 Builds the kernels, then runs `chip_smoke.hybrid_tp_phase` (16a zamba2-2.7b
 x 12 of 54 layers serving 4 x 1024 tokens and 8 decode steps on 4 ranks;
 16b zamba2-2.7b x 6 trained 2 steps; 16c whisper-tiny served and trained;
-16d the SSD scan, flash and decode at a rank's shapes) with its gates, and
+16e xlstm-350m served (4 x 256 tokens, 8 decode steps) and trained (32 x
+64); 16d the SSD scan, flash and decode at a rank's shapes) with its gates, and
 prints the ranks' launches and the phase's wall time. On one card the ranks
 share it over gloo; with a card a rank (four) they run over NCCL.
 """
