@@ -10,8 +10,9 @@ and VLM families, the paper's RL rollouts, the multi-rank paths (the
 int8 ring all-reduce, data-parallel and ZeRO-2 training, MoE dispatch
 groups, the resharded restore), tensor-parallel serving and tensor-parallel
 training over the "model" axis, FSDP and expert parallelism over the
-"data" axis, and tensor parallelism of the hybrid and whisper. Every phase
-exits non-zero on failure; nothing is caught and carried on.
+"data" axis, tensor parallelism of the hybrid and whisper, and the Slurm
+GPU backend's rendered ranks. Every phase exits non-zero on failure;
+nothing is caught and carried on.
 
   1. requires a CUDA device; prints the card's name and power limit;
   2. builds the four kernels from `src/repro_torch/kernels/csrc/`;
@@ -340,11 +341,32 @@ exits non-zero on failure; nothing is caught and carried on.
      of that rank on the card, routed by its own router: FLOPs, bytes,
      kernel ops and collectives (Adafactor's sums among them) equal, the
      high-water mark as 12d holds it;
- 18. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
+ 18. the Slurm GPU backend (`repro_torch.backends.SlurmGpuBackend`): its
+     artifacts rendered into a temporary shared directory, and its
+     `rank_<id>.sh` run under bash once a rank, with the variables srun
+     sets (no Slurm or Apptainer here, so `ranks_<id>.sh`'s container
+     wrapper is not run), each rank `repro_torch.launch.rank` in a process
+     of its own: a. one node x one card, the store deciding NCCL,
+     llama3-8b at published width and 1 of its 32 layers trained 2 steps
+     of 4 x 1024 tokens by the Trainer: the flash launches exact, all
+     `flash_wgmma` with the lse, step 1's loss held to this process's
+     forward of the same params and batch (DP_METRIC_TOL); b. beside it,
+     two nodes x one card, both ranks on this card, the store deciding
+     gloo (one UUID twice), llama3-8b SMOKE in bf16 on (2, 1) with ZeRO-2
+     and a checkpoint every step: SIGTERM to rank 1 once the step-1
+     checkpoint commits, both ranks stopping at one step with its
+     checkpoint and exiting 75, relaunched under a new job id, both
+     finishing from it; their 8 losses and grad norms held to one
+     process's run of the same job at DP_METRIC_TOL and their final
+     checkpoint's params within DP_UPDATE_TOL of its update. Each rank's
+     backend, step ms, peak memory and seconds to join, build and train
+     are printed;
+ 19. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
      at C=320, ssd_scan's with its plain backward, flash's, decode's,
      moe_gmm's and ssd_scan's with their rows at phase 9's, 13's, 14's,
      15's and 16's shapes; the launches of every phase's main path, 16e's
-     xLSTM adding none, since its blocks run no kernel) and, last, the
+     xLSTM adding none, since its blocks run no kernel, 18's read from its
+     ranks' lines) and, last, the
      device line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -2699,6 +2721,17 @@ def on_ranks(fn, world, dev, *args):
     return _RANKS[world].run(fn, *args)
 
 
+def group_backend(rank, world, dev) -> str:
+    import torch.distributed as dist
+    return dist.get_backend()
+
+
+def ranks_backend(world, dev) -> str:
+    """The backend the script's `world` ranks formed their group over, as
+    each rank reports it (one name where they agree)."""
+    return "/".join(sorted(set(on_ranks(group_backend, world, dev))))
+
+
 def train_lr(cfg) -> float:
     """The constant learning rate of a training run of `cfg`: AF_LR for
     Adafactor, DP_LR for AdamW."""
@@ -3185,7 +3218,7 @@ def ranks_phase(seed, dev, smi, step_8b_ms=None, steps=3, n_micro=2, seq=1024):
     from repro_torch.tree import tree_map
 
     def ranks_line(world):
-        say(f"  ranks: W={world}, backend {D.backend_for(world, dev)}, devices "
+        say(f"  ranks: W={world}, backend {ranks_backend(world, dev)}, devices "
             f"{[str(D.rank_device(r, dev)) for r in range(world)]}, card {smi}")
 
     out = {}
@@ -3946,7 +3979,7 @@ def tp_phase(label, cfg, seed, n, dev, smi, *, requests=None, prompts=None, slot
         f"{cfg.eff_q_heads}/{cfg.eff_kv_heads} (cache {cfg.cache_kv_heads}, "
         f"{cfg.kv_cache_dtype}), d_ff {cfg.d_ff}"
         f"{f', {cfg.moe.n_experts} experts top-{cfg.moe.top_k}' if cfg.moe else ''}, "
-        f"on {n} ranks: backend {D.backend_for(n, dev)}, devices "
+        f"on {n} ranks: backend {ranks_backend(n, dev)}, devices "
         f"{[str(D.rank_device(r, dev)) for r in range(n)]}")
     if batched:
         tokens = rng.integers(0, cfg.vocab_size, (steps, len(prompts))).tolist()
@@ -4445,7 +4478,7 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
         torch.cuda.empty_cache()
         ranks = {}
         for world, jobs in by_world.items():
-            say(f"  ranks: W={world}, backend {D.backend_for(world, dev)}, devices "
+            say(f"  ranks: W={world}, backend {ranks_backend(world, dev)}, devices "
                 f"{[str(D.rank_device(r, dev)) for r in range(world)]}, card {smi}")
             t0 = time.perf_counter()
             res = on_ranks(tp_train_job_rank, world, dev, jobs)
@@ -5462,6 +5495,252 @@ def _tensors(tree):
         yield tree
 
 
+# ----------------------------------------------------------------------------
+# phase 18: the Slurm GPU backend's rendered ranks
+# ----------------------------------------------------------------------------
+
+# 18a: one node x one card: llama3-8b at published width, 1 of 32 layers
+# (1.27 B params, 1.05 B of them the untied embeddings), 2 steps of 4 x 1024
+# tokens, one checkpoint (the final one: 12.7 GB of params and AdamW
+# moments)
+SLURM_18A = ("--arch", "llama3-8b", "--layers", "1", "--mesh", "1x1", "--steps", "2",
+             "--batch", "4", "--seq", "1024", "--ckpt-every", "100")
+# 18a's step 1 against this process's: the same code on the same state and
+# batch, so only the kernels' order of sums parts them. Not DP_METRIC_TOL:
+# at random weights any llama3-8b layer's loss sits near ln(V) = 11.76, so
+# another seed's params or another batch would pass a 1e-2 gate
+SLURM_18A_TOL = 1e-5
+# 18b: two "nodes" x one card, both on this card: llama3-8b SMOKE in bf16 on
+# (2, 1) with ZeRO-2, a checkpoint every step. Not llama3-8b's width: a rank's
+# ZeRO-2 step over gloo through the host took 11305.4 ms at 2 layers (11b,
+# PERF.md §5), and the preempted run and its relaunch take 3 steps and 3
+# gathered checkpoints at the least, past the phase's budget. 8 steps leave
+# the signal ~6 step boundaries to land on; the learning rate warms up in 1
+SLURM_18B = ("--arch", "llama3-8b", "--smoke", "--mesh", "2x1", "--steps", "8",
+             "--batch", "4", "--seq", "256", "--warmup", "1", "--ckpt-every", "1")
+
+
+def slurm_render(shared, cluster_id, nodes):
+    """The Slurm GPU backend's artifacts for `nodes` x one card, written to
+    the shared directory `shared`, as they are staged for a cluster."""
+    from repro_torch.backends import AllocationRequest, ContainerSpec, SlurmGpuBackend
+    req = AllocationRequest(nodes=nodes, gpus_per_node=1, shared_dir=shared)
+    for name, text in SlurmGpuBackend(ContainerSpec()).render_artifacts(req, cluster_id).items():
+        Path(shared, name).write_text(text)
+
+
+def slurm_ranks(shared, cluster_id, job_id, world, args):
+    """`rank_<id>.sh` under bash once a rank, with the variables `srun` sets
+    for one task a node (no Slurm and no Apptainer here, so not through
+    `ranks_<id>.sh`'s container)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), SLURM_JOB_ID=job_id,
+               SLURM_NTASKS=str(world), SLURM_LOCALID="0")
+    return [subprocess.Popen(["bash", f"{shared}/rank_{cluster_id}.sh", *args],
+                             env=dict(env, SLURM_PROCID=str(r)), stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, cwd=ROOT)
+            for r in range(world)]
+
+
+def slurm_wait(label, procs, code, timeout=600):
+    """Each rank's JSON line once it exits; fails unless it exited `code`."""
+    out = []
+    for r, p in enumerate(procs):
+        stdout, stderr = p.communicate(timeout=timeout)
+        if p.returncode != code:
+            fail(f"{label}: rank {r} exited {p.returncode}, want {code}:\n{stderr[-3000:]}")
+        out.append(json.loads(stdout.strip().splitlines()[-1]))
+    return out
+
+
+def slurm_peak_gb(r) -> float:
+    """A rank's peak card memory, GB (0 for a rank on the CPU, as rehearsed)."""
+    return (r["peak_bytes"] or 0) / 1e9
+
+
+def slurm_line(label, r, smi, launched):
+    ms = [h["ms"] for h in r["history"]]
+    t = r["seconds"]
+    say(f"  [{smi}] {label} rank {r['rank']} of {r['world']}: backend {r['backend']}, "
+        f"{r['device']}, mesh {r['mesh']}, steps {r['start']}-{r['stopped']}, step ms "
+        f"{[round(m, 1) for m in ms]}, peak {slurm_peak_gb(r):.2f} GB; seconds from launch to "
+        f"main {r['entered'] - launched:.1f}, to join {t['join']:.1f}, to build "
+        f"{t['build']:.1f}, to train {t['train']:.1f}")
+
+
+def slurm_phase(dev, smi) -> dict:
+    """Phase 18: the Slurm GPU backend's rendered `rank_<id>.sh` run as a
+    rank of each node would be. 18a: one node x one card (world 1, the
+    store decides NCCL), llama3-8b at full width, 1 layer, 2 steps: the
+    flash launches exact, all `flash_wgmma` with the lse, and step 1's loss
+    and grad norm held at SLURM_18A_TOL to this process's first step of the
+    same job (the same code, params and batch). 18b: two
+    nodes x one card, both on this card (the store decides gloo: one card's
+    UUID twice), SMOKE on (2, 1) with ZeRO-2: SIGTERM to rank 1 once the
+    step-1 checkpoint commits stops both ranks at one step with its
+    checkpoint; relaunched, both finish from it; losses and grad norms held
+    to one process's run of the same job at DP_METRIC_TOL, the final params
+    within DP_UPDATE_TOL of its update. A rank takes 13-20 s to join its
+    group here, most of it importing torch and starting CUDA, so 18a's rank
+    runs beside 18b's two launches, and this process's references beside
+    both: 18a's step times are taken with 18b's ranks on the card."""
+    import signal
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch import rank as R
+    from repro_torch.tree import leaves, tree_map
+
+    def job_args(cluster_id, job):
+        return R.parser().parse_args(["--rendezvous", shared, "--cluster-id", cluster_id,
+                                      "--job-id", "0", "--rank", "0", "--world", "1",
+                                      "--local-rank", "0", *job])
+
+    out, procs = {}, []
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-slurm-") as shared:
+            say("phase 18a: one node x one card, llama3-8b at published width, 1 of 32 layers, "
+                "2 steps of 4 x 1024 tokens through the rendered rank_<id>.sh; beside it 18b: "
+                "two nodes x one card, both ranks on this card, llama3-8b SMOKE on (2, 1) with "
+                "ZeRO-2, SIGTERM to one rank, then the relaunch")
+            slurm_render(shared, "p18a", 1)
+            slurm_render(shared, "p18b", 2)
+            ckpt = Path(shared, "ckpt", "p18b")
+            t0 = time.perf_counter()
+            launched = [time.time()]
+            procs = slurm_ranks(shared, "p18a", "1801", 1, SLURM_18A)
+            rank_a = procs[0]
+            pre = slurm_ranks(shared, "p18b", "1802", 2, SLURM_18B)
+            procs += pre
+
+            def preempt():   # SIGTERM to rank 1 once the step-1 checkpoint commits
+                while not (ckpt / "step_0000000001").is_dir():
+                    if any(p.poll() is not None for p in pre) or time.perf_counter() - t0 > 300:
+                        return
+                    time.sleep(0.005)
+                pre[1].send_signal(signal.SIGTERM)
+                signalled.append(time.perf_counter() - t0)
+
+            signalled = []
+            signaller = threading.Thread(target=preempt)
+            signaller.start()
+            # 18a's reference: this process's first step of the job, from the state
+            # and batch the rank draws
+            args_a = job_args("p18a", SLURM_18A)
+            one = R.make_trainer(args_a, dev, None, f"{shared}/one-18a")   # allocates nothing
+            _, metrics = one._step_fn(one.init_or_restore(R.SEED), one._batch(0))
+            ref_a = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+            del one, metrics
+            torch.cuda.empty_cache()
+            signaller.join()
+            if not signalled:
+                fail("18b: the ranks ended or stalled before their step-1 checkpoint")
+            stopped = slurm_wait("18b preempted", pre, R.EXIT_PREEMPTED)
+            wall_pre = time.perf_counter() - t0
+            saved = sorted(p.name for p in ckpt.iterdir())
+            launched.append(time.time())
+            t1 = time.perf_counter()
+            post = slurm_ranks(shared, "p18b", "1803", 2, SLURM_18B)
+            procs += post
+            # 18b's reference: one process's run of the same job, in this process
+            trainer = R.make_trainer(job_args("one", SLURM_18B), dev, None, f"{shared}/one")
+            state = trainer.init_or_restore(R.SEED)
+            p0 = [t.clone() for t in leaves(state["params"])]
+            state = trainer.run(state)
+            single = trainer.history
+            resumed = slurm_wait("18b relaunched", post, 0)
+            wall_post = time.perf_counter() - t1
+            (r,) = slurm_wait("18a", [rank_a], 0)
+            wall_a = time.perf_counter() - t0
+
+            slurm_line("18a", r, smi, launched[0])
+            cfg = R.job_config(args_a)
+            want = train_launches(cfg, R.N_MICRO, args_a.steps)
+            n_flash = want["flash_attention"]
+            got = {k: r["launches"][k] for k in want}
+            ok = (r["backend"] == "nccl" and got == want and r["launches"]["flash_lse"] == n_flash
+                  and r["launches"]["flash_by_path"] == {"wgmma": n_flash, "simt": 0})
+            say(f"  {'ok  ' if ok else 'FAIL'} 18a: the store decided {r['backend']} (want nccl); "
+                f"launches {got}, {r['launches']['flash_lse']} flash with the lse, by kernel "
+                f"{r['launches']['flash_by_path']} (want {want}, all flash_wgmma with the lse); "
+                f"the rank's command {wall_a:.1f} s")
+            if not ok:
+                fail("18a: the rendered rank did not decide NCCL, or did not go through "
+                     "flash_wgmma with the lse on every launch its layers ask for")
+            losses = [h["loss"] for h in r["history"]]
+            if not all(np.isfinite(losses + [h["grad_norm"] for h in r["history"]])):
+                fail(f"18a: non-finite losses or grad norms {r['history']}")
+            for k in ("loss", "grad_norm"):
+                rel_gate(f"18a step 1 {k}, the rank against this process's first step",
+                         r["history"][0][k], ref_a[k], SLURM_18A_TOL)
+            out["18a"] = dict(backend=r["backend"], step_ms=[h["ms"] for h in r["history"]],
+                              peak_gb=slurm_peak_gb(r), wall_s=wall_a, seconds=r["seconds"],
+                              launches=r["launches"])
+
+            for label, rs, at in (("preempted", stopped, launched[0]),
+                                  ("relaunched", resumed, launched[1])):
+                for x in rs:
+                    slurm_line(f"18b {label}", x, smi, at)
+            at = stopped[0]["stopped"]
+            steps = job_args("p18b", SLURM_18B).steps
+            ok = (all(x["backend"] == "gloo" for x in stopped + resumed)
+                  and {x["stopped"] for x in stopped} == {at} and 1 < at < steps
+                  and saved[-1] == f"step_{at:010d}"
+                  and all(x["start"] == at and x["stopped"] == steps for x in resumed))
+            say(f"  {'ok  ' if ok else 'FAIL'} 18b: the store decided "
+                f"{[x['backend'] for x in stopped]} (want gloo); SIGTERM to rank 1 at "
+                f"{signalled[0]:.1f} s stopped both ranks at step "
+                f"{[x['stopped'] for x in stopped]}, checkpoints {saved}; the relaunch ran "
+                f"{[(x['start'], x['stopped']) for x in resumed]}; the commands {wall_pre:.1f} "
+                f"and {wall_post:.1f} s")
+            if not ok:
+                fail("18b: the ranks did not stop together at one checkpointed step, or did not "
+                     "finish from it")
+            for rank in range(2):
+                hist = stopped[rank]["history"] + resumed[rank]["history"]
+                if [h["step"] for h in hist] != list(range(steps)):
+                    fail(f"18b: rank {rank}'s steps {[h['step'] for h in hist]}")
+                worst = max(abs(h[k] - s[k]) / abs(s[k]) for h, s in zip(hist, single)
+                            for k in ("loss", "grad_norm"))
+                say(f"  {'ok  ' if worst <= DP_METRIC_TOL else 'FAIL'} 18b rank {rank}: "
+                    f"{steps} losses and grad norms against one process's, largest rel "
+                    f"{worst:.2e} (gate <= {DP_METRIC_TOL:g})")
+                if worst > DP_METRIC_TOL:
+                    fail("18b: the ranks' losses or grad norms part from one process's")
+            like = tree_map(torch.empty_like, state)
+            Checkpointer(str(ckpt)).restore(like, step=steps)
+            got, mine = leaves(like["params"]), leaves(state["params"])
+            upd = sum(float(torch.sum(torch.square(a.float() - b.float())))
+                      for a, b in zip(mine, p0)) ** 0.5
+            d = sum(float(torch.sum(torch.square(a.float() - b.float())))
+                    for a, b in zip(got, mine)) ** 0.5 / upd
+            say(f"  {'ok  ' if d <= DP_UPDATE_TOL else 'FAIL'} 18b: the ranks' final params "
+                f"(their step-{steps} checkpoint) from one process's, over its update, {d:.3e} "
+                f"(gate <= {DP_UPDATE_TOL:g}; update {upd:.4f})")
+            if d > DP_UPDATE_TOL:
+                fail("18b: the ranks' params part from one process's")
+            out["18b"] = dict(backend=[x["backend"] for x in stopped], stopped_at=at,
+                              step_ms=[[h["ms"] for h in stopped[k]["history"]
+                                        + resumed[k]["history"]] for k in range(2)],
+                              peak_gb=[max(slurm_peak_gb(stopped[k]), slurm_peak_gb(resumed[k]))
+                                       for k in range(2)],
+                              wall_s=[wall_pre, wall_post], update_dist=d,
+                              seconds=[[x["seconds"] for x in rs] for rs in (stopped, resumed)])
+            del trainer, state, like
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    torch.cuda.empty_cache()
+    runs = [out["18a"]["launches"]] + [x["launches"] for x in stopped + resumed]
+    out.update({k: sum(x[k] for x in runs) for k in kernel_counts()})
+    out["flash_attention_by_path"] = {p: sum(x["flash_by_path"][p] for x in runs)
+                                      for p in ("wgmma", "simt")}
+    out["lse"] = sum(x["flash_lse"] for x in runs)
+    return out
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5649,7 +5928,13 @@ def main() -> int:
     runs["15"] = timed("15, 17 FSDP and EP; Adafactor, checkpoints", dp_phase, args.seed + 18,
                        dev, smi, gen)
     dp_rows = runs["15"].pop("kernels")
-    say("phase 18: the kernel table and the device")
+    for ranks in _RANKS.values():   # the last phase on them: the card and cores go to 18's
+        ranks.close()
+    _RANKS.clear()
+    say("phase 18: the Slurm GPU backend's rendered ranks, a process a rank as srun starts "
+        "them")
+    runs["18"] = timed("18 Slurm ranks", slurm_phase, dev, smi)
+    say("phase 19: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")
 
@@ -5675,7 +5960,7 @@ def main() -> int:
                       event_ms=flash["event_ms"], lse=True,
                       lse_launches=sum(runs[k]["flash_attention"]
                                        for k in ("8", "8e", "8f", "8g", "8i", "11", "14"))
-                      + runs["15"]["lse"] + runs["16"]["lse"],
+                      + runs["15"]["lse"] + runs["16"]["lse"] + runs["18"]["lse"],
                       **{k: flash[k] for k in ("nolse_ms", "lse_ms", "bwd_ms", "bwd_sdpa_ms",
                                                "bwd_bound_ms", "bwd_shape")},
                       launches_by_kernel={p: sum(r["flash_attention_by_path"][p]

@@ -7,17 +7,21 @@ such processes once and runs job after job on them (`run(fn, *args)`), so a
 caller with many multi-rank jobs pays the processes' start-up (imports,
 the card's context, the group) once; `spawn` is one job on a `Ranks`. Each
 rank's device is explicit: the CPU when asked for, else card
-`rank % torch.cuda.device_count()`. The group is initialised from a
-`file://` rendezvous in a temporary directory, so parallel test workers
-never contend for a port, with `timeout` on every collective, so a hung
-collective raises instead of hanging; it is torn down in a `finally`. A
-rank that raises makes `spawn` (or `run`) raise with its traceback, and the
-other ranks are stopped.
+`rank % torch.cuda.device_count()`. Each rank joins the group through
+`init_rank`, which the entry of a rank on a cluster node
+(`launch/rank.py`) calls too: the ranks meet at a `FileStore`, here in a
+temporary directory, so parallel test workers never contend for a port
+(across hosts, in the shared directory), with `timeout` on every
+collective, so a hung collective raises instead of hanging; the group is
+torn down in a `finally`. A rank that raises makes `spawn` (or `run`)
+raise with its traceback, and the other ranks are stopped.
 
-The backend follows from the cards present (`backend_for`): NCCL needs a
-card of its own for every rank, so NCCL when there are at least as many
-cards as ranks, gloo otherwise (ranks on the CPU, or ranks sharing a card).
-Nothing switches one for the other on failure.
+The backend follows from the cards the ranks hold (`backend_for`): before
+the group forms, each rank writes its card's UUID to the store and reads
+every rank's; NCCL needs a card of its own for every rank, so NCCL where
+the UUIDs are all distinct, gloo otherwise (ranks on the CPU, or ranks
+sharing a card). Every rank reaches the same answer, on one host or across
+hosts, and nothing switches one for the other on failure.
 
 The collectives below take tensors on the rank's device. gloo's
 point-to-point takes CPU tensors only (handed a card's tensor, `send`
@@ -49,7 +53,7 @@ import queue
 import tempfile
 import traceback
 import weakref
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -59,13 +63,25 @@ from torch.utils._python_dispatch import (_disable_current_modes,
 SUM = dist.ReduceOp.SUM
 
 
-def backend_for(world_size: int, device="cuda") -> str:
-    if torch.device(device).type == "cuda" and torch.cuda.device_count() >= world_size:
+def backend_for(uuids: Sequence[str]) -> str:
+    """The backend of ranks that hold the cards `uuids` (one a rank; "" for
+    a rank on the CPU): NCCL where every rank has a card of its own."""
+    if all(uuids) and len(set(uuids)) == len(uuids):
         return "nccl"
     return "gloo"
 
 
+def card_uuid(dev: torch.device) -> str:
+    """The UUID of the card `dev` is on, "" on the CPU."""
+    if dev.type != "cuda":
+        return ""
+    return str(torch.cuda.get_device_properties(dev).uuid)
+
+
 def rank_device(rank: int, device="cuda") -> torch.device:
+    """Card `rank % device_count()` (pass a node's local rank: right both
+    where each rank sees only its own card and where it sees them all), or
+    the CPU when asked for."""
     if torch.device(device).type == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -74,15 +90,43 @@ def rank_device(rank: int, device="cuda") -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def _rank_main(rank, world_size, device, init, timeout, jobs, results):
-    dev = rank_device(rank, device)
+def init_rank(rank: int, world_size: int, local_rank: int, device, store_path: str,
+              timeout: float) -> torch.device:
+    """Join the process group as `rank` of `world_size` and return the
+    rank's device (`rank_device(local_rank)`): the ranks meet at a
+    `FileStore` at `store_path`, exchange their cards' UUIDs there and
+    form the group over the backend those decide (`backend_for`), with
+    `timeout` (seconds) on the store and on every collective."""
+    dev = rank_device(local_rank, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    else:   # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
-    dist.init_process_group(backend_for(world_size, device), init_method=init, rank=rank,
-                            world_size=world_size,
-                            timeout=datetime.timedelta(seconds=timeout))
+    else:   # the ranks share the host's cores, and none takes more than it was given
+        torch.set_num_threads(max(1, min(torch.get_num_threads(),
+                                         (os.cpu_count() or 1) // world_size)))
+    os.makedirs(os.path.dirname(store_path), exist_ok=True)
+    limit = datetime.timedelta(seconds=timeout)
+    store = dist.FileStore(store_path, world_size)
+    store.set_timeout(limit)
+    store.set(f"card/{rank}", card_uuid(dev))
+    keys = [f"card/{r}" for r in range(world_size)]
+    store.wait(keys)
+    uuids = [store.get(k).decode() for k in keys]
+    dist.init_process_group(backend_for(uuids), store=store, rank=rank,
+                            world_size=world_size, timeout=limit)
+    return dev
+
+
+def host_group():
+    """A group of every rank whose collectives take host tensors, so they
+    never wait on a card: the world under gloo, else a new gloo group (a
+    collective call: every rank makes it)."""
+    if dist.get_backend() == "gloo":
+        return dist.group.WORLD
+    return dist.new_group(backend="gloo")
+
+
+def _rank_main(rank, world_size, device, store_path, timeout, jobs, results):
+    dev = init_rank(rank, world_size, rank, device, store_path, timeout)
     try:
         for fn, args in iter(jobs.get, None):
             try:
@@ -115,11 +159,11 @@ class Ranks:
         ctx = mp.get_context("spawn")
         self.world_size = world_size
         self._tmp = tempfile.TemporaryDirectory(prefix="repro-torch-rdv-")
-        init = "file://" + os.path.join(self._tmp.name, "init")
+        store_path = os.path.join(self._tmp.name, "store")
         self._results = ctx.Queue()
         self._jobs = [ctx.Queue() for _ in range(world_size)]   # a rank's own: each runs every job
         self._procs = [ctx.Process(target=_rank_main, daemon=True,
-                                   args=(r, world_size, device, init, timeout, self._jobs[r],
+                                   args=(r, world_size, device, store_path, timeout, self._jobs[r],
                                          self._results))
                        for r in range(world_size)]
         for p in self._procs:

@@ -18,6 +18,15 @@ axes. The train state's shardings (`sharding/rules.py::state_shardings`:
 each rank's block of every param, moment and Adafactor statistic, as the
 step holds and updates them) go to the checkpointer, which gathers the
 blocks to rank 0 and restores each rank's blocks, on this mesh or another.
+
+Preemption is agreed across ranks. A resource manager signals every task,
+but not at the same instant, and a rank that stops alone would enter the
+checkpointer's gather while another enters its next step's collectives.
+So under a mesh of more than one rank each step boundary takes the MAX of
+the ranks' flags, over a group of host tensors that never waits on the
+card (`distributed.host_group`), before testing it: every rank saves the
+same step and raises `Preempted` together. One process tests its own flag,
+with no collective.
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import distributed as D
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.mesh import dp_degree
@@ -41,7 +52,11 @@ from repro_torch.train.steps import make_init_state, make_train_step, train_stat
 
 
 class Preempted(Exception):
-    pass
+    """The loop stopped at `step` on a preemption request, its checkpoint saved."""
+
+    def __init__(self, step: int):
+        super().__init__(f"preempted at step {step} (checkpoint saved)")
+        self.step = step
 
 
 @dataclass
@@ -76,6 +91,11 @@ class Trainer:
         self.lr_fn = lr_fn or warmup_cosine(cfg.base_lr, cfg.warmup, cfg.num_steps)
         self.failure_hook = failure_hook or (lambda step: None)
         self._preempt = threading.Event()
+        # across ranks: the group they agree on preemption over, made at the
+        # first step boundary (every rank reaches it; a Trainer built under
+        # the dry-run's fake group never does)
+        self._agree = model.mesh is not None and model.mesh.size > 1
+        self._flag_group = None
         self.history: List[Dict[str, float]] = []
         self._step_fn = make_train_step(model, opt, self.lr_fn,
                                         n_microbatches=cfg.n_microbatches,
@@ -88,6 +108,17 @@ class Trainer:
 
     def install_signal_handler(self):
         signal.signal(signal.SIGTERM, self.request_preemption)
+
+    def _preempted(self) -> bool:
+        """Whether to stop at this step boundary: this process's flag, or
+        across ranks whether any rank's is set."""
+        if not self._agree:
+            return self._preempt.is_set()
+        if self._flag_group is None:
+            self._flag_group = D.host_group()
+        flag = torch.tensor([int(self._preempt.is_set())])
+        dist.all_reduce(flag, dist.ReduceOp.MAX, group=self._flag_group)
+        return bool(flag.item())
 
     # -- state -------------------------------------------------------------------
 
@@ -112,9 +143,9 @@ class Trainer:
         start = int(state["step"])
         t0 = time.time()
         for step in range(start, self.cfg.num_steps):
-            if self._preempt.is_set():
+            if self._preempted():
                 self.ckpt.save(step, state, blocking=True, shardings=self.shardings)
-                raise Preempted(f"preempted at step {step} (checkpoint saved)")
+                raise Preempted(step)
             self.failure_hook(step)   # tests inject crashes here
             state, metrics = self._step_fn(state, self._batch(step))
             if step % self.cfg.log_every == 0 or step == self.cfg.num_steps - 1:
