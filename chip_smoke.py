@@ -2709,27 +2709,37 @@ RING_WORLD, DP_WORLD = 4, 2
 _RANKS = {}
 
 
+# world -> the backend of its group that each of the script's `world` ranks
+# reported with its last job's result, by rank
+_BACKENDS = {}
+
+
+def reporting(rank, world, dev, fn, *args):
+    """(the backend of this rank's group, fn(rank, world, dev, *args))."""
+    import torch.distributed as dist
+    return dist.get_backend(), fn(rank, world, dev, *args)
+
+
 def on_ranks(fn, world, dev, *args):
     """fn(rank, world, device, *args) on the script's `world` ranks: each
-    rank's result, by rank."""
+    rank's result, by rank (and each rank's backend in _BACKENDS)."""
     from repro_torch import distributed as D
     if world not in _RANKS:
         with mock.patch.dict(os.environ,
                              {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}):
             _RANKS[world] = D.Ranks(world, device=dev.type, timeout=900)
         atexit.register(_RANKS[world].close)
-    return _RANKS[world].run(fn, *args)
+    out = _RANKS[world].run(reporting, fn, *args)
+    _BACKENDS[world] = [b for b, _ in out]
+    return [v for _, v in out]
 
 
-def group_backend(rank, world, dev) -> str:
-    import torch.distributed as dist
-    return dist.get_backend()
-
-
-def ranks_backend(world, dev) -> str:
-    """The backend the script's `world` ranks formed their group over, as
-    each rank reports it (one name where they agree)."""
-    return "/".join(sorted(set(on_ranks(group_backend, world, dev))))
+def ranks_reported(world, dev) -> str:
+    """The backend and device of each of the script's `world` ranks, the
+    backend as the ranks reported it with their last job."""
+    from repro_torch import distributed as D
+    return (f"backend {'/'.join(sorted(set(_BACKENDS[world])))}, devices "
+            f"{[str(D.rank_device(r, dev)) for r in range(world)]}")
 
 
 def train_lr(cfg) -> float:
@@ -3209,7 +3219,6 @@ def ranks_phase(seed, dev, smi, step_8b_ms=None, steps=3, n_micro=2, seq=1024):
     import tempfile
     import numpy as np
     import torch
-    from repro_torch import distributed as D
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import build_model
@@ -3218,14 +3227,13 @@ def ranks_phase(seed, dev, smi, step_8b_ms=None, steps=3, n_micro=2, seq=1024):
     from repro_torch.tree import tree_map
 
     def ranks_line(world):
-        say(f"  ranks: W={world}, backend {ranks_backend(world, dev)}, devices "
-            f"{[str(D.rank_device(r, dev)) for r in range(world)]}, card {smi}")
+        say(f"  ranks: W={world}, {ranks_reported(world, dev)}, card {smi}")
 
     out = {}
     say("phase 11a: the int8 ring all-reduce with error feedback, the gradient tree of one "
         "llama3-8b layer at full width")
-    ranks_line(RING_WORLD)
     ring = on_ranks(ring_rank, RING_WORLD, dev, seed)
+    ranks_line(RING_WORLD)
     r0 = ring[0]
     say(f"  {r0['entries'] / 1e6:.1f} M fp32 entries a rank, over {r0['transport']}: ring "
         f"{r0['ring_ms']:.1f} ms (median of 3, rank 0), dist.all_reduce on the same tensors "
@@ -3260,9 +3268,9 @@ def ranks_phase(seed, dev, smi, step_8b_ms=None, steps=3, n_micro=2, seq=1024):
         say(f"  single process: median step {t_single * 1e3:.1f} ms, {tokens / t_single:.0f} "
             f"tokens/s, peak {single['peak_gb']:.2f} GB"
             + (f" (phase 8b, x 4 layers on 4 x 1024: {step_8b_ms:.1f} ms)" if step_8b_ms else ""))
-        ranks_line(DP_WORLD)
         ranks = on_ranks(dp_rank, DP_WORLD, dev, seed, f"{tmp}/single.pt", f"{tmp}/ckpt", steps,
                          n_micro, rows, seq)
+        ranks_line(DP_WORLD)
         say("phase 11b: data-parallel training, llama3-8b x 2 of 32 layers at full width, bf16, "
             f"AdamW at {DP_LR:g}, plain DP and ZeRO-2 (ZeRO-1 state)")
         upd = single["sq_update"] ** 0.5
@@ -3971,7 +3979,6 @@ def tp_phase(label, cfg, seed, n, dev, smi, *, requests=None, prompts=None, slot
     device's idle share and each rank's memory."""
     import numpy as np
     import torch
-    from repro_torch import distributed as D
     gate_layers = gate_layers or cfg.n_layers
     rng = np.random.default_rng(seed + 1)
     batched = prompts is not None
@@ -3979,8 +3986,7 @@ def tp_phase(label, cfg, seed, n, dev, smi, *, requests=None, prompts=None, slot
         f"{cfg.eff_q_heads}/{cfg.eff_kv_heads} (cache {cfg.cache_kv_heads}, "
         f"{cfg.kv_cache_dtype}), d_ff {cfg.d_ff}"
         f"{f', {cfg.moe.n_experts} experts top-{cfg.moe.top_k}' if cfg.moe else ''}, "
-        f"on {n} ranks: backend {ranks_backend(n, dev)}, devices "
-        f"{[str(D.rank_device(r, dev)) for r in range(n)]}")
+        f"on {n} ranks")
     if batched:
         tokens = rng.integers(0, cfg.vocab_size, (steps, len(prompts))).tolist()
         gate_prompts, rows, gate_tokens = prompts, len(prompts[0]) + steps, tokens[0]
@@ -3999,8 +4005,8 @@ def tp_phase(label, cfg, seed, n, dev, smi, *, requests=None, prompts=None, slot
     t0 = time.perf_counter()
     ranks = on_ranks(tp_rank, n, dev, job)
     inits = ", ".join(f"{r['init_s']:.1f}" for r in ranks)
-    say(f"  {n} ranks over {ranks[0]['transport']}: {time.perf_counter() - t0:.1f} s wall, "
-        f"init {inits} s")
+    say(f"  {n} ranks ({ranks_reported(n, dev)}) over {ranks[0]['transport']}: "
+        f"{time.perf_counter() - t0:.1f} s wall, init {inits} s")
     for rank, r in enumerate(ranks):
         same = r["digests"] == refs["digests"][rank]
         ok = same and r["param_bytes"] == r["block_bytes"]
@@ -4410,7 +4416,6 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
     import tempfile
     import numpy as np
     import torch
-    from repro_torch import distributed as D
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
 
@@ -4478,10 +4483,9 @@ def train_ranks(configs, seed, dev, smi, n_micro, rows, seq, extra=None, span_wa
         torch.cuda.empty_cache()
         ranks = {}
         for world, jobs in by_world.items():
-            say(f"  ranks: W={world}, backend {ranks_backend(world, dev)}, devices "
-                f"{[str(D.rank_device(r, dev)) for r in range(world)]}, card {smi}")
             t0 = time.perf_counter()
             res = on_ranks(tp_train_job_rank, world, dev, jobs)
+            say(f"  ranks: W={world}, {ranks_reported(world, dev)}, card {smi}")
             say(f"  {world} ranks ({', '.join(jobs)}): {time.perf_counter() - t0:.1f} s wall; "
                 "rank 0's jobs " + ", ".join(f"{n} {res[0][n]['job_s']:.1f} s" for n in jobs))
             for name in jobs:
@@ -4591,19 +4595,25 @@ DP_FLASH_SHAPES = (("qwen1.5-32b TP 2 train", 1, 1024, 24, 24, 128),)
 DP_ACCOUNT_FILE = ROOT / "build" / "dryrun" / "chip_smoke" / "qwen-2x2-account.json"
 
 
+# 15a's, 15b's, 17a's, 17b's and 15c's depth: one layer (two until phase 18c
+# needed the time; a rank's step over gloo is mostly the embeddings' and the
+# experts' bytes through the host)
+DP_LAYERS = 1
+
+
 def dp_train_configs():
     """15a's and 15b's configs at published width, cut in depth, each on
     (2, 2) with ZeRO-2, 2 steps (3 before phase 16 needed the time) and no
     profiled step (the collectives are counted, `data_parallel.calls`):
-    15a phi3.5-moe x 2 of
-    32 layers (EP over "data", expert-TP over "model"); 15b qwen1.5-32b x 2
-    of 64 (FSDP over "data", TP over "model"): 1.05 B params in the two
-    layers and 1.56 B in the untied embeddings, 42 GB at 16 bytes a param
-    in the single process."""
+    15a phi3.5-moe x DP_LAYERS of 32 layers (EP over "data", expert-TP over
+    "model"; 1.57 B params at one layer, 0.26 B of them outside the layers);
+    15b qwen1.5-32b x DP_LAYERS of 64 (FSDP over "data", TP over "model";
+    2.10 B params at one layer, 1.56 B of them the untied embeddings, 34 GB
+    at 16 bytes a param in the single process)."""
     from repro_torch.configs import get_config
     phi, qwen = get_config("phi3.5-moe-42b-a6.6b"), get_config("qwen1.5-32b")
-    return {"15a": (phi.replace(n_layers=2), DP_TP_SHAPE, True, 2, False),
-            "15b": (qwen.replace(n_layers=2), DP_TP_SHAPE, True, 2, False)}
+    return {"15a": (phi.replace(n_layers=DP_LAYERS), DP_TP_SHAPE, True, 2, False),
+            "15b": (qwen.replace(n_layers=DP_LAYERS), DP_TP_SHAPE, True, 2, False)}
 
 
 def fsdp_leaves(cfg) -> int:
@@ -4816,7 +4826,7 @@ def dp_serve_gate(label, cfg, refs, ranks, smi):
 
 
 def dp_account_gate(card, smi, label="12d", path=DP_ACCOUNT_FILE):
-    """12d: the dry-run's meta account of 15b's rank 0 (qwen1.5-32b x 2 on an
+    """12d: the dry-run's meta account of 15b's rank 0 (qwen1.5-32b x 1 on an
     abstract (2, 2) mesh over the fake process group, computed beside
     phases 3-11 into DP_ACCOUNT_FILE) against the account of 15b's last step
     on the card, rank 0's (the host-staged collectives counted as the
@@ -4850,7 +4860,7 @@ def dp_account_gate(card, smi, label="12d", path=DP_ACCOUNT_FILE):
 
 def meta_account_main(path, rows=4, seq=1024, run="15b"):
     """Write the dry-run's meta account of `run`'s rank 0 to `path` (JSON):
-    the train step of its config (15b: qwen1.5-32b x 2; 17a: phi3.5-moe x 2
+    the train step of its config (15b: qwen1.5-32b x 1; 17a: phi3.5-moe x 1
     with Adafactor) on rank 0 of an abstract (2, 2) mesh, rows x seq tokens
     in 2 microbatches, ZeRO-2 over "data", at its learning rate
     (`train_lr`, held constant: the account of its last step)."""
@@ -4874,12 +4884,12 @@ def meta_account_main(path, rows=4, seq=1024, run="15b"):
 def dp_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
     """Phases 15 and 17, in one job on four ranks of a (2, 2) mesh on the
     cards present (ranks as in phase 13), at published width. Phase 15, FSDP
-    and expert parallelism over the data axis: 15a phi3.5-moe x 2 (EP,
-    expert-TP, ZeRO-2) and 15b qwen1.5-32b x 2 (FSDP, TP, ZeRO-2) trained as
+    and expert parallelism over the data axis: 15a phi3.5-moe x 1 (EP,
+    expert-TP, ZeRO-2) and 15b qwen1.5-32b x 1 (FSDP, TP, ZeRO-2) trained as
     phase 14 trains (train_ranks), the all-gathers, reduce-scatters and
     all-to-alls of a step held to the code's count (dp_spans); 15c decode on
-    (2, 2), phi3.5-moe x 2 (FSDP and EP, as the reference serves it) and
-    qwen1.5-32b x 2 (FSDP, its int8 cache): 4 prompts of 512 tokens, each
+    (2, 2), phi3.5-moe x 1 (FSDP and EP, as the reference serves it) and
+    qwen1.5-32b x 1 (FSDP, its int8 cache): 4 prompts of 512 tokens, each
     data rank two, then 8 decode steps (dp_serve_gate); 12d the dry-run's
     (2, 2) account of 15b's rank held to the card's (its last step); 15d the
     kernels at a rank's shapes. Phase 17, Adafactor: 17a and 17b, 15a's and
@@ -4901,15 +4911,15 @@ def dp_phase(seed, dev, smi, gen, n_micro=2, rows=4, seq=1024) -> dict:
     serve, refs = {}, {}
     rng = np.random.default_rng(seed + 5)
     for i, arch in enumerate(("phi3.5-moe-42b-a6.6b", "qwen1.5-32b")):
-        cfg = serve_config(get_config(arch)).replace(n_layers=2)
+        cfg = serve_config(get_config(arch)).replace(n_layers=DP_LAYERS)
         prompts = tp_prompts(cfg, seed + 6 + i, 4, 512, 512)
         tokens = rng.integers(0, cfg.vocab_size, (8, len(prompts))).tolist()
         name = f"15c {arch}"
         t0 = time.perf_counter()
         refs[name] = dp_serve_references(cfg, seed + 6 + i, prompts, tokens[0], dev,
                                          DP_TP_SHAPE[0] if cfg.family == "moe" else 1)
-        say(f"  15c single process, {arch} x 2: whole model and the gate's references in "
-            f"{time.perf_counter() - t0:.1f} s")
+        say(f"  15c single process, {arch} x {cfg.n_layers}: whole model and the gate's "
+            f"references in {time.perf_counter() - t0:.1f} s")
         serve[name] = dict(serve=True, cfg=cfg, shape=DP_TP_SHAPE, seed=seed + 6 + i,
                            prompts=prompts, tokens=tokens)
     say("phase 15a-c, 17a-b: the single processes first, then one job on 4 ranks")
@@ -5425,17 +5435,18 @@ AF_ACCOUNT_FILE = ROOT / "build" / "dryrun" / "chip_smoke" / "phi-adafactor-2x2-
 
 
 def adafactor_train_configs():
-    """17a's and 17b's configs: 15a's and 15b's (published width, 2 of 32
-    and 2 of 64 layers, (2, 2), ZeRO-2, 2 steps, no profile) with
+    """17a's and 17b's configs: 15a's and 15b's (published width, DP_LAYERS
+    of 32 and of 64 layers, (2, 2), ZeRO-2, 2 steps, no profile) with
     Adafactor: 17a phi3.5-moe's experts over "data" and d_ff over "model";
-    17b qwen1.5-32b's FSDP leaves over "data", TP over "model". Their
-    rounding floors are 0.0387 and 0.0189 of the update
+    17b qwen1.5-32b's FSDP leaves over "data", TP over "model". At two
+    layers their rounding floors were 0.0387 and 0.0189 of the update
     (tools/update_floor.py --optimizer adafactor; the same single-process
     runs inside this script printed 0.02914 and 0.01913 in two calls, bit
-    for bit, on an NVIDIA H100 80GB HBM3 at 700 W). Twice each is under
-    DP_UPDATE_TOL, so phase 17 gates its ranks at DP_UPDATE_TOL and does not
-    train its single processes again on the plain kernels (phase 16 does:
-    zamba2's floor is 0.09)."""
+    for bit, on an NVIDIA H100 80GB HBM3 at 700 W); at one layer the ranks
+    sat at 0.027-0.031 and 0.024 of their update (PERF.md). Twice each
+    floor is under DP_UPDATE_TOL, so phase 17 gates its ranks at
+    DP_UPDATE_TOL and does not train its single processes again on the
+    plain kernels (phase 16 does: zamba2's floor is 0.09)."""
     return {name.replace("15", "17"): (cfg.replace(optimizer="adafactor"), *rest)
             for name, (cfg, *rest) in dp_train_configs().items()}
 
@@ -5496,7 +5507,7 @@ def _tensors(tree):
 
 
 # ----------------------------------------------------------------------------
-# phase 18: the Slurm GPU backend's rendered ranks
+# phase 18: the Slurm and Kubernetes GPU backends' rendered ranks
 # ----------------------------------------------------------------------------
 
 # 18a: one node x one card: llama3-8b at published width, 1 of 32 layers
@@ -5537,8 +5548,34 @@ def slurm_ranks(shared, cluster_id, job_id, world, args):
                SLURM_NTASKS=str(world), SLURM_LOCALID="0")
     return [subprocess.Popen(["bash", f"{shared}/rank_{cluster_id}.sh", *args],
                              env=dict(env, SLURM_PROCID=str(r)), stdout=subprocess.PIPE,
-                             stderr=subprocess.PIPE, text=True, cwd=ROOT)
+                             stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                             start_new_session=True)
             for r in range(world)]
+
+
+def k8s_render(shared, cluster_id, nodes):
+    """The Kubernetes GPU backend's artifacts for `nodes` x one card, written
+    to the shared directory `shared`, as `rank_<id>.sh` is staged in the
+    shared claim."""
+    from repro_torch.backends import AllocationRequest, ContainerSpec, KubernetesGpuBackend
+    req = AllocationRequest(nodes=nodes, gpus_per_node=1, shared_dir=shared)
+    arts = KubernetesGpuBackend(ContainerSpec()).render_artifacts(req, cluster_id)
+    for name, text in arts.items():
+        Path(shared, name).write_text(text)
+    return arts
+
+
+def k8s_pods(shared, cluster_id, job_uid, nodes, args):
+    """`rank_<id>.sh` under bash once a node, with the variables a pod of the
+    indexed Job has: JOB_COMPLETION_INDEX, set by the Job, and JOB_UID, from
+    the downward API (no cluster here, so not through `ranks_<id>.yaml`).
+    Each shell leads a session of its own, with its ranks."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JOB_UID=job_uid)
+    return [subprocess.Popen(["bash", f"{shared}/rank_{cluster_id}.sh", *args],
+                             env=dict(env, JOB_COMPLETION_INDEX=str(n)), stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                             start_new_session=True)
+            for n in range(nodes)]
 
 
 def slurm_wait(label, procs, code, timeout=600):
@@ -5567,26 +5604,52 @@ def slurm_line(label, r, smi, launched):
         f"{t['build']:.1f}, to train {t['train']:.1f}")
 
 
-def slurm_phase(dev, smi) -> dict:
-    """Phase 18: the Slurm GPU backend's rendered `rank_<id>.sh` run as a
-    rank of each node would be. 18a: one node x one card (world 1, the
-    store decides NCCL), llama3-8b at full width, 1 layer, 2 steps: the
-    flash launches exact, all `flash_wgmma` with the lse, and step 1's loss
-    and grad norm held at SLURM_18A_TOL to this process's first step of the
-    same job (the same code, params and batch). 18b: two
-    nodes x one card, both on this card (the store decides gloo: one card's
-    UUID twice), SMOKE on (2, 1) with ZeRO-2: SIGTERM to rank 1 once the
-    step-1 checkpoint commits stops both ranks at one step with its
-    checkpoint; relaunched, both finish from it; losses and grad norms held
-    to one process's run of the same job at DP_METRIC_TOL, the final params
-    within DP_UPDATE_TOL of its update. A rank takes 13-20 s to join its
-    group here, most of it importing torch and starting CUDA, so 18a's rank
-    runs beside 18b's two launches, and this process's references beside
-    both: 18a's step times are taken with 18b's ranks on the card."""
+def rank_gate(label, r, ref, want):
+    """A rendered rank of llama3-8b's 18a job: the store decided NCCL, its
+    flash launches are `want`'s, all `flash_wgmma` with the lse, its losses
+    and grad norms finite, and step 1's held at SLURM_18A_TOL to this
+    process's first step `ref` of the same job."""
+    import numpy as np
+    n_flash = want["flash_attention"]
+    got = {k: r["launches"][k] for k in want}
+    ok = (r["backend"] == "nccl" and got == want and r["launches"]["flash_lse"] == n_flash
+          and r["launches"]["flash_by_path"] == {"wgmma": n_flash, "simt": 0})
+    say(f"  {'ok  ' if ok else 'FAIL'} {label}: the store ({r['store']}) decided "
+        f"{r['backend']} (want nccl); launches {got}, {r['launches']['flash_lse']} flash with "
+        f"the lse, by kernel {r['launches']['flash_by_path']} (want {want}, all flash_wgmma "
+        f"with the lse)")
+    if not ok:
+        fail(f"{label}: the rendered rank did not decide NCCL, or did not go through "
+             "flash_wgmma with the lse on every launch its layers ask for")
+    if not all(np.isfinite([h[k] for h in r["history"] for k in ("loss", "grad_norm")])):
+        fail(f"{label}: non-finite losses or grad norms {r['history']}")
+    for k in ("loss", "grad_norm"):
+        rel_gate(f"{label} step 1 {k}, the rank against this process's first step",
+                 r["history"][0][k], ref[k], SLURM_18A_TOL)
+
+
+def cluster_phase(dev, smi) -> dict:
+    """Phase 18: the Slurm and Kubernetes GPU backends' rendered
+    `rank_<id>.sh` run as each node would run it. 18a: Slurm's, one node x
+    one card (world 1, the store decides NCCL), llama3-8b at full width, 1
+    layer, 2 steps: the flash launches exact, all `flash_wgmma` with the
+    lse, and step 1's loss and grad norm held at SLURM_18A_TOL to this
+    process's first step of the same job (the same code, params and batch).
+    18b: Slurm's, two nodes x one card, both on this card (the store decides
+    gloo: one card's UUID twice), SMOKE on (2, 1) with ZeRO-2: SIGTERM to
+    rank 1 once the step-1 checkpoint commits stops both ranks at one step
+    with its checkpoint; relaunched, both finish from it; losses and grad
+    norms held to one process's run of the same job at DP_METRIC_TOL, the
+    final params within DP_UPDATE_TOL of its update. 18c: the Kubernetes
+    pod script of one node x one card, with the index and the Job's UID the
+    Job's pod would have, on 18a's job, held as 18a is. A rank takes 13-25 s
+    to join its group here, most of it importing torch and starting CUDA, so
+    18a's and 18c's ranks run beside 18b's two launches, and this process's
+    references beside them all: their step times are taken with the other
+    ranks on the card."""
     import signal
     import tempfile
     import threading
-    import numpy as np
     import torch
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.launch import rank as R
@@ -5599,18 +5662,22 @@ def slurm_phase(dev, smi) -> dict:
 
     out, procs = {}, []
     try:
-        with tempfile.TemporaryDirectory(prefix="chip-smoke-slurm-") as shared:
-            say("phase 18a: one node x one card, llama3-8b at published width, 1 of 32 layers, "
-                "2 steps of 4 x 1024 tokens through the rendered rank_<id>.sh; beside it 18b: "
-                "two nodes x one card, both ranks on this card, llama3-8b SMOKE on (2, 1) with "
-                "ZeRO-2, SIGTERM to one rank, then the relaunch")
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-cluster-") as shared:
+            say("phase 18a: Slurm, one node x one card, llama3-8b at published width, 1 of 32 "
+                "layers, 2 steps of 4 x 1024 tokens through the rendered rank_<id>.sh; beside "
+                "it 18b: Slurm, two nodes x one card, both ranks on this card, llama3-8b SMOKE "
+                "on (2, 1) with ZeRO-2, SIGTERM to one rank, then the relaunch; and 18c: "
+                "Kubernetes, the indexed Job's pod script of one node x one card on 18a's job")
             slurm_render(shared, "p18a", 1)
             slurm_render(shared, "p18b", 2)
+            job_c = k8s_render(shared, "p18c", 1)["ranks_p18c.yaml"]
             ckpt = Path(shared, "ckpt", "p18b")
             t0 = time.perf_counter()
             launched = [time.time()]
             procs = slurm_ranks(shared, "p18a", "1801", 1, SLURM_18A)
             rank_a = procs[0]
+            pod_c = k8s_pods(shared, "p18c", "18c0-job-uid", 1, SLURM_18A)
+            procs += pod_c
             pre = slurm_ranks(shared, "p18b", "1802", 2, SLURM_18B)
             procs += pre
 
@@ -5653,30 +5720,24 @@ def slurm_phase(dev, smi) -> dict:
             wall_post = time.perf_counter() - t1
             (r,) = slurm_wait("18a", [rank_a], 0)
             wall_a = time.perf_counter() - t0
+            (rc,) = slurm_wait("18c", pod_c, 0)
+            wall_c = time.perf_counter() - t0
 
-            slurm_line("18a", r, smi, launched[0])
-            cfg = R.job_config(args_a)
-            want = train_launches(cfg, R.N_MICRO, args_a.steps)
-            n_flash = want["flash_attention"]
-            got = {k: r["launches"][k] for k in want}
-            ok = (r["backend"] == "nccl" and got == want and r["launches"]["flash_lse"] == n_flash
-                  and r["launches"]["flash_by_path"] == {"wgmma": n_flash, "simt": 0})
-            say(f"  {'ok  ' if ok else 'FAIL'} 18a: the store decided {r['backend']} (want nccl); "
-                f"launches {got}, {r['launches']['flash_lse']} flash with the lse, by kernel "
-                f"{r['launches']['flash_by_path']} (want {want}, all flash_wgmma with the lse); "
-                f"the rank's command {wall_a:.1f} s")
-            if not ok:
-                fail("18a: the rendered rank did not decide NCCL, or did not go through "
-                     "flash_wgmma with the lse on every launch its layers ask for")
-            losses = [h["loss"] for h in r["history"]]
-            if not all(np.isfinite(losses + [h["grad_norm"] for h in r["history"]])):
-                fail(f"18a: non-finite losses or grad norms {r['history']}")
-            for k in ("loss", "grad_norm"):
-                rel_gate(f"18a step 1 {k}, the rank against this process's first step",
-                         r["history"][0][k], ref_a[k], SLURM_18A_TOL)
-            out["18a"] = dict(backend=r["backend"], step_ms=[h["ms"] for h in r["history"]],
-                              peak_gb=slurm_peak_gb(r), wall_s=wall_a, seconds=r["seconds"],
-                              launches=r["launches"])
+            want = train_launches(R.job_config(args_a), R.N_MICRO, args_a.steps)
+            for label, x, wall in (("18a", r, wall_a), ("18c", rc, wall_c)):
+                slurm_line(label, x, smi, launched[0])
+                say(f"  {label}: the rank's command {wall:.1f} s")
+                rank_gate(label, x, ref_a, want)
+                out[label] = dict(backend=x["backend"], step_ms=[h["ms"] for h in x["history"]],
+                                  peak_gb=slurm_peak_gb(x), wall_s=wall, seconds=x["seconds"],
+                                  launches=x["launches"], store=x["store"])
+            # the pod ran the Job's index arithmetic: rank 0 of 1, at the Job's own store
+            if ((rc["rank"], rc["world"]) != (0, 1)
+                    or not rc["store"].endswith("p18c-k8s-18c0-job-uid")):
+                fail(f"18c: the pod script started rank {rc['rank']} of {rc['world']} at "
+                     f"{rc['store']}")
+            if "completionMode: Indexed" not in job_c or "nvidia.com/gpu: 1" not in job_c:
+                fail("18c: the rendered Job is not an indexed Job of one-card pods")
 
             for label, rs, at in (("preempted", stopped, launched[0]),
                                   ("relaunched", resumed, launched[1])):
@@ -5728,13 +5789,17 @@ def slurm_phase(dev, smi) -> dict:
                               wall_s=[wall_pre, wall_post], update_dist=d,
                               seconds=[[x["seconds"] for x in rs] for rs in (stopped, resumed)])
             del trainer, state, like
-    finally:
+    finally:   # each rank with its shell (18c's rank is the shell's child)
         for p in procs:
             if p.poll() is None:
-                p.kill()
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
                 p.wait()
     torch.cuda.empty_cache()
-    runs = [out["18a"]["launches"]] + [x["launches"] for x in stopped + resumed]
+    runs = ([out["18a"]["launches"], out["18c"]["launches"]]
+            + [x["launches"] for x in stopped + resumed])
     out.update({k: sum(x[k] for x in runs) for k in kernel_counts()})
     out["flash_attention_by_path"] = {p: sum(x["flash_by_path"][p] for x in runs)
                                       for p in ("wgmma", "simt")}
@@ -5931,9 +5996,9 @@ def main() -> int:
     for ranks in _RANKS.values():   # the last phase on them: the card and cores go to 18's
         ranks.close()
     _RANKS.clear()
-    say("phase 18: the Slurm GPU backend's rendered ranks, a process a rank as srun starts "
-        "them")
-    runs["18"] = timed("18 Slurm ranks", slurm_phase, dev, smi)
+    say("phase 18: the Slurm and Kubernetes GPU backends' rendered ranks, a process a rank as "
+        "srun or a pod's script starts them")
+    runs["18"] = timed("18 Slurm, Kubernetes ranks", cluster_phase, dev, smi)
     say("phase 19: the kernel table and the device")
     say("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {sum(walls.values()):.1f} s")

@@ -1,30 +1,32 @@
 """One rank of the port's training job on a cluster node, the per-rank entry
-that `backends/slurm_gpu.py`'s `rank_<id>.sh` starts on every card of an
-allocation:
+that the `rank_<id>.sh` of `backends/slurm_gpu.py` and of
+`backends/kubernetes_gpu.py` starts on every card of an allocation:
 
     python3 -m repro_torch.launch.rank --rendezvous DIR --cluster-id ID \\
         --job-id JOB --rank R --world N --local-rank L \\
-        [--arch llama3-8b] [--layers K] [--mesh 2x4] [--steps S] [--device cuda]
+        [--arch llama3-8b] [--layers K] [--mesh 2x4] [--optimizer adafactor] \\
+        [--steps S] [--device cuda]
 
 Every rank runs the same job (SPMD, as every TPU host runs the same JAX
 program): it joins the process group (`distributed.init_rank`, at a store
 in the shared directory named by cluster and `--job-id`, which the rendered
-script makes of the job, its step and its restart, so a stale store of a
-killed step never joins a new group), lays the ranks out as a mesh over
-("data", "model"), or ("pod", "data", "model") for a three-part `--mesh`,
-row-major over the global ranks, so with node-major ranks the last axis
-stays inside a node; builds `--arch` on that mesh (`--layers` cuts depth
-only) and trains it with the port's Trainer and AdamW, checkpointing to
-`DIR/ckpt/ID`, restoring from there where a checkpoint exists. On SIGTERM
-the ranks agree on a step, save it and stop: the rank exits
-EXIT_PREEMPTED (75), and a relaunch resumes from that step.
+script makes of what names one launch, Slurm's job, step and restart or
+the Kubernetes Job's UID, so a stale store of a killed launch never joins
+a new group), lays the ranks out as a mesh over ("data", "model"), or
+("pod", "data", "model") for a three-part `--mesh`, row-major over the
+global ranks, so with node-major ranks the last axis stays inside a node;
+builds `--arch` on that mesh (`--layers` cuts depth only) and trains it
+with the port's Trainer and `--optimizer` (default: the config's, AdamW or
+Adafactor), checkpointing to `DIR/ckpt/ID`, restoring from there where a
+checkpoint exists. On SIGTERM the ranks agree on a step, save it and stop:
+the rank exits EXIT_PREEMPTED (75), and a relaunch resumes from that step.
 
 The device is the card (`cuda:(local rank % cards)`) unless `--device cpu`
 is asked for; without a card a CUDA run raises. Each rank prints one JSON
-line when it stops: its backend, device and mesh, the step it started and
-stopped at, each step's loss, grad norm and wall ms, its peak card memory,
-its kernels' launches, and the seconds it took to join the group, to build
-and restore the state, and to train (with the checkpoints).
+line when it stops: its backend, store, device and mesh, the step it
+started and stopped at, each step's loss, grad norm and wall ms, its peak
+card memory, its kernels' launches, and the seconds it took to join the
+group, to build and restore the state, and to train (with the checkpoints).
 """
 from __future__ import annotations
 
@@ -60,6 +62,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default=None,
                     help="DxM over (data, model) or PxDxM over (pod, data, model); "
                          "default: <world>x1")
+    ap.add_argument("--optimizer", choices=("adamw", "adafactor"), default=None,
+                    help="the optimizer (default: the config's)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8, help="global batch, rows")
     ap.add_argument("--seq", type=int, default=1024)
@@ -101,7 +105,8 @@ def make_trainer(args, dev, mesh, ckpt_dir: str):
     cfg = job_config(args)
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                     global_batch=args.batch, seed=SEED))
-    return Trainer(build_model(cfg, device=dev, mesh=mesh), make_optimizer("adamw"), pipe,
+    return Trainer(build_model(cfg, device=dev, mesh=mesh),
+                   make_optimizer(args.optimizer or cfg.optimizer), pipe,
                    Checkpointer(ckpt_dir),
                    TrainerConfig(num_steps=args.steps, ckpt_every=args.ckpt_every, log_every=1,
                                  n_microbatches=N_MICRO, warmup=args.warmup))
@@ -152,8 +157,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         walls = [0.0] + [h["wall_s"] for h in trainer.history]
         print(json.dumps({
             "rank": args.rank, "world": args.world, "backend": dist.get_backend(),
-            "device": str(dev), "mesh": list(shape), "start": start, "stopped": stopped,
-            "preempted": code == EXIT_PREEMPTED,
+            "store": store, "device": str(dev), "mesh": list(shape), "start": start,
+            "stopped": stopped, "preempted": code == EXIT_PREEMPTED,
             "history": [{"step": h["step"], "loss": h["loss"], "grad_norm": h["grad_norm"],
                          "ms": (walls[i + 1] - walls[i]) * 1e3}
                         for i, h in enumerate(trainer.history)],

@@ -37,26 +37,13 @@ JSON; the tests hold them to their tolerances:
     over pod, gathered before use): the ranks' blocks put together within
     1e-6 of one process with 4 dispatch groups.
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
-
 import pytest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 300
+import _torch_subproc as subproc
 
 
 def _run(script: str, devices: int) -> dict:
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
-    env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), os.path.join(REPO, "tests")])
-    out = subprocess.run([sys.executable, "-c", textwrap.dedent(script)], capture_output=True,
-                         text=True, timeout=TIMEOUT, env=env, cwd=REPO)
-    assert out.returncode == 0, f"stdout:\n{out.stdout}\nstderr:\n{out.stderr[-6000:]}"
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subproc.run(script, devices=devices)
 
 
 @pytest.fixture(scope="module")

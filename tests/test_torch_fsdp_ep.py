@@ -38,12 +38,6 @@ dry-run's state and grad shardings) against its single-device step, held
 as the port's steps are; and `FSDPGather`'s and `ExpertAllToAll`'s
 backwards, on 2 and 4 ranks.
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
-
 import pytest
 import torch
 
@@ -54,8 +48,8 @@ from repro_torch.models import build_model
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.train.steps import make_train_step, train_state
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 300
+import _torch_subproc as subproc
+
 # name -> (arch, mesh shape, ZeRO-2)
 CASES = {
     "qwen1.5-32b/2x1": ("qwen1.5-32b", (2, 1), False),
@@ -75,13 +69,7 @@ LOSS_TOL, GRAD_TOL, STEP_REL, STEP_ABS, METRIC_TOL = 1e-5, 1e-4, 1e-2, 1e-5, 1e-
 
 @pytest.fixture(scope="module")
 def runs():
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), os.path.join(REPO, "tests")])
-    out = subprocess.run([sys.executable, "-W", "ignore", "-c", textwrap.dedent(SCRIPT)],
-                         capture_output=True, text=True, timeout=TIMEOUT, env=env, cwd=REPO)
-    assert out.returncode == 0, f"stdout:\n{out.stdout}\nstderr:\n{out.stderr[-6000:]}"
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subproc.run(SCRIPT, devices=4)
 
 
 SCRIPT = """

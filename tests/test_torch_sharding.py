@@ -25,11 +25,6 @@ to the checkpoint, every block the one asked for; a W=4 run resumed from the
 checkpoint ends bit-identical to the straight W=4 run.
 """
 import functools
-import json
-import os
-import subprocess
-import sys
-import textwrap
 import types
 
 import jax
@@ -50,7 +45,7 @@ from repro_torch.sharding import axes as A
 from repro_torch.sharding import rules as R
 from repro_torch.tree import flatten
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import _torch_subproc as subproc
 
 MESHES = {"single_pod": ((16, 16), ("data", "model"), A.single_pod_rules,
                          JA.single_pod_rules),
@@ -233,8 +228,6 @@ def test_placements_and_blocks_of_a_spec():
 @pytest.fixture(scope="module")
 def restore(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("ckpt"))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), os.path.join(REPO, "tests")])
     script = f"""
         import json, os
         import numpy as np
@@ -295,10 +288,7 @@ def restore(tmp_path_factory):
             res[f"w2_{{stack}}"] = {{"bad": bad, "blocks": blocks}}
         print(json.dumps(res))
     """
-    out = subprocess.run([sys.executable, "-c", textwrap.dedent(script)], capture_output=True,
-                         text=True, timeout=300, env=env, cwd=REPO)
-    assert out.returncode == 0, f"stdout:\n{out.stdout}\nstderr:\n{out.stderr[-6000:]}"
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subproc.run(script)
 
 
 def test_restore_resharded_arange_values(restore):

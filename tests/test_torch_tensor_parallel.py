@@ -38,12 +38,6 @@ all against JAX's single-device prefill/decode_step on the same bridged
 params; the ranks' logits identical; and JAX's own run under a (1, n) mesh
 with Auto axes and `axis_rules` against its single-device run.
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
-
 import pytest
 import torch
 
@@ -57,8 +51,8 @@ from repro_torch.sharding.rules import shardings_for
 from repro_torch.train.steps import make_train_step, train_state
 from repro_torch.tree import flatten
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 300
+import _torch_subproc as subproc
+
 SERVED = ["llama3-8b", "granite-8b", "qwen1.5-32b", "stablelm-12b", "internvl2-76b",
           "phi3.5-moe-42b-a6.6b", "arctic-480b"]
 MESHES = {"1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2)}
@@ -68,13 +62,7 @@ PARITY = [("llama3-8b", 2), ("llama3-8b", 4), ("qwen1.5-32b", 2), ("qwen1.5-32b"
 
 
 def _run(script: str, devices: int) -> dict:
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
-    env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), os.path.join(REPO, "tests")])
-    out = subprocess.run([sys.executable, "-W", "ignore", "-c", textwrap.dedent(script)],
-                         capture_output=True, text=True, timeout=TIMEOUT, env=env, cwd=REPO)
-    assert out.returncode == 0, f"stdout:\n{out.stdout}\nstderr:\n{out.stderr[-6000:]}"
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subproc.run(script, devices=devices)
 
 
 @pytest.fixture(scope="module")

@@ -48,12 +48,6 @@ global block equal to JAX's `devices_indices_map` of its grad shardings,
 and the local block (`Shardings.local_index`) that block's place inside
 the rank's "model" block.
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
-
 import numpy as np
 import pytest
 import torch
@@ -66,8 +60,8 @@ from repro_torch.sharding.axes import single_pod_rules
 from repro_torch.sharding.rules import shardings_for
 from repro_torch.train.steps import make_train_step, train_state
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 300
+import _torch_subproc as subproc
+
 # name -> (arch, mesh shape, ZeRO-2)
 CASES = {
     "llama3-8b/1x2": ("llama3-8b", (1, 2), False),
@@ -90,13 +84,7 @@ LOSS_TOL, GRAD_TOL, STEP_REL, STEP_ABS, METRIC_TOL = 1e-5, 1e-4, 1e-2, 1e-5, 1e-
 
 @pytest.fixture(scope="module")
 def runs():
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), os.path.join(REPO, "tests")])
-    out = subprocess.run([sys.executable, "-W", "ignore", "-c", textwrap.dedent(SCRIPT)],
-                         capture_output=True, text=True, timeout=TIMEOUT, env=env, cwd=REPO)
-    assert out.returncode == 0, f"stdout:\n{out.stdout}\nstderr:\n{out.stderr[-6000:]}"
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subproc.run(SCRIPT, devices=4)
 
 
 SCRIPT = """

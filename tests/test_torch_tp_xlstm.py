@@ -68,12 +68,6 @@ steps on the same batches and schedule as the steps above.
 Specs: every leaf's spec and each rank's block equal JAX's
 `named_shardings` on (1, 2), (1, 4) and (2, 2), SMOKE and full.
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
-
 import pytest
 import torch
 
@@ -85,8 +79,8 @@ from repro_torch.sharding.axes import single_pod_rules
 from repro_torch.sharding.rules import model_shardings
 from repro_torch.tree import flatten
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 300
+import _torch_subproc as subproc
+
 SERVE = {"1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2)}
 # name -> (optimizer, mesh shape, ZeRO-2)
 TRAIN = {f"{opt}/{name}": (opt, shape, zero) for opt in ("adamw", "adafactor")
@@ -383,13 +377,7 @@ SCRIPT = """
 
 @pytest.fixture(scope="module")
 def runs():
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), os.path.join(REPO, "tests")])
-    out = subprocess.run([sys.executable, "-W", "ignore", "-c", textwrap.dedent(SCRIPT)],
-                         capture_output=True, text=True, timeout=TIMEOUT, env=env, cwd=REPO)
-    assert out.returncode == 0, f"stdout:\n{out.stdout}\nstderr:\n{out.stderr[-6000:]}"
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subproc.run(SCRIPT, devices=4)
 
 
 @pytest.mark.parametrize("name", list(SERVE))

@@ -44,16 +44,10 @@ on (2, 2), where the Trainer runs ZeRO-2, llama3-8b SMOKE (AdamW and
 Adafactor), phi3.5-moe SMOKE with Adafactor (EP) and qwen1.5-32b SMOKE
 with AdamW (FSDP).
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
-
 import pytest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 300
+import _torch_subproc as subproc
+
 # name -> (arch, mesh shape, ZeRO-2)
 CASES = {
     "arctic-480b/2x1-zero2": ("arctic-480b", (2, 1), True),
@@ -87,13 +81,7 @@ LOSS_TOL, GRAD_TOL, STEP_REL, STEP_ABS, METRIC_TOL = 1e-5, 1e-4, 1e-2, 1e-5, 1e-
 
 @pytest.fixture(scope="module")
 def runs():
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), os.path.join(REPO, "tests")])
-    out = subprocess.run([sys.executable, "-W", "ignore", "-c", textwrap.dedent(SCRIPT)],
-                         capture_output=True, text=True, timeout=TIMEOUT, env=env, cwd=REPO)
-    assert out.returncode == 0, f"stdout:\n{out.stdout}\nstderr:\n{out.stderr[-6000:]}"
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subproc.run(SCRIPT, devices=4)
 
 
 SCRIPT = """

@@ -32,6 +32,13 @@ profiled prefill (`prefill_ab`); and the profiled decode windows of phases
 tree's own `chip_smoke.py` prints (this script's
 `chip_smoke.profile_steps` replaces the tree's). Needs a CUDA device;
 exits non-zero if any tree fails.
+
+    python3 tools/chip_ab.py --whole [--log-dir DIR] TREE [TREE ...]
+
+runs each tree's whole `chip_smoke.py` instead, as it is run on its own
+(`python3 chip_smoke.py` from the tree's root), one after the other: for
+each, its exit code, the command's seconds, its phase walls line and its
+last line, and with `--log-dir` its whole output in DIR.
 """
 from __future__ import annotations
 
@@ -263,12 +270,41 @@ def run_tree(root: Path, seed: int) -> int:
     return 0
 
 
+def run_whole(trees, log_dir) -> int:
+    """Each tree's `chip_smoke.py` from its root, one after the other."""
+    rc = 0
+    for i, tree in enumerate(trees):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, capture_output=True,
+                             text=True)
+        wall = time.perf_counter() - t0
+        if log_dir is not None:
+            log_dir.mkdir(parents=True, exist_ok=True)
+            (log_dir / f"{i}_{tree.resolve().name}.log").write_text(
+                out.stdout + "\n---- stderr ----\n" + out.stderr)
+        lines = out.stdout.strip().splitlines()
+        walls = [ln for ln in lines if ln.startswith("phase wall times:")]
+        print(f"== tree {tree}: exit {out.returncode}, command {wall:.1f} s", flush=True)
+        print(f"  {walls[-1] if walls else 'no phase walls'}")
+        print(f"  last line: {lines[-1] if lines else ''}", flush=True)
+        if out.returncode:
+            print(out.stderr[-3000:], file=sys.stderr)
+            rc = 1
+    return rc
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+", type=Path)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--whole", action="store_true",
+                    help="run each tree's whole chip_smoke.py and print its walls")
+    ap.add_argument("--log-dir", type=Path, default=None,
+                    help="with --whole: write each tree's output here")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.whole:
+        return run_whole(args.trees, args.log_dir)
     if args.one:
         return run_tree(args.trees[0].resolve(), args.seed)
     rc = 0

@@ -7,8 +7,8 @@ Adafactor and checkpoints, on the cards present.
 
 Builds the kernels, writes the dry-run's meta accounts of 15b's and 17a's
 rank 0 (`chip_smoke.meta_account_main`), then runs `chip_smoke.dp_phase` (15a
-phi3.5-moe x 2 layers on a (2, 2) mesh with EP, expert-TP and ZeRO-2; 15b
-qwen1.5-32b x 2 with FSDP, TP and ZeRO-2, each against one process's steps;
+phi3.5-moe x 1 layer on a (2, 2) mesh with EP, expert-TP and ZeRO-2; 15b
+qwen1.5-32b x 1 with FSDP, TP and ZeRO-2, each against one process's steps;
 15c decode on (2, 2) of both; 17a and 17b the same two with Adafactor, each
 against one process's steps and its rounding floor; 17c 17a's state saved
 from the ranks and restored into one process and into the ranks; 12d and

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Phase 18 of chip_smoke.py alone: the Slurm GPU backend's rendered
-`rank_<id>.sh` run as a rank of each node would be, on the card present.
+"""Phase 18 of chip_smoke.py alone: the Slurm and Kubernetes GPU backends'
+rendered `rank_<id>.sh` run as each node would run it, on the card present.
 
     PYTHONPATH=src python3 tools/slurm_phase.py
 
-Builds the kernels, then runs `chip_smoke.slurm_phase`: 18a one node x one
+Builds the kernels, then runs `chip_smoke.cluster_phase`: 18a one node x one
 card (the store decides NCCL), llama3-8b at full width and 1 of 32 layers
 trained 2 steps, its flash launches exact and all `flash_wgmma` with the
 lse; 18b two nodes x one card on this one card (the store decides gloo),
 llama3-8b SMOKE on (2, 1) with ZeRO-2, one rank sent SIGTERM, both
-stopping at one step, relaunched and held to one process's run.
+stopping at one step, relaunched and held to one process's run; 18c the
+Kubernetes indexed Job's pod script of one node x one card on 18a's job,
+held as 18a is.
 """
 from __future__ import annotations
 
@@ -36,9 +38,9 @@ def main() -> int:
     build.build()
     C.say(f"  built in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    out = C.slurm_phase(torch.device("cuda"), smi)
+    out = C.cluster_phase(torch.device("cuda"), smi)
     C.say(f"  [phase 18: {time.perf_counter() - t0:.1f} s wall]")
-    C.say({k: v for k, v in out.items() if k in ("18a", "18b")})
+    C.say({k: v for k, v in out.items() if k in ("18a", "18b", "18c")})
     return 0
 
 

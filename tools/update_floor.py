@@ -5,9 +5,9 @@ bf16 training runs move apart when only the order of their sums differs.
     PYTHONPATH=src python3 tools/update_floor.py [--arch zamba2-2.7b] [--layers 6]
         [--seq 1024] [--rows 4] [--steps 2] [--seed 19] [--optimizer adamw] [--groups 1]
         [--param-dtype bfloat16]
-    PYTHONPATH=src python3 tools/update_floor.py --arch phi3.5-moe-42b-a6.6b --layers 2 \
+    PYTHONPATH=src python3 tools/update_floor.py --arch phi3.5-moe-42b-a6.6b --layers 1 \
         --optimizer adafactor --groups 2      # 17a's config
-    PYTHONPATH=src python3 tools/update_floor.py --arch qwen1.5-32b --layers 2 \
+    PYTHONPATH=src python3 tools/update_floor.py --arch qwen1.5-32b --layers 1 \
         --optimizer adafactor                 # 17b's
     PYTHONPATH=src python3 tools/update_floor.py --arch xlstm-350m --layers 8 --seq 64 \
         --rows 32 --param-dtype float32       # 16e's (its mLSTM heads reversed)
