@@ -360,7 +360,18 @@ nothing is caught and carried on.
      process's run of the same job at DP_METRIC_TOL and their final
      checkpoint's params within DP_UPDATE_TOL of its update. Each rank's
      backend, step ms, peak memory and seconds to join, build and train
-     are printed;
+     are printed; c. the Kubernetes backend's pod script on a's job, held
+     as a is; d. serving across ranks: two nodes x one card on this card
+     (gloo), `launch/rank.py --serve` of llama3-8b at published width, 2 of
+     32 layers, on a 2x1 mesh (two replicas, the port's router on rank 0,
+     each replica's ops over the job's store), 16 requests of 64-512
+     prompt tokens and 48 new ones, SIGTERM to rank 1 once its replica has
+     finished a request: replica r1 retired and rank 1 exiting 75, rank 0
+     0, every request finished once; held to this process's replay of
+     rank 0's run over two local engines on the same params (tokens, the
+     replica of each request and the router's stats identical), each
+     rank's flash and decode launches exact and all `flash_wgmma` and
+     `decode_split`;
  19. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
      at C=320, ssd_scan's with its plain backward, flash's, decode's,
      moe_gmm's and ssd_scan's with their rows at phase 9's, 13's, 14's,
@@ -5579,10 +5590,17 @@ def k8s_pods(shared, cluster_id, job_uid, nodes, args):
 
 
 def slurm_wait(label, procs, code, timeout=600):
-    """Each rank's JSON line once it exits; fails unless it exited `code`."""
+    """Each rank's JSON line once it exits; fails unless it exited `code`
+    within `timeout` s (a rank still running is killed with its shell)."""
+    import signal
     out = []
     for r, p in enumerate(procs):
-        stdout, stderr = p.communicate(timeout=timeout)
+        try:
+            stdout, stderr = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            stdout, stderr = p.communicate()
+            fail(f"{label}: rank {r} did not exit within {timeout} s:\n{stderr[-3000:]}")
         if p.returncode != code:
             fail(f"{label}: rank {r} exited {p.returncode}, want {code}:\n{stderr[-3000:]}")
         out.append(json.loads(stdout.strip().splitlines()[-1]))
@@ -5628,6 +5646,120 @@ def rank_gate(label, r, ref, want):
                  r["history"][0][k], ref[k], SLURM_18A_TOL)
 
 
+# 18d: two "nodes" x one card, both on this card: llama3-8b at published
+# width, 2 of 32 layers, bf16, served on (2, 1): two replicas of one rank,
+# the router on rank 0; 16 requests of 64-512 prompt tokens from the seed,
+# 48 new tokens each (the requests and outputs files are the phase's)
+SLURM_18D = ("--arch", "llama3-8b", "--layers", "2", "--mesh", "2x1", "--serve", "--slots", "4",
+             "--max-len", "1024", "--queue", "2", "--replica-timeout", "120")
+SERVE_18D_REQUESTS, SERVE_18D_NEW, SERVE_18D_PROMPTS = 16, 48, (64, 512)
+SERVE_STATS = ("requests", "completed", "rerouted", "retried", "shed", "ticks")
+
+
+def serve_requests(path, vocab, seed, n=SERVE_18D_REQUESTS, new_tokens=SERVE_18D_NEW,
+                   lens=SERVE_18D_PROMPTS):
+    """`n` requests of `new_tokens` new tokens, prompt lengths and tokens
+    drawn from `seed`, as the JSONL `launch/rank.py --requests` reads."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(n):
+            prompt = rng.integers(0, vocab, int(rng.integers(lens[0], lens[1] + 1))).tolist()
+            f.write(json.dumps({"id": i, "prompt": prompt, "max_new_tokens": new_tokens,
+                                "eos_id": -1}) + "\n")
+
+
+def serve_outputs(path) -> list:
+    """The finished requests rank 0 has appended to its outputs file, whole
+    lines only."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f.read().splitlines(keepends=True) if ln.endswith("\n")]
+
+
+def serve_gate(label, ranks, outputs, again, cfg, smi):
+    """18d's gates on its ranks' lines, rank 0's outputs file and this
+    process's replay `again` of rank 0's run: the store decided gloo; rank 1
+    took SIGTERM and its replica was retired; every request finished once,
+    none left; tokens, the replica of each request and the router's stats
+    identical to the replay; each rank's flash launches its prefills x
+    layers, all `flash_wgmma`, and its decode launches its decode steps x
+    layers, all `decode_split`, and no other kernel. Prints each rank's
+    seconds, tick ms, peak memory and store round trip; returns what the
+    phase reports."""
+    import statistics
+    routed = ranks[0]["router"]
+    for r in ranks:
+        t = r["seconds"]
+        ms = r["tick_ms"] or [0.0]
+        say(f"  [{smi}] {label} rank {r['rank']} ({r['role']}, {r['replica']}): backend "
+            f"{r['backend']}, {r['device']}; seconds to join {t['join']:.1f}, to build "
+            f"{t['build']:.1f}, to serve {t['serve']:.1f}; {r['ticks']} tick ops, ms median "
+            f"{statistics.median(ms):.2f} max {max(ms):.2f}; engine {r['engine']}; peak "
+            f"{slurm_peak_gb(r):.2f} GB; exit {r['exit']}")
+    rtt = {rid: statistics.median(v) for rid, v in routed["store_ms"].items() if v}
+    say(f"  {label}: the store's round trip less the replica's work, median of the ops, ms "
+        f"{ {k: round(v, 3) for k, v in rtt.items()} }; the router's p99 {routed['p99_ms']:.1f} "
+        f"ms, stats {routed['stats']}, retired {routed['retired']}, failed {routed['failed']}")
+    got = {str(o["id"]): o["output"] for o in outputs}
+    assigned = {str(o["id"]): o["replica"] for o in outputs}
+    ok = (all(r["backend"] == "gloo" for r in ranks) and ranks[1]["signalled"]
+          and list(routed["retired"]) == ["r1"] and not routed["failed"]
+          and len(outputs) == len(got) == SERVE_18D_REQUESTS and not routed["unserved"]
+          and set(routed["completions"].values()) == {1})
+    say(f"  {'ok  ' if ok else 'FAIL'} {label}: gloo on both ranks; SIGTERM to rank 1 retired "
+        f"{list(routed['retired'])} at tick {routed['retired'].get('r1', {}).get('tick')}; "
+        f"{len(got)} of {SERVE_18D_REQUESTS} requests finished, each once")
+    if not ok:
+        fail(f"{label}: the store did not decide gloo, the SIGTERM did not retire replica r1, or "
+             "a request was lost or finished twice")
+    same = (got == again["outputs"] and assigned == routed["assigned"] == again["assigned"]
+            and {k: routed["stats"][k] for k in SERVE_STATS}
+            == {k: again["stats"][k] for k in SERVE_STATS})
+    say(f"  {'ok  ' if same else 'FAIL'} {label}: tokens, replicas and stats against this "
+        f"process's replay of rank 0's run (stats {again['stats']})")
+    if not same:
+        fail(f"{label}: the ranks' tokens, routing or stats part from the in-process replay")
+    for r in ranks:
+        n_pre, n_dec = r["engine"]["prefills"] * cfg.n_layers, r["engine"]["ticks"] * cfg.n_layers
+        lc = r["launches"]
+        good = (lc["flash_attention"] == n_pre
+                and lc["flash_by_path"] == {"wgmma": n_pre, "simt": 0}
+                and lc["decode_attention"] == n_dec
+                and lc["decode_by_path"] == {"split": n_dec, "simt": 0} and lc["flash_lse"] == 0
+                and lc["moe_gmm"] == lc["ssm_scan"] == 0)
+        say(f"  {'ok  ' if good else 'FAIL'} {label} rank {r['rank']}: flash {lc['flash_by_path']} "
+            f"(want {n_pre} flash_wgmma), decode {lc['decode_by_path']} (want {n_dec} "
+            f"decode_split)")
+        if not good:
+            fail(f"{label}: rank {r['rank']}'s launches are not its prefills' and decode steps' "
+                 "on flash_wgmma and decode_split")
+    return dict(backend=[r["backend"] for r in ranks], stats=routed["stats"],
+                retired=routed["retired"], p99_ms=routed["p99_ms"], store_ms_median=rtt,
+                tick_ms=[r["tick_ms"] for r in ranks], peak_gb=[slurm_peak_gb(r) for r in ranks],
+                seconds=[r["seconds"] for r in ranks], launches=[r["launches"] for r in ranks])
+
+
+def serve_replay(shared, dev, routed, args):
+    """Rank 0's run of 18d replayed in this process (`launch/serve.py::
+    replay`): the port's Router over two local engines on the job's params,
+    each a `ReplicaActor` behind an `ActorReplicaHandle`, r1 exiting from
+    the op rank 0 saw it at."""
+    import torch
+    from repro_torch.launch import rank as R
+    from repro_torch.launch.serve import read_requests, replay
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.router import ReplicaActor
+    model = build_model(R.job_config(args), device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(R.SEED))
+    actors = {f"r{d}": ReplicaActor(engine=ServeEngine(model, params, batch_slots=args.slots,
+                                                       max_len=args.max_len, device=dev))
+              for d in range(2)}
+    return replay(read_requests(f"{shared}/p18d-requests.jsonl"), actors, routed, args.queue)
+
+
 def cluster_phase(dev, smi) -> dict:
     """Phase 18: the Slurm and Kubernetes GPU backends' rendered
     `rank_<id>.sh` run as each node would run it. 18a: Slurm's, one node x
@@ -5642,11 +5774,15 @@ def cluster_phase(dev, smi) -> dict:
     norms held to one process's run of the same job at DP_METRIC_TOL, the
     final params within DP_UPDATE_TOL of its update. 18c: the Kubernetes
     pod script of one node x one card, with the index and the Job's UID the
-    Job's pod would have, on 18a's job, held as 18a is. A rank takes 13-25 s
-    to join its group here, most of it importing torch and starting CUDA, so
-    18a's and 18c's ranks run beside 18b's two launches, and this process's
-    references beside them all: their step times are taken with the other
-    ranks on the card."""
+    Job's pod would have, on 18a's job, held as 18a is. 18d: Slurm's, two
+    nodes x one card on this card (gloo), llama3-8b at full width and 2
+    layers served on (2, 1) behind rank 0's router, SIGTERM to rank 1 once
+    replica r1 has finished a request (`serve_gate`; replayed here,
+    `serve_replay`). A rank takes 13-25 s to join its group here, most of
+    it importing torch and starting CUDA, so 18a's, 18c's and 18d's ranks
+    run beside 18b's two launches, and this process's references beside
+    them all (18d's ranks start once 18a's reference has freed its memory):
+    their step and tick times are taken with the other ranks on the card."""
     import signal
     import tempfile
     import threading
@@ -5667,8 +5803,17 @@ def cluster_phase(dev, smi) -> dict:
                 "layers, 2 steps of 4 x 1024 tokens through the rendered rank_<id>.sh; beside "
                 "it 18b: Slurm, two nodes x one card, both ranks on this card, llama3-8b SMOKE "
                 "on (2, 1) with ZeRO-2, SIGTERM to one rank, then the relaunch; and 18c: "
-                "Kubernetes, the indexed Job's pod script of one node x one card on 18a's job")
+                "Kubernetes, the indexed Job's pod script of one node x one card on 18a's job; "
+                "18d: Slurm, two nodes x one card serving llama3-8b at published width, 2 "
+                "layers, on 2x1 behind rank 0's router, SIGTERM to rank 1")
             slurm_render(shared, "p18a", 1)
+            slurm_render(shared, "p18d", 2)
+            args_d = job_args("p18d", SLURM_18D)
+            serve_requests(f"{shared}/p18d-requests.jsonl", R.job_config(args_d).vocab_size,
+                           R.SEED + 18)
+            serving = (*SLURM_18D, "--requests", f"{shared}/p18d-requests.jsonl",
+                       "--outputs", f"{shared}/p18d-outputs.jsonl")
+            signalled_d = []
             slurm_render(shared, "p18b", 2)
             job_c = k8s_render(shared, "p18c", 1)["ranks_p18c.yaml"]
             ckpt = Path(shared, "ckpt", "p18b")
@@ -5696,10 +5841,25 @@ def cluster_phase(dev, smi) -> dict:
             # and batch the rank draws
             args_a = job_args("p18a", SLURM_18A)
             one = R.make_trainer(args_a, dev, None, f"{shared}/one-18a")   # allocates nothing
-            _, metrics = one._step_fn(one.init_or_restore(R.SEED), one._batch(0))
+            stepped, metrics = one._step_fn(one.init_or_restore(R.SEED), one._batch(0))
             ref_a = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
-            del one, metrics
+            del one, metrics, stepped   # the stepped state's 12.7 GB too, before 18d starts
             torch.cuda.empty_cache()
+            launched_d = time.time()
+            served = slurm_ranks(shared, "p18d", "1804", 2, serving)
+            procs += served
+
+            def retire():   # SIGTERM to rank 1 once replica r1 has finished a request
+                while served[1].poll() is None and time.perf_counter() - t0 < 400:
+                    if any(o["replica"] == "r1" for o in
+                           serve_outputs(f"{shared}/p18d-outputs.jsonl")):
+                        served[1].send_signal(signal.SIGTERM)
+                        signalled_d.append(time.perf_counter() - t0)
+                        return
+                    time.sleep(0.002)
+
+            retirer = threading.Thread(target=retire)
+            retirer.start()
             signaller.join()
             if not signalled:
                 fail("18b: the ranks ended or stalled before their step-1 checkpoint")
@@ -5722,6 +5882,12 @@ def cluster_phase(dev, smi) -> dict:
             wall_a = time.perf_counter() - t0
             (rc,) = slurm_wait("18c", pod_c, 0)
             wall_c = time.perf_counter() - t0
+            rank_d0 = slurm_wait("18d rank 0", served[:1], 0)
+            rank_d1 = slurm_wait("18d rank 1", served[1:], R.EXIT_PREEMPTED)
+            wall_d = time.perf_counter() - t0
+            retirer.join()
+            if not signalled_d:
+                fail("18d: replica r1 finished no request before the job ended")
 
             want = train_launches(R.job_config(args_a), R.N_MICRO, args_a.steps)
             for label, x, wall in (("18a", r, wall_a), ("18c", rc, wall_c)):
@@ -5789,6 +5955,18 @@ def cluster_phase(dev, smi) -> dict:
                               wall_s=[wall_pre, wall_post], update_dist=d,
                               seconds=[[x["seconds"] for x in rs] for rs in (stopped, resumed)])
             del trainer, state, like
+            torch.cuda.empty_cache()
+            say(f"  18d: SIGTERM to rank 1 at {signalled_d[0]:.1f} s; the ranks' commands "
+                f"{wall_d:.1f} s from the phase's start, launched "
+                f"{launched_d - launched[0]:.1f} s into it")
+            t_replay = time.perf_counter()
+            again = serve_replay(shared, dev, rank_d0[0]["router"], args_d)
+            say(f"  18d: this process's replay {time.perf_counter() - t_replay:.1f} s")
+            out["18d"] = serve_gate("18d", rank_d0 + rank_d1,
+                                    serve_outputs(f"{shared}/p18d-outputs.jsonl"), again,
+                                    R.job_config(args_d), smi)
+            out["18d"]["wall_s"] = wall_d
+            del again
     finally:   # each rank with its shell (18c's rank is the shell's child)
         for p in procs:
             if p.poll() is None:
@@ -5799,10 +5977,12 @@ def cluster_phase(dev, smi) -> dict:
                 p.wait()
     torch.cuda.empty_cache()
     runs = ([out["18a"]["launches"], out["18c"]["launches"]]
-            + [x["launches"] for x in stopped + resumed])
+            + [x["launches"] for x in stopped + resumed] + out["18d"]["launches"])
     out.update({k: sum(x[k] for x in runs) for k in kernel_counts()})
     out["flash_attention_by_path"] = {p: sum(x["flash_by_path"][p] for x in runs)
                                       for p in ("wgmma", "simt")}
+    out["decode_attention_by_path"] = {p: sum(x["decode_by_path"][p] for x in runs)
+                                       for p in ("split", "simt")}
     out["lse"] = sum(x["flash_lse"] for x in runs)
     return out
 

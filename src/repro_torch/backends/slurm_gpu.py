@@ -21,7 +21,11 @@ step and restart, decide the backend from the cards they hold, and train
 on a (nodes, gpus) mesh, with the "model" axis inside a node. The job's own arguments
 (`--arch`, `--layers`, `--mesh`, `--steps`, `--device`, ...) pass through
 both scripts, so `render_artifacts(req, cluster_id)` keeps the reference's
-signature.
+signature. The same step serves instead of training with the serving
+arguments: `bash ranks_<id>.sh --serve --requests R.jsonl --outputs
+O.jsonl --mesh <nodes>x1` runs a replica a node behind the router on rank
+0 (`launch/serve.py`); a replica whose rank is preempted is retired and
+its ranks exit 75 while the others serve on.
 
 `name` is "slurm", so the shared autoscaler's `for_backend(name)` gives
 Slurm's cooldowns. Like the reference's Slurm and TPU backends, this one

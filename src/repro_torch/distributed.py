@@ -90,13 +90,18 @@ def rank_device(rank: int, device="cuda") -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
+# the store this process's group was formed at (`init_rank`)
+_JOB_STORE = {}
+
+
 def init_rank(rank: int, world_size: int, local_rank: int, device, store_path: str,
               timeout: float) -> torch.device:
     """Join the process group as `rank` of `world_size` and return the
     rank's device (`rank_device(local_rank)`): the ranks meet at a
     `FileStore` at `store_path`, exchange their cards' UUIDs there and
     form the group over the backend those decide (`backend_for`), with
-    `timeout` (seconds) on the store and on every collective."""
+    `timeout` (seconds) on the store and on every collective. The job's
+    own keys go to the same store (`job_store`)."""
     dev = rank_device(local_rank, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -113,7 +118,15 @@ def init_rank(rank: int, world_size: int, local_rank: int, device, store_path: s
     uuids = [store.get(k).decode() for k in keys]
     dist.init_process_group(backend_for(uuids), store=store, rank=rank,
                             world_size=world_size, timeout=limit)
+    _JOB_STORE["store"] = store
     return dev
+
+
+def job_store(prefix: str):
+    """The store `init_rank` formed this process's group at, under `prefix`:
+    the job's own keys beside the group's, with no collective (the serving
+    plane's ops and replies, `serve/transport.py`)."""
+    return dist.PrefixStore(prefix, _JOB_STORE["store"])
 
 
 def host_group():

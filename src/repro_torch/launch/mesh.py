@@ -17,6 +17,11 @@ all-to-all, `models/data_parallel.py`).
 On a mesh whose other axes have size 1 the group is every rank of the
 process group, so an abstract mesh has one too (the dry-run's, over its
 fake process group).
+
+`row_view` is the (1, M) mesh of this rank's row of a (D, M) mesh: a
+serving replica's (`launch/serve.py`), whose model is cut over "model"
+only and runs no collective outside its row. `mesh_rank` is this rank's
+place on a mesh or a view.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ class Mesh:
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     device_mesh: Optional[Any] = None   # a DeviceMesh over the process group
+    row: Optional[int] = None           # a row view's row of device_mesh (`row_view`)
 
     @property
     def size(self) -> int:
@@ -72,6 +78,22 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device="cuda") -> M
                 init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes)))
 
 
+def row_view(mesh: Mesh) -> Mesh:
+    """The (1, M) mesh over ("data", "model") of this rank's row of a
+    (D, M) `mesh`: its "model" group is the row's, and its ranks are the
+    row's, numbered from 0 (`mesh_rank`)."""
+    if mesh.axis_names != ("data", "model"):
+        raise ValueError(f"a row view needs a (data, model) mesh, not {mesh.axis_names}")
+    m = mesh.shape[1]
+    return Mesh((1, m), mesh.axis_names, mesh.device_mesh, row=dist.get_rank() // m)
+
+
+def mesh_rank(mesh) -> int:
+    """This process's rank on `mesh`: its global rank, or its place in the
+    row of a row view."""
+    return dist.get_rank() - (mesh.row or 0) * math.prod(mesh.shape)
+
+
 def dp_degree(mesh) -> int:
     sizes = dict(zip(mesh.axis_names, mesh.shape))
     return sizes.get("data", 1) * sizes.get("pod", 1)
@@ -86,7 +108,7 @@ def group_over(mesh, axes: Tuple[str, ...]):
     rank when the mesh's other axes have size 1, else the device mesh's
     group of those axes (flattened where two have size > 1)."""
     sizes = dict(zip(mesh.axis_names, mesh.shape))
-    if all(n == 1 for a, n in sizes.items() if a not in axes):
+    if mesh.row is None and all(n == 1 for a, n in sizes.items() if a not in axes):
         return dist.group.WORLD
     if mesh.device_mesh is None:
         raise ValueError(f"an abstract {mesh.shape} mesh has no process group over {axes}")

@@ -1,5 +1,5 @@
-"""One rank of the port's training job on a cluster node, the per-rank entry
-that the `rank_<id>.sh` of `backends/slurm_gpu.py` and of
+"""One rank of the port's training or serving job on a cluster node, the
+per-rank entry that the `rank_<id>.sh` of `backends/slurm_gpu.py` and of
 `backends/kubernetes_gpu.py` starts on every card of an allocation:
 
     python3 -m repro_torch.launch.rank --rendezvous DIR --cluster-id ID \\
@@ -27,6 +27,10 @@ line when it stops: its backend, store, device and mesh, the step it
 started and stopped at, each step's loss, grad norm and wall ms, its peak
 card memory, its kernels' launches, and the seconds it took to join the
 group, to build and restore the state, and to train (with the checkpoints).
+
+With `--serve` the ranks serve instead (`launch/serve.py`): a replica a
+row of the `--mesh DxM`, the router on rank 0, `--requests` in and
+`--outputs` out; SIGTERM retires a replica, whose ranks exit 75.
 """
 from __future__ import annotations
 
@@ -71,6 +75,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (the default) or cpu; cuda without a card raises")
+    serve = ap.add_argument_group("serving (launch/serve.py)")
+    serve.add_argument("--serve", action="store_true",
+                       help="serve --requests instead of training: a replica a row of the mesh, "
+                            "the router on rank 0")
+    serve.add_argument("--requests", help="JSONL: id, prompt, max_new_tokens, eos_id")
+    serve.add_argument("--outputs", help="JSONL written by rank 0: id, replica, tick, output")
+    serve.add_argument("--slots", type=int, default=4, help="a replica's decode slots")
+    serve.add_argument("--max-len", type=int, default=1024, help="a slot's cache positions")
+    serve.add_argument("--queue", type=int, default=8, help="the router's queue a replica")
+    serve.add_argument("--replica-timeout", type=float, default=600.0,
+                       help="seconds rank 0 waits for a replica's reply before failing it")
     return ap
 
 
@@ -114,19 +129,23 @@ def make_trainer(args, dev, mesh, ckpt_dir: str):
 
 def launches() -> dict:
     """The kernels' launches in this process, by wrapper; flash's with the
-    lse and by kernel."""
+    lse and by kernel, decode's by kernel."""
     from repro_torch.kernels import decode_attention, flash_attention, moe_gmm, ssm_scan
     return {"flash_attention": flash_attention.launches,
             "flash_lse": flash_attention.lse_launches,
             "flash_by_path": dict(flash_attention.launches_by_path),
-            "decode_attention": decode_attention.launches, "moe_gmm": moe_gmm.launches,
+            "decode_attention": decode_attention.launches,
+            "decode_by_path": dict(decode_attention.launches_by_path), "moe_gmm": moe_gmm.launches,
             "moe_gmm_dx": moe_gmm.dx_launches, "moe_gmm_dw": moe_gmm.dw_launches,
             "ssm_scan": ssm_scan.launches}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     entered = time.time()
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.serve and not (args.requests and args.outputs):
+        ap.error("--serve needs --requests and --outputs")
     shape, axes = mesh_of(args.mesh, args.world)
     import torch
     import torch.distributed as dist
@@ -137,6 +156,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     dev = D.init_rank(args.rank, args.world, args.local_rank, args.device, store, TIMEOUT_S)
     clock = {"joined": time.time()}
     try:
+        if args.serve:
+            from repro_torch.launch.serve import serve_rank
+            return serve_rank(args, dev, store, entered, clock["joined"])
         mesh = make_mesh(shape, axes, device=dev)
         trainer = make_trainer(args, dev, mesh,
                                os.path.join(args.rendezvous, "ckpt", args.cluster_id))

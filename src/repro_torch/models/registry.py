@@ -47,12 +47,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, param_count
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import dp_degree, dp_group, tp_degree, tp_group
+from repro_torch.launch.mesh import dp_degree, dp_group, mesh_rank, tp_degree, tp_group
 from repro_torch.models import dense, hybrid, whisper, xlstm
 from repro_torch.models.data_parallel import DataParallel
 from repro_torch.models.tensor_parallel import TensorParallel
@@ -193,7 +192,7 @@ def _sharded_model(cfg: ModelConfig, dev, window, n_groups: int, mesh) -> Model:
         cfg=cfg,
         device=dev,
         init_params=functools.partial(mod.init_params, cfg=cfg, device=dev, mesh=mesh,
-                                      rank=dist.get_rank()),
+                                      rank=mesh_rank(mesh)),
         loss=_bound(mesh, functools.partial(mod.lm_loss, group=dp_group(mesh), **kw)),
         prefill=_bound(mesh, functools.partial(mod.lm_prefill, **pre_kw)),
         decode_step=_bound(mesh, functools.partial(mod.lm_decode_step, **kw)),

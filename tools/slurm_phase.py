@@ -11,7 +11,9 @@ lse; 18b two nodes x one card on this one card (the store decides gloo),
 llama3-8b SMOKE on (2, 1) with ZeRO-2, one rank sent SIGTERM, both
 stopping at one step, relaunched and held to one process's run; 18c the
 Kubernetes indexed Job's pod script of one node x one card on 18a's job,
-held as 18a is.
+held as 18a is; 18d two nodes x one card on this card serving llama3-8b at
+full width and 2 layers on 2x1 behind rank 0's router, one rank sent
+SIGTERM, held to this process's replay of rank 0's run.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ def main() -> int:
     t0 = time.perf_counter()
     out = C.cluster_phase(torch.device("cuda"), smi)
     C.say(f"  [phase 18: {time.perf_counter() - t0:.1f} s wall]")
-    C.say({k: v for k, v in out.items() if k in ("18a", "18b", "18c")})
+    C.say({k: v for k, v in out.items() if k in ("18a", "18b", "18c", "18d")})
     return 0
 
 
