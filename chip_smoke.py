@@ -370,8 +370,20 @@ nothing is caught and carried on.
      0, every request finished once; held to this process's replay of
      rank 0's run over two local engines on the same params (tokens, the
      replica of each request and the router's stats identical), each
-     rank's flash and decode launches exact and all `flash_wgmma` and
-     `decode_split`;
+     rank's flash and decode launches exact, its warm-up request's
+     included, and all `flash_wgmma` and
+     `decode_split`; e. the serving plane's autoscaler across ranks:
+     three nodes x one card on this card (gloo), llama3-8b as in d on a
+     3x1 mesh under `--autoscale` (one row registered at start, up to
+     three), 36 requests of 64-256 prompt tokens and 32 new ones arriving
+     open loop, a ramp of 24 over the first second and a quiet tail of 12,
+     one every half second from 3 s: at least one scale-up in the ramp and
+     one scale-down in the tail, one row registered at the end, what a
+     retired row's drain finished finished on that row; held to this
+     process's replay of rank 0's run with its offer ticks and scaling
+     decisions over three local engines; each rank's launches exact, its
+     warm-up request's (one prefill, one decode step) included, all
+     `flash_wgmma` and `decode_split`; every request finished once;
  19. prints the kernel table as one JSON line (moe_gmm's with its dx and dw
      at C=320, ssd_scan's with its plain backward, flash's, decode's,
      moe_gmm's and ssd_scan's with their rows at phase 9's, 13's, 14's,
@@ -5654,19 +5666,39 @@ SLURM_18D = ("--arch", "llama3-8b", "--layers", "2", "--mesh", "2x1", "--serve",
              "--max-len", "1024", "--queue", "2", "--replica-timeout", "120")
 SERVE_18D_REQUESTS, SERVE_18D_NEW, SERVE_18D_PROMPTS = 16, 48, (64, 512)
 SERVE_STATS = ("requests", "completed", "rerouted", "retried", "shed", "ticks")
+# 18e: three "nodes" x one card, all on this card: 18d's model on (3, 1),
+# its rows autoscaled from one (p99 over the last 4 completions); 36
+# requests of 64-256 prompt tokens and 32 new, arriving open loop: a ramp
+# of 24 evenly over the first second (about twice what one row serves),
+# then a quiet tail of 12, one every half second from 3 s (a tenth of it).
+# Grow past a p99 of 3 s or 2 waiting a row, shrink under half of both
+SERVE_18E_SCALING = {"min_replicas": 1, "max_replicas": 3, "p99_target_ms": 3000.0,
+                     "queue_depth_target": 2.0, "low_water_fraction": 0.5,
+                     "scale_up_cooldown_s": 0.2, "scale_down_cooldown_s": 1.0, "max_step": 1}
+SLURM_18E = ("--arch", "llama3-8b", "--layers", "2", "--mesh", "3x1", "--serve", "--slots", "4",
+             "--max-len", "1024", "--queue", "2", "--replica-timeout", "120",
+             "--autoscale", json.dumps(SERVE_18E_SCALING), "--p99-window", "4")
+SERVE_18E_TAIL = 3.0
+SERVE_18E_ARRIVALS = ([i / 24 for i in range(24)]
+                      + [SERVE_18E_TAIL + 0.5 * i for i in range(12)])
+SERVE_18E_NEW, SERVE_18E_PROMPTS = 32, (64, 256)
 
 
 def serve_requests(path, vocab, seed, n=SERVE_18D_REQUESTS, new_tokens=SERVE_18D_NEW,
-                   lens=SERVE_18D_PROMPTS):
+                   lens=SERVE_18D_PROMPTS, arrivals=None):
     """`n` requests of `new_tokens` new tokens, prompt lengths and tokens
-    drawn from `seed`, as the JSONL `launch/rank.py --requests` reads."""
+    drawn from `seed`, as the JSONL `launch/rank.py --requests` reads; the
+    i-th arriving `arrivals[i]` seconds after the router's start where
+    `arrivals` is given."""
     import numpy as np
     rng = np.random.default_rng(seed)
     with open(path, "w") as f:
         for i in range(n):
             prompt = rng.integers(0, vocab, int(rng.integers(lens[0], lens[1] + 1))).tolist()
-            f.write(json.dumps({"id": i, "prompt": prompt, "max_new_tokens": new_tokens,
-                                "eos_id": -1}) + "\n")
+            row = {"id": i, "prompt": prompt, "max_new_tokens": new_tokens, "eos_id": -1}
+            if arrivals is not None:
+                row["arrival_s"] = arrivals[i]
+            f.write(json.dumps(row) + "\n")
 
 
 def serve_outputs(path) -> list:
@@ -5678,42 +5710,26 @@ def serve_outputs(path) -> list:
         return [json.loads(ln) for ln in f.read().splitlines(keepends=True) if ln.endswith("\n")]
 
 
-def serve_gate(label, ranks, outputs, again, cfg, smi):
-    """18d's gates on its ranks' lines, rank 0's outputs file and this
-    process's replay `again` of rank 0's run: the store decided gloo; rank 1
-    took SIGTERM and its replica was retired; every request finished once,
-    none left; tokens, the replica of each request and the router's stats
-    identical to the replay; each rank's flash launches its prefills x
-    layers, all `flash_wgmma`, and its decode launches its decode steps x
-    layers, all `decode_split`, and no other kernel. Prints each rank's
-    seconds, tick ms, peak memory and store round trip; returns what the
-    phase reports."""
+def serve_rank_lines(label, ranks, smi):
+    """Each serving rank's seconds, tick ops, engine stats, peak and exit."""
     import statistics
-    routed = ranks[0]["router"]
     for r in ranks:
         t = r["seconds"]
         ms = r["tick_ms"] or [0.0]
         say(f"  [{smi}] {label} rank {r['rank']} ({r['role']}, {r['replica']}): backend "
             f"{r['backend']}, {r['device']}; seconds to join {t['join']:.1f}, to build "
             f"{t['build']:.1f}, to serve {t['serve']:.1f}; {r['ticks']} tick ops, ms median "
-            f"{statistics.median(ms):.2f} max {max(ms):.2f}; engine {r['engine']}; peak "
+            f"{statistics.median(ms):.2f} max {max(ms):.2f}; engine {r['engine']}, warm-up "
+            f"{r['warmup']}; peak "
             f"{slurm_peak_gb(r):.2f} GB; exit {r['exit']}")
-    rtt = {rid: statistics.median(v) for rid, v in routed["store_ms"].items() if v}
-    say(f"  {label}: the store's round trip less the replica's work, median of the ops, ms "
-        f"{ {k: round(v, 3) for k, v in rtt.items()} }; the router's p99 {routed['p99_ms']:.1f} "
-        f"ms, stats {routed['stats']}, retired {routed['retired']}, failed {routed['failed']}")
+
+
+def serve_replay_gate(label, routed, outputs, again):
+    """Tokens, the replica of each request and the router's stats of the
+    ranks' run (its outputs file and rank 0's record `routed`) identical to
+    this process's replay `again`."""
     got = {str(o["id"]): o["output"] for o in outputs}
     assigned = {str(o["id"]): o["replica"] for o in outputs}
-    ok = (all(r["backend"] == "gloo" for r in ranks) and ranks[1]["signalled"]
-          and list(routed["retired"]) == ["r1"] and not routed["failed"]
-          and len(outputs) == len(got) == SERVE_18D_REQUESTS and not routed["unserved"]
-          and set(routed["completions"].values()) == {1})
-    say(f"  {'ok  ' if ok else 'FAIL'} {label}: gloo on both ranks; SIGTERM to rank 1 retired "
-        f"{list(routed['retired'])} at tick {routed['retired'].get('r1', {}).get('tick')}; "
-        f"{len(got)} of {SERVE_18D_REQUESTS} requests finished, each once")
-    if not ok:
-        fail(f"{label}: the store did not decide gloo, the SIGTERM did not retire replica r1, or "
-             "a request was lost or finished twice")
     same = (got == again["outputs"] and assigned == routed["assigned"] == again["assigned"]
             and {k: routed["stats"][k] for k in SERVE_STATS}
             == {k: again["stats"][k] for k in SERVE_STATS})
@@ -5721,8 +5737,17 @@ def serve_gate(label, ranks, outputs, again, cfg, smi):
         f"process's replay of rank 0's run (stats {again['stats']})")
     if not same:
         fail(f"{label}: the ranks' tokens, routing or stats part from the in-process replay")
+
+
+def serve_launch_gate(label, ranks, cfg):
+    """Each rank's flash launches its prefills x layers, all `flash_wgmma`,
+    and its decode launches its decode steps x layers, all
+    `decode_split`, and no other kernel; the rank's warm-up request
+    (`launch/serve.py::build_engine`) counted with them."""
     for r in ranks:
-        n_pre, n_dec = r["engine"]["prefills"] * cfg.n_layers, r["engine"]["ticks"] * cfg.n_layers
+        warm = r["warmup"]
+        n_pre = (r["engine"]["prefills"] + warm["prefills"]) * cfg.n_layers
+        n_dec = (r["engine"]["ticks"] + warm["ticks"]) * cfg.n_layers
         lc = r["launches"]
         good = (lc["flash_attention"] == n_pre
                 and lc["flash_by_path"] == {"wgmma": n_pre, "simt": 0}
@@ -5735,17 +5760,127 @@ def serve_gate(label, ranks, outputs, again, cfg, smi):
         if not good:
             fail(f"{label}: rank {r['rank']}'s launches are not its prefills' and decode steps' "
                  "on flash_wgmma and decode_split")
+
+
+def serve_rtt(routed) -> dict:
+    """Each replica's median store round trip less the replica's work, ms."""
+    import statistics
+    return {rid: statistics.median(v) for rid, v in routed["store_ms"].items() if v}
+
+
+def serve_gate(label, ranks, outputs, again, cfg, smi):
+    """18d's gates on its ranks' lines, rank 0's outputs file and this
+    process's replay `again` of rank 0's run: the store decided gloo; rank 1
+    took SIGTERM and its replica was retired; every request finished once,
+    none left; tokens, the replica of each request and the router's stats
+    identical to the replay; each rank's flash launches its prefills x
+    layers, all `flash_wgmma`, and its decode launches its decode steps x
+    layers, all `decode_split`, and no other kernel. Prints each rank's
+    seconds, tick ms, peak memory and store round trip; returns what the
+    phase reports."""
+    routed = ranks[0]["router"]
+    serve_rank_lines(label, ranks, smi)
+    rtt = serve_rtt(routed)
+    say(f"  {label}: the store's round trip less the replica's work, median of the ops, ms "
+        f"{ {k: round(v, 3) for k, v in rtt.items()} } (r0's through rank 0's thread); the "
+        f"router's p99 {routed['p99_ms']:.1f} ms, stats {routed['stats']}, retired "
+        f"{routed['retired']}, failed {routed['failed']}")
+    got = {str(o["id"]): o["output"] for o in outputs}
+    ok = (all(r["backend"] == "gloo" for r in ranks) and ranks[1]["signalled"]
+          and list(routed["retired"]) == ["r1"] and not routed["failed"]
+          and len(outputs) == len(got) == SERVE_18D_REQUESTS and not routed["unserved"]
+          and set(routed["completions"].values()) == {1})
+    say(f"  {'ok  ' if ok else 'FAIL'} {label}: gloo on both ranks; SIGTERM to rank 1 retired "
+        f"{list(routed['retired'])} at tick {routed['retired'].get('r1', {}).get('tick')}; "
+        f"{len(got)} of {SERVE_18D_REQUESTS} requests finished, each once")
+    if not ok:
+        fail(f"{label}: the store did not decide gloo, the SIGTERM did not retire replica r1, or "
+             "a request was lost or finished twice")
+    serve_replay_gate(label, routed, outputs, again)
+    serve_launch_gate(label, ranks, cfg)
     return dict(backend=[r["backend"] for r in ranks], stats=routed["stats"],
                 retired=routed["retired"], p99_ms=routed["p99_ms"], store_ms_median=rtt,
                 tick_ms=[r["tick_ms"] for r in ranks], peak_gb=[slurm_peak_gb(r) for r in ranks],
                 seconds=[r["seconds"] for r in ranks], launches=[r["launches"] for r in ranks])
 
 
-def serve_replay(shared, dev, routed, args):
-    """Rank 0's run of 18d replayed in this process (`launch/serve.py::
-    replay`): the port's Router over two local engines on the job's params,
-    each a `ReplicaActor` behind an `ActorReplicaHandle`, r1 exiting from
-    the op rank 0 saw it at."""
+def scaled_gate(label, ranks, outputs, again, cfg, smi):
+    """18e's gates on its ranks' lines, rank 0's outputs file and this
+    process's replay `again` (with rank 0's offer ticks and scaling
+    decisions): every rank exited 0 (`slurm_wait`); every request finished
+    once; tokens, rows and stats identical to the replay; a scale-up in the
+    ramp (before the tail's first request was offered) and the peak at two
+    rows or more, a scale-down in the tail (once its first request was
+    offered), `min_replicas` rows at the end, what a retired row's drain
+    finished that row finished (`Router.retire_replica` re-routes only what
+    a drain leaves after 10000 ticks); each rank's launches exact, its
+    warm-up request's included (a row never grown launches only those).
+    Prints the
+    scaling events, the rows over time, each request's latency from its
+    arrival, tick ms and round trips (r0's through rank 0's thread)."""
+    import numpy as np
+    routed = ranks[0]["router"]
+    serve_rank_lines(label, ranks, smi)
+    for e in routed["scaling"]:
+        say(f"  {label}: tick {e['tick']} at {e['t']:.3f} s: {e['action']} {e['ids']} "
+            f"({e['reason']}; {e['before']} rows before)"
+            + (f", drained {e['drained']}" if e.get("drained") else ""))
+    say(f"  {label}: rows over time (tick, s, rows) "
+        f"{[(k, round(t, 3), n) for k, t, n in routed['rows']]}")
+    lat = [(v[2] - v[0]) * 1e3 for v in routed["times"].values() if len(v) == 3]
+    wait = [(v[1] - v[0]) * 1e3 for v in routed["times"].values()]
+    rtt = serve_rtt(routed)
+    say(f"  {label}: latency from arrival to completion, ms: median {np.median(lat):.1f}, p99 "
+        f"{np.percentile(lat, 99):.1f}, max {max(lat):.1f} ({len(lat)} requests); offered "
+        f"after the arrival, ms: median {np.median(wait):.2f}, max {max(wait):.2f}; the store's "
+        f"round trip less the replica's work, median ms "
+        f"{ {k: round(v, 3) for k, v in rtt.items()} } (r0's through rank 0's thread); the "
+        f"router's p99 {routed['p99_ms']:.1f} ms, stats {routed['stats']}")
+    n = len(SERVE_18E_ARRIVALS)
+    got = {str(o["id"]): o["output"] for o in outputs}
+    ok = (all(r["backend"] == "gloo" for r in ranks) and not routed["failed"]
+          and not routed["retired"] and len(outputs) == len(got) == n
+          and not routed["unserved"] and set(routed["completions"].values()) == {1})
+    say(f"  {'ok  ' if ok else 'FAIL'} {label}: gloo on every rank; {len(got)} of {n} requests "
+        f"finished, each once; no row failed or signalled")
+    if not ok:
+        fail(f"{label}: a request was lost or finished twice, or a row failed")
+    serve_replay_gate(label, routed, outputs, again)
+    want = SERVE_18E_SCALING
+    ramp = [i for i, t in enumerate(SERVE_18E_ARRIVALS) if t < SERVE_18E_TAIL]
+    tail_from = min(routed["times"][str(i)][1] for i in range(len(SERVE_18E_ARRIVALS))
+                    if i not in ramp)
+    ups = [e for e in routed["scaling"] if e["action"] == "scale_up" and e["t"] < tail_from]
+    downs = [e for e in routed["scaling"]
+             if e["action"] == "scale_down" and e["t"] >= tail_from]
+    peak = max(k for _, _, k in routed["rows"])
+    drained = all(routed["assigned"][str(i)] == rid for e in routed["scaling"]
+                  for rid, ids in (e.get("drained") or {}).items() for i in ids)
+    shaped = (ups and peak >= 2 and downs and drained
+              and routed["rows"][-1][2] == want["min_replicas"])
+    say(f"  {'ok  ' if shaped else 'FAIL'} {label}: {len(ups)} scale-ups in the ramp (before "
+        f"the tail's first offer at {tail_from:.3f} s), peak {peak} rows (want >= 2); "
+        f"{len(downs)} scale-downs in the tail; {routed['rows'][-1][2]} rows at the end (want "
+        f"{want['min_replicas']}); each drain's requests finished by its row: {drained}")
+    if not shaped:
+        fail(f"{label}: the autoscaler did not grow in the ramp, shrink in the tail and end at "
+             "min_replicas, or a drain returned a request its row did not finish")
+    serve_launch_gate(label, ranks, cfg)
+    return dict(backend=[r["backend"] for r in ranks], stats=routed["stats"],
+                scaling=routed["scaling"], rows=routed["rows"], p99_ms=routed["p99_ms"],
+                latency_ms={"median": float(np.median(lat)), "p99": float(np.percentile(lat, 99)),
+                            "max": max(lat)},
+                store_ms_median=rtt, tick_ms=[r["tick_ms"] for r in ranks],
+                peak_gb=[slurm_peak_gb(r) for r in ranks], seconds=[r["seconds"] for r in ranks],
+                launches=[r["launches"] for r in ranks])
+
+
+def serve_replay(shared, dev, routed, args, job="p18d"):
+    """Rank 0's run of `job` (18d, 18e) replayed in this process
+    (`launch/serve.py::replay`): the port's Router over a local engine a
+    row of the job's mesh on the job's params, each a `ReplicaActor` behind
+    an `ActorReplicaHandle`, each request offered, each row grown, retired
+    or exiting at the tick or op where rank 0 saw it."""
     import torch
     from repro_torch.launch import rank as R
     from repro_torch.launch.serve import read_requests, replay
@@ -5756,8 +5891,8 @@ def serve_replay(shared, dev, routed, args):
     params = model.init_params(torch.Generator(device=dev).manual_seed(R.SEED))
     actors = {f"r{d}": ReplicaActor(engine=ServeEngine(model, params, batch_slots=args.slots,
                                                        max_len=args.max_len, device=dev))
-              for d in range(2)}
-    return replay(read_requests(f"{shared}/p18d-requests.jsonl"), actors, routed, args.queue)
+              for d in range(int(args.mesh.split("x")[0]))}
+    return replay(read_requests(f"{shared}/{job}-requests.jsonl"), actors, routed, args.queue)
 
 
 def cluster_phase(dev, smi) -> dict:
@@ -5778,11 +5913,16 @@ def cluster_phase(dev, smi) -> dict:
     nodes x one card on this card (gloo), llama3-8b at full width and 2
     layers served on (2, 1) behind rank 0's router, SIGTERM to rank 1 once
     replica r1 has finished a request (`serve_gate`; replayed here,
-    `serve_replay`). A rank takes 13-25 s to join its group here, most of
-    it importing torch and starting CUDA, so 18a's, 18c's and 18d's ranks
-    run beside 18b's two launches, and this process's references beside
-    them all (18d's ranks start once 18a's reference has freed its memory):
-    their step and tick times are taken with the other ranks on the card."""
+    `serve_replay`). 18e: Slurm's, three nodes x one card on this card,
+    18d's model on 3x1 under `--autoscale`, 36 requests arriving open loop
+    (`scaled_gate`; replayed here). A rank takes 13-25 s to join its group
+    here, most of it importing torch and starting CUDA, so 18a's, 18c's,
+    18d's and 18e's ranks run beside 18b's two launches, and this process's
+    references beside them all (18d's ranks start once 18a's reference has
+    freed its memory, 18e's once 18d's have exited, so that its three
+    engines' builds, 5.25 GB each at their peak, come after 18a's and 18c's
+    steps, 23.3 GB each): their step and tick times are taken with the
+    other ranks on the card."""
     import signal
     import tempfile
     import threading
@@ -5805,7 +5945,10 @@ def cluster_phase(dev, smi) -> dict:
                 "on (2, 1) with ZeRO-2, SIGTERM to one rank, then the relaunch; and 18c: "
                 "Kubernetes, the indexed Job's pod script of one node x one card on 18a's job; "
                 "18d: Slurm, two nodes x one card serving llama3-8b at published width, 2 "
-                "layers, on 2x1 behind rank 0's router, SIGTERM to rank 1")
+                "layers, on 2x1 behind rank 0's router, SIGTERM to rank 1; 18e: Slurm, three "
+                "nodes x one card, 18d's model on 3x1 with its rows autoscaled from one, 36 "
+                "requests arriving open loop (a ramp of 24 in 1 s, then 12 every 0.5 s from "
+                f"{SERVE_18E_TAIL:g} s)")
             slurm_render(shared, "p18a", 1)
             slurm_render(shared, "p18d", 2)
             args_d = job_args("p18d", SLURM_18D)
@@ -5814,6 +5957,13 @@ def cluster_phase(dev, smi) -> dict:
             serving = (*SLURM_18D, "--requests", f"{shared}/p18d-requests.jsonl",
                        "--outputs", f"{shared}/p18d-outputs.jsonl")
             signalled_d = []
+            slurm_render(shared, "p18e", 3)
+            args_e = job_args("p18e", SLURM_18E)
+            serve_requests(f"{shared}/p18e-requests.jsonl", R.job_config(args_e).vocab_size,
+                           R.SEED + 19, n=len(SERVE_18E_ARRIVALS), new_tokens=SERVE_18E_NEW,
+                           lens=SERVE_18E_PROMPTS, arrivals=SERVE_18E_ARRIVALS)
+            scaling = (*SLURM_18E, "--requests", f"{shared}/p18e-requests.jsonl",
+                       "--outputs", f"{shared}/p18e-outputs.jsonl")
             slurm_render(shared, "p18b", 2)
             job_c = k8s_render(shared, "p18c", 1)["ranks_p18c.yaml"]
             ckpt = Path(shared, "ckpt", "p18b")
@@ -5860,6 +6010,18 @@ def cluster_phase(dev, smi) -> dict:
 
             retirer = threading.Thread(target=retire)
             retirer.start()
+            scaled, launched_e = [], []
+
+            def scale():   # 18e's ranks once 18d's have exited
+                while any(p.poll() is None for p in served) and time.perf_counter() - t0 < 400:
+                    time.sleep(0.02)
+                free, total = torch.cuda.mem_get_info(dev) if dev.type == "cuda" else (0, 0)
+                launched_e.append((time.perf_counter() - t0, free / 1e9, total / 1e9))
+                scaled.extend(slurm_ranks(shared, "p18e", "1805", 3, scaling))
+                procs.extend(scaled)
+
+            scaler = threading.Thread(target=scale)
+            scaler.start()
             signaller.join()
             if not signalled:
                 fail("18b: the ranks ended or stalled before their step-1 checkpoint")
@@ -5886,6 +6048,9 @@ def cluster_phase(dev, smi) -> dict:
             rank_d1 = slurm_wait("18d rank 1", served[1:], R.EXIT_PREEMPTED)
             wall_d = time.perf_counter() - t0
             retirer.join()
+            scaler.join()
+            rank_e = slurm_wait("18e", scaled, 0)
+            wall_e = time.perf_counter() - t0
             if not signalled_d:
                 fail("18d: replica r1 finished no request before the job ended")
 
@@ -5967,6 +6132,16 @@ def cluster_phase(dev, smi) -> dict:
                                     R.job_config(args_d), smi)
             out["18d"]["wall_s"] = wall_d
             del again
+            say(f"  18e: the ranks launched {launched_e[0][0]:.1f} s into the phase, once 18d's "
+                f"had exited, with {launched_e[0][1]:.1f} of {launched_e[0][2]:.1f} GB of the "
+                f"card free; their commands {wall_e:.1f} s from the phase's start")
+            t_replay = time.perf_counter()
+            again = serve_replay(shared, dev, rank_e[0]["router"], args_e, job="p18e")
+            say(f"  18e: this process's replay {time.perf_counter() - t_replay:.1f} s")
+            out["18e"] = scaled_gate("18e", rank_e, serve_outputs(f"{shared}/p18e-outputs.jsonl"),
+                                     again, R.job_config(args_e), smi)
+            out["18e"]["wall_s"] = wall_e
+            del again
     finally:   # each rank with its shell (18c's rank is the shell's child)
         for p in procs:
             if p.poll() is None:
@@ -5977,7 +6152,8 @@ def cluster_phase(dev, smi) -> dict:
                 p.wait()
     torch.cuda.empty_cache()
     runs = ([out["18a"]["launches"], out["18c"]["launches"]]
-            + [x["launches"] for x in stopped + resumed] + out["18d"]["launches"])
+            + [x["launches"] for x in stopped + resumed] + out["18d"]["launches"]
+            + out["18e"]["launches"])
     out.update({k: sum(x[k] for x in runs) for k in kernel_counts()})
     out["flash_attention_by_path"] = {p: sum(x["flash_by_path"][p] for x in runs)
                                       for p in ("wgmma", "simt")}

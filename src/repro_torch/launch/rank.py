@@ -29,8 +29,9 @@ card memory, its kernels' launches, and the seconds it took to join the
 group, to build and restore the state, and to train (with the checkpoints).
 
 With `--serve` the ranks serve instead (`launch/serve.py`): a replica a
-row of the `--mesh DxM`, the router on rank 0, `--requests` in and
-`--outputs` out; SIGTERM retires a replica, whose ranks exit 75.
+row of the `--mesh DxM`, the router on rank 0, `--requests` in (each at
+its `arrival_s`) and `--outputs` out, the rows autoscaled with
+`--autoscale`; SIGTERM retires a replica, whose ranks exit 75.
 """
 from __future__ import annotations
 
@@ -79,13 +80,20 @@ def parser() -> argparse.ArgumentParser:
     serve.add_argument("--serve", action="store_true",
                        help="serve --requests instead of training: a replica a row of the mesh, "
                             "the router on rank 0")
-    serve.add_argument("--requests", help="JSONL: id, prompt, max_new_tokens, eos_id")
+    serve.add_argument("--requests", help="JSONL: id, prompt, max_new_tokens, eos_id, arrival_s "
+                                          "(seconds after the router's start, default 0)")
     serve.add_argument("--outputs", help="JSONL written by rank 0: id, replica, tick, output")
     serve.add_argument("--slots", type=int, default=4, help="a replica's decode slots")
     serve.add_argument("--max-len", type=int, default=1024, help="a slot's cache positions")
     serve.add_argument("--queue", type=int, default=8, help="the router's queue a replica")
     serve.add_argument("--replica-timeout", type=float, default=600.0,
                        help="seconds rank 0 waits for a replica's reply before failing it")
+    serve.add_argument("--p99-window", type=int, default=512,
+                       help="completions in the router's p99 latency")
+    serve.add_argument("--autoscale", default=None, metavar="JSON",
+                       help="ReplicaScalingConfig's fields: the mesh's rows are the allocation, "
+                            "and the router serves through min_replicas to max_replicas of them "
+                            "(at most the rows), grown and shrunk on its p99 and queue depth")
     return ap
 
 

@@ -17,8 +17,8 @@ Every rank of a replica reads every op in order and runs it on its actor,
 so the M ranks of a tensor-parallel replica run one request stream, in
 lockstep through their own collectives; the lead rank (the first of the
 replica's row) writes the reply. Every replica gets its ops so, rank 0's
-own included: its transport writes the op, runs its own server's step on
-it, and reads the reply back.
+own included: rank 0 leads r0 from a thread that polls the store as the
+other leads do.
 
 No collective spans replicas once the job has started, so a lost replica
 cannot hang rank 0: a reply that does not come within `timeout` seconds
@@ -28,14 +28,16 @@ turns into `fail_replica`; its `submit` and `stats` answer at once, as if
 taken, and post nothing. So a request handed to a lost replica is on the
 router's books for it (`Router._inflight`) and `fail_replica` re-routes
 it, whether the op that timed out was a submit of the retry buffer's
-re-admission or of a re-route. The one wait this does not bound is rank
-0's own replica's: where it has M > 1 ranks, rank 0 runs its ops through
-tensor-parallel collectives with its member ranks, and a member that dies
-holds rank 0 in that collective until the group's timeout. An op the
-replica's actor raised on comes back as `ReplicaFailed` with the
-replica's traceback, and the replica's ranks raise too. A rank that took
-SIGTERM marks its replica exiting; the lead's next reply carries that
-(`StoreTransport.exiting`), and rank 0 retires the replica.
+re-admission or of a re-route. Rank 0's own replica r0 is reached the same
+way: its server runs on a thread of rank 0's own (`launch/serve.py`), so
+a member of r0 that dies leaves only that thread in a collective, and
+rank 0's router loses r0 after `timeout` as it loses any other replica.
+An op the replica's actor raised on comes back as `ReplicaFailed` with the
+replica's traceback, and the replica's ranks raise too, save where a
+collective raised that a rank of its group is gone (`peer_lost`): that op
+gets no reply, so the replica goes silent and is lost. A rank
+that took SIGTERM marks its replica exiting; the lead's next reply carries
+that (`StoreTransport.exiting`), and rank 0 retires the replica.
 """
 from __future__ import annotations
 
@@ -78,6 +80,28 @@ def wait_for(store, key: str, timeout: float) -> Optional[bytes]:
     return store.get(key)
 
 
+# what a collective raises when a rank of its group is gone: gloo's tcp
+# transport, NCCL's remote error
+PEER_LOST = ("Connection closed by peer", "Connection reset by peer", "Broken pipe",
+             "remote process exited")
+
+
+def peer_lost(exc: BaseException) -> bool:
+    """Whether `exc` is a collective's report that a rank of its group is
+    gone: one of PEER_LOST in its message, raised with a frame of
+    `torch.distributed` or of `repro_torch.distributed` on its traceback.
+    Any other error, a collective's too, is the replica's own fault."""
+    if not any(m in str(exc) for m in PEER_LOST):
+        return False
+    tb = exc.__traceback__
+    while tb is not None:
+        name = tb.tb_frame.f_globals.get("__name__", "")
+        if name == "repro_torch.distributed" or name.startswith("torch.distributed"):
+            return True
+        tb = tb.tb_next
+    return False
+
+
 def _done_ids(value) -> List[int]:
     """The request ids a reply reports finished (tick and drain replies)."""
     if not isinstance(value, dict):
@@ -111,8 +135,8 @@ class ReplicaServer:
         t = time.perf_counter()
         try:
             value = None if op["kind"] == "exit" else self.actor.handle(op)
-        except BaseException:
-            if self.lead:
+        except BaseException as e:
+            if self.lead and not peer_lost(e):   # a member gone: the replica goes silent
                 self._reply({"error": traceback.format_exc()})
             raise
         ms = (time.perf_counter() - t) * 1e3
@@ -140,13 +164,14 @@ class ReplicaServer:
 
 class StoreTransport:
     """Rank 0's side of a replica: `call(payload)` writes op n and waits up
-    to `timeout` s for the lead's reply. `local` is rank 0's own server
-    where rank 0 is the replica's lead. Records the ids each reply reports
-    finished (`done`), the op whose reply first said the replica is exiting
-    (`exiting_at`), the op that got no reply (`lost_at`: from it on no op
-    is written, a tick or drain raises `ReplicaLost` and a submit or stats
-    gets its `LOST_REPLIES` answer), and each op's round trip less the
-    actor's time (`store_ms`)."""
+    to `timeout` s for the lead's reply. `local` is a server run in this
+    thread on each op, as `launch/serve.py::replay` runs its replicas (in a
+    job, rank 0's own replica has a thread of its own). Records the ids
+    each reply reports finished (`done`), the op whose reply first said the
+    replica is exiting (`exiting_at`), the op that got no reply (`lost_at`:
+    from it on no op is written, a tick or drain raises `ReplicaLost` and a
+    submit or stats gets its `LOST_REPLIES` answer), and each op's round
+    trip less the actor's time (`store_ms`)."""
 
     def __init__(self, store, replica: str, timeout: float, local=None):
         self.store, self.replica, self.timeout, self.local = store, replica, timeout, local

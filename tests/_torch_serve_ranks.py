@@ -33,29 +33,49 @@ N_REQUESTS, NEW_TOKENS = 16, 32
 # seconds rank 0 waits for a reply before it fails the replica: the SIGKILL
 # case's, and every other case's
 KILL_TIMEOUT, TIMEOUT = 8.0, 120.0
-# mesh, the signal sent once replica r1 has finished a request and the rank
-# it goes to, and whether the ranks start through Slurm's rendered
-# rank_<id>.sh
+# mesh, the signal sent once replica r1 (WATCH: another) has finished a
+# request and the rank it goes to, and whether the ranks start through
+# Slurm's rendered rank_<id>.sh
 CASES = {"2x1": ("2x1", None, 1, False), "1x2": ("1x2", None, 1, False),
          "2x2": ("2x2", None, 1, False), "sigterm": ("2x1", signal.SIGTERM, 1, False),
          "sigkill": ("2x1", signal.SIGKILL, 1, False),
-         "sigterm0": ("2x1", signal.SIGTERM, 0, False), "slurm": ("2x1", None, 1, True)}
+         "sigterm0": ("2x1", signal.SIGTERM, 0, False), "slurm": ("2x1", None, 1, True),
+         "autoscale": ("3x1", None, 1, False), "r0member": ("2x2", signal.SIGKILL, 1, False)}
+# r0member: SIGKILL to rank 1, a member of rank 0's own replica r0, once r0
+# has finished a request
+WATCH = {"r0member": "r0"}
+# autoscale: the requests arrive (ARRIVALS, seconds after the router's
+# start: 12 over 0.3 s, then 4 a half second apart from 2 s), and the rows
+# are grown and shrunk on queue depth alone (the p99 target is out of reach,
+# so no wall-clock latency decides)
+ARRIVALS = [0.025 * i for i in range(12)] + [2.0 + 0.5 * i for i in range(4)]
+AUTOSCALE = {"autoscale": {"min_replicas": 1, "max_replicas": 3, "p99_target_ms": 1e9,
+                           "queue_depth_target": 1.0, "low_water_fraction": 0.5,
+                           "scale_up_cooldown_s": 0.05, "scale_down_cooldown_s": 0.3,
+                           "max_step": 1}}
 
 
-def write_requests(path: str, vocab: int, seed: int = 0):
+def write_requests(path: str, vocab: int, seed: int = 0, arrivals=None):
     rng = np.random.default_rng(seed)
     with open(path, "w") as f:
         for i in range(N_REQUESTS):
             prompt = rng.integers(1, vocab, int(rng.integers(4, 25))).tolist()
-            f.write(json.dumps({"id": i, "prompt": prompt, "max_new_tokens": NEW_TOKENS,
-                                "eos_id": -1}) + "\n")
+            row = {"id": i, "prompt": prompt, "max_new_tokens": NEW_TOKENS, "eos_id": -1}
+            if arrivals is not None:
+                row["arrival_s"] = arrivals[i]
+            f.write(json.dumps(row) + "\n")
+
+
+def requests_file(shared: str, name: str) -> str:
+    return f"{shared}/{name}.requests.jsonl" if name in AUTOSCALE else f"{shared}/requests.jsonl"
 
 
 def job_args(shared: str, name: str, mesh: str, timeout: float) -> list:
-    return [*MODEL, "--mesh", mesh, "--serve", "--requests", f"{shared}/requests.jsonl",
+    scaling = ["--autoscale", json.dumps(AUTOSCALE[name])] if name in AUTOSCALE else []
+    return [*MODEL, "--mesh", mesh, "--serve", "--requests", requests_file(shared, name),
             "--outputs", f"{shared}/{name}.outputs.jsonl", "--slots", str(SLOTS),
             "--max-len", str(MAX_LEN), "--queue", str(QUEUE),
-            "--replica-timeout", str(timeout)]
+            "--replica-timeout", str(timeout), *scaling]
 
 
 def launch(shared: str, name: str, mesh: str, timeout: float, slurm: bool) -> list:
@@ -85,11 +105,11 @@ def outputs(path: str) -> list:
                 if line.endswith("\n")]
 
 
-def signal_once_r1_finished(path: str, proc, sig, t0: float, sent: list):
-    """Send `sig` to `proc` once replica r1 has a finished request in the
+def signal_once_finished(path: str, replica: str, proc, sig, t0: float, sent: list):
+    """Send `sig` to `proc` once `replica` has a finished request in the
     outputs at `path`."""
     while proc.poll() is None and time.monotonic() - t0 < 180:
-        if any(o["replica"] == "r1" for o in outputs(path)):
+        if any(o["replica"] == replica for o in outputs(path)):
             proc.send_signal(sig)
             sent.append(time.monotonic() - t0)
             return
@@ -128,7 +148,10 @@ def local_actors(n_replicas: int) -> dict:
 def run_cases() -> dict:
     from repro_torch.configs import get_config
     with tempfile.TemporaryDirectory(prefix="serve-ranks-") as shared:
-        write_requests(f"{shared}/requests.jsonl", get_config("llama3-8b", smoke=True).vocab_size)
+        vocab = get_config("llama3-8b", smoke=True).vocab_size
+        write_requests(f"{shared}/requests.jsonl", vocab)
+        for name in AUTOSCALE:
+            write_requests(requests_file(shared, name), vocab, arrivals=ARRIVALS)
         for name, (mesh, _, _, slurm) in CASES.items():
             if slurm:
                 world = int(np.prod([int(n) for n in mesh.split("x")]))
@@ -144,24 +167,23 @@ def run_cases() -> dict:
             if sig is not None:
                 sent[name] = []
                 signallers.append(threading.Thread(
-                    target=signal_once_r1_finished,
-                    args=(f"{shared}/{name}.outputs.jsonl", procs[name][target], sig, t0,
-                          sent[name])))
+                    target=signal_once_finished,
+                    args=(f"{shared}/{name}.outputs.jsonl", WATCH.get(name, "r1"),
+                          procs[name][target], sig, t0, sent[name])))
                 signallers[-1].start()
         done = {name: finish(p, t0) for name, p in procs.items()}
         for s in signallers:
             s.join()
-        requests = f"{shared}/requests.jsonl"
         results = {}
         for name, (mesh, _, _, _) in CASES.items():
             ranks = done[name]
             routed = ranks[0]["line"]["router"] if ranks[0]["line"] else None
             again = None
             if routed is not None:
-                again = replay(read_requests(requests), local_actors(int(mesh.split("x")[0])),
-                               routed, QUEUE)
+                again = replay(read_requests(requests_file(shared, name)),
+                               local_actors(int(mesh.split("x")[0])), routed, QUEUE)
             results[name] = {"ranks": ranks, "outputs": outputs(f"{shared}/{name}.outputs.jsonl"),
                              "replay": again, "signalled_at": sent.get(name)}
-        results["requests"] = [r.__dict__ for r in read_requests(requests)]
+        results["requests"] = [r.__dict__ for r in read_requests(f"{shared}/requests.jsonl")]
         results["seconds"] = time.monotonic() - t0
         return results

@@ -13,11 +13,17 @@ rank 1 exiting 75); SIGKILL of rank 1 then (rank 0 hits `ReplicaLost`
 after its `--replica-timeout`, fails the replica and re-routes its
 requests, and is not hung); SIGTERM to rank 0 then (every replica retired
 at once, every rank exiting 75, what was not yet admitted left unserved);
-and a 2x1 job started through Slurm's rendered `rank_<id>.sh`. All cases
+a 2x1 job started through Slurm's rendered `rank_<id>.sh`; a 3x1 job whose
+requests arrive over time and whose rows the autoscaler grows and shrinks
+on queue depth (`--autoscale`), replayed with its offer ticks and scaling
+decisions; and SIGKILL of rank 1 of a 2x2 job, a member of rank 0's own
+replica r0, once r0 has finished a request (rank 0's thread for r0 is left
+in a broken collective, its router loses r0 after its timeout). All cases
 run at once in the module's one subprocess (`_torch_subproc.run`: one
 thread a rank); this module imports no JAX. The transport's own cases run
 in process, over one in-memory store, and so do `drive`'s with a replica
-lost at a submit: of the retry buffer's re-admission, and of a re-route.
+lost at a submit: of the retry buffer's re-admission, and of a re-route;
+and rank 0's thread for r0 (`ServerThread`), answering through the store.
 """
 import threading
 
@@ -26,14 +32,16 @@ import torch.distributed as dist
 
 import _torch_subproc as subproc
 import _torch_serve_ranks as S
-from repro_torch.launch.serve import read_requests, replay
+import torch
+from repro_torch.launch.serve import ServerThread, read_requests, replay
 from repro_torch.serve.engine import Request
 from repro_torch.serve.router import ReplicaActor, Router
 from repro_torch.serve.transport import (ReplicaFailed, ReplicaLost, ReplicaServer,
-                                         StoreTransport)
+                                         StoreTransport, peer_lost)
 
 STATS = ("requests", "completed", "rerouted", "retried", "shed", "ticks")
-CODES = {"sigterm": [0, 75], "sigkill": [0, -9], "sigterm0": [75, 75]}
+CODES = {"sigterm": [0, 75], "sigkill": [0, -9], "sigterm0": [75, 75], "r0member": [0, -9, 0, 0]}
+KILLED = ("sigkill", "r0member")
 
 
 @pytest.fixture(scope="module")
@@ -90,7 +98,8 @@ def test_exit_codes(cases, name):
 @pytest.mark.parametrize("name", list(S.CASES))
 def test_each_rank_serves_its_row(cases, name):
     """Replica d is the row d of the mesh: its ranks ran one request stream
-    in lockstep (equal engine stats and tick counts), over gloo on the CPU."""
+    in lockstep (equal engine stats and tick counts), over gloo on the CPU,
+    each after its engine's warm-up request (one prefill, one decode step)."""
     mesh = S.CASES[name][0]
     d, m = (int(n) for n in mesh.split("x"))
     lines = [r["line"] for r in cases[name]["ranks"] if r["line"] is not None]
@@ -99,10 +108,11 @@ def test_each_rank_serves_its_row(cases, name):
         assert line["replica"] == f"r{line['rank'] // m}"
         want = "router" if line["rank"] == 0 else ("lead" if line["rank"] % m == 0 else "member")
         assert line["role"] == want
+        assert line["warmup"] == {"prefills": 1, "ticks": 1}
     for row in range(d):   # a killed rank printed no line
         mates = [x for x in lines if x["replica"] == f"r{row}"]
         assert len({(x["ticks"], tuple(sorted(x["engine"].items()))) for x in mates}) <= 1
-    assert len(lines) == len(cases[name]["ranks"]) - (name == "sigkill")
+    assert len(lines) == len(cases[name]["ranks"]) - (name in KILLED)
 
 
 def test_sigterm_retires_the_replica_and_loses_nothing(cases):
@@ -146,6 +156,42 @@ def test_sigterm_to_rank_0_retires_every_replica(cases):
     assert all(r["tick"] == routed["stopped"] for r in routed["retired"].values())
     assert routed["failed"] == {} and routed["stats"]["rerouted"] == 0
     assert max(o["tick"] for o in case["outputs"]) <= routed["stopped"]
+
+
+def test_a_dead_member_of_rank_0s_replica_is_lost_in_time(cases):
+    """SIGKILL of rank 1, a member of r0, which rank 0 leads from a thread:
+    that thread stops in r0's broken collective and sends no reply, rank 0's
+    router loses r0 after its `--replica-timeout` as it loses any replica,
+    re-routes r0's requests to r1, where they finish; rank 0 exits 0 within
+    the timeout and 30 s of the kill, and every other rank exits by itself."""
+    case = cases["r0member"]
+    routed, line = _routed(case), case["ranks"][0]["line"]
+    assert case["signalled_at"] and list(routed["failed"]) == ["r0"]
+    assert routed["retired"] == {} and routed["stats"]["rerouted"] > 0
+    assert line["server_error"] and routed["unserved"] == []
+    lost_at = routed["failed"]["r0"]["tick"]
+    late = [o for o in case["outputs"] if o["tick"] > lost_at]
+    assert late and all(o["replica"] == "r1" for o in late)
+    assert case["ranks"][0]["seconds"] - case["signalled_at"][0] < S.KILL_TIMEOUT + 30
+
+
+def test_autoscaled_rows_grow_under_arrivals_and_shrink(cases):
+    """`--autoscale` on 3x1: the router starts on r0, grows parked rows
+    while the first requests arrive and retires them through their drain
+    (what a drain finished, the retired row finished) once the queues are
+    short; each request was offered once, at its arrival."""
+    routed = _routed(cases["autoscale"])
+    assert routed["initial"] == ["r0"]
+    actions = [e["action"] for e in routed["scaling"]]
+    assert "scale_up" in actions and "scale_down" in actions
+    assert max(n for _, _, n in routed["rows"]) >= 2
+    for e in routed["scaling"]:
+        assert e["count"] == len(e["ids"]) >= 1
+        for rid, ids in (e.get("drained") or {}).items():
+            assert all(routed["assigned"][str(i)] == rid for i in ids)
+    assert sorted(routed["submitted"], key=int) == [str(i) for i in range(S.N_REQUESTS)]
+    for i, (arrival, offered, done) in routed["times"].items():
+        assert arrival == S.ARRIVALS[int(i)] and arrival <= offered <= done
 
 
 def test_the_rendered_slurm_rank_script_serves(cases):
@@ -345,6 +391,74 @@ def test_a_replica_lost_at_a_submit_loses_no_request(where):
     assert rec["unserved"] == [] and rec["outputs"] == clean["outputs"]
     assert set(rec["completions"].values()) == {1} and rec["stats"]["rerouted"] > 0
     assert sorted(router.replicas) == sorted({"r0", "r1", "r2"} - set(failed))
+
+
+def test_rank_0s_thread_answers_through_the_store():
+    """Rank 0's own replica served from a thread (`ServerThread`): the
+    router's transport to it writes ops and reads replies as it does for
+    any replica, and the thread ends at the exit op."""
+    store = dist.PrefixStore("serve", dist.HashStore())
+    server = ReplicaServer(store, "r0", ReplicaActor(batch_slots=2), lead=True,
+                           signalled=lambda: False, timeout=5.0)
+    thread = ServerThread(server, torch.device("cpu"))
+    thread.start()
+    link = StoreTransport(store, "r0", timeout=5.0)
+    direct = ReplicaActor(batch_slots=2)
+    for op in ({"kind": "submit", "id": 1, "prompt": [4, 5], "max_new_tokens": 2},
+               {"kind": "tick"}, {"kind": "tick"}, {"kind": "stats"}):
+        assert link(dict(op)) == direct.handle(dict(op))
+    link.post({"kind": "exit", "preempted": False})
+    thread.join(5)
+    assert not thread.is_alive() and thread.error is None and thread.exit_op["kind"] == "exit"
+    assert link.done == [1] and server.tick_ms and len(link.store_ms) == 4
+
+
+def _collective(message):
+    """A collective that raises `message`: a function of a module named as
+    torch.distributed's, so its frame is on the error's traceback as a real
+    collective's is."""
+    ns = {"__name__": "torch.distributed.distributed_c10d"}
+    exec(f"def all_reduce(t):\n    raise RuntimeError({message!r})", ns)
+    return ns["all_reduce"]
+
+
+@pytest.mark.parametrize("gone", [True, False], ids=["member_gone", "own_fault"])
+def test_a_collective_error_in_r0_is_silent_only_when_a_member_is_gone(gone):
+    """An op of r0 that fails in a collective because a rank of its group
+    is gone (gloo's "Connection closed by peer") gets no reply: the router
+    loses r0 after its timeout. Any other error, in a collective too, comes
+    back as `ReplicaFailed` with its traceback."""
+    message = ("[pair.cc:553] Connection closed by peer [127.0.0.1]:2944" if gone
+               else "Tensors must be contiguous")
+    reduce = _collective(message)
+
+    class Collective(ReplicaActor):
+        def handle(self, payload):
+            reduce(torch.zeros(1))
+
+    store = dist.PrefixStore("serve", dist.HashStore())
+    server = ReplicaServer(store, "r0", Collective(batch_slots=1), lead=True,
+                           signalled=lambda: False, timeout=5.0)
+    thread = ServerThread(server, torch.device("cpu"))
+    thread.start()
+    link = StoreTransport(store, "r0", timeout=0.5 if gone else 5.0)
+    if gone:
+        with pytest.raises(ReplicaLost, match="'r0' did not answer op 1"):
+            link({"kind": "tick"})
+    else:
+        with pytest.raises(ReplicaFailed, match="Tensors must be contiguous"):
+            link({"kind": "tick"})
+    thread.join(5)
+    assert peer_lost(thread.error) == gone and store.check(["r0/reply/1"]) != gone
+    assert not peer_lost(RuntimeError(message))   # raised outside a collective
+
+
+def test_requests_file_arrival_default(tmp_path):
+    """`arrival_s` is seconds after the router's start, 0 where a row has
+    none (every request at once, as before arrivals existed)."""
+    path = tmp_path / "requests.jsonl"
+    path.write_text('{"id": 3, "prompt": [1, 2]}\n{"id": 4, "prompt": [5], "arrival_s": 1.5}\n')
+    assert [(r.id, r.arrival_s) for r in read_requests(str(path))] == [(3, 0.0), (4, 1.5)]
 
 
 def test_requests_file_defaults(tmp_path):

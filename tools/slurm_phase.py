@@ -13,7 +13,10 @@ stopping at one step, relaunched and held to one process's run; 18c the
 Kubernetes indexed Job's pod script of one node x one card on 18a's job,
 held as 18a is; 18d two nodes x one card on this card serving llama3-8b at
 full width and 2 layers on 2x1 behind rank 0's router, one rank sent
-SIGTERM, held to this process's replay of rank 0's run.
+SIGTERM, held to this process's replay of rank 0's run; 18e three nodes x
+one card on this card serving the same model on 3x1 with its rows
+autoscaled, 36 requests arriving open loop, held to the replay of rank 0's
+run with its offer ticks and scaling decisions.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ def main() -> int:
     t0 = time.perf_counter()
     out = C.cluster_phase(torch.device("cuda"), smi)
     C.say(f"  [phase 18: {time.perf_counter() - t0:.1f} s wall]")
-    C.say({k: v for k, v in out.items() if k in ("18a", "18b", "18c", "18d")})
+    C.say({k: v for k, v in out.items() if k in ("18a", "18b", "18c", "18d", "18e")})
     return 0
 
 
